@@ -1,0 +1,13 @@
+"""dprast_torch: differentiable point rasterisation in PyTorch, with
+hand-written CUDA kernels for NVIDIA Hopper.
+
+A port of the JAX package `dprast`, which stays the reference.  This
+package imports neither JAX nor `dprast`.  So far it covers the forward
+`raster` on the ``"xla"`` oracle (any rank, any device) and the
+``"binned"`` backend for 2-D grids.
+"""
+
+from dprast_torch.api import raster
+from dprast_torch.ops.dispatch import available_backends, default_backend
+
+__all__ = ["raster", "available_backends", "default_backend"]

@@ -1,0 +1,87 @@
+"""Build and load the port's CUDA kernels.
+
+The sources in `dprast_torch/csrc/` are compiled at first use by `nvcc`
+for Hopper (``sm_90a``) into one shared library with a plain C interface,
+loaded with `ctypes`.  The library lands in ``build/dprast_torch/`` at the
+root of the checkout, named by a hash of the sources, so an edited source
+never loads a stale library.  The compiler's output (register and
+shared-memory use per kernel, from ``-Xptxas -v``) is kept beside it in a
+``.log`` file.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dprast_torch"
+_SOURCES = ("fwd_splat.cu", "band_fold.cu")
+
+# B1 keeps one tile window in dynamic shared memory: 128 x 128 fp32
+MAX_WINDOW_BYTES = 128 * 128 * 4
+
+_lib = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    return os.path.join(home, "bin", "nvcc")
+
+
+def _library_path() -> Path:
+    digest = hashlib.sha256()
+    for name in _SOURCES:
+        digest.update(name.encode())
+        digest.update((_CSRC / name).read_bytes())
+    return _BUILD_DIR / f"libdprast_torch_{digest.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless a library of the current sources exists."""
+    so = _library_path()
+    if so.exists():
+        return so
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+           "-Xptxas", "-v", "-o", str(tmp),
+           *(str(_CSRC / name) for name in _SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    so.with_suffix(".log").write_text(
+        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stderr[-4000:]}")
+    os.replace(tmp, so)
+    return so
+
+
+def load():
+    """The loaded kernel library, built at first use."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.dprast_fwd_splat.argtypes = [vp, vp, vp, vp, i32, i32, i32, i64,
+                                         i32, i32, i32, i32, vp]
+        lib.dprast_fwd_splat.restype = i32
+        lib.dprast_band_fold.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32,
+                                         i32, vp]
+        lib.dprast_band_fold.restype = i32
+        lib.dprast_error_string.argtypes = [i32]
+        lib.dprast_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def error_string(err: int) -> str:
+    return load().dprast_error_string(err).decode()

@@ -1,0 +1,236 @@
+"""dprast_torch's public surface: golden tables, argument forms, the
+reference's error wording, the empty-cloud short-circuit, the oracle
+backend against the JAX oracle, and `auto` dispatch against the JAX
+package's choices."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+import dprast_torch  # noqa: E402
+from dprast.ops import core as jcore  # noqa: E402
+from dprast.ops import dispatch as jdispatch  # noqa: E402
+from dprast.utils.testing import fixtures  # noqa: E402
+from dprast_torch.ops import dispatch as tdispatch  # noqa: E402
+
+from test_golden import CASES, CENTER, CROSS, EYE, GRID, NO_T  # noqa: E402
+
+torch.set_num_threads(2)
+
+BACKENDS = ["xla", "binned"]
+
+
+def _np(x):
+    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("case", range(len(CASES)))
+def test_golden_tables(backend, case):
+    pts, rot, t, bg, ow, pw, expected = CASES[case]
+    out = dprast_torch.raster(GRID, pts, rot, t, bg, ow, pw, backend=backend)
+    np.testing.assert_allclose(_np(out), np.asarray(expected, dtype=float),
+                               atol=1e-12)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_golden_batched_background_and_drops(backend):
+    sub = [c for c in CASES if c[0] == CROSS and c[5] is None]
+    out = dprast_torch.raster(GRID, CROSS, [c[1] for c in sub],
+                              [c[2] for c in sub], [c[3] for c in sub],
+                              [c[4] for c in sub], backend=backend)
+    assert out.shape == (len(sub),) + GRID
+    for i, c in enumerate(sub):
+        np.testing.assert_allclose(_np(out[i]), np.asarray(c[6], float),
+                                   atol=1e-12)
+    out = dprast_torch.raster(GRID, CENTER, EYE, NO_T, 0.5, 4.0,
+                              backend=backend)
+    expected = np.full(GRID, 0.5)
+    expected[2, 2] += 4.0
+    np.testing.assert_allclose(_np(out), expected, atol=1e-12)
+    # out-of-grid points drop; a straddling stencil keeps its in-grid half
+    out = dprast_torch.raster(GRID, [[5.0, 5.0], [-5.0, 0.0], [0.0, 0.0],
+                                     [-1.0, 0.0]], EYE, NO_T,
+                              backend=backend)
+    expected = np.zeros(GRID)
+    expected[2, 2] = 1.0
+    expected[0, 2] = 0.5
+    np.testing.assert_allclose(_np(out), expected, atol=1e-12)
+    # orthographic projection: the dropped coordinate does not matter
+    proj = np.array([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]])
+    for z in (-0.9, 0.0, 2.5):
+        out = dprast_torch.raster(GRID, [[0.0, 0.4, z]], proj, NO_T, 0.0,
+                                  4.0, backend=backend)
+        expected = np.zeros(GRID)
+        expected[2, 3] = 4.0
+        np.testing.assert_allclose(_np(out), expected, atol=1e-12)
+
+
+def _fx(**kw):
+    return fixtures(seed=4, n_points=12, batch_size=5, n_in=3, n_out=2, **kw)
+
+
+def test_arg_forms_defaults_and_scalars_agree():
+    fx = _fx()
+    b, p = fx["rotation"].shape[0], fx["points"].shape[0]
+    ref = dprast_torch.raster((8, 8), **fx)
+    as_lists = dprast_torch.raster((8, 8), *(v.tolist() for v in fx.values()))
+    as_tensors = dprast_torch.raster(
+        (8, 8), *(torch.from_numpy(v) for v in fx.values()))
+    np.testing.assert_allclose(_np(as_lists), _np(ref))
+    np.testing.assert_allclose(_np(as_tensors), _np(ref))
+    explicit = dprast_torch.raster((8, 8), fx["points"], fx["rotation"],
+                                   fx["translation"], np.zeros(b), np.ones(b),
+                                   np.ones(p))
+    defaulted = dprast_torch.raster((8, 8), fx["points"], fx["rotation"],
+                                    fx["translation"])
+    np.testing.assert_allclose(_np(defaulted), _np(explicit))
+    vectors = dprast_torch.raster((8, 8), fx["points"], fx["rotation"],
+                                  fx["translation"], np.full(b, 0.3),
+                                  np.full(b, 2.0), np.full(p, 1.5))
+    scalars = dprast_torch.raster((8, 8), fx["points"], fx["rotation"],
+                                  fx["translation"], 0.3, 2.0, 1.5)
+    np.testing.assert_allclose(_np(scalars), _np(vectors))
+    single = dprast_torch.raster((8, 8), fx["points"], fx["rotation"][0],
+                                 fx["translation"][0], fx["background"][0],
+                                 fx["out_weight"][0], fx["point_weight"])
+    assert single.shape == (8, 8)
+    np.testing.assert_allclose(_np(single), _np(ref[0]))
+
+
+def test_dtype_promotion():
+    fx = _fx()
+    f32 = {k: np.asarray(v, np.float32) for k, v in fx.items()}
+    out = dprast_torch.raster((8, 8), f32["points"],
+                              np.asarray(fx["rotation"], np.float64),
+                              f32["translation"])
+    assert out.dtype == torch.float64
+    assert dprast_torch.raster((8, 8), f32["points"], f32["rotation"],
+                               f32["translation"], 0.5,
+                               2.0).dtype == torch.float32
+    outi = dprast_torch.raster((8, 8), np.asarray(10 * fx["points"],
+                                                  np.int32),
+                               f32["rotation"], f32["translation"])
+    assert outi.dtype == torch.float32
+    assert dprast_torch.raster((8, 8), *f32.values(),
+                               dtype=torch.float64).dtype == torch.float64
+
+
+DIM_ERRORS = [
+    ("translation_ndim", "Dimension of translation"),
+    ("rotation_rows", "Row dimension of rotation"),
+    ("rotation_cols", "Column dimension of rotation"),
+    ("batch_mismatch", "Batch size of rotation"),
+    ("point_weight", "point_weight must be a scalar or a"),
+    ("out_weight", "Batch size of rotation \\(got 5\\) and out_weight"),
+]
+
+
+@pytest.mark.parametrize("case", range(len(DIM_ERRORS)))
+def test_dimension_errors(case):
+    """Shape mismatches raise with the reference's wording."""
+    what, match = DIM_ERRORS[case]
+    fx = _fx()
+    rot, tr = fx["rotation"], fx["translation"]
+    kw = {}
+    if what == "translation_ndim":
+        tr = np.concatenate([tr, tr[:, :1]], axis=1)
+    if what == "rotation_rows":
+        rot = np.concatenate([rot, rot[:, :1, :]], axis=1)
+    if what == "rotation_cols":
+        rot = rot[:, :, :2]
+    if what == "batch_mismatch":
+        tr = tr[:-1]
+    if what == "point_weight":
+        kw["point_weight"] = np.ones(3)
+    if what == "out_weight":
+        kw["out_weight"] = np.ones(4)
+    with pytest.raises(ValueError, match=match):
+        dprast_torch.raster((8, 8), fx["points"], rot, tr, **kw)
+
+
+def test_empty_cloud_and_backend_validation():
+    out = dprast_torch.raster((8, 8), np.zeros((0, 2)), np.eye(2),
+                              np.zeros(2), 0.7)
+    assert out.shape == (8, 8)
+    np.testing.assert_allclose(_np(out), 0.7)
+    out = dprast_torch.raster((8, 8), np.zeros((0, 2)), np.stack([np.eye(2)]
+                                                                  * 3),
+                              np.zeros((3, 2)), np.array([0.1, 0.2, 0.3]),
+                              backend="binned")
+    np.testing.assert_allclose(_np(out)[:, 4, 4], [0.1, 0.2, 0.3])
+    with pytest.raises(ValueError, match="backend"):
+        dprast_torch.raster((8, 8), np.zeros((0, 3)), np.eye(3)[:2],
+                            np.zeros(2), backend="bogus")
+
+
+def test_requires_grad_and_devices_raise():
+    fx = _fx()
+    pts = torch.from_numpy(fx["points"]).requires_grad_()
+    with pytest.raises(NotImplementedError, match="backward kernels"):
+        dprast_torch.raster((8, 8), pts, fx["rotation"], fx["translation"])
+    with pytest.raises(ValueError, match="one device"):
+        dprast_torch.raster((8, 8), torch.from_numpy(fx["points"]),
+                            torch.zeros((5, 2, 3), device="meta"),
+                            fx["translation"])
+
+
+def test_surface():
+    assert dprast_torch.available_backends() == ("xla", "binned")
+    assert dprast_torch.default_backend() == "auto"
+
+
+ORACLE_CASES = {
+    # name: (grid, n_in, n_out)
+    "1d": ((17,), 1, 1),
+    "2d": ((9, 12), 2, 2),
+    "3d": ((6, 7, 5), 3, 3),
+    "3d-to-2d": ((10, 11), 3, 2),
+}
+
+
+@pytest.mark.parametrize("case", list(ORACLE_CASES))
+def test_xla_backend_matches_jax_oracle(case):
+    grid, n_in, n_out = ORACLE_CASES[case]
+    fx = fixtures(seed=6, n_points=40, batch_size=3, n_in=n_in, n_out=n_out)
+    args = [np.asarray(v, np.float32) for v in fx.values()]
+    out = dprast_torch.raster(grid, *args, backend="xla")
+    ref = np.asarray(jcore.raster_fwd(grid, *(jnp.asarray(a) for a in args)))
+    assert out.dtype == torch.float32
+    err = np.max(np.abs(_np(out) - ref)) / max(np.max(np.abs(ref)), 1.0)
+    assert err < 1e-6
+
+
+DISPATCH_TABLE = [
+    (2, (128, 128), 100_000), (2, (1024, 1024), 100_000),
+    (2, (1024, 1024), 1000), (2, (64, 64), 100_000),
+    (2, (256, 256), 100_000), (2, (300, 200), 100_000),
+    (2, (999, 777), 1500), (3, (128, 128, 128), 100_000),
+    (3, (16, 16, 16), 1000), (3, (1024, 1024, 1024), 100_000),
+    (1, (4096,), 100),
+]
+
+
+@pytest.mark.parametrize("row", range(len(DISPATCH_TABLE)))
+def test_auto_dispatch_matches_jax(row, monkeypatch):
+    """With the accelerator flag set, `auto` picks what the JAX package
+    picks on a TPU; where that is a backend not ported yet it raises."""
+    n_out, grid, p = DISPATCH_TABLE[row]
+    monkeypatch.setattr(jdispatch, "_on_tpu", lambda: True)
+    with jax.enable_x64(False):
+        want = jdispatch.resolve_pair("auto", n_out, grid, p)
+    assert want[0] == want[1]
+    if want[0] == "matmul" or (want[0] == "binned" and n_out == 3):
+        with pytest.raises(NotImplementedError, match="ROADMAP A[68]"):
+            tdispatch.resolve_pair("auto", n_out, grid, p, accelerator=True)
+    else:
+        assert tdispatch.resolve_pair("auto", n_out, grid, p,
+                                      accelerator=True) == want
+    # off the accelerator, and for f64 inputs, auto is the oracle
+    assert tdispatch.resolve_pair("auto", n_out, grid, p) == ("xla", "xla")
+    assert tdispatch.resolve_pair("auto", n_out, grid, p, accelerator=True,
+                                  f64=True) == ("xla", "xla")
