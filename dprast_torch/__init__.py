@@ -2,12 +2,13 @@
 hand-written CUDA kernels for NVIDIA Hopper.
 
 A port of the JAX package `dprast`, which stays the reference.  This
-package imports neither JAX nor `dprast`.  So far it covers the forward
-`raster` on the ``"xla"`` oracle (any rank, any device) and the
-``"binned"`` backend for 2-D grids.
+package imports neither JAX nor `dprast`.  So far it covers `raster`
+(differentiable through autograd) and `raster_pullback` on the ``"xla"``
+oracle (any rank, any device) and the ``"binned"`` backend for 2-D grids.
 """
 
-from dprast_torch.api import raster
+from dprast_torch.api import RasterGrads, raster, raster_pullback
 from dprast_torch.ops.dispatch import available_backends, default_backend
 
-__all__ = ["raster", "available_backends", "default_backend"]
+__all__ = ["raster", "raster_pullback", "RasterGrads", "available_backends",
+           "default_backend"]

@@ -1,5 +1,6 @@
-"""Public API, forward half: argument normalisation + shape validation
-(PyTorch port of `dprast/api.py`).
+"""Public API: argument normalisation + shape validation, `raster`
+through autograd and the analytic `raster_pullback` (PyTorch port of
+`dprast/api.py`).
 
 Layout (the JAX package's, so both take the same arrays):
 
@@ -18,13 +19,25 @@ input it is the `device` argument (default CPU).
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
+from dprast_torch import ad
 from dprast_torch.ops import dispatch
 
-_NAMES = ("points", "rotation", "translation", "background", "out_weight",
-          "point_weight")
+
+
+class RasterGrads(NamedTuple):
+    """Gradients of a scalar loss w.r.t. the six `raster` inputs."""
+
+    points: torch.Tensor
+    rotation: torch.Tensor
+    translation: torch.Tensor
+    background: torch.Tensor
+    out_weight: torch.Tensor
+    point_weight: torch.Tensor
 
 
 def _device_of(values, device):
@@ -160,12 +173,14 @@ def _normalise(grid_size, points, rotation, translation, background,
 def raster(grid_size, points, rotation, translation, background=None,
            out_weight=None, point_weight=None, *, dtype=None,
            backend: str = "auto", device=None):
-    """Rasterise a point cloud into an N-dimensional grid (forward).
+    """Rasterise a point cloud into an N-dimensional grid (differentiable).
 
     Each point ``p`` is transformed to ``q = rotation @ p + translation``
     and, if it falls inside (-1, 1)^N, its weight ``out_weight *
     point_weight`` is distributed onto the 2^N nearest voxels by
     multilinear interpolation.  The output starts at `background`.
+    Gradients of all six inputs flow through autograd to the analytic
+    pullback of the chosen backend.
 
     Args:
       grid_size: tuple of N_out ints, the output grid shape.
@@ -182,22 +197,11 @@ def raster(grid_size, points, rotation, translation, background=None,
 
     Returns:
       (*grid_size) for a single pose, (B, *grid_size) for a batch.
-
-    Raises NotImplementedError for inputs that require grad: the gradients
-    arrive with the backward kernels.
     """
-    raw = (points, rotation, translation, background, out_weight,
-           point_weight)
-    grads = [n for n, v in zip(_NAMES, raw)
-             if isinstance(v, torch.Tensor) and v.requires_grad]
-    if grads:
-        raise NotImplementedError(
-            f"{', '.join(grads)} require grad; gradients arrive with the "
-            f"backward kernels (ROADMAP A4/A5 backward)")
     grid_size, args, batched, pw_uniform = _normalise(
         grid_size, points, rotation, translation, background, out_weight,
         point_weight, dtype, device)
-    fwd_name, _ = dispatch.resolve_pair(
+    resolved = dispatch.resolve_pair(
         backend, len(grid_size), grid_size, args[0].shape[0],
         accelerator=args[0].device.type == "cuda",
         f64=args[0].dtype == torch.float64)
@@ -207,6 +211,69 @@ def raster(grid_size, points, rotation, translation, background=None,
         out = args[3].reshape((b,) + (1,) * len(grid_size)).expand(
             (b,) + grid_size).contiguous()
     else:
-        out = dispatch.fwd_fn(fwd_name)(grid_size, *args,
-                                        pw_uniform=pw_uniform)
+        out = ad.raster_canonical(grid_size, resolved, pw_uniform, *args)
     return out if batched else out[0]
+
+
+def _ndim(value):
+    return value.ndim if isinstance(value, torch.Tensor) else np.ndim(value)
+
+
+def raster_pullback(ds_dout, points, rotation, translation, background=None,
+                    out_weight=None, point_weight=None, *, dtype=None,
+                    backend: str = "auto", device=None) -> RasterGrads:
+    """Analytic pullback of :func:`raster`: the gradients of all six
+    inputs for the cotangent `ds_dout` of the output ((*grid_size) or
+    (B, *grid_size)), given the same arguments as `raster`.
+
+    Gradient shapes follow the input forms: a batch gets per-pose
+    gradients, a single pose squeezed ones, and a scalar that was
+    broadcast gets the summed gradient.  A defaulted `point_weight` gets
+    the exact per-point gradient; a scalar one gets its sum.
+    """
+    device = _device_of((ds_dout, points, rotation, translation, background,
+                         out_weight, point_weight), device)
+    ds_dout = _as_tensor(ds_dout, device)
+    bg_scalar = background is None or _ndim(background) == 0
+    ow_scalar = out_weight is None or _ndim(out_weight) == 0
+    grid_size, args, batched, pw_uniform = _normalise(
+        tuple(ds_dout.shape[1:] if _ndim(rotation) == 3 else ds_dout.shape),
+        points, rotation, translation, background, out_weight, point_weight,
+        dtype, device)
+    # the binned backend's uniform d_pw is only sum-exact, so take that
+    # path ONLY where the summing below applies (a scalar weight was
+    # passed); a defaulted weight still gets the exact per-point d_pw
+    pw_scalar = point_weight is not None and pw_uniform
+    if not batched:
+        ds_dout = ds_dout[None]
+    b = args[1].shape[0]
+    if tuple(ds_dout.shape) != (b,) + grid_size:
+        raise ValueError(
+            f"ds_dout shape {tuple(ds_dout.shape)} does not match output "
+            f"shape {(b,) + grid_size}")
+    _, resolved = dispatch.resolve_pair(
+        backend, len(grid_size), grid_size, args[0].shape[0],
+        accelerator=device.type == "cuda",
+        f64=args[0].dtype == torch.float64)
+    g = ds_dout.to(args[0].dtype)
+    if args[0].shape[0] == 0:
+        zeros = args[0].new_zeros
+        res = (zeros(args[0].shape), zeros(args[1].shape),
+               zeros(args[2].shape), torch.sum(g.reshape(b, -1), dim=-1),
+               zeros((b,)), zeros((0,)))
+    else:
+        res = dispatch.bwd_fn(resolved)(grid_size, *args, g,
+                                        pw_uniform=pw_scalar)
+    d_points, d_rot, d_trans, d_bg, d_ow, d_pw = res
+    if not batched:
+        d_rot, d_trans = d_rot[0], d_trans[0]
+        d_bg, d_ow = d_bg[0], d_ow[0]
+    else:
+        if bg_scalar and background is not None:
+            d_bg = torch.sum(d_bg)
+        if ow_scalar and out_weight is not None:
+            d_ow = torch.sum(d_ow)
+    if pw_scalar:
+        d_pw = torch.sum(d_pw)
+    return RasterGrads(points=d_points, rotation=d_rot, translation=d_trans,
+                       background=d_bg, out_weight=d_ow, point_weight=d_pw)

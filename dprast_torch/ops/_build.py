@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
 The sources in `dprast_torch/csrc/` are compiled at first use by `nvcc`
-for Hopper (``sm_90a``) into one shared library with a plain C interface,
-loaded with `ctypes`.  The library lands in ``build/dprast_torch/`` at the
-root of the checkout, named by a hash of the sources, so an edited source
-never loads a stale library.  The compiler's output (register and
+for Hopper (``sm_90a``), one `nvcc` per source in parallel, and linked
+into one shared library with a plain C interface, loaded with `ctypes`.
+The library lands in ``build/dprast_torch/`` at the root of the
+checkout, named by a hash of the sources, so an edited source never
+loads a stale library.  The compiler's output (register and
 shared-memory use per kernel, from ``-Xptxas -v``) is kept beside it in a
 ``.log`` file.
 """
@@ -20,9 +21,10 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dprast_torch"
-_SOURCES = ("fwd_splat.cu", "band_fold.cu")
+_SOURCES = ("fwd_splat.cu", "band_fold.cu", "band_unfold.cu",
+            "bwd_gather.cu")
 
-# B1 keeps one tile window in dynamic shared memory: 128 x 128 fp32
+# B1 and B4 keep one tile window in dynamic shared memory: 128 x 128 fp32
 MAX_WINDOW_BYTES = 128 * 128 * 4
 
 _lib = None
@@ -45,22 +47,40 @@ def _library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the kernels unless a library of the current sources exists."""
+    """Compile the kernels unless a library of the current sources exists.
+    One `nvcc` per source, all started together, then one link."""
     so = _library_path()
     if so.exists():
         return so
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-Xptxas", "-v", "-o", str(tmp),
-           *(str(_CSRC / name) for name in _SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    so.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
+    tag = f"{so.stem}.{os.getpid()}"
+    flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+             "-O3", "-Xcompiler", "-fPIC"]
+    objs = [_BUILD_DIR / f"{tag}.{name}.o" for name in _SOURCES]
+    cmds = [[_nvcc(), *flags, "-Xptxas", "-v", "-c", str(_CSRC / name),
+             "-o", str(obj)] for name, obj in zip(_SOURCES, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
+    tmp = so.with_name(f"{tag}.so.tmp")
+    link = [_nvcc(), *flags, "-shared", "-o", str(tmp), *map(str, objs)]
+    failed = [(cmd, out) for cmd, out, proc in zip(cmds, outs, procs)
+              if proc.returncode != 0]
+    if not failed:
+        proc = subprocess.run(link, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        cmds.append(link)
+        outs.append(proc.stdout)
+        if proc.returncode != 0:
+            failed = [(link, proc.stdout)]
+    so.with_suffix(".log").write_text("".join(
+        " ".join(cmd) + "\n" + out for cmd, out in zip(cmds, outs)))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            " ".join(cmd) + "\n" + out[-4000:] for cmd, out in failed))
     os.replace(tmp, so)
     return so
 
@@ -77,6 +97,12 @@ def load():
         lib.dprast_band_fold.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32,
                                          i32, vp]
         lib.dprast_band_fold.restype = i32
+        lib.dprast_band_unfold.argtypes = [vp, vp, i32, i32, i32, i32, i32,
+                                           vp]
+        lib.dprast_band_unfold.restype = i32
+        lib.dprast_bwd_gather.argtypes = [vp, vp, vp, vp, vp, i32, i32, i64,
+                                          i32, i32, i32, i32, vp]
+        lib.dprast_bwd_gather.restype = i32
         lib.dprast_error_string.argtypes = [i32]
         lib.dprast_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -2,8 +2,8 @@
 
 A backend is a kernel strategy:
 
-- ``"xla"``     plain-torch scatter oracle (`dprast_torch.ops.core`), any
-                dims, any device (the name is the JAX package's)
+- ``"xla"``     plain-torch scatter/gather oracle (`dprast_torch.ops.core`),
+                any dims, any device (the name is the JAX package's)
 - ``"binned"``  slot-scheduled tile-binned kernels (`splat_binned`),
                 2-D grids
 - ``"auto"``    the JAX package's choice for the given dims / grid /
@@ -22,14 +22,24 @@ from dprast_torch.ops import core, splat_binned
 _REGISTRY = {}
 
 
-def register(name: str, fwd, supports):
-    """supports: (n_out, grid_size | None, n_points | None) -> bool."""
-    _REGISTRY[name] = (fwd, supports)
+def register(name: str, fwd, bwd, supports, vjp_pair=None):
+    """supports: (n_out, grid_size | None, n_points | None) -> bool.
+
+    `vjp_pair` is an optional fused autograd pair ``(fwd_res(grid, *args)
+    -> (out, residuals), bwd_res(grid, residuals, args, ds_dout) ->
+    PullbackResult)`` that `dprast_torch.ad` uses when both directions
+    run on this backend, so that the pullback reuses the forward's
+    preparation."""
+    _REGISTRY[name] = (fwd, bwd, supports, vjp_pair)
 
 
-register("xla", core.raster_fwd,
-         lambda n_out, grid=None, n_points=None: True)
-register("binned", splat_binned.raster_fwd, splat_binned.supported)
+register("xla", core.raster_fwd, core.raster_pullback,
+         lambda n_out, grid=None, n_points=None: True,
+         vjp_pair=(core.raster_fwd_res, core.raster_pullback_res))
+register("binned", splat_binned.raster_fwd, splat_binned.raster_pullback,
+         splat_binned.supported,
+         vjp_pair=(splat_binned.raster_fwd_res,
+                   splat_binned.raster_pullback_res))
 
 
 def available_backends() -> tuple[str, ...]:
@@ -59,7 +69,7 @@ def resolve(backend: str, n_out: int, grid_size=None, n_points=None, *,
             raise ValueError(
                 f"Unknown backend {backend!r}; available: "
                 f"{available_backends()}")
-        if not _REGISTRY[backend][1](n_out, grid_size, n_points):
+        if not _REGISTRY[backend][2](n_out, grid_size, n_points):
             raise ValueError(
                 f"Backend {backend!r} does not support N_out={n_out} "
                 f"grid={grid_size}")
@@ -102,9 +112,19 @@ def resolve_pair(backend: str, n_out: int, grid_size=None, n_points=None,
     if name == "binned" and n_out == 3:
         raise NotImplementedError(
             f"'{backend}' picks the binned backend for the 3-D grid "
-            f"{grid_size}; its 3-D forward is not ported yet (ROADMAP A6)")
+            f"{grid_size}; its 3-D forward and pullback are not ported "
+            f"yet (ROADMAP A6)")
     return name, name
 
 
 def fwd_fn(backend: str):
     return _REGISTRY[backend][0]
+
+
+def bwd_fn(backend: str):
+    return _REGISTRY[backend][1]
+
+
+def vjp_pair(backend: str):
+    """Fused autograd pair for `backend`, or None."""
+    return _REGISTRY[backend][3]

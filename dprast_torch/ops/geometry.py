@@ -69,6 +69,21 @@ def splat_weights(dl: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:
     return torch.prod(sel, dim=-1)
 
 
+def splat_weight_grads(dl: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:
+    """d(splat_weights)/d(dl): (..., S, N_out) with
+    ``dw_k/ddl_i = (shifts[k,i] ? +1 : -1) * prod_{j != i} (s_j ? dl_j :
+    1 - dl_j)``.  A masked product (1 in place of factor i), not a
+    division, so ``dl -> 0`` is exact."""
+    n = dl.shape[-1]
+    on = shifts.to(torch.bool)
+    sel = torch.where(on, dl[..., None, :], 1 - dl[..., None, :])
+    eye = torch.eye(n, dtype=torch.bool, device=dl.device)
+    sel_exp = torch.where(eye, torch.ones_like(sel[..., None, :]),
+                          sel[..., None, :])
+    sign = torch.where(on, 1.0, -1.0).to(dl.dtype)
+    return sign * torch.prod(sel_exp, dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # Compensated (double-float32) coordinate pipeline.  A plain f32 transform
 # has absolute coordinate error ~n/2 * 2^-23 (3e-5 at n=1024), above the

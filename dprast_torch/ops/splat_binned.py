@@ -1,7 +1,7 @@
-"""Slot-scheduled tile-binned backend (``"binned"``), forward, 2-D grids
+"""Slot-scheduled tile-binned backend (``"binned"``), 2-D grids
 (PyTorch port of `dprast/ops/splat_binned.py`).
 
-The data path, for a batch of B poses:
+The forward, for a batch of B poses:
 
 1. **Coordinates.** `_keys_and_local` runs the compensated double-f32
    transform and stores each point's tile-local coordinates as 31-bit
@@ -21,6 +21,19 @@ The data path, for a batch of B poses:
    into the dense grid, with the ``* ow + bg`` epilogue fused.  A single
    tile needs no fold: a reshape and the epilogue.
 
+The pullback reuses the forward's frame (`raster_fwd_res`, the fused
+autograd pair) or builds its own (`raster_pullback`):
+
+6. **Unfold** (`band_unfold`, kernel B3): the cotangent is cut into the
+   same overlapping 128x128 windows, zero outside the grid.  A single
+   tile reads the cotangent itself.
+7. **Gather** (`bwd_gather`, kernel B4): every frame row reads its four
+   window values and writes ``[du_y, du_x, gw]``; rows of dead slots
+   write zeros.
+8. **Unsort**: a scatter by the point-id plane puts the rows back in
+   point order (a single tile keeps the order), and torch reductions
+   finish the six gradients.
+
 Each kernel wrapper runs its plain torch twin for a CPU tensor and the
 CUDA kernel (`dprast_torch/csrc/`) for a CUDA tensor; it raises for any
 other device and never falls back.
@@ -34,7 +47,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from dprast_torch.ops import _build, geometry
+from dprast_torch.ops import _build, core, geometry
 
 TILE = 128
 # bf16 split depth of the JAX kernels' value operands; the port's kernels
@@ -44,7 +57,8 @@ _SPLIT_TERMS = 2
 
 # kernel launches per wrapper: a run reads these to show that its path
 # went through the kernels (CPU twin calls do not count)
-LAUNCHES = {"fwd_splat": 0, "band_fold": 0}
+LAUNCHES = {"fwd_splat": 0, "band_fold": 0, "band_unfold": 0,
+            "bwd_gather": 0}
 
 
 def tile_shape_for(grid_size):
@@ -271,6 +285,33 @@ def _planes_fwd(coord, w):
                        dim=1)
 
 
+def _planes_bwd(coord):
+    """2-D lane planes (B, 4, s_pad) f32 for the gather from the frame's
+    encoded coordinate planes: ``[iy0, dly, ix0, dlx]``."""
+    f32 = torch.float32
+    iy0, dly = _decode_coord(coord[:, 0])
+    ix0, dlx = _decode_coord(coord[:, 1])
+    return torch.stack([iy0.to(f32), dly, ix0.to(f32), dlx], dim=1)
+
+
+def _slot_ranges(slot_tile, nt, dead=False):
+    """Each tile's live slot range ``[first, end)``, (B, nt) int32 each.
+    The frame is tile-sorted, so a searchsorted over the slot table with
+    the dead slots (past ``slot_tile[b, -1]``) pushed to ``nt`` finds
+    them.  With ``dead=True`` a last range, (B, nt + 1), holds the dead
+    slots."""
+    bsz, n_slots = slot_tile.shape[0], slot_tile.shape[1] - 1
+    dev = slot_tile.device
+    live = torch.arange(n_slots, device=dev) < slot_tile[:, n_slots:]
+    st = torch.where(live, slot_tile[:, :n_slots].long(), nt).contiguous()
+    n_ranges = nt + 1 if dead else nt
+    tiles = torch.arange(n_ranges, device=dev).expand(bsz,
+                                                      n_ranges).contiguous()
+    first = torch.searchsorted(st, tiles, out_int32=True)
+    end = torch.searchsorted(st, tiles, right=True, out_int32=True)
+    return first, end
+
+
 # ---------------------------------------------------------------------------
 # B1: the forward splat
 # ---------------------------------------------------------------------------
@@ -337,13 +378,7 @@ def fwd_splat(slot_tile, lane, nt, rows_e, cols_e, chunk):
         raise ValueError(f"fwd_splat: window {rows_e}x{cols_e}, B={bsz}, "
                          f"nt={nt} exceed the kernel's launch bounds")
     dev = lane.device
-    # each tile's live slot range [first, end): the frame is tile-sorted,
-    # so searchsorted over the live prefix (dead slots pushed past nt)
-    live = torch.arange(n_slots, device=dev) < slot_tile[:, n_slots:]
-    st = torch.where(live, slot_tile[:, :n_slots].long(), nt).contiguous()
-    tiles = torch.arange(nt, device=dev).expand(bsz, nt).contiguous()
-    first = torch.searchsorted(st, tiles, out_int32=True)
-    end = torch.searchsorted(st, tiles, right=True, out_int32=True)
+    first, end = _slot_ranges(slot_tile, nt)
     nsplit = _split_count(dev, bsz * nt)
     alloc = torch.zeros if nsplit > 1 else torch.empty
     ext = alloc((bsz, nt, rows_e, cols_e), dtype=torch.float32, device=dev)
@@ -441,6 +476,178 @@ def band_fold(ext, grid_size, ts, ow, bg):
     return out
 
 
+# ---------------------------------------------------------------------------
+# B3: the band unfold
+# ---------------------------------------------------------------------------
+
+
+def _unfold(x, grid_size, ts):
+    """Plain twin of B3 and the exact adjoint of :func:`_fold`: cut the
+    per-tile extended windows out of x (B, *grid) -> (B, nt, rows_e,
+    cols_e) with ``window[t] = x_pad[t*ts : t*ts + ts + 1]`` per axis,
+    zero outside the grid (out-of-grid stencil neighbours gather 0).
+    The windows keep the natural (rows, cols) orientation; the JAX
+    package's kernel writes them transposed."""
+    n = len(grid_size)
+    b = x.shape[0]
+    nts = [-(-g // t) for g, t in zip(grid_size, ts)]
+    pad = []
+    for i in reversed(range(n)):
+        pad += [0, nts[i] * ts[i] + 1 - grid_size[i]]
+    xp = F.pad(x, pad)
+    for i in range(n):
+        ax = 1 + 2 * i             # spatial axis i's current position
+        t, m = ts[i], nts[i]
+        body = xp.narrow(ax, 0, m * t)
+        body = body.reshape(body.shape[:ax] + (m, t) + body.shape[ax + 1:])
+        at_kt = [slice(None)] * xp.dim()
+        at_kt[ax] = slice(t, m * t + 1, t)             # positions k*t
+        halo_s = xp[tuple(at_kt)]
+        halo_s = halo_s.reshape(halo_s.shape[:ax] + (m, 1)
+                                + halo_s.shape[ax + 1:])
+        xp = torch.cat([body, halo_s], dim=ax + 1)
+    perm = [0] + [1 + 2 * i for i in range(n)] + [2 + 2 * i
+                                                  for i in range(n)]
+    xp = xp.permute(perm)          # (B, m0.., t0+1..)
+    rows = math.prod(t + 1 for t in ts[:-1])
+    return xp.reshape(b, math.prod(nts), rows, ts[-1] + 1)
+
+
+def band_unfold(g, grid_size, ts):
+    """B3: cut the 2-D cotangent g (B, gy, gx) into the multi-tile
+    windows (B, n0*n1, t0+1, t1+1), zero outside the grid.  CPU tensors
+    take the plain twin, CUDA tensors the kernel in
+    `csrc/band_unfold.cu`."""
+    if g.device.type == "cpu":
+        return _unfold(g, grid_size, ts)
+    _check_cuda("band_unfold", g, torch.float32)
+    gy, gx = grid_size
+    t0, t1 = ts
+    n0, n1 = -(-gy // t0), -(-gx // t1)
+    bsz = g.shape[0]
+    if g.shape != (bsz, gy, gx):
+        raise ValueError(f"band_unfold: g {tuple(g.shape)} does not match "
+                         f"grid {grid_size}")
+    if bsz > 65535 or n0 * n1 * (t0 + 1) >= 2 ** 31:
+        raise ValueError(f"band_unfold: B={bsz}, grid {grid_size} exceed "
+                         f"the kernel's launch bounds")
+    win = torch.empty((bsz, n0 * n1, t0 + 1, t1 + 1), dtype=torch.float32,
+                      device=g.device)
+    lib = _build.load()
+    rc = lib.dprast_band_unfold(_ptr(g), _ptr(win), bsz, gy, gx, t0, t1,
+                                _stream(g.device))
+    _raise_on(rc, "band_unfold")
+    LAUNCHES["band_unfold"] += 1
+    return win
+
+
+# ---------------------------------------------------------------------------
+# B4: the backward gather
+# ---------------------------------------------------------------------------
+
+
+def _bwd_gather_plain(slot_tile, lane_b, win, chunk):
+    """Plain twin of B4.  Every live frame row reads the four values
+    ``p{sy}{sx} = win[b, tile, iy0 + sy, ix0 + sx]`` (0 outside the
+    window) and writes, in this order of rounding,
+
+        a = (1 - dly) * p00 + dly * p10      b = (1 - dly) * p01 + dly * p11
+        gw   = a * (1 - dlx) + b * dlx
+        du_y = (p10 - p00) * (1 - dlx) + (p11 - p01) * dlx
+        du_x = b - a
+
+    -> buf (B, 3, s_pad) ``[du_y, du_x, gw]``.  Rows of dead slots (past
+    ``slot_tile[b, -1]``) are zeros.  `win` is (B, nt, rows_e, cols_e),
+    or the whole single-tile grid (B, gy, gx)."""
+    bsz, _, s_pad = lane_b.shape
+    dev = lane_b.device
+    n_slots = s_pad // chunk
+    win = win.reshape((bsz, -1) + tuple(win.shape[-2:]))
+    rows_e, cols_e = win.shape[-2:]
+    iy0 = lane_b[:, 0].long()
+    dly = lane_b[:, 1]
+    ix0 = lane_b[:, 2].long()
+    dlx = lane_b[:, 3]
+    tile = torch.repeat_interleave(slot_tile[:, :n_slots].long(), chunk,
+                                   dim=1)
+    live = torch.repeat_interleave(
+        torch.arange(n_slots, device=dev) < slot_tile[:, n_slots:], chunk,
+        dim=1)
+    flat = win.reshape(bsz, -1)
+    total = flat.shape[1]
+    flat = torch.cat([flat, flat.new_zeros((bsz, 1))], dim=1)
+    base = tile * (rows_e * cols_e)
+
+    def at(r, c):
+        ok = (r >= 0) & (r < rows_e) & (c >= 0) & (c < cols_e)
+        return torch.gather(flat, 1, torch.where(ok, base + r * cols_e + c,
+                                                 total))
+
+    p00, p01 = at(iy0, ix0), at(iy0, ix0 + 1)
+    p10, p11 = at(iy0 + 1, ix0), at(iy0 + 1, ix0 + 1)
+    omy = 1.0 - dly
+    a = omy * p00 + dly * p10
+    b = omy * p01 + dly * p11
+    omx = 1.0 - dlx
+    gw = a * omx + b * dlx
+    du_y = (p10 - p00) * omx + (p11 - p01) * dlx
+    du_x = b - a
+    buf = torch.stack([du_y, du_x, gw], dim=1)
+    return torch.where(live[:, None, :], buf, 0.0)
+
+
+def bwd_gather(slot_tile, lane_b, win, chunk):
+    """B4: gather the cotangent windows at every frame row -> buf
+    (B, 3, s_pad) ``[du_y, du_x, gw]`` (see `_bwd_gather_plain`).  CPU
+    tensors take the plain twin, CUDA tensors the kernel in
+    `csrc/bwd_gather.cu`."""
+    if lane_b.device.type == "cpu":
+        return _bwd_gather_plain(slot_tile, lane_b, win, chunk)
+    _check_cuda("bwd_gather", slot_tile, torch.int32, lane_b, torch.float32,
+                win, torch.float32)
+    bsz, n_lane, s_pad = lane_b.shape
+    n_slots = s_pad // chunk
+    if n_lane != 4 or s_pad != n_slots * chunk or \
+            slot_tile.shape != (bsz, n_slots + 1):
+        raise ValueError(f"bwd_gather: lane {tuple(lane_b.shape)} and slot "
+                         f"table {tuple(slot_tile.shape)} do not form a "
+                         f"frame of chunk {chunk}")
+    if win.dim() not in (3, 4) or win.shape[0] != bsz:
+        raise ValueError(f"bwd_gather: window {tuple(win.shape)} is neither "
+                         f"(B, nt, rows, cols) nor (B, rows, cols) for "
+                         f"B={bsz}")
+    nt = win.shape[1] if win.dim() == 4 else 1
+    rows_e, cols_e = win.shape[-2:]
+    if rows_e * cols_e * 4 > _build.MAX_WINDOW_BYTES or bsz > 65535 \
+            or nt >= 65535:
+        raise ValueError(f"bwd_gather: window {rows_e}x{cols_e}, B={bsz}, "
+                         f"nt={nt} exceed the kernel's launch bounds")
+    dev = lane_b.device
+    # range nt holds the dead slots, which the kernel zeroes
+    first, end = _slot_ranges(slot_tile, nt, dead=True)
+    nsplit = _split_count(dev, bsz * nt)
+    buf = torch.empty((bsz, 3, s_pad), dtype=torch.float32, device=dev)
+    lib = _build.load()
+    rc = lib.dprast_bwd_gather(
+        _ptr(lane_b), _ptr(first), _ptr(end), _ptr(win), _ptr(buf), bsz, nt,
+        s_pad, chunk, rows_e, cols_e, nsplit, _stream(dev))
+    _raise_on(rc, "bwd_gather")
+    LAUNCHES["bwd_gather"] += 1
+    return buf
+
+
+def _unsort(rows, idx_rows, p):
+    """rows (B, k, s_pad) in frame order -> (B, k, p) in point order.
+    The point ids are a permutation of the real rows, so one scatter by
+    the point-id plane inverts the binning sort; filler rows carry id p
+    and land in a sink column that is cut off."""
+    bsz, k, s_pad = rows.shape
+    ids = idx_rows.long()[:, None, :].expand(bsz, k, s_pad)
+    out = rows.new_zeros((bsz, k, p + 1))
+    out.scatter_(2, ids, rows)
+    return out[:, :, :p]
+
+
 def _check_cuda(name, *pairs):
     """Every tensor on one CUDA device, of its dtype, contiguous."""
     tensors = pairs[0::2]
@@ -474,11 +681,25 @@ def _raise_on(rc, name):
 # ---------------------------------------------------------------------------
 
 
+def _check_args(grid_size, p):
+    n_out = len(grid_size)
+    if n_out == 3:
+        raise NotImplementedError(
+            "the binned backend's 3-D forward and pullback are not ported "
+            "yet (ROADMAP A6)")
+    if not supported(n_out, grid_size, p):
+        raise ValueError(f"binned backend does not support grid="
+                         f"{grid_size} P={p}")
+    if p == 0:
+        raise ValueError("binned backend requires n_points > 0")
+
+
 def _fwd_frame(grid_size, points, rotation, translation, point_weight,
                pw_uniform):
     """Coordinates -> frame -> lane planes for a 2-D grid.  Returns the
-    arguments of `fwd_splat`: ``(slot_tile, lane, nt, rows_e, cols_e,
-    chunk)``."""
+    arguments of `fwd_splat`, ``(slot_tile, lane, nt, rows_e, cols_e,
+    chunk)``, and the frame's planes ``data`` (B, 3 | 4, s_pad):
+    ``[y, x, (w,) point id]``."""
     ts = tile_shape_for(grid_size)
     halo = not _single_tile(grid_size)
     p = points.shape[0]
@@ -496,7 +717,8 @@ def _fwd_frame(grid_size, points, rotation, translation, point_weight,
                       .expand(bsz, p))
         fills.append(0.0)                           # filler weight = 0
     # the point-id plane rides the sort (packed into the key when the bits
-    # fit): unique keys let the sort drop stability
+    # fit): unique keys let the sort drop stability, and the pullback
+    # unsorts by it
     planes.append(torch.arange(p, dtype=torch.float32, device=points.device)
                   [None, :].expand(bsz, p))
     fills.append(float(p))
@@ -508,7 +730,7 @@ def _fwd_frame(grid_size, points, rotation, translation, point_weight,
     w_plane = None if pw_uniform else data[:, 2]
     lane = _planes_fwd(data[:, :2], w_plane).contiguous()
     rows_e, cols_e = (t + 1 for t in ts) if halo else ts
-    return slot_tile.contiguous(), lane, nt, rows_e, cols_e, chunk
+    return (slot_tile.contiguous(), lane, nt, rows_e, cols_e, chunk), data
 
 
 def raster_fwd(grid_size, points, rotation, translation, background,
@@ -518,28 +740,31 @@ def raster_fwd(grid_size, points, rotation, translation, background,
     ``pw_uniform=True`` promises that every `point_weight` entry equals
     ``point_weight[0]``: the weight plane is dropped and the scalar factor
     is applied after the fold."""
+    out, _ = _fwd_impl(grid_size, points, rotation, translation, background,
+                       out_weight, point_weight, pw_uniform=pw_uniform)
+    return out
+
+
+def raster_fwd_res(grid_size, points, rotation, translation, background,
+                   out_weight, point_weight, *, pw_uniform: bool = False):
+    """Forward + the binning residuals ``(data, slot_tile)``: the sorted
+    frame carries the point-id plane, so the pullback of the fused
+    autograd pair skips the coordinates and the sort."""
     return _fwd_impl(grid_size, points, rotation, translation, background,
-                     out_weight, point_weight, pw_uniform=pw_uniform)
+                     out_weight, point_weight, pw_uniform=pw_uniform,
+                     with_residuals=True)
 
 
 def _fwd_impl(grid_size, points, rotation, translation, background,
               out_weight, point_weight, *, pw_uniform=False,
-              splat=fwd_splat, fold=band_fold):
-    """`raster_fwd` with its two kernel stages as arguments, so a
-    measurement can run the same forward through the plain twins."""
-    n_out = len(grid_size)
-    p = points.shape[0]
-    if n_out == 3:
-        raise NotImplementedError(
-            "the binned backend's 3-D forward is not ported yet "
-            "(ROADMAP A6)")
-    if not supported(n_out, grid_size, p):
-        raise ValueError(f"binned backend does not support grid="
-                         f"{grid_size} P={p}")
-    if p == 0:
-        raise ValueError("binned backend requires n_points > 0")
-    ext = splat(*_fwd_frame(grid_size, points, rotation, translation,
-                            point_weight, pw_uniform))
+              with_residuals=False, splat=fwd_splat, fold=band_fold):
+    """`raster_fwd_res` with its two kernel stages as arguments, so a
+    measurement can run the same forward through the plain twins.
+    Returns ``(out, residuals or None)``."""
+    _check_args(grid_size, points.shape[0])
+    splat_args, data = _fwd_frame(grid_size, points, rotation, translation,
+                                  point_weight, pw_uniform)
+    ext = splat(*splat_args)
 
     f32 = torch.float32
     ow_eff = out_weight.to(f32)
@@ -555,4 +780,137 @@ def _fwd_impl(grid_size, points, rotation, translation, background,
         out = fold(ext, grid_size, ts, ow_eff.contiguous(), bg_f.contiguous())
     dtype = torch.promote_types(points.dtype, torch.promote_types(
         rotation.dtype, translation.dtype))
-    return out.to(dtype)
+    res = (data, splat_args[0]) if with_residuals else None
+    return out.to(dtype), res
+
+
+# ---------------------------------------------------------------------------
+# pullback
+# ---------------------------------------------------------------------------
+
+
+def _bwd_frame(grid_size, points, rotation, translation):
+    """The standalone pullback's frame: ``(data (B, 3, s_pad) [y, x,
+    point id], slot_tile, chunk)``.  Unlike the forward's, it gives an
+    empty tile no slot (``min_chunk_per_tile=False``)."""
+    ts = tile_shape_for(grid_size)
+    p = points.shape[0]
+    bsz = rotation.shape[0]
+    chunk = _default_chunk(grid_size, p)
+    key, locs, nt = _keys_and_local(grid_size, ts, points, rotation,
+                                    translation)
+    # the frame carries only the encoded coordinates (kernel input) and
+    # the point id (for the unsort); weights, points and rotations enter
+    # after the unsort, in point order
+    ptidx = torch.arange(p, dtype=torch.float32, device=points.device)
+    planes = list(locs) + [ptidx[None, :].expand(bsz, p)]
+    fills = [0.0, 0.0, float(p)]
+    if _single_tile(grid_size):
+        data, slot_tile = _prep_direct(planes, fills, chunk)
+    else:
+        data, slot_tile = _prep_binned(key, planes, fills, nt, chunk, False,
+                                       pack_idx=True)
+    return data, slot_tile.contiguous(), chunk
+
+
+def raster_pullback(grid_size, points, rotation, translation, background,
+                    out_weight, point_weight, ds_dout, *,
+                    pw_uniform: bool = False):
+    """Analytic pullback -> `core.PullbackResult` (all six gradients).
+
+    ``pw_uniform=True`` promises that (a) every `point_weight` entry
+    equals ``point_weight[0]`` and (b) the caller observes ``d_pw`` only
+    through its sum (autograd's broadcast sums it; so does the API's
+    scalar-weight rule).  On a multi-tile grid the weight-gradient plane
+    then stays out of the unsort: ``d_ow`` and ``sum(d_pw)`` are per-pose
+    sums over the sorted frame, and ``d_pw`` is spread as ``sum / p``."""
+    del background
+    _check_args(grid_size, points.shape[0])
+    data, slot_tile, chunk = _bwd_frame(grid_size, points, rotation,
+                                        translation)
+    return _pullback_from_frame(
+        grid_size, data[:, :2], data[:, 2], slot_tile, points, rotation,
+        out_weight, point_weight, ds_dout, chunk=chunk,
+        pw_uniform=pw_uniform)
+
+
+def _residual_planes(residuals, pw_uniform):
+    """The forward's residual frame -> ``(coord, idx_rows, slot_tile)``;
+    the point-id plane follows the weight plane, which the uniform path
+    leaves out."""
+    data, slot_tile = residuals
+    return data[:, :2], data[:, 2 if pw_uniform else 3], slot_tile
+
+
+def raster_pullback_res(grid_size, residuals, args, ds_dout, *,
+                        pw_uniform: bool = False):
+    """Pullback reusing the forward's frame (`raster_fwd_res`).
+    ``pw_uniform`` must be the forward's: it fixes the frame's layout."""
+    points, rotation, _, _, out_weight, point_weight = args
+    coord, idx_rows, slot_tile = _residual_planes(residuals, pw_uniform)
+    return _pullback_from_frame(
+        grid_size, coord, idx_rows, slot_tile, points, rotation, out_weight,
+        point_weight, ds_dout, chunk=_default_chunk(grid_size,
+                                                    points.shape[0]),
+        pw_uniform=pw_uniform)
+
+
+def _pullback_from_frame(grid_size, coord, idx_rows, slot_tile, points,
+                         rotation, out_weight, point_weight, ds_dout, *,
+                         chunk, pw_uniform=False, unfold=band_unfold,
+                         gather=bwd_gather):
+    """The pullback from a frame, with its two kernel stages as arguments
+    (as in `_fwd_impl`)."""
+    ts = tile_shape_for(grid_size)
+    halo = not _single_tile(grid_size)
+    bsz = rotation.shape[0]
+    p = points.shape[0]
+    f32 = torch.float32
+    g_cot = ds_dout.to(f32).contiguous()
+    # the single tile's window is the cotangent itself
+    g_in = unfold(g_cot, grid_size, ts) if halo else g_cot
+    buf = gather(slot_tile, _planes_bwd(coord).contiguous(), g_in, chunk)
+
+    # back to point order; on the uniform-weight path the weight-gradient
+    # plane skips the unsort (its sums are order-free, and every
+    # non-point row of the frame is exactly zero)
+    if halo:
+        n_uns = 2 if pw_uniform else 3
+        per = _unsort(buf[:, :n_uns], idx_rows, p)
+    else:
+        per = buf[:, :, :p]
+    du_pt = per[:, :2]                                    # (B, 2, P)
+
+    scale = torch.tensor(grid_size, dtype=f32, device=buf.device) / 2
+    ow = out_weight.to(f32)
+    pw = point_weight.to(f32)
+    # scaled_i = du_i * (g_i/2) * ow * pw   (B, 2, P)
+    scaled = (du_pt * scale[None, :, None]
+              * (ow[:, None, None] * pw[None, None, :]))
+
+    d_t = torch.sum(scaled, dim=-1)                       # (B, 2)
+    d_r = torch.einsum("bns,si->bni", scaled, points.to(f32))
+    d_bg = torch.sum(g_cot.reshape(bsz, -1), dim=-1)
+    d_points = torch.einsum("bns,bni->si", scaled, rotation.to(f32))
+    if pw_uniform and halo:
+        gw_sums = torch.sum(buf[:, 2], dim=-1)            # (B,)
+        d_ow = gw_sums * pw[0]
+        d_pw = (torch.dot(gw_sums, ow) / p).repeat(p)
+    else:
+        gw_pt = per[:, 2]                                 # (B, P)
+        d_ow = torch.einsum("bs,s->b", gw_pt, pw)
+        d_pw = torch.einsum("bs,b->s", gw_pt, ow)
+
+    dtype = torch.promote_types(torch.promote_types(points.dtype,
+                                                    rotation.dtype),
+                                ds_dout.dtype)
+    return core.PullbackResult(
+        points=d_points.to(dtype),
+        rotation=d_r.to(dtype),
+        translation=d_t.to(dtype),
+        background=d_bg.to(dtype),
+        out_weight=d_ow.to(dtype),
+        point_weight=d_pw.to(dtype),
+    )
+
+

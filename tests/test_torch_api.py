@@ -169,10 +169,22 @@ def test_empty_cloud_and_backend_validation():
 
 
 def test_requires_grad_and_devices_raise():
+    """Inputs that require grad get gradients (through autograd, on every
+    backend); inputs on two devices raise."""
     fx = _fx()
-    pts = torch.from_numpy(fx["points"]).requires_grad_()
-    with pytest.raises(NotImplementedError, match="backward kernels"):
-        dprast_torch.raster((8, 8), pts, fx["rotation"], fx["translation"])
+    for backend in BACKENDS:
+        pts = torch.from_numpy(fx["points"]).requires_grad_()
+        rot = torch.from_numpy(fx["rotation"]).requires_grad_()
+        out = dprast_torch.raster((8, 8), pts, rot, fx["translation"],
+                                  backend=backend)
+        assert out.requires_grad
+        d_pts, d_rot = torch.autograd.grad(out.sum(), (pts, rot))
+        assert d_pts.shape == pts.shape and d_rot.shape == rot.shape
+        assert bool(torch.isfinite(d_pts).all()) and d_pts.abs().sum() > 0
+    # no tensor that requires grad, or no grad mode: a plain forward
+    with torch.no_grad():
+        assert not dprast_torch.raster((8, 8), pts, rot,
+                                       fx["translation"]).requires_grad
     with pytest.raises(ValueError, match="one device"):
         dprast_torch.raster((8, 8), torch.from_numpy(fx["points"]),
                             torch.zeros((5, 2, 3), device="meta"),
@@ -182,6 +194,12 @@ def test_requires_grad_and_devices_raise():
 def test_surface():
     assert dprast_torch.available_backends() == ("xla", "binned")
     assert dprast_torch.default_backend() == "auto"
+    assert dprast_torch.RasterGrads._fields == (
+        "points", "rotation", "translation", "background", "out_weight",
+        "point_weight")
+    for name in tdispatch.available_backends():
+        assert callable(tdispatch.bwd_fn(name))
+        assert len(tdispatch.vjp_pair(name)) == 2
 
 
 ORACLE_CASES = {

@@ -1,7 +1,8 @@
 """dprast_torch's binned backend vs the JAX package on the same float32
-numpy inputs, stage by stage (slot frame, lane planes, fold: bit-equal)
-and as a whole (within 1e-5 scaled max-abs of the JAX backend, which runs
-its Pallas kernels through the interpreter here, and of the f64 oracle).
+numpy inputs, stage by stage (slot frame, lane planes, fold, unfold,
+unsort: bit-equal) and as a whole (forward and pullback within 1e-5
+scaled max-abs of the f64 oracle and of the JAX backend, which runs its
+Pallas kernels through the interpreter here).
 
 On the CPU the kernel wrappers run their plain twins; the CUDA kernels
 themselves are checked against the twins by `chip_smoke.py` on the card.
@@ -17,7 +18,8 @@ import jax.numpy as jnp  # noqa: E402
 
 import dprast_torch  # noqa: E402
 from dprast.ops import splat_binned as jbin  # noqa: E402
-from dprast.utils.testing import fixtures, raster_numpy  # noqa: E402
+from dprast.utils.testing import (  # noqa: E402
+    fixtures, raster_numpy, raster_pullback_numpy)
 from dprast_torch.ops import splat_binned as tbin  # noqa: E402
 
 torch.set_num_threads(2)
@@ -269,4 +271,170 @@ def test_wrappers_run_the_twin_only_on_cpu():
     ow = torch.ones((1,), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         tbin.band_fold(ext, (200, 200), (127, 127), ow, ow)
-    assert tbin.LAUNCHES == {"fwd_splat": 0, "band_fold": 0}
+    with pytest.raises(ValueError, match="CUDA"):
+        tbin.band_unfold(torch.zeros((1, 200, 200), device="meta"),
+                         (200, 200), (127, 127))
+    with pytest.raises(ValueError, match="CUDA"):
+        tbin.bwd_gather(st, lane, ext, 128)
+    assert tbin.LAUNCHES == {"fwd_splat": 0, "band_fold": 0,
+                             "band_unfold": 0, "bwd_gather": 0}
+
+
+# ---------------------------------------------------------------------------
+# the pullback
+# ---------------------------------------------------------------------------
+
+
+def test_planes_bwd_bit_equal():
+    grid, pts, rot, tr, pw = _random_cloud()
+    key, planes, fills, nt = _frame_planes(grid, pts, rot, tr, pw, False)
+    data, _ = tbin._prep_binned(key, planes, fills, nt, 128, False,
+                                pack_idx=True)
+    lane_b = tbin._planes_bwd(data[:, :2])
+    j_lane = jbin._planes_bwd(jnp.asarray(data[:, :2].numpy()),
+                              tbin.tile_shape_for(grid), 2)
+    assert lane_b.shape == (3, 4, data.shape[-1])
+    np.testing.assert_array_equal(lane_b.numpy().view(np.int32),
+                                  np.asarray(j_lane).view(np.int32))
+
+
+@pytest.mark.parametrize("grid", [(300, 200), (8, 192)])
+def test_unfold_bit_equal_and_adjoint(grid):
+    """B3's twin is JAX's `_unfold` in the natural orientation (JAX's
+    kernel consumes it transposed), and the exact adjoint of the fold."""
+    ts = tbin.tile_shape_for(grid)
+    nt = tbin.n_tiles(grid)
+    rng = np.random.default_rng(3)
+    u = rng.standard_normal((2,) + grid).astype(np.float32)
+    win = tbin._unfold(torch.from_numpy(u), grid, ts)
+    ref = jbin._unfold(jnp.asarray(u), grid, ts, transposed=True)
+    assert win.shape == (2, nt, ts[0] + 1, ts[1] + 1)
+    np.testing.assert_array_equal(win.numpy(),
+                                  np.asarray(jnp.swapaxes(ref, -1, -2)))
+    # the B3 wrapper on a CPU tensor is the twin
+    assert torch.equal(tbin.band_unfold(torch.from_numpy(u), grid, ts), win)
+    x = rng.standard_normal((2, nt, ts[0] + 1, ts[1] + 1))
+    lhs = np.vdot(u.astype(np.float64),
+                  tbin._fold(torch.from_numpy(x), grid, ts, True).numpy())
+    rhs = np.vdot(win.double().numpy(), x)
+    np.testing.assert_allclose(lhs, rhs, rtol=1e-12)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_unsort_bit_equal_to_jax_sort(weighted):
+    """The scatter by point id gives JAX's unsort (a sort by the id
+    plane) bit for bit; fillers carry id p and are cut off."""
+    grid, pts, rot, tr, pw = _random_cloud()
+    key, planes, fills, nt = _frame_planes(grid, pts, rot, tr, pw, weighted)
+    data, _ = tbin._prep_binned(key, planes, fills, nt, 128, True,
+                                pack_idx=True)
+    p = pts.shape[0]
+    idx_rows = data[:, -1]
+    rows = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (3, 3, data.shape[-1])).astype(np.float32))
+    out = tbin._unsort(rows, idx_rows, p)
+    ops = jax.lax.sort((jnp.asarray(idx_rows.numpy()),)
+                       + tuple(jnp.asarray(rows[:, i].numpy())
+                               for i in range(3)),
+                       dimension=1, num_keys=1, is_stable=False)
+    ref = np.stack([np.asarray(o)[:, :p] for o in ops[1:]], axis=1)
+    assert out.shape == (3, 3, p)
+    np.testing.assert_array_equal(out.numpy(), ref)
+
+
+def test_bwd_gather_twin_matches_loop():
+    """B4's twin against a per-row loop over the live slots, on a
+    multi-tile frame and on a single tile that reads the grid itself."""
+    for grid in ((300, 200), (100, 90)):
+        _, pts, rot, tr, _ = _random_cloud(grid=grid, n_points=200)
+        t_args = [torch.from_numpy(a) for a in (pts, rot, tr)]
+        data, slot_tile, chunk = tbin._bwd_frame(grid, *t_args)
+        lane_b = tbin._planes_bwd(data[:, :2])
+        g = torch.from_numpy(np.random.default_rng(5).standard_normal(
+            (3,) + grid).astype(np.float32))
+        single = tbin._single_tile(grid)
+        win = g if single else tbin._unfold(g, grid,
+                                            tbin.tile_shape_for(grid))
+        buf = tbin.bwd_gather(slot_tile, lane_b, win, chunk).numpy()
+        w4 = (win[:, None] if single else win).double().numpy()
+        ln, st = lane_b.double().numpy(), slot_tile.numpy()
+        ref = np.zeros_like(buf, dtype=np.float64)
+        for b in range(3):
+            for row in range(st[b, -1] * chunk):
+                iy0, dly, ix0, dlx = ln[b, :, row]
+                w = w4[b, st[b, row // chunk]]
+
+                def at(r, c):
+                    ok = 0 <= r < w.shape[0] and 0 <= c < w.shape[1]
+                    return w[r, c] if ok else 0.0
+
+                p00, p01 = at(int(iy0), int(ix0)), at(int(iy0), int(ix0) + 1)
+                p10 = at(int(iy0) + 1, int(ix0))
+                p11 = at(int(iy0) + 1, int(ix0) + 1)
+                a = (1 - dly) * p00 + dly * p10
+                c = (1 - dly) * p01 + dly * p11
+                ref[b, :, row] = ((p10 - p00) * (1 - dlx)
+                                  + (p11 - p01) * dlx, c - a,
+                                  a * (1 - dlx) + c * dlx)
+        assert _scaled_err(buf, ref) < 1e-6
+        for b in range(3):          # rows of dead slots are zeros
+            assert not buf[b, :, st[b, -1] * chunk:].any()
+
+
+PULLBACK_GRIDS = [(8, 8), (128, 128), (8, 192), (300, 200)]
+
+
+@pytest.mark.parametrize("grid", PULLBACK_GRIDS,
+                         ids=[f"{gy}x{gx}" for gy, gx in PULLBACK_GRIDS])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_pullback_binned_matches_jax_and_oracle(grid, weighted):
+    """All six binned gradients vs the JAX binned pullback (interpreter)
+    and the f64 oracle; the uniform case takes the `pw_uniform` path in
+    both, whose d_pw is sum-exact.  Against JAX the bound is the
+    cross-backend 2e-5: JAX's kernel gathers through a two-term bf16
+    split, the port's in fp32 (see tests/test_torch_grads.py)."""
+    pts, rot, tr, bg, ow, pw = _f32(fixtures(seed=4, n_points=300,
+                                             batch_size=3, n_in=3, n_out=2))
+    if not weighted:
+        pw = np.ones_like(pw)
+    g = np.random.default_rng(6).standard_normal((3,) + grid).astype(
+        np.float32)
+    arrays = (pts, rot, tr, bg, ow, pw, g)
+    res = tbin.raster_pullback(grid, *map(torch.from_numpy, arrays),
+                               pw_uniform=not weighted)
+    ref_j = jbin.raster_pullback(grid, *map(jnp.asarray, arrays),
+                                 pw_uniform=not weighted)
+    ref_np = raster_pullback_numpy(grid, *arrays)
+    for name in ref_np:
+        out = getattr(res, name).numpy()
+        ref = ref_np[name]
+        if name == "point_weight" and not weighted:
+            out, ref = out.sum(), ref.sum()
+        assert _scaled_err(out, ref) < TOL, name
+        assert _scaled_err(getattr(res, name).numpy(),
+                           getattr(ref_j, name)) < 2e-5, name
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_residual_pair_matches_standalone(weighted):
+    """The pullback from the forward's frame (an empty tile keeps a slot
+    there) against the standalone pullback's own frame."""
+    grid, pts, rot, tr, pw = _random_cloud(n_points=500)
+    bg = np.zeros(3, np.float32)
+    ow = np.linspace(0.5, 2.0, 3).astype(np.float32)
+    if not weighted:
+        pw = np.ones_like(pw)
+    args = tuple(map(torch.from_numpy, (pts, rot, tr, bg, ow, pw)))
+    g = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (3,) + grid).astype(np.float32))
+    out, res = tbin.raster_fwd_res(grid, *args, pw_uniform=not weighted)
+    np.testing.assert_array_equal(
+        out.numpy(), tbin.raster_fwd(grid, *args,
+                                     pw_uniform=not weighted).numpy())
+    fused = tbin.raster_pullback_res(grid, res, args, g,
+                                     pw_uniform=not weighted)
+    alone = tbin.raster_pullback(grid, *args, g, pw_uniform=not weighted)
+    for name in fused._fields:
+        np.testing.assert_allclose(getattr(fused, name).numpy(),
+                                   getattr(alone, name).numpy(), rtol=1e-5,
+                                   atol=1e-4, err_msg=name)
