@@ -2,8 +2,8 @@
 
 Builds the port's CUDA kernels from `dprast_torch/csrc/`, holds each
 against its plain torch twin on the card at the shapes of the main path,
-and drives the two main paths at the flagship size (3D->2D orthographic,
-64 poses, 10^5 points, 128x128) and at 1024x1024:
+and drives the two 2-D main paths at the flagship size (3D->2D
+orthographic, 64 poses, 10^5 points, 128x128) and at 1024x1024:
 
 - the forward `raster` through `auto` (kernels B1, and B2 at 1024^2),
   checked against the port's scatter oracle on the card;
@@ -11,10 +11,15 @@ and drives the two main paths at the flagship size (3D->2D orthographic,
   and B2 + B3 at 1024^2), checked against the same autograd through the
   oracle on the card, and a few SGD steps of a point-cloud fit.
 
+The [3d] phase drives the 3-D path, 10^6 points into 128^3 with one
+pose (the forward and the training step through `auto`, on the 3-D
+branches of B1 and B4), and a pose batch, 4 rotations x 10^5 points, the
+same way.
+
 At small sizes the forward and `raster_pullback` are checked against the
-float64 numpy oracles.  Then it times the kernels against their twins,
-and the forward and the training step against the same work run through
-the twins.
+float64 numpy oracles, in 2-D and 3-D.  Then it times the kernels
+against their twins, and the forward and the training step against the
+same work run through the twins.
 
 Run from the root of the repository:
 
@@ -53,6 +58,19 @@ SMALL_GRIDS = ((128, 128), (256, 256), (999, 777), (5, 5), (3, 200),
                (130, 1))
 GRAD_NAMES = ("points", "rotation", "translation", "background",
               "out_weight", "point_weight")
+
+# the 3-D path: BASELINE config 4 (10^6 points into 128^3, one pose), and
+# a pose batch at a tenth of the points
+VOLUME = (128, 128, 128)
+VOLUME_CASES = {"1 pose x 1e6": (1, 1_000_000),
+                "4 poses x 1e5": (4, 100_000)}
+# the point counts of the 3-D path's timings (one pose)
+VOLUME_TIMED = (1_000_000, 100_000)
+# the 3-D configurations checked against the f64 oracles (grid, seed,
+# points; two poses each): tests_tpu/test_hardware_parity.py's two, and a
+# grid that is no multiple of the tiles
+SMALL_VOLUMES = (((128, 128, 128), 5, 800), ((8, 16, 200), 21, 900),
+                 ((9, 17, 130), 5, 800))
 
 
 def check(ok, what):
@@ -166,34 +184,35 @@ def phase_train(dprast_torch, sb, pts, rot, tr, pw, cots, totals):
             check(max(errs.values()) <= 2e-5, f"training grads at {grid}")
 
 
-def phase_small(dprast_torch, oracle, dev):
-    """[small]: the forward and `raster_pullback` on the binned backend
-    vs the f64 oracles."""
-    fx = oracle.fixtures(seed=3, n_points=1500, batch_size=4, n_in=3,
-                         n_out=2)
-    small = [np.asarray(v, np.float32) for v in fx.values()]
-    ones = np.ones(1500, np.float32)
-    on_dev = [torch.from_numpy(a).to(dev) for a in small]
+def phase_small(dprast_torch, oracle, dev, tag, cases):
+    """[small] / [3d small]: the forward and `raster_pullback` on the
+    binned backend vs the f64 oracles; `cases` are (grid, seed, points,
+    poses) of the fixtures."""
     rng = np.random.default_rng(7)
-    for grid in SMALL_GRIDS:
+    for grid, seed, n_points, n_poses in cases:
+        fx = oracle.fixtures(seed=seed, n_points=n_points,
+                             batch_size=n_poses, n_in=3, n_out=len(grid))
+        small = [np.asarray(v, np.float32) for v in fx.values()]
+        ones = np.ones(n_points, np.float32)
+        on_dev = [torch.from_numpy(a).to(dev) for a in small]
         for weighted in (False, True):
             args = on_dev if weighted else on_dev[:5]
             ref = oracle.raster_numpy(grid, *small[:5],
                                       small[5] if weighted else ones)
             out = dprast_torch.raster(grid, *args, backend="binned")
             err = scaled_err(out, ref)
-            print(f"[small] binned {grid} "
-                  f"{'weighted' if weighted else 'uniform'}: forward scaled "
-                  f"max-abs err vs f64 oracle {err:.3e} (tol 1e-5)")
+            print(f"{tag} binned {grid} x {n_poses} poses x {n_points} "
+                  f"points {'weighted' if weighted else 'uniform'}: forward "
+                  f"scaled max-abs err vs f64 oracle {err:.3e} (tol 1e-5)")
             check(err <= 1e-5, f"binned forward vs f64 oracle at {grid}")
-        g = rng.standard_normal((4,) + grid)
+        g = rng.standard_normal((n_poses,) + grid)
         g_dev = torch.from_numpy(g.astype(np.float32)).to(dev)
         # a per-point weight, the defaulted one (exact per-point d_pw) and
         # a scalar one (summed d_pw, the uniform unsort-free path)
         for label, pw, pw_ref in (("weighted", on_dev[5], small[5]),
                                   ("uniform", None, ones),
                                   ("scalar 1.7", 1.7,
-                                   np.full(1500, 1.7, np.float32))):
+                                   np.full(n_points, 1.7, np.float32))):
             ref = oracle.raster_pullback_numpy(grid, *small[:5], pw_ref, g)
             if label.startswith("scalar"):
                 ref["point_weight"] = ref["point_weight"].sum()
@@ -202,7 +221,7 @@ def phase_small(dprast_torch, oracle, dev):
             errs = {k: scaled_err(getattr(res, k), ref[k])
                     for k in GRAD_NAMES}
             worst = max(errs, key=errs.get)
-            print(f"[small] binned raster_pullback {grid} {label}: scaled "
+            print(f"{tag} binned raster_pullback {grid} {label}: scaled "
                   f"max-abs err vs f64 oracle {errs[worst]:.3e} (d_{worst}; "
                   f"tol 1e-5)")
             check(errs[worst] <= 1e-5,
@@ -238,6 +257,229 @@ def phase_fit(dprast_torch, pts, rot, tr, steps=5):
           + " -> ".join(f"{v:.6e}" for v in losses))
     check(all(b < a for a, b in zip(losses, losses[1:])),
           "the fit's loss strictly decreases")
+
+
+def volume_inputs(n_poses, n_points, seed=11):
+    """BASELINE config 4's inputs, made as in
+    tests_tpu/test_hardware_parity.py:88-97: a 0.4-sigma Gaussian cloud,
+    translations at 0.1 sigma, per-point weights uniform in (0.5, 2),
+    background 0 and out_weight 1; the identity pose, or `n_poses` random
+    rotations.  -> (points, rotation, translation, background, out_weight,
+    point_weight) as float32 numpy arrays."""
+    rng = np.random.default_rng(seed)
+    points = rng.standard_normal((n_points, 3)) * 0.4
+    translation = rng.standard_normal((n_poses, 3)) * 0.1
+    point_weight = rng.uniform(0.5, 2.0, n_points)
+    if n_poses == 1:
+        rotation = np.eye(3)[None]
+    else:
+        q, r = np.linalg.qr(rng.standard_normal((n_poses, 3, 3)))
+        rotation = q * np.sign(np.diagonal(r, axis1=1, axis2=2))[:, None, :]
+        rotation[np.linalg.det(rotation) < 0, :, 0] *= -1
+    return tuple(np.asarray(a, np.float32) for a in (
+        points, rotation, translation, np.zeros(n_poses), np.ones(n_poses),
+        point_weight))
+
+
+def phase_3d(dprast_torch, sb, dev):
+    """[3d]: at 128^3, for one pose x 10^6 points and 4 poses x 10^5:
+    the coordinates CUDA vs CPU, the 3-D branches of B1 and B4 against
+    their twins, `raster` and the training step through `auto` against
+    the `xla` backend on the card, each path run between a reset and a
+    read of the launch counts.  Returns (launch counts of the 10^6-point
+    training steps, B1 error, B4 error)."""
+    grid = VOLUME
+    ts = sb.tile_shape_for(grid)
+    train_launches = {name: 0 for name in sb.LAUNCHES}
+    b1_err = b4_err = 0.0
+    for label, (n_poses, n_points) in VOLUME_CASES.items():
+        host = volume_inputs(n_poses, n_points)
+        args = [torch.from_numpy(a).to(dev) for a in host]
+        pts, rot, tr, bg, ow, pw = args
+        tag = f"[3d] {grid} {label}"
+
+        k_dev, l_dev, nt = sb._keys_and_local(grid, ts, pts, rot, tr)
+        k_cpu, l_cpu, _ = sb._keys_and_local(
+            grid, ts, *(torch.from_numpy(a) for a in host[:3]))
+        check(torch.equal(k_dev.cpu(), k_cpu), f"{tag}: tile keys")
+        for a, b in zip(l_dev, l_cpu, strict=True):
+            check(torch.equal(a.cpu().view(torch.int32),
+                              b.view(torch.int32)), f"{tag}: encoded planes")
+        print(f"{tag}: keys and encoded planes bit-equal CUDA vs CPU, "
+              f"{nt} tiles")
+
+        # B1 against its twin; B4 against its twin on the forward's frame
+        # (an empty tile keeps a slot) and the standalone pullback's
+        g = torch.from_numpy(np.random.default_rng(2).standard_normal(
+            (n_poses,) + grid).astype(np.float32)).to(dev)
+        win = sb._unfold(g, grid, ts)
+        b4_frames = []
+        for weighted in (False, True):
+            splat_args, data = sb._fwd_frame(grid, pts, rot, tr, pw,
+                                             not weighted)
+            ext_k = sb.fwd_splat(*splat_args)
+            ext_p = sb._fwd_splat_plain(*splat_args)
+            torch.cuda.synchronize()
+            err = scaled_err(ext_k, ext_p)
+            b1_err = max(b1_err, err)
+            print(f"{tag} B1 fwd_splat_3d "
+                  f"{'weighted' if weighted else 'uniform'}: ext "
+                  f"{tuple(ext_k.shape)}, frame {tuple(data.shape)}, scaled "
+                  f"max-abs err vs twin {err:.3e} (tol 1e-5)")
+            check(err <= 1e-5, f"{tag}: B1-3D vs twin")
+            if not weighted:
+                # the load of B1's and B4's busiest (pose, tile) block
+                first, end = sb._slot_ranges(splat_args[0], nt)
+                slots = (end - first).float()
+                print(f"{tag} tile load: live slots per (pose, tile) max "
+                      f"{int(slots.max())}, mean {float(slots.mean()):.2f}, "
+                      f"one slot (empty or nearly) in "
+                      f"{int((slots == 1).sum())} of {slots.numel()}; chunk "
+                      f"{splat_args[-1]}")
+                b4_frames.append(("forward frame", data[:, :3],
+                                  splat_args[0], splat_args[-1]))
+        data_s, st_s, chunk_s = sb._bwd_frame(grid, pts, rot, tr)
+        b4_frames.append(("standalone frame", data_s[:, :3], st_s, chunk_s))
+        for frame, coord, st, chunk in b4_frames:
+            lane_b = sb._planes_bwd(coord, ts).contiguous()
+            buf_k = sb.bwd_gather(st, lane_b, win, chunk)
+            buf_p = sb._bwd_gather_plain(st, lane_b, win, chunk)
+            torch.cuda.synchronize()
+            err = scaled_err(buf_k, buf_p)
+            b4_err = max(b4_err, err)
+            print(f"{tag} B4 bwd_gather_3d {frame}: rows "
+                  f"{tuple(buf_k.shape)}, scaled max-abs err vs twin "
+                  f"{err:.3e} (tol 1e-6), bit-equal "
+                  f"{torch.equal(buf_k, buf_p)}")
+            check(err <= 1e-6, f"{tag}: B4-3D vs twin ({frame})")
+
+        for weighted in (False, True):
+            weight = "weighted" if weighted else "uniform"
+            w = pw if weighted else None
+            reset_launches(sb)
+            img = dprast_torch.raster(grid, pts, rot, tr, bg, ow, w)
+            torch.cuda.synchronize()
+            launched = dict(sb.LAUNCHES)
+            check(launched["fwd_splat_3d"] >= 1,
+                  f"{tag}: B1-3D ran in the forward")
+            check(img.shape == (n_poses,) + grid and
+                  bool(torch.isfinite(img).all()), f"{tag}: finite image")
+            ref = dprast_torch.raster(grid, pts, rot, tr, bg, ow, w,
+                                      backend="xla")
+            err = scaled_err(img, ref)
+            print(f"{tag} forward auto {weight}: launches {launched}; image "
+                  f"sum {float(img.double().sum()):.6e}, scaled max-abs err "
+                  f"vs the xla backend {err:.3e} (tol 2e-5)")
+            check(err <= 2e-5, f"{tag}: auto vs xla forward ({weight})")
+
+            # the training step: every input a leaf; the uniform case
+            # passes a scalar weight
+            leaves = [t.clone().requires_grad_() for t in (
+                pts, rot, tr, bg, ow,
+                pw if weighted else torch.tensor(1.5, device=dev))]
+            reset_launches(sb)
+            grads = train_grads(dprast_torch, grid, leaves, g)
+            torch.cuda.synchronize()
+            launched = dict(sb.LAUNCHES)
+            for name in ("fwd_splat_3d", "bwd_gather_3d"):
+                check(launched[name] >= 1,
+                      f"{tag}: {name} ran in the training step")
+            if n_poses == 1:
+                for name in launched:
+                    train_launches[name] += launched[name]
+            ref = train_grads(dprast_torch, grid, leaves, g, backend="xla")
+            errs = {}
+            for name, a, r, x in zip(GRAD_NAMES, grads, ref, leaves):
+                check(a.shape == x.shape and bool(torch.isfinite(a).all()),
+                      f"{tag}: finite d_{name} of shape {tuple(x.shape)}")
+                errs[name] = scaled_err(a, r)
+            print(f"{tag} train auto {weight}: launches {launched}; scaled "
+                  f"max-abs err vs the xla backend (tol 2e-5): "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+            check(max(errs.values()) <= 2e-5,
+                  f"{tag}: training grads vs xla ({weight})")
+    return train_launches, b1_err, b4_err
+
+
+def times_3d(dprast_torch, sb, core, dev, smi):
+    """[3d times]: the 3-D path's stages and steps at 128^3, one pose,
+    10^6 and 10^5 points, uniform weights.  -> {(key, n_points): ms}."""
+    grid = VOLUME
+    ts = sb.tile_shape_for(grid)
+    ms = {}
+    for n_points in VOLUME_TIMED:
+        host = volume_inputs(1, n_points)
+        pts, rot, tr = (torch.from_numpy(a).to(dev) for a in host[:3])
+        canon = (pts, rot, tr, torch.zeros(1, device=dev),
+                 torch.ones(1, device=dev), torch.ones(n_points, device=dev))
+        g = torch.from_numpy(np.random.default_rng(2).standard_normal(
+            (1,) + grid).astype(np.float32)).to(dev)
+        splat_args, data = sb._fwd_frame(grid, pts, rot, tr, canon[5], True)
+        st, chunk = splat_args[0], splat_args[-1]
+        ext = sb.fwd_splat(*splat_args)
+        win = sb._unfold(g, grid, ts)
+        lane_b = sb._planes_bwd(data[:, :3], ts).contiguous()
+        buf = sb.bwd_gather(st, lane_b, win, chunk)
+        ow, bg = canon[4].reshape(-1, 1, 1, 1), canon[3].reshape(-1, 1, 1, 1)
+
+        def step():
+            _, res = sb.raster_fwd_res(grid, *canon, pw_uniform=True)
+            return sb.raster_pullback_res(grid, res, canon, g,
+                                          pw_uniform=True)
+
+        def step_twins():
+            _, res = sb._fwd_impl(grid, *canon, pw_uniform=True,
+                                  with_residuals=True,
+                                  splat=sb._fwd_splat_plain)
+            coord, idx_rows, st_r = sb._residual_planes(res, True)
+            return sb._pullback_from_frame(
+                grid, coord, idx_rows, st_r, pts, rot, canon[4], canon[5], g,
+                chunk=chunk, pw_uniform=True, gather=sb._bwd_gather_plain)
+
+        pts_req = pts.clone().requires_grad_()
+
+        def step_autograd():
+            out = dprast_torch.raster(grid, pts_req, rot, tr)
+            return torch.autograd.grad((out * g).sum(), pts_req)
+
+        stages = {
+            "frame": lambda: sb._fwd_frame(grid, pts, rot, tr, canon[5],
+                                           True),
+            "b1": lambda: sb.fwd_splat(*splat_args),
+            "b1_plain": lambda: sb._fwd_splat_plain(*splat_args),
+            "fold": lambda: sb._fold(ext, grid, ts, True) * ow + bg,
+            "fwd": lambda: dprast_torch.raster(grid, pts, rot, tr),
+            "fwd_xla": lambda: dprast_torch.raster(grid, pts, rot, tr,
+                                                   backend="xla"),
+            "unfold": lambda: sb._unfold(g, grid, ts),
+            "planes_bwd": lambda: sb._planes_bwd(data[:, :3],
+                                                 ts).contiguous(),
+            "b4": lambda: sb.bwd_gather(st, lane_b, win, chunk),
+            "b4_plain": lambda: sb._bwd_gather_plain(st, lane_b, win, chunk),
+            "unsort": lambda: sb._unsort(buf[:, :3], data[:, -1], n_points),
+            "step": step,
+            "step_autograd": step_autograd,
+            "step_plain": step_twins,
+            "step_xla": lambda: core.raster_pullback_res(
+                grid, core.raster_fwd_res(grid, *canon)[1], canon, g),
+        }
+        for key, fn in stages.items():
+            ms[key, n_points] = time_ms(fn)
+        t = {k: ms[k, n_points] for k in stages}
+        print(f"[3d times] {smi} | {grid} x 1 pose x {n_points} points, "
+              f"uniform weights, median ms: frame {t['frame']:.4f}, B1-3D "
+              f"{t['b1']:.4f} (twin {t['b1_plain']:.4f}), plain fold + "
+              f"epilogue {t['fold']:.4f}, forward {t['fwd']:.4f} (xla "
+              f"backend {t['fwd_xla']:.4f})")
+        print(f"[3d times] {smi} | {grid} x {n_points} backward, median ms: "
+              f"plain unfold {t['unfold']:.4f}, planes "
+              f"{t['planes_bwd']:.4f}, B4-3D {t['b4']:.4f} (twin "
+              f"{t['b4_plain']:.4f}), unsort {t['unsort']:.4f}")
+        print(f"[3d times] {smi} | {grid} x {n_points} training step, median "
+              f"ms: fused forward + pullback {t['step']:.4f}, through "
+              f"autograd {t['step_autograd']:.4f}, with twins "
+              f"{t['step_plain']:.4f}, xla backend {t['step_xla']:.4f}")
+    return ms
 
 
 def main():
@@ -364,7 +606,8 @@ def main():
     b4_err = 0.0
     b4_args = {}
     for grid, label, data, st, chunk in b4_cases:
-        lane_b = sb._planes_bwd(data[:, :2]).contiguous()
+        lane_b = sb._planes_bwd(data[:, :2],
+                                sb.tile_shape_for(grid)).contiguous()
         win = win_mt if grid == MULTI_TILE else cots[grid]
         buf_k = sb.bwd_gather(st, lane_b, win, chunk)
         buf_p = sb._bwd_gather_plain(st, lane_b, win, chunk)
@@ -408,12 +651,18 @@ def main():
     phase_train(dprast_torch, sb, pts, rot, tr, pw, cots, train_launches)
 
     # --- 10. small configurations vs the f64 oracles ---
-    phase_small(dprast_torch, load_numpy_oracle(), dev)
+    phase_small(dprast_torch, load_numpy_oracle(), dev, "[small]",
+                [(grid, 3, 1500, 4) for grid in SMALL_GRIDS])
 
     # --- 11. a few SGD steps of a fit at the flagship width ---
     phase_fit(dprast_torch, pts, rot, tr)
 
-    # --- 12. times ---
+    # --- 12. the 3-D path at 128^3, and small volumes vs the f64 oracles ---
+    launches_3d, b1_3d_err, b4_3d_err = phase_3d(dprast_torch, sb, dev)
+    phase_small(dprast_torch, load_numpy_oracle(), dev, "[3d small]",
+                [(grid, seed, n, 2) for grid, seed, n in SMALL_VOLUMES])
+
+    # --- 13. times ---
     ms = {}
     canon = (pts, rot, tr, torch.zeros(N_POSES, device=dev),
              torch.ones(N_POSES, device=dev),
@@ -442,7 +691,8 @@ def main():
         ms["bwd_frame", grid] = time_ms(
             lambda: sb._bwd_frame(grid, pts, rot, tr))
         ms["planes_bwd", grid] = time_ms(
-            lambda: sb._planes_bwd(data_b[:, :2]).contiguous())
+            lambda: sb._planes_bwd(data_b[:, :2],
+                                   sb.tile_shape_for(grid)).contiguous())
         if grid == MULTI_TILE:
             buf = sb.bwd_gather(*b4_args[grid])
             ms["b3", grid] = time_ms(
@@ -513,6 +763,7 @@ def main():
               f"backend {ms['step_xla', grid]:.4f}")
     print(f"[times] {smi} | B2 {MULTI_TILE}: {ms['b2', MULTI_TILE]:.4f} ms "
           f"(twin {ms['b2_plain', MULTI_TILE]:.4f} ms)")
+    ms_3d = times_3d(dprast_torch, sb, core, dev, smi)
 
     src = "dprast/ops/splat_binned.py"
     kernels = [
@@ -540,6 +791,20 @@ def main():
          "launches": train_launches["bwd_gather"], "max_abs_err": b4_err,
          "ms": ms["b4", FLAGSHIP], "plain_ms": ms["b4_plain", FLAGSHIP],
          "shape": "128x128, 64 poses, 1e5 points, uniform"},
+        {"name": "fwd_splat_3d", "route": "cuda",
+         "source": "dprast_torch/csrc/fwd_splat.cu",
+         "replaces": f"{src}:584",
+         "launches": launches_3d["fwd_splat_3d"], "max_abs_err": b1_3d_err,
+         "ms": ms_3d["b1", VOLUME_TIMED[0]],
+         "plain_ms": ms_3d["b1_plain", VOLUME_TIMED[0]],
+         "shape": "128x128x128, 1 pose, 1e6 points, uniform"},
+        {"name": "bwd_gather_3d", "route": "cuda",
+         "source": "dprast_torch/csrc/bwd_gather.cu",
+         "replaces": f"{src}:1135",
+         "launches": launches_3d["bwd_gather_3d"], "max_abs_err": b4_3d_err,
+         "ms": ms_3d["b4", VOLUME_TIMED[0]],
+         "plain_ms": ms_3d["b4_plain", VOLUME_TIMED[0]],
+         "shape": "128x128x128, 1 pose, 1e6 points, uniform"},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,8 @@ hand-written CUDA kernels for NVIDIA Hopper.
 A port of the JAX package `dprast`, which stays the reference.  This
 package imports neither JAX nor `dprast`.  So far it covers `raster`
 (differentiable through autograd) and `raster_pullback` on the ``"xla"``
-oracle (any rank, any device) and the ``"binned"`` backend for 2-D grids.
+oracle (any rank, any device) and the ``"binned"`` backend for 2-D and
+3-D grids.
 """
 
 from dprast_torch.api import RasterGrads, raster, raster_pullback

@@ -91,8 +91,8 @@ def load():
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.dprast_fwd_splat.argtypes = [vp, vp, vp, vp, i32, i32, i32, i64,
-                                         i32, i32, i32, i32, vp]
+        lib.dprast_fwd_splat.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32,
+                                         i64, i32, i32, i32, i32, i32, vp]
         lib.dprast_fwd_splat.restype = i32
         lib.dprast_band_fold.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32,
                                          i32, vp]
@@ -100,8 +100,8 @@ def load():
         lib.dprast_band_unfold.argtypes = [vp, vp, i32, i32, i32, i32, i32,
                                            vp]
         lib.dprast_band_unfold.restype = i32
-        lib.dprast_bwd_gather.argtypes = [vp, vp, vp, vp, vp, i32, i32, i64,
-                                          i32, i32, i32, i32, vp]
+        lib.dprast_bwd_gather.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32,
+                                          i64, i32, i32, i32, i32, vp]
         lib.dprast_bwd_gather.restype = i32
         lib.dprast_error_string.argtypes = [i32]
         lib.dprast_error_string.restype = ctypes.c_char_p

@@ -5,14 +5,15 @@ A backend is a kernel strategy:
 - ``"xla"``     plain-torch scatter/gather oracle (`dprast_torch.ops.core`),
                 any dims, any device (the name is the JAX package's)
 - ``"binned"``  slot-scheduled tile-binned kernels (`splat_binned`),
-                2-D grids
+                2-D and 3-D grids
 - ``"auto"``    the JAX package's choice for the given dims / grid /
                 device
 
 `auto` follows the JAX package's rules with "the inputs are on CUDA" in
-place of "running on a TPU".  Where those rules pick a backend this
-package does not have yet, `resolve_pair` raises `NotImplementedError`
-naming the ROADMAP item; it never substitutes another backend.
+place of "running on a TPU".  Where those rules pick the matmul backend,
+which this package does not have yet, `resolve_pair` raises
+`NotImplementedError` naming ROADMAP A8; it never substitutes another
+backend.
 """
 
 from __future__ import annotations
@@ -109,11 +110,6 @@ def resolve_pair(backend: str, n_out: int, grid_size=None, n_points=None,
         raise NotImplementedError(
             f"'auto' picks the matmul backend for N_out={n_out} "
             f"grid={grid_size} on CUDA; it is not ported yet (ROADMAP A8)")
-    if name == "binned" and n_out == 3:
-        raise NotImplementedError(
-            f"'{backend}' picks the binned backend for the 3-D grid "
-            f"{grid_size}; its 3-D forward and pullback are not ported "
-            f"yet (ROADMAP A6)")
     return name, name
 
 

@@ -1,4 +1,4 @@
-"""Slot-scheduled tile-binned backend (``"binned"``), 2-D grids
+"""Slot-scheduled tile-binned backend (``"binned"``), 2-D and 3-D grids
 (PyTorch port of `dprast/ops/splat_binned.py`).
 
 The forward, for a batch of B poses:
@@ -6,30 +6,34 @@ The forward, for a batch of B poses:
 1. **Coordinates.** `_keys_and_local` runs the compensated double-f32
    transform and stores each point's tile-local coordinates as 31-bit
    fixed point (`_FIX` fraction bits) plus a flat tile key.
-2. **Frame.** A single-tile grid (both axes <= 128) keeps the point order
-   (`_prep_direct`).  A multi-tile grid sorts the points by tile into a
-   padded *slot frame* (`_prep_binned`): slot ``s`` covers rows
+2. **Frame.** A single-tile 2-D grid (both axes <= 128) keeps the point
+   order (`_prep_direct`).  A multi-tile grid sorts the points by tile
+   into a padded *slot frame* (`_prep_binned`): slot ``s`` covers rows
    ``[s*chunk, (s+1)*chunk)`` of one tile, every tile owns at least one
-   slot, and ``slot_tile[b, -1]`` counts the live slots.
+   slot, and ``slot_tile[b, -1]`` counts the live slots.  A 3-D grid is
+   always multi-tile: (7, 15, 127)-voxel bodies.
 3. **Planes.** `_planes_fwd` decodes the frame into the lane planes the
-   splat reads: ``[iy0, dly, (w,) dlx, ix0]`` per row.
-4. **Splat** (`fwd_splat`, kernel B1): every row adds its four bilinear
-   weights into its tile's window ``ext[b, tile]`` -- a 128x128 window
-   (127-voxel body plus a 1-voxel halo) on a multi-tile grid, the grid
-   itself on a single tile.
-5. **Fold** (`band_fold`, kernel B2): the overlapping windows are summed
-   into the dense grid, with the ``* ow + bg`` epilogue fused.  A single
-   tile needs no fold: a reshape and the epilogue.
+   splat reads: ``[iy0, dly, (w,) dlx, ix0]`` per row in 2-D,
+   ``[iz0, dlz, iy0, dly, (w,) dlx, ix0]`` in 3-D.
+4. **Splat** (`fwd_splat`, kernel B1): every row adds its four (2-D) or
+   eight (3-D) multilinear weights into its tile's window
+   ``ext[b, tile]`` -- 128x128 fp32: a 127-voxel body plus a 1-voxel
+   halo per axis in 2-D, the flattened (8 z x 16 y) rows by 128 x
+   columns in 3-D, the grid itself on a single tile.
+5. **Fold**: the overlapping windows are summed into the dense grid with
+   the ``* ow + bg`` epilogue -- kernel B2 (`band_fold`) on a 2-D grid,
+   plain torch (`_fold`) in 3-D, as the JAX package runs it in XLA.  A
+   single tile needs no fold: a reshape and the epilogue.
 
 The pullback reuses the forward's frame (`raster_fwd_res`, the fused
 autograd pair) or builds its own (`raster_pullback`):
 
-6. **Unfold** (`band_unfold`, kernel B3): the cotangent is cut into the
-   same overlapping 128x128 windows, zero outside the grid.  A single
-   tile reads the cotangent itself.
+6. **Unfold**: the cotangent is cut into the same overlapping windows,
+   zero outside the grid -- kernel B3 (`band_unfold`) in 2-D, plain
+   torch (`_unfold`) in 3-D.  A single tile reads the cotangent itself.
 7. **Gather** (`bwd_gather`, kernel B4): every frame row reads its four
-   window values and writes ``[du_y, du_x, gw]``; rows of dead slots
-   write zeros.
+   (2-D) or eight (3-D) window values and writes ``[du_y, du_x, gw]`` or
+   ``[du_z, du_y, du_x, gw]``; rows of dead slots write zeros.
 8. **Unsort**: a scatter by the point-id plane puts the rows back in
    point order (a single tile keeps the order), and torch reductions
    finish the six gradients.
@@ -42,6 +46,7 @@ other device and never falls back.
 from __future__ import annotations
 
 import ctypes
+import itertools
 import math
 
 import torch
@@ -55,10 +60,11 @@ TILE = 128
 # A7) is not ported yet
 _SPLIT_TERMS = 2
 
-# kernel launches per wrapper: a run reads these to show that its path
-# went through the kernels (CPU twin calls do not count)
+# kernel launches per wrapper, the 3-D branches of B1 and B4 apart: a run
+# reads these to show that its path went through the kernels (CPU twin
+# calls do not count)
 LAUNCHES = {"fwd_splat": 0, "band_fold": 0, "band_unfold": 0,
-            "bwd_gather": 0}
+            "bwd_gather": 0, "fwd_splat_3d": 0, "bwd_gather_3d": 0}
 
 
 def tile_shape_for(grid_size):
@@ -81,8 +87,7 @@ def n_tiles(grid_size, ts=None):
 def supported(n_out: int, grid_size=None, n_points=None) -> bool:
     """CAPABILITY check, as in the JAX package: any 2D/3D grid up to the
     tile-count bound, point counts below 2^24 (point ids ride float32
-    planes).  3-D answers True so that `auto` picks what the JAX package
-    picks; the 3-D forward itself raises until ROADMAP A6."""
+    planes)."""
     if n_out not in (2, 3):
         return False
     if n_points is not None and n_points >= (1 << 24):
@@ -271,27 +276,55 @@ def _prep_direct(planes, fills, chunk):
         dim=1)
 
 
+def _flat_rows_3d(iz0, iy0, ts):
+    """The four (sz, sy) stencil rows of a 3-D window, flattened as
+    ``z * (ty + 1) + y``, in the order (0,0), (0,1), (1,0), (1,1), as f32;
+    a row whose z is outside [0, tz] or whose y is outside [0, ty] is -9,
+    which matches no window row."""
+    tz, ty = ts[0], ts[1]
+    rows = []
+    for sz in (0, 1):
+        for sy in (0, 1):
+            z = iz0 + sz
+            y = iy0 + sy
+            ok = (z >= 0) & (z <= tz) & (y >= 0) & (y <= ty)
+            rows.append(torch.where(ok, z * (ty + 1) + y, -9)
+                        .to(torch.float32))
+    return rows
+
+
 def _planes_fwd(coord, w):
-    """2-D lane planes (B, L, s_pad) f32 for the splat from the frame's
-    encoded coordinate planes ``coord`` (B, 2, s_pad) and the per-row
+    """Lane planes (B, L, s_pad) f32 for the splat from the frame's
+    encoded coordinate planes ``coord`` (B, n_out, s_pad) and the per-row
     weight plane ``w`` (B, s_pad), or ``w=None`` on the uniform-weight
-    path: ``[iy0, dly, w, dlx, ix0]`` (L = 5) or ``[iy0, dly, dlx, ix0]``
-    (L = 4).  Small integers ride as exact f32."""
+    path.  2-D: ``[iy0, dly, (w,) dlx, ix0]`` (L = 5 or 4); 3-D:
+    ``[iz0, dlz, iy0, dly, (w,) dlx, ix0]`` (L = 7 or 6).  Small integers
+    ride as exact f32."""
     f32 = torch.float32
-    iy0, dly = _decode_coord(coord[:, 0])
-    ix0, dlx = _decode_coord(coord[:, 1])
+    lane = []
+    for i in range(coord.shape[1] - 1):
+        r0, dl = _decode_coord(coord[:, i])
+        lane += [r0.to(f32), dl]
+    ix0, dlx = _decode_coord(coord[:, -1])
     w_rows = [] if w is None else [w]
-    return torch.stack([iy0.to(f32), dly] + w_rows + [dlx, ix0.to(f32)],
-                       dim=1)
+    return torch.stack(lane + w_rows + [dlx, ix0.to(f32)], dim=1)
 
 
-def _planes_bwd(coord):
-    """2-D lane planes (B, 4, s_pad) f32 for the gather from the frame's
-    encoded coordinate planes: ``[iy0, dly, ix0, dlx]``."""
+def _planes_bwd(coord, ts):
+    """Lane planes (B, Mb, s_pad) f32 for the gather from the frame's
+    encoded coordinate planes ``coord`` (B, n_out, s_pad).  2-D:
+    ``[iy0, dly, ix0, dlx]``; 3-D: ``[r00, r01, r10, r11, dlz, dly, ix0,
+    dlx]`` with the flat stencil rows of `_flat_rows_3d`."""
     f32 = torch.float32
-    iy0, dly = _decode_coord(coord[:, 0])
-    ix0, dlx = _decode_coord(coord[:, 1])
-    return torch.stack([iy0.to(f32), dly, ix0.to(f32), dlx], dim=1)
+    ix0, dlx = _decode_coord(coord[:, -1])
+    if coord.shape[1] == 2:
+        iy0, dly = _decode_coord(coord[:, 0])
+        sub = [iy0.to(f32), dly]
+    else:
+        iz0, dlz = _decode_coord(coord[:, 0])
+        iy0, dly = _decode_coord(coord[:, 1])
+        sub = _flat_rows_3d(iz0, iy0, ts) + [dlz, dly]
+    return torch.stack(sub + [ix0.to(f32), dlx], dim=1)
 
 
 def _slot_ranges(slot_tile, nt, dead=False):
@@ -317,38 +350,50 @@ def _slot_ranges(slot_tile, nt, dead=False):
 # ---------------------------------------------------------------------------
 
 
-def _fwd_splat_plain(slot_tile, lane, nt, rows_e, cols_e, chunk):
-    """Plain twin of B1: every live frame row adds ``(hy * w) * cx`` for
-    its four (row, col) targets into ``ext[b, tile]`` (B, nt, rows_e,
-    cols_e); targets outside the window are dropped.  Rows of dead slots
-    (past ``slot_tile[b, -1]``) add nothing."""
+def _fwd_splat_plain(slot_tile, lane, nt, win, chunk):
+    """Plain twin of B1.  `win` is the window's shape: ``(rows_e,
+    cols_e)`` in 2-D, ``(nz, ny, cols_e)`` in 3-D, whose window rows are
+    the flattened ``z * ny + y``.  Every live frame row adds its 2^n
+    multilinear weights, ``(hy * w) * cx`` in 2-D and ``((hz * hy) * w) *
+    cx`` in 3-D in that order of rounding, into ``ext[b, tile]`` (B, nt,
+    rows_e, cols_e).  A target outside the window on any axis is dropped
+    (in 3-D a row ``iy0 = -1`` must not alias into the z plane below).
+    Rows of dead slots (past ``slot_tile[b, -1]``) add nothing."""
     bsz, n_lane, s_pad = lane.shape
     dev = lane.device
+    n_out = len(win)
     n_slots = s_pad // chunk
-    iy0 = lane[:, 0].long()
-    dly = lane[:, 1]
+    # per axis before x: its first stencil index and its two hat weights
+    axes = [(lane[:, 2 * i].long(), (1.0 - lane[:, 2 * i + 1],
+                                     lane[:, 2 * i + 1]))
+            for i in range(n_out - 1)]
+    w = lane[:, 2 * n_out - 2] if n_lane == 2 * n_out + 1 else None
     dlx = lane[:, -2]
     ix0 = lane[:, -1].long()
-    hy = [1.0 - dly, dly]
-    if n_lane == 5:
-        hy = [h * lane[:, 2] for h in hy]
     cx = [1.0 - dlx, dlx]
     tile = torch.repeat_interleave(slot_tile[:, :n_slots].long(), chunk,
                                    dim=1)
     live = torch.repeat_interleave(
         torch.arange(n_slots, device=dev) < slot_tile[:, n_slots:], chunk,
         dim=1)
-    win = rows_e * cols_e
-    total = bsz * nt * win
-    base = (torch.arange(bsz, device=dev)[:, None] * nt + tile) * win
+    rows_e, cols_e = math.prod(win[:-1]), win[-1]
+    total = bsz * nt * rows_e * cols_e
+    base = ((torch.arange(bsz, device=dev)[:, None] * nt + tile) * rows_e
+            * cols_e)
     ext = torch.zeros(total + 1, dtype=torch.float32, device=dev)
-    for sy in (0, 1):
-        r = iy0 + sy
+    for shifts in itertools.product((0, 1), repeat=n_out - 1):
+        ok, r, hw = live, 0, None
+        for (r0, h), s, extent in zip(axes, shifts, win[:-1]):
+            ok = ok & (r0 + s >= 0) & (r0 + s < extent)
+            r = r * extent + r0 + s
+            hw = h[s] if hw is None else hw * h[s]
+        if w is not None:
+            hw = hw * w
         for sx in (0, 1):
             c = ix0 + sx
-            ok = live & (r >= 0) & (r < rows_e) & (c >= 0) & (c < cols_e)
-            idx = torch.where(ok, base + r * cols_e + c, total)
-            ext.index_add_(0, idx.reshape(-1), (hy[sy] * cx[sx]).reshape(-1))
+            ok_c = ok & (c >= 0) & (c < cols_e)
+            idx = torch.where(ok_c, base + r * cols_e + c, total)
+            ext.index_add_(0, idx.reshape(-1), (hw * cx[sx]).reshape(-1))
     return ext[:total].reshape(bsz, nt, rows_e, cols_e)
 
 
@@ -359,24 +404,28 @@ def _split_count(device, blocks):
     return max(1, min(16, -(-2 * n_sm // blocks)))
 
 
-def fwd_splat(slot_tile, lane, nt, rows_e, cols_e, chunk):
+def fwd_splat(slot_tile, lane, nt, win, chunk):
     """B1: splat the lane planes of a slot frame into the per-tile windows
-    -> ext (B, nt, rows_e, cols_e) f32.  CPU tensors take the plain twin,
-    CUDA tensors the kernel in `csrc/fwd_splat.cu`."""
+    of shape `win` -> ext (B, nt, rows_e, cols_e) f32 (see
+    `_fwd_splat_plain`).  CPU tensors take the plain twin, CUDA tensors
+    the kernel in `csrc/fwd_splat.cu`."""
     if lane.device.type == "cpu":
-        return _fwd_splat_plain(slot_tile, lane, nt, rows_e, cols_e, chunk)
+        return _fwd_splat_plain(slot_tile, lane, nt, win, chunk)
     _check_cuda("fwd_splat", slot_tile, torch.int32, lane, torch.float32)
     bsz, n_lane, s_pad = lane.shape
+    n_out = len(win)
     n_slots = s_pad // chunk
-    if n_lane not in (4, 5) or s_pad != n_slots * chunk or \
+    if n_out not in (2, 3) or n_lane not in (2 * n_out, 2 * n_out + 1) \
+            or s_pad != n_slots * chunk or \
             slot_tile.shape != (bsz, n_slots + 1):
-        raise ValueError(f"fwd_splat: lane {tuple(lane.shape)} and slot "
-                         f"table {tuple(slot_tile.shape)} do not form a "
-                         f"frame of chunk {chunk}")
+        raise ValueError(f"fwd_splat: lane {tuple(lane.shape)}, slot table "
+                         f"{tuple(slot_tile.shape)} and window {win} do not "
+                         f"form a frame of chunk {chunk}")
+    rows_e, cols_e = math.prod(win[:-1]), win[-1]
     if rows_e * cols_e * 4 > _build.MAX_WINDOW_BYTES or bsz > 65535 \
             or nt > 65535:
-        raise ValueError(f"fwd_splat: window {rows_e}x{cols_e}, B={bsz}, "
-                         f"nt={nt} exceed the kernel's launch bounds")
+        raise ValueError(f"fwd_splat: window {win}, B={bsz}, nt={nt} exceed "
+                         f"the kernel's launch bounds")
     dev = lane.device
     first, end = _slot_ranges(slot_tile, nt)
     nsplit = _split_count(dev, bsz * nt)
@@ -384,10 +433,10 @@ def fwd_splat(slot_tile, lane, nt, rows_e, cols_e, chunk):
     ext = alloc((bsz, nt, rows_e, cols_e), dtype=torch.float32, device=dev)
     lib = _build.load()
     rc = lib.dprast_fwd_splat(
-        _ptr(lane), _ptr(first), _ptr(end), _ptr(ext), bsz, nt, n_lane,
-        s_pad, chunk, rows_e, cols_e, nsplit, _stream(dev))
+        _ptr(lane), _ptr(first), _ptr(end), _ptr(ext), bsz, nt, n_out,
+        n_lane, s_pad, chunk, win[-2], rows_e, cols_e, nsplit, _stream(dev))
     _raise_on(rc, "fwd_splat")
-    LAUNCHES["fwd_splat"] += 1
+    LAUNCHES["fwd_splat_3d" if n_out == 3 else "fwd_splat"] += 1
     return ext
 
 
@@ -547,27 +596,28 @@ def band_unfold(g, grid_size, ts):
 
 
 def _bwd_gather_plain(slot_tile, lane_b, win, chunk):
-    """Plain twin of B4.  Every live frame row reads the four values
-    ``p{sy}{sx} = win[b, tile, iy0 + sy, ix0 + sx]`` (0 outside the
-    window) and writes, in this order of rounding,
+    """Plain twin of B4.  In 2-D every live frame row reads the four
+    values ``p{sy}{sx} = win[b, tile, iy0 + sy, ix0 + sx]`` (0 outside
+    the window) and writes, in this order of rounding,
 
         a = (1 - dly) * p00 + dly * p10      b = (1 - dly) * p01 + dly * p11
         gw   = a * (1 - dlx) + b * dlx
         du_y = (p10 - p00) * (1 - dlx) + (p11 - p01) * dlx
         du_x = b - a
 
-    -> buf (B, 3, s_pad) ``[du_y, du_x, gw]``.  Rows of dead slots (past
+    -> buf (B, 3, s_pad) ``[du_y, du_x, gw]``.  In 3-D it reads the four
+    flat stencil rows ``r{sz}{sy}`` of the lane planes (-9 reads 0) at
+    columns ``ix0`` and ``ix0 + 1`` and writes (B, 4, s_pad) ``[du_z,
+    du_y, du_x, gw]``, see `_combine_3d`.  Rows of dead slots (past
     ``slot_tile[b, -1]``) are zeros.  `win` is (B, nt, rows_e, cols_e),
     or the whole single-tile grid (B, gy, gx)."""
-    bsz, _, s_pad = lane_b.shape
+    bsz, n_lane, s_pad = lane_b.shape
     dev = lane_b.device
     n_slots = s_pad // chunk
     win = win.reshape((bsz, -1) + tuple(win.shape[-2:]))
     rows_e, cols_e = win.shape[-2:]
-    iy0 = lane_b[:, 0].long()
-    dly = lane_b[:, 1]
-    ix0 = lane_b[:, 2].long()
-    dlx = lane_b[:, 3]
+    ix0 = lane_b[:, -2].long()
+    dlx = lane_b[:, -1]
     tile = torch.repeat_interleave(slot_tile[:, :n_slots].long(), chunk,
                                    dim=1)
     live = torch.repeat_interleave(
@@ -583,31 +633,60 @@ def _bwd_gather_plain(slot_tile, lane_b, win, chunk):
         return torch.gather(flat, 1, torch.where(ok, base + r * cols_e + c,
                                                  total))
 
-    p00, p01 = at(iy0, ix0), at(iy0, ix0 + 1)
-    p10, p11 = at(iy0 + 1, ix0), at(iy0 + 1, ix0 + 1)
-    omy = 1.0 - dly
-    a = omy * p00 + dly * p10
-    b = omy * p01 + dly * p11
     omx = 1.0 - dlx
+    if n_lane == 4:
+        iy0 = lane_b[:, 0].long()
+        dly = lane_b[:, 1]
+        p00, p01 = at(iy0, ix0), at(iy0, ix0 + 1)
+        p10, p11 = at(iy0 + 1, ix0), at(iy0 + 1, ix0 + 1)
+        omy = 1.0 - dly
+        a = omy * p00 + dly * p10
+        b = omy * p01 + dly * p11
+        rows = [(p10 - p00) * omx + (p11 - p01) * dlx]
+    else:
+        dlz, dly = lane_b[:, 4], lane_b[:, 5]
+        # (v, d/du_z pre-term, d/du_y pre-term) at the columns ix0, ix0+1
+        lo, hi = (_combine_3d([at(lane_b[:, i].long(), c) for i in range(4)],
+                              dlz, dly) for c in (ix0, ix0 + 1))
+        a, b = lo[0], hi[0]
+        rows = [lo[1] * omx + hi[1] * dlx, lo[2] * omx + hi[2] * dlx]
     gw = a * omx + b * dlx
-    du_y = (p10 - p00) * omx + (p11 - p01) * dlx
-    du_x = b - a
-    buf = torch.stack([du_y, du_x, gw], dim=1)
+    buf = torch.stack(rows + [b - a, gw], dim=1)
     return torch.where(live[:, None, :], buf, 0.0)
+
+
+def _combine_3d(p, dlz, dly):
+    """The 3-D stencil at one x column, from the values ``p = [p00, p01,
+    p10, p11]`` of its flat rows ``r{sz}{sy}``, in the JAX kernel's order
+    of rounding:
+
+        y0 = (1 - dly) * p00 + dly * p01     y1 = (1 - dly) * p10 + dly * p11
+        v  = (1 - dlz) * y0 + dlz * y1
+        dz = y1 - y0
+        dy = (1 - dlz) * (p01 - p00) + dlz * (p11 - p10)
+
+    -> (v, dz, dy)."""
+    p00, p01, p10, p11 = p
+    omy, omz = 1.0 - dly, 1.0 - dlz
+    y0 = omy * p00 + dly * p01
+    y1 = omy * p10 + dly * p11
+    return (omz * y0 + dlz * y1, y1 - y0,
+            omz * (p01 - p00) + dlz * (p11 - p10))
 
 
 def bwd_gather(slot_tile, lane_b, win, chunk):
     """B4: gather the cotangent windows at every frame row -> buf
-    (B, 3, s_pad) ``[du_y, du_x, gw]`` (see `_bwd_gather_plain`).  CPU
-    tensors take the plain twin, CUDA tensors the kernel in
-    `csrc/bwd_gather.cu`."""
+    (B, n_out + 1, s_pad) ``[du_y, du_x, gw]`` in 2-D, ``[du_z, du_y,
+    du_x, gw]`` in 3-D (see `_bwd_gather_plain`).  CPU tensors take the
+    plain twin, CUDA tensors the kernel in `csrc/bwd_gather.cu`."""
     if lane_b.device.type == "cpu":
         return _bwd_gather_plain(slot_tile, lane_b, win, chunk)
     _check_cuda("bwd_gather", slot_tile, torch.int32, lane_b, torch.float32,
                 win, torch.float32)
     bsz, n_lane, s_pad = lane_b.shape
+    n_out = {4: 2, 8: 3}.get(n_lane)
     n_slots = s_pad // chunk
-    if n_lane != 4 or s_pad != n_slots * chunk or \
+    if n_out is None or s_pad != n_slots * chunk or \
             slot_tile.shape != (bsz, n_slots + 1):
         raise ValueError(f"bwd_gather: lane {tuple(lane_b.shape)} and slot "
                          f"table {tuple(slot_tile.shape)} do not form a "
@@ -626,13 +705,14 @@ def bwd_gather(slot_tile, lane_b, win, chunk):
     # range nt holds the dead slots, which the kernel zeroes
     first, end = _slot_ranges(slot_tile, nt, dead=True)
     nsplit = _split_count(dev, bsz * nt)
-    buf = torch.empty((bsz, 3, s_pad), dtype=torch.float32, device=dev)
+    buf = torch.empty((bsz, n_out + 1, s_pad), dtype=torch.float32,
+                      device=dev)
     lib = _build.load()
     rc = lib.dprast_bwd_gather(
         _ptr(lane_b), _ptr(first), _ptr(end), _ptr(win), _ptr(buf), bsz, nt,
-        s_pad, chunk, rows_e, cols_e, nsplit, _stream(dev))
+        n_out, s_pad, chunk, rows_e, cols_e, nsplit, _stream(dev))
     _raise_on(rc, "bwd_gather")
-    LAUNCHES["bwd_gather"] += 1
+    LAUNCHES["bwd_gather_3d" if n_out == 3 else "bwd_gather"] += 1
     return buf
 
 
@@ -682,12 +762,7 @@ def _raise_on(rc, name):
 
 
 def _check_args(grid_size, p):
-    n_out = len(grid_size)
-    if n_out == 3:
-        raise NotImplementedError(
-            "the binned backend's 3-D forward and pullback are not ported "
-            "yet (ROADMAP A6)")
-    if not supported(n_out, grid_size, p):
+    if not supported(len(grid_size), grid_size, p):
         raise ValueError(f"binned backend does not support grid="
                          f"{grid_size} P={p}")
     if p == 0:
@@ -696,10 +771,11 @@ def _check_args(grid_size, p):
 
 def _fwd_frame(grid_size, points, rotation, translation, point_weight,
                pw_uniform):
-    """Coordinates -> frame -> lane planes for a 2-D grid.  Returns the
-    arguments of `fwd_splat`, ``(slot_tile, lane, nt, rows_e, cols_e,
-    chunk)``, and the frame's planes ``data`` (B, 3 | 4, s_pad):
-    ``[y, x, (w,) point id]``."""
+    """Coordinates -> frame -> lane planes.  Returns the arguments of
+    `fwd_splat`, ``(slot_tile, lane, nt, win, chunk)``, and the frame's
+    planes ``data`` (B, n_out + 1 | n_out + 2, s_pad): ``[coords...,
+    (w,) point id]``."""
+    n_out = len(grid_size)
     ts = tile_shape_for(grid_size)
     halo = not _single_tile(grid_size)
     p = points.shape[0]
@@ -708,7 +784,7 @@ def _fwd_frame(grid_size, points, rotation, translation, point_weight,
     key, locs, nt = _keys_and_local(grid_size, ts, points, rotation,
                                     translation)
     planes = list(locs)
-    fills = [0.0, 0.0]                              # enc 0 = inert
+    fills = [0.0] * n_out                           # enc 0 = inert
     if not pw_uniform:
         # the per-row weight plane carries the POINT weight only; the
         # per-pose out_weight is applied after the fold (the splat is
@@ -727,10 +803,11 @@ def _fwd_frame(grid_size, points, rotation, translation, point_weight,
                                        pack_idx=True)
     else:
         data, slot_tile = _prep_direct(planes, fills, chunk)
-    w_plane = None if pw_uniform else data[:, 2]
-    lane = _planes_fwd(data[:, :2], w_plane).contiguous()
-    rows_e, cols_e = (t + 1 for t in ts) if halo else ts
-    return (slot_tile.contiguous(), lane, nt, rows_e, cols_e, chunk), data
+    w_plane = None if pw_uniform else data[:, n_out]
+    lane = _planes_fwd(data[:, :n_out], w_plane).contiguous()
+    # the window: body + 1 halo voxel per axis, or the single tile itself
+    win = tuple(t + 1 for t in ts) if halo else tuple(ts)
+    return (slot_tile.contiguous(), lane, nt, win, chunk), data
 
 
 def raster_fwd(grid_size, points, rotation, translation, background,
@@ -759,7 +836,9 @@ def _fwd_impl(grid_size, points, rotation, translation, background,
               out_weight, point_weight, *, pw_uniform=False,
               with_residuals=False, splat=fwd_splat, fold=band_fold):
     """`raster_fwd_res` with its two kernel stages as arguments, so a
-    measurement can run the same forward through the plain twins.
+    measurement can run the same forward through the plain twins.  The
+    `fold` stage serves multi-tile 2-D grids; a single tile and every
+    3-D grid take the plain `_fold` and epilogue, as in the JAX package.
     Returns ``(out, residuals or None)``."""
     _check_args(grid_size, points.shape[0])
     splat_args, data = _fwd_frame(grid_size, points, rotation, translation,
@@ -773,11 +852,13 @@ def _fwd_impl(grid_size, points, rotation, translation, background,
         ow_eff = ow_eff * point_weight.to(f32)[0]
     bg_f = background.to(f32)
     ts = tile_shape_for(grid_size)
-    if _single_tile(grid_size):
-        out = (_fold(ext, grid_size, ts, False) * ow_eff[:, None, None]
-               + bg_f[:, None, None])
-    else:
+    n_out = len(grid_size)
+    if n_out == 2 and not _single_tile(grid_size):
         out = fold(ext, grid_size, ts, ow_eff.contiguous(), bg_f.contiguous())
+    else:
+        bcast = (-1,) + (1,) * n_out
+        out = (_fold(ext, grid_size, ts, not _single_tile(grid_size))
+               * ow_eff.reshape(bcast) + bg_f.reshape(bcast))
     dtype = torch.promote_types(points.dtype, torch.promote_types(
         rotation.dtype, translation.dtype))
     res = (data, splat_args[0]) if with_residuals else None
@@ -790,9 +871,9 @@ def _fwd_impl(grid_size, points, rotation, translation, background,
 
 
 def _bwd_frame(grid_size, points, rotation, translation):
-    """The standalone pullback's frame: ``(data (B, 3, s_pad) [y, x,
-    point id], slot_tile, chunk)``.  Unlike the forward's, it gives an
-    empty tile no slot (``min_chunk_per_tile=False``)."""
+    """The standalone pullback's frame: ``(data (B, n_out + 1, s_pad)
+    [coords..., point id], slot_tile, chunk)``.  Unlike the forward's, it
+    gives an empty tile no slot (``min_chunk_per_tile=False``)."""
     ts = tile_shape_for(grid_size)
     p = points.shape[0]
     bsz = rotation.shape[0]
@@ -804,7 +885,7 @@ def _bwd_frame(grid_size, points, rotation, translation):
     # after the unsort, in point order
     ptidx = torch.arange(p, dtype=torch.float32, device=points.device)
     planes = list(locs) + [ptidx[None, :].expand(bsz, p)]
-    fills = [0.0, 0.0, float(p)]
+    fills = [0.0] * len(grid_size) + [float(p)]
     if _single_tile(grid_size):
         data, slot_tile = _prep_direct(planes, fills, chunk)
     else:
@@ -829,17 +910,18 @@ def raster_pullback(grid_size, points, rotation, translation, background,
     data, slot_tile, chunk = _bwd_frame(grid_size, points, rotation,
                                         translation)
     return _pullback_from_frame(
-        grid_size, data[:, :2], data[:, 2], slot_tile, points, rotation,
+        grid_size, data[:, :-1], data[:, -1], slot_tile, points, rotation,
         out_weight, point_weight, ds_dout, chunk=chunk,
         pw_uniform=pw_uniform)
 
 
 def _residual_planes(residuals, pw_uniform):
     """The forward's residual frame -> ``(coord, idx_rows, slot_tile)``;
-    the point-id plane follows the weight plane, which the uniform path
-    leaves out."""
+    the point-id plane is the last, after the weight plane, which the
+    uniform path leaves out."""
     data, slot_tile = residuals
-    return data[:, :2], data[:, 2 if pw_uniform else 3], slot_tile
+    n_out = data.shape[1] - (1 if pw_uniform else 2)
+    return data[:, :n_out], data[:, -1], slot_tile
 
 
 def raster_pullback_res(grid_size, residuals, args, ds_dout, *,
@@ -860,7 +942,9 @@ def _pullback_from_frame(grid_size, coord, idx_rows, slot_tile, points,
                          chunk, pw_uniform=False, unfold=band_unfold,
                          gather=bwd_gather):
     """The pullback from a frame, with its two kernel stages as arguments
-    (as in `_fwd_impl`)."""
+    (as in `_fwd_impl`).  The `unfold` stage serves multi-tile 2-D grids;
+    3-D grids take the plain `_unfold`, as in the JAX package."""
+    n_out = len(grid_size)
     ts = tile_shape_for(grid_size)
     halo = not _single_tile(grid_size)
     bsz = rotation.shape[0]
@@ -868,36 +952,40 @@ def _pullback_from_frame(grid_size, coord, idx_rows, slot_tile, points,
     f32 = torch.float32
     g_cot = ds_dout.to(f32).contiguous()
     # the single tile's window is the cotangent itself
-    g_in = unfold(g_cot, grid_size, ts) if halo else g_cot
-    buf = gather(slot_tile, _planes_bwd(coord).contiguous(), g_in, chunk)
+    if not halo:
+        g_in = g_cot
+    else:
+        g_in = (unfold if n_out == 2 else _unfold)(g_cot, grid_size, ts)
+    buf = gather(slot_tile, _planes_bwd(coord, ts).contiguous(), g_in,
+                 chunk)
 
     # back to point order; on the uniform-weight path the weight-gradient
     # plane skips the unsort (its sums are order-free, and every
     # non-point row of the frame is exactly zero)
     if halo:
-        n_uns = 2 if pw_uniform else 3
+        n_uns = n_out if pw_uniform else n_out + 1
         per = _unsort(buf[:, :n_uns], idx_rows, p)
     else:
         per = buf[:, :, :p]
-    du_pt = per[:, :2]                                    # (B, 2, P)
+    du_pt = per[:, :n_out]                                # (B, n_out, P)
 
     scale = torch.tensor(grid_size, dtype=f32, device=buf.device) / 2
     ow = out_weight.to(f32)
     pw = point_weight.to(f32)
-    # scaled_i = du_i * (g_i/2) * ow * pw   (B, 2, P)
+    # scaled_i = du_i * (g_i/2) * ow * pw   (B, n_out, P)
     scaled = (du_pt * scale[None, :, None]
               * (ow[:, None, None] * pw[None, None, :]))
 
-    d_t = torch.sum(scaled, dim=-1)                       # (B, 2)
+    d_t = torch.sum(scaled, dim=-1)                       # (B, n_out)
     d_r = torch.einsum("bns,si->bni", scaled, points.to(f32))
     d_bg = torch.sum(g_cot.reshape(bsz, -1), dim=-1)
     d_points = torch.einsum("bns,bni->si", scaled, rotation.to(f32))
     if pw_uniform and halo:
-        gw_sums = torch.sum(buf[:, 2], dim=-1)            # (B,)
+        gw_sums = torch.sum(buf[:, n_out], dim=-1)        # (B,)
         d_ow = gw_sums * pw[0]
         d_pw = (torch.dot(gw_sums, ow) / p).repeat(p)
     else:
-        gw_pt = per[:, 2]                                 # (B, P)
+        gw_pt = per[:, n_out]                             # (B, P)
         d_ow = torch.einsum("bs,s->b", gw_pt, pw)
         d_pw = torch.einsum("bs,b->s", gw_pt, ow)
 

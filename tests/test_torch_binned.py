@@ -48,7 +48,7 @@ def _frame_planes(grid, pts, rot, tr, pw, weighted):
         torch.from_numpy(tr))
     b, p = key.shape
     planes = list(locs)
-    fills = [0.0, 0.0]
+    fills = [0.0] * len(grid)
     if weighted:
         planes.append(torch.from_numpy(pw)[None].expand(b, p))
         fills.append(0.0)
@@ -71,12 +71,20 @@ def _random_cloud(grid=(300, 200), n_points=700):
     return grid, pts, rot, tr, pw
 
 
+def _volume_cloud(grid=(9, 17, 130), n_points=300):
+    pts, rot, tr, _, _, pw = _f32(fixtures(seed=11, n_points=n_points,
+                                           batch_size=2, n_in=3, n_out=3))
+    return grid, pts, rot, tr, pw
+
+
 FRAMES = {
     "packed": (_random_cloud, True, True),
     "payload": (_random_cloud, False, True),
     "payload-uniform": (_random_cloud, False, False),
     "sparse-packed": (_sparse_cloud, True, False),
     "sparse-payload": (_sparse_cloud, False, True),
+    "3d-packed": (_volume_cloud, True, False),
+    "3d-payload": (_volume_cloud, False, True),
 }
 
 
@@ -162,7 +170,7 @@ def test_fwd_splat_twin_matches_loop():
     data, slot_tile = tbin._prep_binned(key, planes, fills, nt, 128, True,
                                         pack_idx=True)
     lane = tbin._planes_fwd(data[:, :2], data[:, 2])
-    ext = tbin.fwd_splat(slot_tile, lane, nt, 128, 128, 128).numpy()
+    ext = tbin.fwd_splat(slot_tile, lane, nt, (128, 128), 128).numpy()
     ref = np.zeros_like(ext, dtype=np.float64)
     ln, st = lane.numpy().astype(np.float64), slot_tile.numpy()
     for b in range(ln.shape[0]):
@@ -253,11 +261,225 @@ def test_host_rules_match():
         jbin._slot_frame_size(1000, 9, 128)
 
 
-def test_3d_forward_not_ported_yet():
-    fx = _f32(fixtures(seed=1, n_points=20, batch_size=2, n_in=3, n_out=3))
-    assert tbin.supported(3, (16, 16, 16))
-    with pytest.raises(NotImplementedError, match="A6"):
-        dprast_torch.raster((16, 16, 16), *fx, backend="binned")
+# ---------------------------------------------------------------------------
+# 3-D grids
+# ---------------------------------------------------------------------------
+
+
+def test_flat_rows_3d_bit_equal():
+    """The four flat stencil rows, -9 where z or y leaves the window."""
+    rng = np.random.default_rng(2)
+    iz0 = rng.integers(-3, 9, 500).astype(np.int32)
+    iy0 = rng.integers(-3, 17, 500).astype(np.int32)
+    ts = tbin.tile_shape_for((128, 128, 128))
+    rows = tbin._flat_rows_3d(torch.from_numpy(iz0), torch.from_numpy(iy0),
+                              ts)
+    j_rows, _ = jbin._flat_rows_3d(jnp.asarray(iz0), jnp.zeros(500),
+                                   jnp.asarray(iy0), jnp.zeros(500), ts)
+    assert len(rows) == 4
+    for r, j in zip(rows, j_rows):
+        assert r.dtype == torch.float32
+        np.testing.assert_array_equal(r.numpy(), np.asarray(j))
+    assert (rows[3].numpy() == -9).any() and (rows[0].numpy() >= 0).any()
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_lane_planes_3d_bit_equal(weighted):
+    grid, pts, rot, tr, pw = _volume_cloud()
+    key, planes, fills, nt = _frame_planes(grid, pts, rot, tr, pw, weighted)
+    data, _ = tbin._prep_binned(key, planes, fills, nt, 128, True,
+                                pack_idx=True)
+    ts = tbin.tile_shape_for(grid)
+    lane = tbin._planes_fwd(data[:, :3], data[:, 3] if weighted else None)
+    lane_b = tbin._planes_bwd(data[:, :3], ts)
+    jd = jnp.asarray(data.numpy())
+    j_lane = jbin._planes_fwd(jd[:, :3], jd[:, 3] if weighted else None,
+                              ts, 3)
+    j_lane_b = jbin._planes_bwd(jd[:, :3], ts, 3)
+    assert lane.shape[1] == (7 if weighted else 6) and lane_b.shape[1] == 8
+    np.testing.assert_array_equal(lane.numpy().view(np.int32),
+                                  np.asarray(j_lane).view(np.int32))
+    np.testing.assert_array_equal(lane_b.numpy().view(np.int32),
+                                  np.asarray(j_lane_b).view(np.int32))
+
+
+@pytest.mark.parametrize("grid", [(8, 16, 200), (128, 128, 128)])
+def test_fold_unfold_3d_bit_equal(grid):
+    """The plain fold and unfold, which the 3-D forward and pullback run,
+    against JAX's (the unfold through a transpose), and adjoint."""
+    ts = tbin.tile_shape_for(grid)
+    nt = tbin.n_tiles(grid)
+    rng = np.random.default_rng(1)
+    ext = rng.standard_normal((2, nt, 128, 128)).astype(np.float32)
+    out = tbin._fold(torch.from_numpy(ext), grid, ts, True)
+    assert out.shape == (2,) + grid
+    np.testing.assert_array_equal(
+        out.numpy(), np.asarray(jbin._fold(jnp.asarray(ext), grid, ts,
+                                           True)))
+    u = rng.standard_normal((2,) + grid).astype(np.float32)
+    win = tbin._unfold(torch.from_numpy(u), grid, ts)
+    ref = jbin._unfold(jnp.asarray(u), grid, ts, transposed=True)
+    assert win.shape == (2, nt, 128, 128)
+    np.testing.assert_array_equal(win.numpy(),
+                                  np.asarray(jnp.swapaxes(ref, -1, -2)))
+    x = torch.from_numpy(ext).double()
+    np.testing.assert_allclose(
+        np.vdot(u.astype(np.float64), tbin._fold(x, grid, ts, True).numpy()),
+        np.vdot(win.double().numpy(), x.numpy()), rtol=1e-12)
+
+
+def _edge_volume():
+    """A 3-D cloud on (16, 16, 16) (six tiles) with points just below the
+    grid's lower y edge in every z plane of a tile, so that frame rows
+    with ``iy0 = -1`` and ``iz0 >= 1`` occur (a flat-row bound check
+    would alias them into the z plane below), points off the grid, and
+    filler rows."""
+    rng = np.random.default_rng(3)
+    pts = (rng.standard_normal((160, 3)) * 0.5).astype(np.float32)
+    # u = (q + 1) * 8 - 1/2 in (-1, 0) on the y axis
+    pts[:40, 1] = rng.uniform(-1.06, -1.0, 40)
+    rot = np.stack([np.eye(3, dtype=np.float32),
+                    np.eye(3, dtype=np.float32)[[0, 2, 1]]])
+    tr = np.zeros((2, 3), np.float32)
+    pw = rng.uniform(0.5, 2.0, 160).astype(np.float32)
+    return (16, 16, 16), pts, rot, tr, pw
+
+
+def _live_rows(slot_tile, chunk):
+    """(b, row, tile) of every row of a live slot."""
+    st = slot_tile.numpy()
+    for b in range(st.shape[0]):
+        for row in range(st[b, -1] * chunk):
+            yield b, row, st[b, row // chunk]
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_fwd_splat_twin_3d_matches_loop(weighted):
+    """B1's 3-D twin against a per-row loop that masks each axis."""
+    grid, pts, rot, tr, pw = _edge_volume()
+    key, planes, fills, nt = _frame_planes(grid, pts, rot, tr, pw, weighted)
+    data, slot_tile = tbin._prep_binned(key, planes, fills, nt, 128, True,
+                                        pack_idx=True)
+    lane = tbin._planes_fwd(data[:, :3], data[:, 3] if weighted else None)
+    ext = tbin.fwd_splat(slot_tile, lane, nt, (8, 16, 128), 128).numpy()
+    ref = np.zeros(ext.shape, np.float64)
+    ln = lane.numpy().astype(np.float64)
+    aliasing = 0
+    for b, row, tile in _live_rows(slot_tile, 128):
+        iz0, dlz, iy0, dly = ln[b, :4, row]
+        w = ln[b, 4, row] if weighted else 1.0
+        dlx, ix0 = ln[b, -2:, row]
+        aliasing += iy0 == -1 and iz0 >= 1
+        for z, hz in ((int(iz0), 1 - dlz), (int(iz0) + 1, dlz)):
+            for y, hy in ((int(iy0), 1 - dly), (int(iy0) + 1, dly)):
+                for x, cx in ((int(ix0), 1 - dlx), (int(ix0) + 1, dlx)):
+                    if 0 <= z < 8 and 0 <= y < 16 and 0 <= x < 128:
+                        ref[b, tile, z * 16 + y, x] += hz * hy * w * cx
+    assert aliasing > 0
+    assert (ln[:, 0] == -3).any()                     # filler rows
+    assert _scaled_err(ext, ref) < 1e-6
+
+
+def test_bwd_gather_twin_3d_matches_loop():
+    """B4's 3-D twin against a per-row loop over the decoded (z, y, x)
+    stencil; rows of dead slots are zeros."""
+    grid, pts, rot, tr, _ = _edge_volume()
+    data, slot_tile, chunk = tbin._bwd_frame(
+        grid, *(torch.from_numpy(a) for a in (pts, rot, tr)))
+    ts = tbin.tile_shape_for(grid)
+    g = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (2,) + grid).astype(np.float32))
+    win = tbin._unfold(g, grid, ts)
+    buf = tbin.bwd_gather(slot_tile, tbin._planes_bwd(data[:, :3], ts), win,
+                          chunk).numpy()
+    assert buf.shape == (2, 4, data.shape[-1])
+    w4 = win.double().numpy()
+    dec = [[v.double().numpy() for v in tbin._decode_coord(data[:, i])]
+           for i in range(3)]
+    ref = np.zeros(buf.shape, np.float64)
+    for b, row, tile in _live_rows(slot_tile, chunk):
+        (iz0, dlz), (iy0, dly), (ix0, dlx) = [(int(r[b, row]), d[b, row])
+                                              for r, d in dec]
+
+        def at(z, y, x):
+            ok = 0 <= z < 8 and 0 <= y < 16 and 0 <= x < 128
+            return w4[b, tile, z * 16 + y, x] if ok else 0.0
+
+        p = np.array([[[at(iz0 + sz, iy0 + sy, ix0 + sx) for sx in (0, 1)]
+                       for sy in (0, 1)] for sz in (0, 1)])
+        hz, hy, hx = ([1 - d, d] for d in (dlz, dly, dlx))
+        ref[b, :, row] = (
+            sum(hy[sy] * hx[sx] * (p[1, sy, sx] - p[0, sy, sx])
+                for sy in (0, 1) for sx in (0, 1)),
+            sum(hz[sz] * hx[sx] * (p[sz, 1, sx] - p[sz, 0, sx])
+                for sz in (0, 1) for sx in (0, 1)),
+            sum(hz[sz] * hy[sy] * (p[sz, sy, 1] - p[sz, sy, 0])
+                for sz in (0, 1) for sy in (0, 1)),
+            sum(hz[sz] * hy[sy] * hx[sx] * p[sz, sy, sx]
+                for sz in (0, 1) for sy in (0, 1) for sx in (0, 1)))
+    assert _scaled_err(buf, ref) < 1e-6
+    st = slot_tile.numpy()
+    for b in range(2):
+        assert not buf[b, :, st[b, -1] * chunk:].any()
+
+
+VOLUMES = [(8, 16, 128), (16, 16, 16), (9, 17, 130)]
+VOLUME_IDS = ["x".join(map(str, g)) for g in VOLUMES]
+
+
+def _volume_args(n_points=300):
+    return _f32(fixtures(seed=6, n_points=n_points, batch_size=2, n_in=3,
+                         n_out=3))
+
+
+@pytest.mark.parametrize("grid", VOLUMES, ids=VOLUME_IDS)
+@pytest.mark.parametrize("weighted", [False, True])
+def test_raster_binned_3d_matches_jax_and_oracle(grid, weighted):
+    """The 3-D forward through `raster` against the f64 oracle (1e-5) and
+    the JAX binned backend (2e-5: its splat rounds through a two-term
+    bf16 split, about 3e-6 from the oracle here)."""
+    pts, rot, tr, bg, ow, pw = _volume_args()
+    if not weighted:
+        pw = np.ones_like(pw)
+    jargs = [jnp.asarray(a) for a in (pts, rot, tr, bg, ow, pw)]
+    ref_jax = np.asarray(jbin.raster_fwd(grid, *jargs,
+                                         pw_uniform=not weighted))
+    ref_f64 = raster_numpy(grid, *(a.astype(np.float64)
+                                   for a in (pts, rot, tr, bg, ow, pw)))
+    out = dprast_torch.raster(grid, pts, rot, tr, bg, ow,
+                              pw if weighted else None, backend="binned")
+    assert out.dtype == torch.float32 and out.shape == ref_f64.shape
+    assert _scaled_err(out.numpy(), ref_f64) < TOL
+    assert _scaled_err(out.numpy(), ref_jax) < 2e-5
+
+
+@pytest.mark.parametrize("grid", VOLUMES, ids=VOLUME_IDS)
+@pytest.mark.parametrize("form", ["weighted", "uniform", "scalar"])
+def test_pullback_binned_3d_matches_jax_and_oracle(grid, form):
+    """All six 3-D gradients of the public `raster_pullback` against the
+    f64 oracle (1e-5) and the JAX binned pullback (2e-5): a per-point
+    weight, a defaulted one (exact per-point d_pw) and a scalar 1.7 (the
+    uniform path, summed d_pw)."""
+    pts, rot, tr, bg, ow, pw = _volume_args()
+    w = {"weighted": pw, "uniform": None, "scalar": 1.7}[form]
+    pw_full = np.broadcast_to(np.float32(1.0 if w is None else w),
+                              pw.shape) if form != "weighted" else pw
+    g = np.random.default_rng(6).standard_normal((2,) + grid).astype(
+        np.float32)
+    res = dprast_torch.raster_pullback(g, pts, rot, tr, bg, ow, w,
+                                       backend="binned")
+    arrays = (pts, rot, tr, bg, ow, np.ascontiguousarray(pw_full), g)
+    ref_j = jbin.raster_pullback(grid, *map(jnp.asarray, arrays),
+                                 pw_uniform=form == "scalar")
+    ref_np = raster_pullback_numpy(grid, *arrays)
+    for name in ref_np:
+        out, ref, ref_jn = (getattr(res, name).numpy(), ref_np[name],
+                            np.asarray(getattr(ref_j, name)))
+        if form == "scalar" and name == "point_weight":
+            ref, ref_jn = ref.sum(), ref_jn.sum()
+        assert out.shape == np.shape(ref), name
+        assert _scaled_err(out, ref) < TOL, name
+        assert _scaled_err(out, ref_jn) < 2e-5, name
 
 
 def test_wrappers_run_the_twin_only_on_cpu():
@@ -266,7 +488,7 @@ def test_wrappers_run_the_twin_only_on_cpu():
     lane = torch.zeros((1, 4, 128), device="meta")
     st = torch.zeros((1, 2), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
-        tbin.fwd_splat(st, lane, 1, 8, 8, 128)
+        tbin.fwd_splat(st, lane, 1, (8, 8), 128)
     ext = torch.zeros((1, 4, 128, 128), device="meta")
     ow = torch.ones((1,), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
@@ -276,8 +498,15 @@ def test_wrappers_run_the_twin_only_on_cpu():
                          (200, 200), (127, 127))
     with pytest.raises(ValueError, match="CUDA"):
         tbin.bwd_gather(st, lane, ext, 128)
+    with pytest.raises(ValueError, match="CUDA"):
+        tbin.fwd_splat(st, torch.zeros((1, 6, 128), device="meta"), 1,
+                       (8, 16, 128), 128)
+    with pytest.raises(ValueError, match="CUDA"):
+        tbin.bwd_gather(st, torch.zeros((1, 8, 128), device="meta"), ext,
+                        128)
     assert tbin.LAUNCHES == {"fwd_splat": 0, "band_fold": 0,
-                             "band_unfold": 0, "bwd_gather": 0}
+                             "band_unfold": 0, "bwd_gather": 0,
+                             "fwd_splat_3d": 0, "bwd_gather_3d": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -290,7 +519,7 @@ def test_planes_bwd_bit_equal():
     key, planes, fills, nt = _frame_planes(grid, pts, rot, tr, pw, False)
     data, _ = tbin._prep_binned(key, planes, fills, nt, 128, False,
                                 pack_idx=True)
-    lane_b = tbin._planes_bwd(data[:, :2])
+    lane_b = tbin._planes_bwd(data[:, :2], tbin.tile_shape_for(grid))
     j_lane = jbin._planes_bwd(jnp.asarray(data[:, :2].numpy()),
                               tbin.tile_shape_for(grid), 2)
     assert lane_b.shape == (3, 4, data.shape[-1])
@@ -349,7 +578,7 @@ def test_bwd_gather_twin_matches_loop():
         _, pts, rot, tr, _ = _random_cloud(grid=grid, n_points=200)
         t_args = [torch.from_numpy(a) for a in (pts, rot, tr)]
         data, slot_tile, chunk = tbin._bwd_frame(grid, *t_args)
-        lane_b = tbin._planes_bwd(data[:, :2])
+        lane_b = tbin._planes_bwd(data[:, :2], tbin.tile_shape_for(grid))
         g = torch.from_numpy(np.random.default_rng(5).standard_normal(
             (3,) + grid).astype(np.float32))
         single = tbin._single_tile(grid)

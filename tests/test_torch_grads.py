@@ -133,6 +133,8 @@ AUTOGRAD_CASES = {
     "binned-8sq-uniform": ("binned", (8, 8), 3, False),
     "binned-8x192": ("binned", (8, 192), 3, True),
     "binned-300x200-uniform": ("binned", (300, 200), 3, False),
+    "binned-3d-8x16x128": ("binned", (8, 16, 128), 3, True),
+    "binned-3d-9x17x130-uniform": ("binned", (9, 17, 130), 3, False),
 }
 
 
@@ -151,7 +153,7 @@ def test_autograd_matches_jax_grad(case):
     backend, grid, n_in, weighted = AUTOGRAD_CASES[case]
     pts, rot, tr, bg, ow, pw = _f32(fixtures(seed=12, n_points=60,
                                              batch_size=3, n_in=n_in,
-                                             n_out=2))
+                                             n_out=len(grid)))
     w = pw if weighted else np.float32(1.7)
     arrays = (pts, rot, tr, bg, ow, w)
     g = _cot((3,) + grid)
@@ -176,13 +178,13 @@ def test_autograd_matches_jax_grad(case):
         assert _scaled_err(a, ref_np[name]) < TOL, name
 
 
-@pytest.mark.parametrize("grid", [(8, 8), (300, 200)])
+@pytest.mark.parametrize("grid", [(8, 8), (300, 200), (8, 16, 128)])
 def test_binned_autograd_matches_xla(grid):
     """The binned VJP against the oracle's through the port alone, on a
-    loss that is not linear in the image (the counterpart of the JAX
-    package's 3-D binned-vs-xla gradient check)."""
+    loss that is not linear in the image (at (8, 16, 128) the counterpart
+    of the JAX package's 3-D binned-vs-xla gradient check)."""
     args = _f32(fixtures(seed=7, n_points=80, batch_size=2, n_in=3,
-                         n_out=2))
+                         n_out=len(grid)))
 
     def grads(backend):
         inputs = [torch.from_numpy(a).requires_grad_() for a in args]
@@ -238,6 +240,33 @@ def test_fused_pair_matches_standalone_pullback(backend, weighted):
     if weighted:
         np.testing.assert_allclose(grads[2].numpy(),
                                    res.point_weight.numpy(), atol=1e-6)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_fused_pair_matches_standalone_pullback_3d(weighted):
+    """The 3-D binned pullback from the forward's frame (an empty tile
+    keeps a slot there) against the standalone pullback's own frame, all
+    six gradients; the point count is not a chunk multiple and some
+    points fall off the grid."""
+    grid = (16, 16, 40)
+    rng = np.random.default_rng(8)
+    pts = (rng.standard_normal((333, 3)) * 0.6).astype(np.float32)
+    rot = np.stack([np.eye(3, dtype=np.float32)] * 2)
+    tr = (rng.standard_normal((2, 3)) * 0.1).astype(np.float32)
+    bg = np.float32([0.1, -0.2])
+    ow = np.float32([0.5, 2.0])
+    pw = rng.uniform(0.5, 2.0, 333).astype(np.float32) if weighted else 1.7
+    g = _cot((2,) + grid, seed=9)
+    inputs = [torch.tensor(a).requires_grad_()
+              for a in (pts, rot, tr, bg, ow, pw)]
+    out = dprast_torch.raster(grid, *inputs, backend="binned")
+    grads = torch.autograd.grad((out * torch.from_numpy(g)).sum(), inputs)
+    res = dprast_torch.raster_pullback(g, pts, rot, tr, bg, ow, pw,
+                                       backend="binned")
+    for name, a in zip(FIELDS, grads):
+        assert bool(torch.isfinite(a).all()), name
+        np.testing.assert_allclose(a.numpy(), getattr(res, name).numpy(),
+                                   rtol=1e-5, atol=1e-4, err_msg=name)
 
 
 def _both_pullbacks(g, *args, **kw):
@@ -322,12 +351,23 @@ def test_binned_raster_pullback_scalar_weight_sum_exact():
         assert _scaled_err(getattr(res, name), ref[name]) < TOL, name
 
 
-def test_binned_pullback_3d_not_ported_yet():
-    args = _f32(fixtures(seed=1, n_points=20, batch_size=2, n_in=3,
-                         n_out=3))
-    g = _cot((2, 16, 16, 16))
-    with pytest.raises(NotImplementedError, match="A6"):
-        dprast_torch.raster_pullback(g, *args, backend="binned")
-    with pytest.raises(NotImplementedError, match="A6"):
-        tbin.raster_pullback((16, 16, 16), *map(torch.from_numpy, args),
-                             torch.from_numpy(g))
+def test_binned_3d_scalar_weight_sum_exact():
+    """The summed d_pw of a scalar point weight through autograd on a 3-D
+    grid, where the JAX binned backend leaves its contract: at this input
+    its value (two-term bf16 gathers, summed over every point of every
+    pose) is 3.0e-5 from the f64 oracle.  The port's fp32 gathers hold all
+    six gradients to the oracle at 1e-5."""
+    grid = (16, 16, 16)
+    pts, rot, tr, bg, ow, pw = _f32(fixtures(seed=12, n_points=60,
+                                             batch_size=3, n_in=3, n_out=3))
+    g = _cot((3,) + grid)
+    ref = raster_pullback_numpy(grid, pts, rot, tr, bg, ow,
+                                np.full(pw.shape, 1.7), g)
+    ref["point_weight"] = ref["point_weight"].sum()
+    inputs = [torch.tensor(a).requires_grad_()
+              for a in (pts, rot, tr, bg, ow, np.float32(1.7))]
+    out = dprast_torch.raster(grid, *inputs, backend="binned")
+    grads = torch.autograd.grad((out * torch.from_numpy(g)).sum(), inputs)
+    assert grads[5].shape == ()
+    for name, a in zip(FIELDS, grads):
+        assert _scaled_err(a, ref[name]) < TOL, name
