@@ -21,6 +21,16 @@ float64 numpy oracles, in 2-D and 3-D.  Then it times the kernels
 against their twins, and the forward and the training step against the
 same work run through the twins.
 
+The [bf16] phase does the same for the `binned_bf16` fast mode: its B1
+and B4 instances (`terms=1`) against their twins, and the forward and
+the training step at 128^2, 1024^2 and 128^3 against the `xla` backend
+within the fast mode's 2e-2 envelope, timed beside `binned`.  The
+[profile] phase runs the stage profiler (`dprast_torch.benchmarks.
+profile_binned`, B1 and B4 launched alone) at 1024^2 and 128^3, and the
+[exp] phase the two gather experiments (`exp_xsel` at 128^2, `exp_band`
+at 1024^2), whose B4 instances read the window through the two-part
+bf16 split in three layouts; each instance is held to its twin.
+
 Run from the root of the repository:
 
     python3 chip_smoke.py
@@ -35,8 +45,6 @@ from __future__ import annotations
 
 import importlib.util
 import json
-import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -102,19 +110,8 @@ def flagship_inputs(seed=0):
 
 def time_ms(fn, reps=15, warmup=3):
     """Median milliseconds of `fn` on the card, by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        stop.record()
-        stop.synchronize()
-        times.append(start.elapsed_time(stop))
-    return statistics.median(times)
+    from dprast_torch.utils import profiling
+    return profiling.time_fn(fn, "cuda", reps, warmup)[0]
 
 
 def load_numpy_oracle():
@@ -482,21 +479,352 @@ def times_3d(dprast_torch, sb, core, dev, smi):
     return ms
 
 
+# the fast mode's envelope against the exact backends (scaled max-abs),
+# tests/test_grads.py::test_binned_bf16_fast_mode_close
+BF16_TOL = 2e-2
+# B4 instances, the fast mode's and the harness's, by (n_out, terms)
+BF16_B4 = {2: "bwd_gather_bf16", 3: "bwd_gather_3d_bf16"}
+BF16_B1 = {2: "fwd_splat_bf16", 3: "fwd_splat_3d_bf16"}
+
+
+def bf16_kernels(sb, grid, tag, splat_args, data, win, ms):
+    """B1 and B4 at terms=1 against their twins on the forward's frame at
+    `grid` (B4 bit for bit) -> (B1 error, B4 error); their times go to
+    `ms[grid, ...]`."""
+    n_out = len(grid)
+    key = grid
+    ext_k = sb.fwd_splat(*splat_args, terms=1)
+    ext_p = sb._fwd_splat_plain(*splat_args, terms=1)
+    lane_b = sb._planes_bwd(data[:, :n_out],
+                            sb.tile_shape_for(grid)).contiguous()
+    b4_args = (splat_args[0], lane_b, win, splat_args[-1])
+    buf_k = sb.bwd_gather(*b4_args, terms=1)
+    buf_p = sb._bwd_gather_plain(*b4_args, terms=1)
+    torch.cuda.synchronize()
+    b1_err, b4_err = scaled_err(ext_k, ext_p), scaled_err(buf_k, buf_p)
+    same = torch.equal(buf_k, buf_p)
+    print(f"[bf16] {tag} B1 {BF16_B1[n_out]}: scaled max-abs err vs twin "
+          f"{b1_err:.3e} (tol 1e-6); B4 {BF16_B4[n_out]}: bit-equal to twin "
+          f"{same} (err {b4_err:.3e})")
+    check(b1_err <= 1e-6, f"{tag}: B1 terms=1 vs twin")
+    check(same, f"{tag}: B4 terms=1 bit-equal to its twin")
+    ms[key, "b1_plain"] = time_ms(
+        lambda: sb._fwd_splat_plain(*splat_args, terms=1))
+    ms[key, "b4_plain"] = time_ms(
+        lambda: sb._bwd_gather_plain(*b4_args, terms=1))
+    # the exact and the fast instance in turns (0, 1, 1, 0): wrapper and
+    # kernel by CUDA events, and the kernel's own device time
+    for stage, fn, kernel in (
+            ("b1", lambda t: sb.fwd_splat(*splat_args, terms=t),
+             "fwd_splat_kernel"),
+            ("b4", lambda t: sb.bwd_gather(*b4_args, terms=t),
+             "bwd_gather_kernel")):
+        runs = {0: [], 1: []}
+        dev_us = {0: [], 1: []}
+        for t in (0, 1, 1, 0):
+            runs[t].append(time_ms(lambda: fn(t)))
+            dev_us[t].append(kernel_device_us(lambda: fn(t), kernel))
+        for t in (0, 1):
+            suffix = "" if t else "_exact"
+            ms[key, stage + suffix] = sum(runs[t]) / 2
+            ms[key, stage + suffix + "_dev_us"] = sum(dev_us[t]) / 2
+    return b1_err, b4_err
+
+
+def kernel_device_us(fn, kernel, launches=10):
+    """Mean device time in microseconds of the kernels named `kernel` over
+    `launches` calls of `fn`, from `torch.profiler`; 0 when the trace holds
+    none of them."""
+    import tempfile
+
+    from dprast_torch.utils import profiling
+    fn()
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp) as prof:
+            for _ in range(launches):
+                fn()
+    rows = [e for e in prof.key_averages() if kernel in e.key]
+    count = sum(e.count for e in rows)
+    return sum(e.device_time_total for e in rows) / count if count else 0.0
+
+
+def phase_bf16(dprast_torch, sb, dev, smi, pts, rot, tr, pw, cots, frames):
+    """[bf16]: the `binned_bf16` fast mode.  Its B1 and B4 instances
+    against their twins at 128^2 x 64 x 10^5 and 128^3 x 1 x 10^6; the
+    forward and `torch.autograd.grad` of all six inputs through `raster(...,
+    backend="binned_bf16")` at 128^2, 1024^2 and 128^3 against the `xla`
+    backend, each run between a reset and a read of the launch counts;
+    forward and fused-step times beside `binned`.  -> (launch counts of
+    the main-path runs, {instance: error}, ms)."""
+    from dprast_torch.ops import dispatch
+    launches = {name: 0 for name in sb.LAUNCHES}
+    errs, ms = {}, {}
+    host = volume_inputs(1, VOLUME_CASES["1 pose x 1e6"][1])
+    vol = [torch.from_numpy(a).to(dev) for a in host]
+    g_vol = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (1,) + VOLUME).astype(np.float32)).to(dev)
+    args_flag, _, data_flag = frames[FLAGSHIP, False]
+    errs["b1", 2], errs["b4", 2] = bf16_kernels(
+        sb, FLAGSHIP, f"{FLAGSHIP} x {N_POSES} x {N_POINTS}", args_flag,
+        data_flag, cots[FLAGSHIP], ms)
+    args_vol, data_vol = sb._fwd_frame(VOLUME, *vol[:3], vol[5], True)
+    errs["b1", 3], errs["b4", 3] = bf16_kernels(
+        sb, VOLUME, f"{VOLUME} x 1 x {host[0].shape[0]}", args_vol,
+        data_vol, sb._unfold(g_vol, VOLUME, sb.tile_shape_for(VOLUME)), ms)
+
+    flag_canon = (pts, rot, tr, torch.zeros(N_POSES, device=dev),
+                  torch.ones(N_POSES, device=dev),
+                  torch.ones(N_POINTS, device=dev))
+    cases = [(grid, (pts, rot, tr, pw), cots[grid], flag_canon)
+             for grid in GRIDS]
+    cases.append((VOLUME, (vol[0], vol[1], vol[2], vol[5]), g_vol,
+                  (vol[0], vol[1], vol[2], torch.zeros(1, device=dev),
+                   torch.ones(1, device=dev),
+                   torch.ones(host[0].shape[0], device=dev))))
+    worst = 0.0
+    for grid, (p_, r_, t_, w_), g, canon in cases:
+        n_out = len(grid)
+        for weighted in (False, True):
+            label = "weighted" if weighted else "uniform"
+            reset_launches(sb)
+            img = dprast_torch.raster(grid, p_, r_, t_, None, None,
+                                      w_ if weighted else None,
+                                      backend="binned_bf16")
+            torch.cuda.synchronize()
+            fwd_launched = dict(sb.LAUNCHES)
+            ref = dprast_torch.raster(grid, p_, r_, t_, None, None,
+                                      w_ if weighted else None,
+                                      backend="xla")
+            check(img.shape == ref.shape and bool(torch.isfinite(img).all()),
+                  f"[bf16] finite image at {grid}")
+            err_img = scaled_err(img, ref)
+            b = r_.shape[0]
+            rng = np.random.default_rng(6)
+            leaves = [x.clone().requires_grad_() for x in (
+                p_, r_, t_,
+                torch.from_numpy((rng.standard_normal(b) * 0.1).astype(
+                    np.float32)).to(dev),
+                torch.from_numpy(rng.uniform(0.5, 2.0, b).astype(
+                    np.float32)).to(dev),
+                w_ if weighted else torch.tensor(1.5, device=dev))]
+            reset_launches(sb)
+            grads = train_grads(dprast_torch, grid, leaves, g,
+                                backend="binned_bf16")
+            torch.cuda.synchronize()
+            launched = dict(sb.LAUNCHES)
+            for name in launched:
+                launches[name] += launched[name] + fwd_launched[name]
+            for name in (BF16_B1[n_out], BF16_B4[n_out]):
+                check(launched[name] >= 1,
+                      f"[bf16] {name} ran in the training step at {grid}")
+            check(fwd_launched[BF16_B1[n_out]] >= 1,
+                  f"[bf16] {BF16_B1[n_out]} ran in the forward at {grid}")
+            exact = ("fwd_splat", "bwd_gather", "fwd_splat_3d",
+                     "bwd_gather_3d")
+            check(all(launched[k] == fwd_launched[k] == 0 for k in exact),
+                  f"[bf16] no exact instance ran at {grid}")
+            ref_g = train_grads(dprast_torch, grid, leaves, g, backend="xla")
+            gerrs = {}
+            for name, a, r, x in zip(GRAD_NAMES, grads, ref_g, leaves):
+                check(a.shape == x.shape and bool(torch.isfinite(a).all()),
+                      f"[bf16] finite d_{name} at {grid}")
+                gerrs[name] = scaled_err(a, r)
+            worst = max(worst, err_img, *gerrs.values())
+            ran = {k: v for k, v in launched.items() if v}
+            print(f"[bf16] binned_bf16 {grid} {label}: forward launches "
+                  f"{ {k: v for k, v in fwd_launched.items() if v} }, step "
+                  f"launches {ran}; scaled max-abs err vs the xla backend "
+                  f"(tol {BF16_TOL:g}): image {err_img:.3e}, "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in gerrs.items()))
+            check(max(err_img, *gerrs.values()) <= BF16_TOL,
+                  f"[bf16] binned_bf16 vs xla at {grid} ({label})")
+
+        # forward and fused step, uniform weights, fast mode beside exact
+        for name in ("binned", "binned_bf16"):
+            fwd_res, bwd_res = dispatch.vjp_pair(name)
+
+            def step():
+                _, res = fwd_res(grid, *canon, pw_uniform=True)
+                return bwd_res(grid, res, canon, g, pw_uniform=True)
+
+            ms[grid, name, "fwd"] = time_ms(lambda: dprast_torch.raster(
+                grid, canon[0], canon[1], canon[2], backend=name))
+            ms[grid, name, "step"] = time_ms(step)
+        print(f"[bf16] {smi} | {grid} x {canon[1].shape[0]} poses x "
+              f"{canon[0].shape[0]} points, uniform weights, median ms: "
+              f"forward binned {ms[grid, 'binned', 'fwd']:.4f} / binned_bf16 "
+              f"{ms[grid, 'binned_bf16', 'fwd']:.4f}; fused step binned "
+              f"{ms[grid, 'binned', 'step']:.4f} / binned_bf16 "
+              f"{ms[grid, 'binned_bf16', 'step']:.4f}")
+    for key, tag in ((FLAGSHIP, "B1/B4 bf16 2-D"),
+                     (VOLUME, "B1/B4 bf16 3-D")):
+        dev_us = {k: ms[key, k] for k in (
+            "b1_dev_us", "b1_exact_dev_us", "b4_dev_us", "b4_exact_dev_us")}
+        dev = ("not measured (no kernel rows in the trace)"
+               if not all(dev_us.values()) else
+               f"B1 {dev_us['b1_dev_us']:.2f} (exact "
+               f"{dev_us['b1_exact_dev_us']:.2f}), B4 {dev_us['b4_dev_us']:.2f} "
+               f"(exact {dev_us['b4_exact_dev_us']:.2f})")
+        print(f"[bf16] {smi} | {tag} at {key}, terms=1 and terms=0 timed in "
+              f"turns, median ms (wrapper + kernel): B1 {ms[key, 'b1']:.4f} "
+              f"(exact {ms[key, 'b1_exact']:.4f}, twin "
+              f"{ms[key, 'b1_plain']:.4f}), B4 {ms[key, 'b4']:.4f} (exact "
+              f"{ms[key, 'b4_exact']:.4f}, twin {ms[key, 'b4_plain']:.4f}); "
+              f"kernel device us per launch (torch.profiler): {dev}")
+    print(f"[bf16] worst scaled err vs xla over forward and six gradients: "
+          f"{worst:.3e} (tol {BF16_TOL:g})")
+    return launches, errs, ms
+
+
+# (grid, points, poses) of the stage profiler's runs and of the two
+# gather experiments
+PROFILE_CASES = ((MULTI_TILE, N_POINTS, N_POSES), (VOLUME, 1_000_000, 1))
+EXP_XSEL = (FLAGSHIP, N_POINTS, N_POSES)
+EXP_BAND = (MULTI_TILE, N_POINTS, N_POSES)
+
+
+def phase_profile(sb, dev, smi):
+    """[profile]: the stage profiler at 1024^2 x 64 x 10^5 and 128^3 x 1 x
+    10^6, each run between a reset and a read of the launch counts; its
+    standalone B1 / B4 outputs held to their twins on the same frame.  ->
+    {grid: (launches, B1 err, B4 err, B1 ms, twin ms, B4 ms, twin ms)}."""
+    from dprast_torch.benchmarks import profile_binned
+    out = {}
+    for grid, points, batch in PROFILE_CASES:
+        reset_launches(sb)
+        res = profile_binned.run(grid, points, batch, device=dev)
+        torch.cuda.synchronize()
+        launched = dict(sb.LAUNCHES)
+        tag = f"[profile] {smi} |"
+        for line in profile_binned.report(res):
+            print(f"{tag} {line}")
+        ext_p = sb._fwd_splat_plain(*res["fwd_splat_args"])
+        buf_p = sb._bwd_gather_plain(*res["bwd_gather_args"])
+        torch.cuda.synchronize()
+        b1_err = scaled_err(res["ext"], ext_p)
+        same = torch.equal(res["buf"], buf_p)
+        print(f"[profile] {grid}: launches "
+              f"{ {k: v for k, v in launched.items() if v} }; standalone "
+              f"B1 scaled max-abs err vs twin {b1_err:.3e} (tol 1e-5), "
+              f"standalone B4 bit-equal to twin {same}")
+        check(b1_err <= 1e-5, f"[profile] B1 vs twin at {grid}")
+        check(same, f"[profile] B4 bit-equal to its twin at {grid}")
+        b1 = "fwd_splat_3d" if len(grid) == 3 else "fwd_splat"
+        b4 = "bwd_gather_3d" if len(grid) == 3 else "bwd_gather"
+        check(launched[b1] >= 1 and launched[b4] >= 1,
+              f"[profile] B1 and B4 launched alone at {grid}")
+        out[grid] = (launched, b1_err, scaled_err(res["buf"], buf_p),
+                     res["ms"]["fwd kernel"],
+                     time_ms(lambda: sb._fwd_splat_plain(
+                         *res["fwd_splat_args"])),
+                     res["ms"]["bwd kernel"],
+                     time_ms(lambda: sb._bwd_gather_plain(
+                         *res["bwd_gather_args"])))
+    return out
+
+
+def phase_exp(sb, dev, smi):
+    """[exp]: `exp_xsel` at 128^2 and `exp_band` at 1024^2 (64 x 10^5),
+    each run between a reset and a read of the launch counts; each of the
+    three harness instances held to its twin (terms=2, natural window),
+    the experiments' bit-exactness relations checked.  -> {entry: (launches,
+    err, ms, twin ms)}."""
+    from dprast_torch.benchmarks import exp_band, exp_xsel
+    out = {}
+    reset_launches(sb)
+    xs = exp_xsel.run(dev, *EXP_XSEL)
+    torch.cuda.synchronize()
+    launched = dict(sb.LAUNCHES)
+    for line in exp_xsel.report(xs):
+        print(f"[exp] {smi} | exp_xsel {line}")
+    twin = sb._bwd_gather_plain(*xs["gather_args"], terms=2)
+    torch.cuda.synchronize()
+    twin_ms = time_ms(lambda: sb._bwd_gather_plain(*xs["gather_args"],
+                                                   terms=2))
+    for name, rows, key in (("bwd_gather_split", xs["base"], "base"),
+                            ("bwd_gather_split_t", xs["candidate"],
+                             "candidate")):
+        err = scaled_err(rows, twin)
+        same = torch.equal(rows, twin)
+        print(f"[exp] exp_xsel {key} ({name}): launches {launched[name]}, "
+              f"scaled max-abs err vs twin {err:.3e} (tol 1e-6), bit-equal "
+              f"{same}")
+        check(launched[name] >= 1, f"[exp] {name} ran in exp_xsel")
+        check(err <= 1e-6, f"[exp] exp_xsel {key} vs twin")
+    # the candidate is the counterpart of `_kernel_absums`
+    out["xsel", "bwd_gather_split_t"] = (
+        launched["bwd_gather_split_t"],
+        scaled_err(xs["candidate"], twin), xs["ms"]["candidate"], twin_ms)
+    check(xs["max_abs_diff"] == 0.0, "[exp] exp_xsel candidate == base")
+    st, lane_b, g, chunk = xs["gather_args"]
+    in_turns(smi, "exp_xsel", {
+        "base": lambda: sb.bwd_gather(st, lane_b, g, chunk, terms=2),
+        "candidate": lambda: sb.bwd_gather(st, lane_b, xs["g_t"], chunk,
+                                           terms=2, layout="transposed")})
+
+    reset_launches(sb)
+    eb = exp_band.run(dev, *EXP_BAND)
+    torch.cuda.synchronize()
+    launched = dict(sb.LAUNCHES)
+    for line in exp_band.report(eb):
+        print(f"[exp] {smi} | exp_band {line}")
+    twin = sb._bwd_gather_plain(*eb["gather_args"], terms=2)
+    torch.cuda.synchronize()
+    twin_ms = time_ms(lambda: sb._bwd_gather_plain(*eb["gather_args"],
+                                                   terms=2))
+    for name, key in (("bwd_gather_split", "TN"),
+                      ("bwd_gather_split_t", "NN"),
+                      ("bwd_gather_presplit", "presplit")):
+        rows = eb["rows"][key]
+        err = scaled_err(rows, twin)
+        same = torch.equal(rows, twin)
+        print(f"[exp] exp_band {key} ({name}): launches {launched[name]}, "
+              f"scaled max-abs err vs twin {err:.3e}, bit-equal {same}")
+        check(launched[name] >= 1, f"[exp] {name} ran in exp_band")
+        if key == "presplit":
+            check(same, "[exp] presplit bit-equal to its twin")
+        check(err <= 1e-6, f"[exp] exp_band {key} vs twin")
+        out["band", name] = (launched[name], err, eb["ms"][key], twin_ms)
+    check(eb["nn_tn_bit_exact"], "[exp] NN vs TN bit-exact")
+    check(eb["presplit_bit_exact"], "[exp] presplit vs NN bit-exact")
+    st, lane_b, g_n, chunk = eb["gather_args"]
+    in_turns(smi, "exp_band", {
+        "NN": lambda: sb.bwd_gather(st, lane_b, eb["g_t"], chunk, terms=2,
+                                    layout="transposed"),
+        "TN": lambda: sb.bwd_gather(st, lane_b, g_n, chunk, terms=2),
+        "presplit": lambda: sb.bwd_gather(st, lane_b, eb["g_split"], chunk,
+                                          terms=2, layout="presplit")})
+    return out
+
+
+def in_turns(smi, tag, variants):
+    """The B4 kernel's device time per launch for each variant, profiled in
+    turns (a, b, .., b, a), printed beside the card."""
+    us = {name: [] for name in variants}
+    for name in list(variants) + list(variants)[::-1]:
+        us[name].append(kernel_device_us(variants[name], "bwd_gather_kernel"))
+    if not all(all(v) for v in us.values()):
+        print(f"[exp] {tag} kernel device time: not measured (no kernel "
+              f"rows in the trace)")
+        return
+    print(f"[exp] {smi} | {tag} kernel device us per launch "
+          f"(torch.profiler, in turns): "
+          + ", ".join(f"{k} {sum(v) / len(v):.2f}" for k, v in us.items()))
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False")
 
     import dprast_torch
     from dprast_torch.ops import _build, core, splat_binned as sb
+    from dprast_torch.utils import profiling
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
     # --- 1. device ---
-    smi = subprocess.run(
-        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
+    smi = profiling.card(0)
     print(smi)
     kind = torch.cuda.get_device_name(0)
     tf32_mm = torch.backends.cuda.matmul.allow_tf32
@@ -765,6 +1093,16 @@ def main():
           f"(twin {ms['b2_plain', MULTI_TILE]:.4f} ms)")
     ms_3d = times_3d(dprast_torch, sb, core, dev, smi)
 
+    # --- 14. the binned_bf16 fast mode ---
+    launches_bf16, errs_bf16, ms_bf16 = phase_bf16(
+        dprast_torch, sb, dev, smi, pts, rot, tr, pw, cots, frames)
+
+    # --- 15. the stage profiler: B1 and B4 launched alone ---
+    prof = phase_profile(sb, dev, smi)
+
+    # --- 16. the gather experiments: B4 in three window layouts ---
+    exp = phase_exp(sb, dev, smi)
+
     src = "dprast/ops/splat_binned.py"
     kernels = [
         {"name": "fwd_splat", "route": "cuda",
@@ -806,6 +1144,55 @@ def main():
          "plain_ms": ms_3d["b4_plain", VOLUME_TIMED[0]],
          "shape": "128x128x128, 1 pose, 1e6 points, uniform"},
     ]
+    for n_out, grid, shape in (
+            (2, FLAGSHIP, "128x128, 64 poses, 1e5 points, uniform"),
+            (3, VOLUME, "128x128x128, 1 pose, 1e6 points, uniform")):
+        for stage, name, line, cu in (
+                ("b1", BF16_B1[n_out], 538, "fwd_splat"),
+                ("b4", BF16_B4[n_out], 1085, "bwd_gather")):
+            kernels.append({
+                "name": name, "route": "cuda",
+                "source": f"dprast_torch/csrc/{cu}.cu",
+                "replaces": f"{src}:{line}", "variant": "terms=1",
+                "launches": launches_bf16[name],
+                "max_abs_err": errs_bf16[stage, n_out],
+                "ms": ms_bf16[grid, stage],
+                "plain_ms": ms_bf16[grid, f"{stage}_plain"], "shape": shape})
+    for grid, shape, dims in (
+            ((1024, 1024), "1024x1024, 64 poses, 1e5 points, weighted", ""),
+            (VOLUME, "128x128x128, 1 pose, 1e6 points, weighted", "_3d")):
+        launched, b1_err, b4_err, b1_ms, b1_plain, b4_ms, b4_plain = \
+            prof[grid]
+        kernels += [
+            {"name": f"fwd_splat{dims}", "route": "cuda",
+             "source": "dprast_torch/csrc/fwd_splat.cu",
+             "replaces": "benchmarks/profile_binned.py:131",
+             "variant": "standalone (profile_binned)",
+             "launches": launched[f"fwd_splat{dims}"], "max_abs_err": b1_err,
+             "ms": b1_ms, "plain_ms": b1_plain, "shape": shape},
+            {"name": f"bwd_gather{dims}", "route": "cuda",
+             "source": "dprast_torch/csrc/bwd_gather.cu",
+             "replaces": "benchmarks/profile_binned.py:195",
+             "variant": "standalone (profile_binned)",
+             "launches": launched[f"bwd_gather{dims}"], "max_abs_err": b4_err,
+             "ms": b4_ms, "plain_ms": b4_plain, "shape": shape}]
+    band = "1024x1024, 64 poses, 1e5 points"
+    for key, replaces, variant, shape in (
+            (("xsel", "bwd_gather_split_t"), "benchmarks/exp_xsel.py:38",
+             "terms=2, transposed cotangent (_kernel_absums)",
+             "128x128, 64 poses, 1e5 points"),
+            (("band", "bwd_gather_split"), "benchmarks/exp_band.py:36",
+             "terms=2, natural windows (transposed=False)", band),
+            (("band", "bwd_gather_split_t"), "benchmarks/exp_band.py:36",
+             "terms=2, transposed windows (transposed=True)", band),
+            (("band", "bwd_gather_presplit"), "benchmarks/exp_band.py:91",
+             "terms=2, presplit bf16 windows", band)):
+        launched, err, k_ms, plain_ms = exp[key]
+        kernels.append({
+            "name": key[1], "route": "cuda",
+            "source": "dprast_torch/csrc/bwd_gather.cu", "replaces": replaces,
+            "variant": variant, "launches": launched, "max_abs_err": err,
+            "ms": k_ms, "plain_ms": plain_ms, "shape": shape})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -192,7 +192,8 @@ def raster(grid_size, points, rotation, translation, background=None,
       point_weight: scalar or (P,) per point (default 1).
       dtype: result dtype; defaults to the promoted input dtype, at least
         float32.
-      backend: 'auto' | 'xla' | 'binned'.
+      backend: 'auto' | 'xla' | 'binned' | 'binned_bf16' (the ~2e-3 fast
+        mode of 'binned', never chosen by 'auto').
       device: where numpy / list inputs go when no input is a tensor.
 
     Returns:

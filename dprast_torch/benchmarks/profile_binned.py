@@ -1,0 +1,163 @@
+"""Stage-by-stage timing of the binned backend on one CUDA card (PyTorch
+port of `benchmarks/profile_binned.py`).
+
+Every stage runs alone on inputs built in advance and is timed with CUDA
+events (`dprast_torch.utils.profiling.time_fn`): the events time what was
+launched, so the JAX script's chained fit and its forcing of every sort
+chunk have no counterpart here.  The two kernel stages launch B1
+(`fwd_splat`) and B4 (`bwd_gather`) alone on the forward's frame, the
+counterparts of the JAX script's `fwd_kernel` and `bwd_kernel`.  The fold
+and unfold are what the backend runs: B2 / B3 on a multi-tile 2-D grid,
+the plain `_fold` / `_unfold` in 3-D; a single tile has no unfold and no
+unsort.
+
+The inputs are the JAX script's: a 0.4-sigma Gaussian cloud, identity
+rotations, translations at 0.1 sigma, point weights uniform in (0.5, 2),
+and a standard normal cotangent, made from a seed with numpy.
+
+Usage, from the root of the repository:
+
+    python3 -m dprast_torch.benchmarks.profile_binned --grid 1024,1024
+    python3 -m dprast_torch.benchmarks.profile_binned --grid 128,128,128 \\
+        --points 1000000 --batch 1
+
+``--device cpu`` runs the same stages through the kernels' plain twins;
+the default ``cuda`` raises where there is no card.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+import torch
+
+from dprast_torch.ops import splat_binned as sb
+from dprast_torch.utils import profiling
+
+STAGES = ("prep fwd", "prep bwd", "keys only", "fwd planes", "fwd kernel",
+          "fold", "unfold", "bwd planes", "bwd kernel", "bwd unsort")
+
+
+def cloud(grid, points, batch, device, seed=0):
+    """The JAX script's inputs on `device` -> (points (P, 3), rotation
+    (B, n_out, 3), translation (B, n_out), point_weight (P,), cotangent
+    (B, *grid)), all float32."""
+    n_out = len(grid)
+    rng = np.random.default_rng(seed)
+    pts = rng.standard_normal((points, 3)) * 0.4
+    tr = rng.standard_normal((batch, n_out)) * 0.1
+    pw = rng.uniform(0.5, 2.0, points)
+    g = rng.standard_normal((batch,) + tuple(grid))
+    rot = np.broadcast_to(np.eye(3)[:n_out], (batch, n_out, 3))
+    return tuple(torch.from_numpy(np.ascontiguousarray(a, np.float32))
+                 .to(device) for a in (pts, rot, tr, pw, g))
+
+
+def run(grid, points, batch, chunk=0, device="cuda", *, iters=15,
+        warmup=3, seed=0):
+    """Build every stage's inputs, then time each stage alone.  `chunk` 0
+    takes the backend's own.  -> dict with ``ms`` and ``spread`` per
+    stage (`time_fn`), the frame's sizes, and the standalone kernels'
+    arguments and outputs: ``fwd_splat_args`` / ``ext`` (B1) and
+    ``bwd_gather_args`` / ``buf`` (B4), ``frame`` (data, slot_tile) and
+    ``inputs``."""
+    device = torch.device(device)
+    grid = tuple(grid)
+    n_out = len(grid)
+    pts, rot, tr, pw, g = cloud(grid, points, batch, device, seed)
+    ts = sb.tile_shape_for(grid)
+    halo = not sb._single_tile(grid)
+    default = sb._default_chunk(grid, points)
+    if chunk and chunk != default:
+        # the frame's slot geometry follows the backend's chunk rule
+        raise ValueError(f"chunk {chunk}: the binned backend runs chunk "
+                         f"{default} at grid {grid}, {points} points")
+
+    # the forward's frame (per-point weights), as `_fwd_impl` builds it
+    splat_args, data = sb._fwd_frame(grid, pts, rot, tr, pw, False)
+    slot_tile, lane, nt, win, chunk = splat_args
+    ext = sb.fwd_splat(*splat_args)
+    ow = torch.ones(batch, device=device)
+    bg = torch.zeros(batch, device=device)
+
+    def fold(e):
+        if n_out == 2 and halo:
+            return sb.band_fold(e, grid, ts, ow, bg)
+        return sb._fold(e, grid, ts, halo)
+
+    def unfold(x):
+        return (sb.band_unfold if n_out == 2 else sb._unfold)(x, grid, ts)
+
+    g_win = unfold(g) if halo else g
+    coord, idx_rows = data[:, :n_out], data[:, -1]
+    lane_b = sb._planes_bwd(coord, ts).contiguous()
+    gather_args = (slot_tile, lane_b, g_win, chunk)
+    buf = sb.bwd_gather(*gather_args)
+
+    stages = {
+        "prep fwd": lambda: sb._fwd_prep(grid, pts, rot, tr, pw, False),
+        "prep bwd": lambda: sb._bwd_frame(grid, pts, rot, tr),
+        "keys only": lambda: sb._keys_and_local(grid, ts, pts, rot, tr),
+        "fwd planes": lambda: sb._planes_fwd(coord, data[:, n_out])
+        .contiguous(),
+        "fwd kernel": lambda: sb.fwd_splat(*splat_args),
+        "fold": lambda: fold(ext),
+        "unfold": lambda: unfold(g),
+        "bwd planes": lambda: sb._planes_bwd(coord, ts).contiguous(),
+        "bwd kernel": lambda: sb.bwd_gather(*gather_args),
+        "bwd unsort": lambda: sb._unsort(buf, idx_rows, points),
+    }
+    if not halo:
+        # one tile: the window is the cotangent and the rows keep the
+        # point order
+        del stages["unfold"], stages["bwd unsort"]
+    ms, spread = {}, {}
+    for name, fn in stages.items():
+        ms[name], spread[name] = profiling.time_fn(fn, device, iters, warmup)
+    return {"grid": grid, "points": points, "batch": batch, "chunk": chunk,
+            "nt": nt, "s_pad": data.shape[-1], "device": str(device),
+            "fold": "B2 band_fold" if n_out == 2 and halo else "plain _fold",
+            "unfold": ("B3 band_unfold" if n_out == 2 else "plain _unfold")
+            if halo else None,
+            "ms": ms, "spread": spread, "fwd_splat_args": splat_args,
+            "ext": ext, "bwd_gather_args": gather_args, "buf": buf,
+            "frame": (data, slot_tile), "inputs": (pts, rot, tr, pw, g)}
+
+
+def report(res) -> list[str]:
+    """One line per stage: median ms and half-spread."""
+    lines = [f"grid={res['grid']} ts={sb.tile_shape_for(res['grid'])} "
+             f"nt={res['nt']} chunk={res['chunk']} s_pad={res['s_pad']} "
+             f"batch={res['batch']} points={res['points']} "
+             f"device={res['device']}"]
+    for name, ms in res["ms"].items():
+        route = f" ({res[name]})" if name in ("fold", "unfold") else ""
+        lines.append(f"{name + route:<28s} {ms:10.4f} ms "
+                     f"(+- {res['spread'][name]:.4f})")
+    return lines
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--grid", default="1024,1024")
+    ap.add_argument("--points", type=int, default=100_000)
+    ap.add_argument("--batch", type=int, default=64)
+    ap.add_argument("--chunk", type=int, default=0)
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    args = ap.parse_args(argv)
+    grid = tuple(int(x) for x in args.grid.split(","))
+    if args.device == "cuda":
+        if not torch.cuda.is_available():
+            raise SystemExit("profile_binned: --device cuda and "
+                             "torch.cuda.is_available() is False")
+        print(profiling.card(), flush=True)
+    else:
+        print("device cpu: the kernels' plain twins, timed on the host",
+              flush=True)
+    res = run(grid, args.points, args.batch, args.chunk, args.device)
+    print("\n".join(report(res)), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -2,7 +2,10 @@
 //
 // Replaces the TPU kernel `_fwd_kernel` / `_fwd_kernel_live` of
 // dprast/ops/splat_binned.py (launched by the `pl.pallas_call` in
-// `_fwd_impl`), both its 2-D branch and its 3-D branch.  That kernel runs
+// `_fwd_impl`), both its 2-D branch and its 3-D branch, at terms=2 (here
+// fp32) and terms=1 (the `binned_bf16` fast mode); also its standalone
+// launch `fwd_kernel` in benchmarks/profile_binned.py, whose counterpart
+// is dprast_torch/benchmarks/profile_binned.py.  That kernel runs
 // one program per (pose, slot), builds a hat-function row matrix (in 3-D
 // the separable product of a z hat and a y hat over the flattened (z, y)
 // window rows) and two exact x one-hots, and accumulates their bf16-split
@@ -48,16 +51,37 @@
 //   the TPU's 2-term bf16 split is only a way to get near-fp32 products
 //   out of the MXU and has no counterpart here.  Shared atomics reorder
 //   the fp32 sums from run to run.
+// - The `binned_bf16` fast mode (kTerms = 1, the TPU kernel's terms=1)
+//   rounds each product to the nearest bf16 (ties to even) once, as the
+//   TPU kernel rounds its value operand before the one-hot matmul, and
+//   adds the widened value.  The TPU's hats relu(1 - |(iy0 - r) + dl|)
+//   equal (1 - dl, dl) bit for bit (dl has 23 fraction bits), so the
+//   rounded products are the TPU's and only the order of the fp32 sums
+//   differs.  __fmul_rn keeps the product from fusing into anything
+//   before it is rounded.  On Hopper the mode saves nothing: there is no
+//   matrix product whose work it halves.
 // - Filler rows decode to -3 on every axis and every target outside the
 //   window is dropped, as the TPU's one-hots never match them.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 512;
 
-template <int kNOut>
+// one weight product as the splat adds it: fp32, or rounded to the
+// nearest bf16 in the fast mode
+template <int kTerms>
+__device__ __forceinline__ float weight(float hw, float cx) {
+  const float v = __fmul_rn(hw, cx);
+  if constexpr (kTerms == 1)
+    return __bfloat162float(__float2bfloat16_rn(v));
+  else
+    return v;
+}
+
+template <int kNOut, int kTerms>
 __global__ void __launch_bounds__(kThreads)
 fwd_splat_kernel(const float* __restrict__ lane,  // (B, L, s_pad)
                  const int* __restrict__ first,   // (B, nt)
@@ -138,8 +162,8 @@ fwd_splat_kernel(const float* __restrict__ lane,  // (B, L, s_pad)
       if (!ok[i]) continue;
       const float hw = with_w ? __fmul_rn(h[i], w) : h[i];
       const int base = r[i] * cols_e + ix0;
-      if (x0) atomicAdd(&win[base], __fmul_rn(hw, cx0));
-      if (x1) atomicAdd(&win[base + 1], __fmul_rn(hw, cx1));
+      if (x0) atomicAdd(&win[base], weight<kTerms>(hw, cx0));
+      if (x1) atomicAdd(&win[base + 1], weight<kTerms>(hw, cx1));
     }
   }
   __syncthreads();
@@ -155,17 +179,18 @@ fwd_splat_kernel(const float* __restrict__ lane,  // (B, L, s_pad)
   }
 }
 
-template <int kNOut>
+template <int kNOut, int kTerms>
 int launch(const void* lane, const void* first, const void* end, void* ext,
            int bsz, int nt, int n_lane, long long s_pad, int chunk, int ny,
            int rows_e, int cols_e, int nsplit, void* stream) {
   const int smem = rows_e * cols_e * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      fwd_splat_kernel<kNOut>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      fwd_splat_kernel<kNOut, kTerms>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(nsplit, nt, bsz);
-  fwd_splat_kernel<kNOut><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  fwd_splat_kernel<kNOut, kTerms>
+      <<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const float*)lane, (const int*)first, (const int*)end, (float*)ext,
       nt, n_lane, s_pad, chunk, ny, rows_e, cols_e, nsplit);
   return (int)cudaGetLastError();
@@ -174,18 +199,22 @@ int launch(const void* lane, const void* first, const void* end, void* ext,
 }  // namespace
 
 // `ny` is the window's y extent: the number of its rows in 2-D, the rows
-// of one z plane in 3-D (rows_e / ny z planes).
+// of one z plane in 3-D (rows_e / ny z planes).  `terms` is 0 (fp32) or 1
+// (the bf16 fast mode).
 extern "C" int dprast_fwd_splat(const void* lane, const void* first,
                                 const void* end, void* ext, int bsz, int nt,
                                 int n_out, int n_lane, long long s_pad,
                                 int chunk, int ny, int rows_e, int cols_e,
-                                int nsplit, void* stream) {
-  if (n_out == 3)
-    return launch<3>(lane, first, end, ext, bsz, nt, n_lane, s_pad, chunk,
-                     ny, rows_e, cols_e, nsplit, stream);
-  if (n_out == 2)
-    return launch<2>(lane, first, end, ext, bsz, nt, n_lane, s_pad, chunk,
-                     ny, rows_e, cols_e, nsplit, stream);
+                                int nsplit, int terms, void* stream) {
+#define DPRAST_LAUNCH(N, T)                                                 \
+  if (n_out == N && terms == T)                                             \
+    return launch<N, T>(lane, first, end, ext, bsz, nt, n_lane, s_pad,      \
+                        chunk, ny, rows_e, cols_e, nsplit, stream);
+  DPRAST_LAUNCH(2, 0)
+  DPRAST_LAUNCH(3, 0)
+  DPRAST_LAUNCH(2, 1)
+  DPRAST_LAUNCH(3, 1)
+#undef DPRAST_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 

@@ -9,6 +9,11 @@ A backend is a kernel strategy:
 - ``"auto"``    the JAX package's choice for the given dims / grid /
                 device
 
+plus the documented ~2e-3 fast mode ``"binned_bf16"`` (B1 rounds each
+weight product to bf16, B4 the cotangent window; ``terms=1``), which
+`auto` never picks, as in the JAX package.  On Hopper it saves no work:
+the kernels have no matrix product whose operands it narrows.
+
 `auto` follows the JAX package's rules with "the inputs are on CUDA" in
 place of "running on a TPU".  Where those rules pick the matmul backend,
 which this package does not have yet, `resolve_pair` raises
@@ -17,6 +22,8 @@ backend.
 """
 
 from __future__ import annotations
+
+import functools
 
 from dprast_torch.ops import core, splat_binned
 
@@ -41,6 +48,13 @@ register("binned", splat_binned.raster_fwd, splat_binned.raster_pullback,
          splat_binned.supported,
          vjp_pair=(splat_binned.raster_fwd_res,
                    splat_binned.raster_pullback_res))
+register("binned_bf16",
+         functools.partial(splat_binned.raster_fwd, terms=1),
+         functools.partial(splat_binned.raster_pullback, terms=1),
+         splat_binned.supported,
+         vjp_pair=(functools.partial(splat_binned.raster_fwd_res, terms=1),
+                   functools.partial(splat_binned.raster_pullback_res,
+                                     terms=1)))
 
 
 def available_backends() -> tuple[str, ...]:

@@ -38,6 +38,13 @@ autograd pair) or builds its own (`raster_pullback`):
    point order (a single tile keeps the order), and torch reductions
    finish the six gradients.
 
+``terms`` is the depth of the JAX kernels' bf16 split of their value
+operands, which B1 and B4 apply here: 0 keeps fp32 (``"binned"``), 1 is
+the ~2e-3 fast mode (``"binned_bf16"``: B1 rounds each weight product to
+bf16, B4 the cotangent window), 2 the JAX kernels' faithful two-part
+split of the window, which only the harness's B4 variants run
+(`dprast_torch.benchmarks`).
+
 Each kernel wrapper runs its plain torch twin for a CPU tensor and the
 CUDA kernel (`dprast_torch/csrc/`) for a CUDA tensor; it raises for any
 other device and never falls back.
@@ -55,16 +62,32 @@ import torch.nn.functional as F
 from dprast_torch.ops import _build, core, geometry
 
 TILE = 128
-# bf16 split depth of the JAX kernels' value operands; the port's kernels
-# splat in plain fp32, and the 1-term fast mode (``binned_bf16``, ROADMAP
-# A7) is not ported yet
+# bf16 split depth of the JAX kernels' value operands by default; the
+# port's `binned` runs terms=0 (fp32), and the harness's B4 variants run
+# this depth
 _SPLIT_TERMS = 2
 
-# kernel launches per wrapper, the 3-D branches of B1 and B4 apart: a run
-# reads these to show that its path went through the kernels (CPU twin
-# calls do not count)
-LAUNCHES = {"fwd_splat": 0, "band_fold": 0, "band_unfold": 0,
-            "bwd_gather": 0, "fwd_splat_3d": 0, "bwd_gather_3d": 0}
+# the CUDA instance of B1 for each (n_out, terms), and of B4 for each
+# (n_out, terms, window layout); their names are the launch counters
+_B1_INSTANCES = {(2, 0): "fwd_splat", (3, 0): "fwd_splat_3d",
+                 (2, 1): "fwd_splat_bf16", (3, 1): "fwd_splat_3d_bf16"}
+# B4's window layouts, by their code in csrc/bwd_gather.cu: natural
+# (rows_e, cols_e) fp32; transposed (cols_e, rows_e) fp32; presplit, a
+# pair (hi, lo) of transposed bf16 windows
+_LAYOUTS = ("natural", "transposed", "presplit")
+_B4_INSTANCES = {(2, 0, "natural"): "bwd_gather",
+                 (3, 0, "natural"): "bwd_gather_3d",
+                 (2, 1, "natural"): "bwd_gather_bf16",
+                 (3, 1, "natural"): "bwd_gather_3d_bf16",
+                 (2, 2, "natural"): "bwd_gather_split",
+                 (2, 2, "transposed"): "bwd_gather_split_t",
+                 (2, 2, "presplit"): "bwd_gather_presplit"}
+
+# kernel launches per CUDA instance: a run reads these to show that its
+# path went through the kernels (CPU twin calls do not count)
+LAUNCHES = dict.fromkeys(["band_fold", "band_unfold",
+                          *_B1_INSTANCES.values(),
+                          *_B4_INSTANCES.values()], 0)
 
 
 def tile_shape_for(grid_size):
@@ -350,15 +373,26 @@ def _slot_ranges(slot_tile, nt, dead=False):
 # ---------------------------------------------------------------------------
 
 
-def _fwd_splat_plain(slot_tile, lane, nt, win, chunk):
+def _b1_instance(n_out, terms):
+    name = _B1_INSTANCES.get((n_out, terms))
+    if name is None:
+        raise ValueError(f"fwd_splat: no instance for n_out={n_out}, "
+                         f"terms={terms}; terms is 0 or 1")
+    return name
+
+
+def _fwd_splat_plain(slot_tile, lane, nt, win, chunk, terms=0):
     """Plain twin of B1.  `win` is the window's shape: ``(rows_e,
     cols_e)`` in 2-D, ``(nz, ny, cols_e)`` in 3-D, whose window rows are
     the flattened ``z * ny + y``.  Every live frame row adds its 2^n
     multilinear weights, ``(hy * w) * cx`` in 2-D and ``((hz * hy) * w) *
     cx`` in 3-D in that order of rounding, into ``ext[b, tile]`` (B, nt,
-    rows_e, cols_e).  A target outside the window on any axis is dropped
-    (in 3-D a row ``iy0 = -1`` must not alias into the z plane below).
-    Rows of dead slots (past ``slot_tile[b, -1]``) add nothing."""
+    rows_e, cols_e); with ``terms=1`` each weight is first rounded to the
+    nearest bf16 (ties to even, as JAX's ``astype(jnp.bfloat16)``).  A
+    target outside the window on any axis is dropped (in 3-D a row
+    ``iy0 = -1`` must not alias into the z plane below).  Rows of dead
+    slots (past ``slot_tile[b, -1]``) add nothing."""
+    _b1_instance(len(win), terms)
     bsz, n_lane, s_pad = lane.shape
     dev = lane.device
     n_out = len(win)
@@ -393,7 +427,10 @@ def _fwd_splat_plain(slot_tile, lane, nt, win, chunk):
             c = ix0 + sx
             ok_c = ok & (c >= 0) & (c < cols_e)
             idx = torch.where(ok_c, base + r * cols_e + c, total)
-            ext.index_add_(0, idx.reshape(-1), (hw * cx[sx]).reshape(-1))
+            v = hw * cx[sx]
+            if terms == 1:
+                v = v.to(torch.bfloat16).float()
+            ext.index_add_(0, idx.reshape(-1), v.reshape(-1))
     return ext[:total].reshape(bsz, nt, rows_e, cols_e)
 
 
@@ -404,16 +441,18 @@ def _split_count(device, blocks):
     return max(1, min(16, -(-2 * n_sm // blocks)))
 
 
-def fwd_splat(slot_tile, lane, nt, win, chunk):
+def fwd_splat(slot_tile, lane, nt, win, chunk, terms=0):
     """B1: splat the lane planes of a slot frame into the per-tile windows
-    of shape `win` -> ext (B, nt, rows_e, cols_e) f32 (see
-    `_fwd_splat_plain`).  CPU tensors take the plain twin, CUDA tensors
-    the kernel in `csrc/fwd_splat.cu`."""
+    of shape `win` -> ext (B, nt, rows_e, cols_e) f32, with `terms` 0
+    (fp32) or 1 (bf16 products; see `_fwd_splat_plain`).  CPU tensors
+    take the plain twin, CUDA tensors the kernel in
+    `csrc/fwd_splat.cu`."""
+    n_out = len(win)
+    instance = _b1_instance(n_out, terms)
     if lane.device.type == "cpu":
-        return _fwd_splat_plain(slot_tile, lane, nt, win, chunk)
+        return _fwd_splat_plain(slot_tile, lane, nt, win, chunk, terms)
     _check_cuda("fwd_splat", slot_tile, torch.int32, lane, torch.float32)
     bsz, n_lane, s_pad = lane.shape
-    n_out = len(win)
     n_slots = s_pad // chunk
     if n_out not in (2, 3) or n_lane not in (2 * n_out, 2 * n_out + 1) \
             or s_pad != n_slots * chunk or \
@@ -434,9 +473,10 @@ def fwd_splat(slot_tile, lane, nt, win, chunk):
     lib = _build.load()
     rc = lib.dprast_fwd_splat(
         _ptr(lane), _ptr(first), _ptr(end), _ptr(ext), bsz, nt, n_out,
-        n_lane, s_pad, chunk, win[-2], rows_e, cols_e, nsplit, _stream(dev))
+        n_lane, s_pad, chunk, win[-2], rows_e, cols_e, nsplit, terms,
+        _stream(dev))
     _raise_on(rc, "fwd_splat")
-    LAUNCHES["fwd_splat_3d" if n_out == 3 else "fwd_splat"] += 1
+    LAUNCHES[instance] += 1
     return ext
 
 
@@ -595,7 +635,41 @@ def band_unfold(g, grid_size, ts):
 # ---------------------------------------------------------------------------
 
 
-def _bwd_gather_plain(slot_tile, lane_b, win, chunk):
+def _b4_instance(n_out, terms, layout):
+    name = _B4_INSTANCES.get((n_out, terms, layout))
+    if name is None:
+        raise ValueError(f"bwd_gather: no instance for n_out={n_out}, "
+                         f"terms={terms}, layout={layout!r}; see "
+                         f"_B4_INSTANCES")
+    return name
+
+
+def _split_terms(x, terms):
+    """An fp32 tensor as B4 stages it: unchanged (``terms=0``), rounded to
+    the nearest bf16 (1), or its two-part bf16 split ``hi = bf16(x)``,
+    ``lo = bf16(x - hi)`` added back (2), which is exact in fp32 and so
+    what the JAX kernel's two one-hot matmul parts add up to."""
+    if terms == 0:
+        return x
+    hi = x.to(torch.bfloat16).float()
+    if terms == 1:
+        return hi
+    return hi + (x - hi).to(torch.bfloat16).float()
+
+
+def _staged_window(win, terms, layout):
+    """B4's window in the natural layout, as the kernel stages it: a
+    transposed window is transposed back, a presplit pair ``(hi, lo)`` is
+    ``float(hi) + float(lo)``."""
+    if layout == "presplit":
+        hi, lo = win
+        return (hi.float() + lo.float()).transpose(-1, -2)
+    win = _split_terms(win, terms)
+    return win.transpose(-1, -2) if layout == "transposed" else win
+
+
+def _bwd_gather_plain(slot_tile, lane_b, win, chunk, terms=0,
+                      layout="natural"):
     """Plain twin of B4.  In 2-D every live frame row reads the four
     values ``p{sy}{sx} = win[b, tile, iy0 + sy, ix0 + sx]`` (0 outside
     the window) and writes, in this order of rounding,
@@ -610,10 +684,14 @@ def _bwd_gather_plain(slot_tile, lane_b, win, chunk):
     columns ``ix0`` and ``ix0 + 1`` and writes (B, 4, s_pad) ``[du_z,
     du_y, du_x, gw]``, see `_combine_3d`.  Rows of dead slots (past
     ``slot_tile[b, -1]``) are zeros.  `win` is (B, nt, rows_e, cols_e),
-    or the whole single-tile grid (B, gy, gx)."""
+    or the whole single-tile grid (B, gy, gx), in the `layout` of
+    `_LAYOUTS`; it is read through `_staged_window`, so ``terms=1`` and
+    ``terms=2`` read its bf16 rounding or split."""
     bsz, n_lane, s_pad = lane_b.shape
+    _b4_instance({4: 2, 8: 3}.get(n_lane), terms, layout)
     dev = lane_b.device
     n_slots = s_pad // chunk
+    win = _staged_window(win, terms, layout)
     win = win.reshape((bsz, -1) + tuple(win.shape[-2:]))
     rows_e, cols_e = win.shape[-2:]
     ix0 = lane_b[:, -2].long()
@@ -674,29 +752,37 @@ def _combine_3d(p, dlz, dly):
             omz * (p01 - p00) + dlz * (p11 - p10))
 
 
-def bwd_gather(slot_tile, lane_b, win, chunk):
+def bwd_gather(slot_tile, lane_b, win, chunk, terms=0, layout="natural"):
     """B4: gather the cotangent windows at every frame row -> buf
     (B, n_out + 1, s_pad) ``[du_y, du_x, gw]`` in 2-D, ``[du_z, du_y,
-    du_x, gw]`` in 3-D (see `_bwd_gather_plain`).  CPU tensors take the
-    plain twin, CUDA tensors the kernel in `csrc/bwd_gather.cu`."""
-    if lane_b.device.type == "cpu":
-        return _bwd_gather_plain(slot_tile, lane_b, win, chunk)
-    _check_cuda("bwd_gather", slot_tile, torch.int32, lane_b, torch.float32,
-                win, torch.float32)
+    du_x, gw]`` in 3-D (see `_bwd_gather_plain`).  `terms` and `layout`
+    pick one of `_B4_INSTANCES`; a presplit `win` is the pair ``(hi,
+    lo)``.  CPU tensors take the plain twin, CUDA tensors the kernel in
+    `csrc/bwd_gather.cu`."""
     bsz, n_lane, s_pad = lane_b.shape
     n_out = {4: 2, 8: 3}.get(n_lane)
+    instance = _b4_instance(n_out, terms, layout)
+    if lane_b.device.type == "cpu":
+        return _bwd_gather_plain(slot_tile, lane_b, win, chunk, terms,
+                                 layout)
+    hi, lo = win if layout == "presplit" else (win, win)
+    w_type = torch.bfloat16 if layout == "presplit" else torch.float32
+    _check_cuda("bwd_gather", slot_tile, torch.int32, lane_b, torch.float32,
+                hi, w_type, lo, w_type)
     n_slots = s_pad // chunk
-    if n_out is None or s_pad != n_slots * chunk or \
-            slot_tile.shape != (bsz, n_slots + 1):
+    if s_pad != n_slots * chunk or slot_tile.shape != (bsz, n_slots + 1):
         raise ValueError(f"bwd_gather: lane {tuple(lane_b.shape)} and slot "
                          f"table {tuple(slot_tile.shape)} do not form a "
                          f"frame of chunk {chunk}")
-    if win.dim() not in (3, 4) or win.shape[0] != bsz:
-        raise ValueError(f"bwd_gather: window {tuple(win.shape)} is neither "
+    if hi.dim() not in (3, 4) or hi.shape[0] != bsz or \
+            lo.shape != hi.shape:
+        raise ValueError(f"bwd_gather: window {tuple(hi.shape)} is neither "
                          f"(B, nt, rows, cols) nor (B, rows, cols) for "
                          f"B={bsz}")
-    nt = win.shape[1] if win.dim() == 4 else 1
-    rows_e, cols_e = win.shape[-2:]
+    nt = hi.shape[1] if hi.dim() == 4 else 1
+    rows_e, cols_e = hi.shape[-2:]
+    if layout != "natural":
+        rows_e, cols_e = cols_e, rows_e
     if rows_e * cols_e * 4 > _build.MAX_WINDOW_BYTES or bsz > 65535 \
             or nt >= 65535:
         raise ValueError(f"bwd_gather: window {rows_e}x{cols_e}, B={bsz}, "
@@ -709,10 +795,11 @@ def bwd_gather(slot_tile, lane_b, win, chunk):
                       device=dev)
     lib = _build.load()
     rc = lib.dprast_bwd_gather(
-        _ptr(lane_b), _ptr(first), _ptr(end), _ptr(win), _ptr(buf), bsz, nt,
-        n_out, s_pad, chunk, rows_e, cols_e, nsplit, _stream(dev))
+        _ptr(lane_b), _ptr(first), _ptr(end), _ptr(hi), _ptr(lo), _ptr(buf),
+        bsz, nt, n_out, s_pad, chunk, rows_e, cols_e, nsplit, terms,
+        _LAYOUTS.index(layout), _stream(dev))
     _raise_on(rc, "bwd_gather")
-    LAUNCHES["bwd_gather_3d" if n_out == 3 else "bwd_gather"] += 1
+    LAUNCHES[instance] += 1
     return buf
 
 
@@ -777,6 +864,23 @@ def _fwd_frame(grid_size, points, rotation, translation, point_weight,
     (w,) point id]``."""
     n_out = len(grid_size)
     ts = tile_shape_for(grid_size)
+    data, slot_tile, nt, chunk = _fwd_prep(grid_size, points, rotation,
+                                           translation, point_weight,
+                                           pw_uniform)
+    w_plane = None if pw_uniform else data[:, n_out]
+    lane = _planes_fwd(data[:, :n_out], w_plane).contiguous()
+    # the window: body + 1 halo voxel per axis, or the single tile itself
+    halo = not _single_tile(grid_size)
+    win = tuple(t + 1 for t in ts) if halo else tuple(ts)
+    return (slot_tile.contiguous(), lane, nt, win, chunk), data
+
+
+def _fwd_prep(grid_size, points, rotation, translation, point_weight,
+              pw_uniform):
+    """The forward's coordinates and sorted frame, before the planes ->
+    ``(data, slot_tile, nt, chunk)``."""
+    n_out = len(grid_size)
+    ts = tile_shape_for(grid_size)
     halo = not _single_tile(grid_size)
     p = points.shape[0]
     bsz = rotation.shape[0]
@@ -803,38 +907,39 @@ def _fwd_frame(grid_size, points, rotation, translation, point_weight,
                                        pack_idx=True)
     else:
         data, slot_tile = _prep_direct(planes, fills, chunk)
-    w_plane = None if pw_uniform else data[:, n_out]
-    lane = _planes_fwd(data[:, :n_out], w_plane).contiguous()
-    # the window: body + 1 halo voxel per axis, or the single tile itself
-    win = tuple(t + 1 for t in ts) if halo else tuple(ts)
-    return (slot_tile.contiguous(), lane, nt, win, chunk), data
+    return data, slot_tile, nt, chunk
 
 
 def raster_fwd(grid_size, points, rotation, translation, background,
-               out_weight, point_weight, *, pw_uniform: bool = False):
+               out_weight, point_weight, *, pw_uniform: bool = False,
+               terms: int = 0):
     """Forward rasterisation on canonical batched args -> (B, *grid_size).
 
     ``pw_uniform=True`` promises that every `point_weight` entry equals
     ``point_weight[0]``: the weight plane is dropped and the scalar factor
-    is applied after the fold."""
+    is applied after the fold.  ``terms=1`` is the ``binned_bf16`` fast
+    mode (see the module docstring)."""
     out, _ = _fwd_impl(grid_size, points, rotation, translation, background,
-                       out_weight, point_weight, pw_uniform=pw_uniform)
+                       out_weight, point_weight, pw_uniform=pw_uniform,
+                       terms=terms)
     return out
 
 
 def raster_fwd_res(grid_size, points, rotation, translation, background,
-                   out_weight, point_weight, *, pw_uniform: bool = False):
+                   out_weight, point_weight, *, pw_uniform: bool = False,
+                   terms: int = 0):
     """Forward + the binning residuals ``(data, slot_tile)``: the sorted
     frame carries the point-id plane, so the pullback of the fused
     autograd pair skips the coordinates and the sort."""
     return _fwd_impl(grid_size, points, rotation, translation, background,
                      out_weight, point_weight, pw_uniform=pw_uniform,
-                     with_residuals=True)
+                     with_residuals=True, terms=terms)
 
 
 def _fwd_impl(grid_size, points, rotation, translation, background,
               out_weight, point_weight, *, pw_uniform=False,
-              with_residuals=False, splat=fwd_splat, fold=band_fold):
+              with_residuals=False, terms=0, splat=fwd_splat,
+              fold=band_fold):
     """`raster_fwd_res` with its two kernel stages as arguments, so a
     measurement can run the same forward through the plain twins.  The
     `fold` stage serves multi-tile 2-D grids; a single tile and every
@@ -843,7 +948,7 @@ def _fwd_impl(grid_size, points, rotation, translation, background,
     _check_args(grid_size, points.shape[0])
     splat_args, data = _fwd_frame(grid_size, points, rotation, translation,
                                   point_weight, pw_uniform)
-    ext = splat(*splat_args)
+    ext = splat(*splat_args, terms=terms)
 
     f32 = torch.float32
     ow_eff = out_weight.to(f32)
@@ -896,7 +1001,7 @@ def _bwd_frame(grid_size, points, rotation, translation):
 
 def raster_pullback(grid_size, points, rotation, translation, background,
                     out_weight, point_weight, ds_dout, *,
-                    pw_uniform: bool = False):
+                    pw_uniform: bool = False, terms: int = 0):
     """Analytic pullback -> `core.PullbackResult` (all six gradients).
 
     ``pw_uniform=True`` promises that (a) every `point_weight` entry
@@ -904,7 +1009,8 @@ def raster_pullback(grid_size, points, rotation, translation, background,
     through its sum (autograd's broadcast sums it; so does the API's
     scalar-weight rule).  On a multi-tile grid the weight-gradient plane
     then stays out of the unsort: ``d_ow`` and ``sum(d_pw)`` are per-pose
-    sums over the sorted frame, and ``d_pw`` is spread as ``sum / p``."""
+    sums over the sorted frame, and ``d_pw`` is spread as ``sum / p``.
+    ``terms=1`` is the ``binned_bf16`` fast mode."""
     del background
     _check_args(grid_size, points.shape[0])
     data, slot_tile, chunk = _bwd_frame(grid_size, points, rotation,
@@ -912,7 +1018,7 @@ def raster_pullback(grid_size, points, rotation, translation, background,
     return _pullback_from_frame(
         grid_size, data[:, :-1], data[:, -1], slot_tile, points, rotation,
         out_weight, point_weight, ds_dout, chunk=chunk,
-        pw_uniform=pw_uniform)
+        pw_uniform=pw_uniform, terms=terms)
 
 
 def _residual_planes(residuals, pw_uniform):
@@ -925,7 +1031,7 @@ def _residual_planes(residuals, pw_uniform):
 
 
 def raster_pullback_res(grid_size, residuals, args, ds_dout, *,
-                        pw_uniform: bool = False):
+                        pw_uniform: bool = False, terms: int = 0):
     """Pullback reusing the forward's frame (`raster_fwd_res`).
     ``pw_uniform`` must be the forward's: it fixes the frame's layout."""
     points, rotation, _, _, out_weight, point_weight = args
@@ -934,13 +1040,13 @@ def raster_pullback_res(grid_size, residuals, args, ds_dout, *,
         grid_size, coord, idx_rows, slot_tile, points, rotation, out_weight,
         point_weight, ds_dout, chunk=_default_chunk(grid_size,
                                                     points.shape[0]),
-        pw_uniform=pw_uniform)
+        pw_uniform=pw_uniform, terms=terms)
 
 
 def _pullback_from_frame(grid_size, coord, idx_rows, slot_tile, points,
                          rotation, out_weight, point_weight, ds_dout, *,
-                         chunk, pw_uniform=False, unfold=band_unfold,
-                         gather=bwd_gather):
+                         chunk, pw_uniform=False, terms=0,
+                         unfold=band_unfold, gather=bwd_gather):
     """The pullback from a frame, with its two kernel stages as arguments
     (as in `_fwd_impl`).  The `unfold` stage serves multi-tile 2-D grids;
     3-D grids take the plain `_unfold`, as in the JAX package."""
@@ -957,7 +1063,7 @@ def _pullback_from_frame(grid_size, coord, idx_rows, slot_tile, points,
     else:
         g_in = (unfold if n_out == 2 else _unfold)(g_cot, grid_size, ts)
     buf = gather(slot_tile, _planes_bwd(coord, ts).contiguous(), g_in,
-                 chunk)
+                 chunk, terms=terms)
 
     # back to point order; on the uniform-weight path the weight-gradient
     # plane skips the unsort (its sums are order-free, and every

@@ -192,7 +192,8 @@ def test_requires_grad_and_devices_raise():
 
 
 def test_surface():
-    assert dprast_torch.available_backends() == ("xla", "binned")
+    assert dprast_torch.available_backends() == ("xla", "binned",
+                                                 "binned_bf16")
     assert dprast_torch.default_backend() == "auto"
     assert dprast_torch.RasterGrads._fields == (
         "points", "rotation", "translation", "background", "out_weight",
@@ -249,6 +250,8 @@ def test_auto_dispatch_matches_jax(row, monkeypatch):
     else:
         assert tdispatch.resolve_pair("auto", n_out, grid, p,
                                       accelerator=True) == want
+    # auto never picks the fast mode, in either package
+    assert "binned_bf16" not in want
     # off the accelerator, and for f64 inputs, auto is the oracle
     assert tdispatch.resolve_pair("auto", n_out, grid, p) == ("xla", "xla")
     assert tdispatch.resolve_pair("auto", n_out, grid, p, accelerator=True,

@@ -504,9 +504,20 @@ def test_wrappers_run_the_twin_only_on_cpu():
     with pytest.raises(ValueError, match="CUDA"):
         tbin.bwd_gather(st, torch.zeros((1, 8, 128), device="meta"), ext,
                         128)
-    assert tbin.LAUNCHES == {"fwd_splat": 0, "band_fold": 0,
-                             "band_unfold": 0, "bwd_gather": 0,
-                             "fwd_splat_3d": 0, "bwd_gather_3d": 0}
+    with pytest.raises(ValueError, match="CUDA"):
+        tbin.bwd_gather(st, lane, ext, 128, terms=2, layout="transposed")
+    with pytest.raises(ValueError, match="CUDA"):
+        tbin.bwd_gather(st, lane, (ext.bfloat16(), ext.bfloat16()), 128,
+                        terms=2, layout="presplit")
+    with pytest.raises(ValueError, match="CUDA"):
+        tbin.fwd_splat(st, lane, 1, (8, 8), 128, terms=1)
+    # every CUDA instance has a counter, and none counted here
+    assert tbin.LAUNCHES == {
+        "fwd_splat": 0, "band_fold": 0, "band_unfold": 0, "bwd_gather": 0,
+        "fwd_splat_3d": 0, "bwd_gather_3d": 0, "fwd_splat_bf16": 0,
+        "fwd_splat_3d_bf16": 0, "bwd_gather_bf16": 0,
+        "bwd_gather_3d_bf16": 0, "bwd_gather_split": 0,
+        "bwd_gather_split_t": 0, "bwd_gather_presplit": 0}
 
 
 # ---------------------------------------------------------------------------

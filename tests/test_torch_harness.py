@@ -1,0 +1,241 @@
+"""dprast_torch's harness (`dprast_torch.benchmarks`,
+`dprast_torch.utils.profiling`) on the CPU: the stage profiler's
+standalone stages against the same stages inside the backend, B4's
+window layouts against each other, the JAX package's experiment kernels
+(`benchmarks/exp_xsel.py`, `benchmarks/exp_band.py`) through the Pallas
+interpreter against the port's twin, the two experiments' own checks, and
+the timing hooks.
+
+The kernels' plain twins stand in for the CUDA instances here;
+`chip_smoke.py` holds the instances to the twins on the card.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+from jax.experimental import pallas as pl  # noqa: E402
+from jax.experimental.pallas import tpu as pltpu  # noqa: E402
+
+from benchmarks import exp_band as jexp_band  # noqa: E402
+from benchmarks import exp_xsel as jexp_xsel  # noqa: E402
+from dprast.ops import splat_binned as jbin  # noqa: E402
+from dprast.utils.testing import fixtures  # noqa: E402
+from dprast_torch.benchmarks import exp_band, exp_xsel  # noqa: E402
+from dprast_torch.benchmarks import profile_binned  # noqa: E402
+from dprast_torch.ops import splat_binned as tbin  # noqa: E402
+from dprast_torch.utils import profiling  # noqa: E402
+
+torch.set_num_threads(2)
+
+
+def _scaled_err(out, ref):
+    ref = np.asarray(ref, np.float64)
+    return float(np.max(np.abs(np.asarray(out, np.float64) - ref))
+                 / max(float(np.max(np.abs(ref))), 1.0))
+
+
+PROFILE_CASES = {"256x256": ((256, 256), 2000, 2),
+                 "16x16x256": ((16, 16, 256), 2000, 1)}
+
+
+@pytest.mark.parametrize("case", list(PROFILE_CASES))
+def test_profile_stages_match_the_backend(case):
+    """Every stage is timed, and the standalone B1 / B4 launches give the
+    bits of the same stages inside `_fwd_impl` and `_pullback_from_frame`
+    on the same frame."""
+    grid, points, batch = PROFILE_CASES[case]
+    res = profile_binned.run(grid, points, batch, device="cpu", iters=1,
+                             warmup=0)
+    assert tuple(res["ms"]) == profile_binned.STAGES
+    assert all(ms >= 0 for ms in res["ms"].values())
+    assert len(profile_binned.report(res)) == 1 + len(profile_binned.STAGES)
+    pts, rot, tr, pw, g = res["inputs"]
+    ow, bg = torch.ones(batch), torch.zeros(batch)
+    seen = {}
+
+    def splat(*args, terms):
+        seen["ext"] = tbin.fwd_splat(*args, terms=terms)
+        return seen["ext"]
+
+    def gather(*args, terms):
+        seen["gather_args"] = args
+        seen["buf"] = tbin.bwd_gather(*args, terms=terms)
+        return seen["buf"]
+
+    out, (data, slot_tile) = tbin._fwd_impl(
+        grid, pts, rot, tr, bg, ow, pw, with_residuals=True, splat=splat)
+    assert torch.equal(seen["ext"], res["ext"])
+    assert torch.equal(data, res["frame"][0])
+    n_out = len(grid)
+    tbin._pullback_from_frame(grid, data[:, :n_out], data[:, -1], slot_tile,
+                              pts, rot, ow, pw, g, chunk=res["chunk"],
+                              gather=gather)
+    assert torch.equal(seen["buf"], res["buf"])
+    for a, b in zip(seen["gather_args"], res["bwd_gather_args"]):
+        assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+    # the profiler's fold stage is the forward's fold (ow = 1, bg = 0)
+    ts = tbin.tile_shape_for(grid)
+    fold = tbin.band_fold(res["ext"], grid, ts, ow, bg) if n_out == 2 \
+        else tbin._fold(res["ext"], grid, ts, True)
+    assert torch.equal(fold, out)
+
+
+def test_profile_single_tile_has_no_unfold_or_unsort():
+    res = profile_binned.run((64, 64), 500, 2, device="cpu", iters=1,
+                             warmup=0)
+    assert "unfold" not in res["ms"] and "bwd unsort" not in res["ms"]
+    assert res["unfold"] is None and res["nt"] == 1
+    with pytest.raises(ValueError, match="chunk"):
+        profile_binned.run((64, 64), 500, 2, chunk=128, device="cpu")
+
+
+def _frame_2d(grid, n_points=300, batch=2, seed=5):
+    """A standalone pullback frame, its lane planes, and a cotangent."""
+    pts, rot, tr = (torch.from_numpy(np.asarray(v, np.float32)) for v in
+                    list(fixtures(seed=seed, n_points=n_points,
+                                  batch_size=batch, n_in=3,
+                                  n_out=2).values())[:3])
+    data, slot_tile, chunk = tbin._bwd_frame(grid, pts, rot, tr)
+    lane_b = tbin._planes_bwd(data[:, :2], tbin.tile_shape_for(grid))
+    g = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (batch,) + grid).astype(np.float32))
+    return slot_tile, lane_b, g, chunk
+
+
+@pytest.mark.parametrize("grid", [(256, 256), (96, 80)])
+def test_window_layouts_bit_equal(grid):
+    """B4 at terms=2 reads the same values from a transposed window and
+    from a presplit pair as from the natural window."""
+    slot_tile, lane_b, g, chunk = _frame_2d(grid)
+    ts = tbin.tile_shape_for(grid)
+    win = tbin._unfold(g, grid, ts) if not tbin._single_tile(grid) else g
+    natural = tbin.bwd_gather(slot_tile, lane_b, win, chunk, terms=2)
+    win_t = win.transpose(-1, -2).contiguous()
+    transposed = tbin.bwd_gather(slot_tile, lane_b, win_t, chunk, terms=2,
+                                 layout="transposed")
+    presplit = tbin.bwd_gather(slot_tile, lane_b, exp_band.split2(win_t),
+                               chunk, terms=2, layout="presplit")
+    assert torch.equal(transposed, natural)
+    assert torch.equal(presplit, natural)
+    assert torch.equal(natural, tbin._bwd_gather_plain(
+        slot_tile, lane_b, win, chunk, terms=2))
+    # the split differs from the exact gather by about 2^-17 relative
+    exact = tbin.bwd_gather(slot_tile, lane_b, win, chunk)
+    assert 0 < _scaled_err(natural, exact) < 1e-5
+
+
+def _pallas_rows(kernel, grid, slot_tile, lane_b, windows, chunk, block):
+    """Run one of the JAX experiments' gather kernels through the
+    interpreter -> its raw (B, 3, s_pad) rows.  `windows` are the kernel's
+    window operands, each cut per slot by `block` (single tile: the whole
+    window of the pose; multi-tile: the slot's tile)."""
+    bsz, n_lane, s_pad = lane_b.shape
+    if block == "tile":
+        index = lambda b, s, st: (b, st[b, s], 0, 0)  # noqa: E731
+        shape = (1, 1) + tuple(windows[0].shape[2:])
+    else:
+        index = lambda b, s, st: (b, 0, 0)  # noqa: E731
+        shape = (1,) + tuple(windows[0].shape[1:])
+    w_specs = [pl.BlockSpec(shape, index, memory_space=pltpu.VMEM)
+               for _ in windows]
+    grid_spec = pltpu.PrefetchScalarGridSpec(
+        num_scalar_prefetch=1, grid=(bsz, s_pad // chunk),
+        in_specs=[pl.BlockSpec((1, n_lane, chunk),
+                               lambda b, s, st: (b, 0, s),
+                               memory_space=pltpu.VMEM)] + w_specs,
+        out_specs=pl.BlockSpec((1, 3, chunk), lambda b, s, st: (b, 0, s),
+                               memory_space=pltpu.VMEM))
+    return np.asarray(pl.pallas_call(
+        functools.partial(kernel, ts=tbin.tile_shape_for(grid), chunk=chunk,
+                          n_out=2),
+        grid_spec=grid_spec,
+        out_shape=jax.ShapeDtypeStruct((bsz, 3, s_pad), jnp.float32),
+        interpret=True)(jnp.asarray(slot_tile.numpy()),
+                        jnp.asarray(lane_b.numpy()),
+                        *(jnp.asarray(w) for w in windows)))
+
+
+def test_xsel_kernel_matches_twin():
+    """JAX's `_kernel_absums` (one tile, transposed cotangent, masked row
+    sums) against B4's twin at terms=2 on the natural cotangent."""
+    grid = (96, 80)
+    slot_tile, lane_b, g, chunk = _frame_2d(grid)
+    rows = _pallas_rows(jexp_xsel._kernel_absums, grid, slot_tile, lane_b,
+                        [g.transpose(-1, -2).numpy()], chunk, "pose")
+    twin = tbin._bwd_gather_plain(slot_tile, lane_b, g, chunk, terms=2)
+    err = _scaled_err(twin, rows)
+    assert err < 1e-6, f"_kernel_absums vs twin: {err:.3e}"
+
+
+@pytest.mark.parametrize("variant", ["NN", "TN", "presplit"])
+def test_band_kernels_match_twin(variant):
+    """JAX's `_bwd_kernel_orient` (transposed windows with NN, natural
+    with TN) and `_bwd_kernel_presplit` against B4's twin at terms=2 on
+    the natural windows."""
+    grid = (256, 256)
+    slot_tile, lane_b, g, chunk = _frame_2d(grid)
+    win = tbin._unfold(g, grid, tbin.tile_shape_for(grid))
+    win_t = win.transpose(-1, -2).contiguous()
+    if variant == "presplit":
+        kernel = jexp_band._bwd_kernel_presplit
+        hi, lo = exp_band.split2(win_t)
+        windows = [jnp.asarray(hi.float().numpy()).astype(jnp.bfloat16),
+                   jnp.asarray(lo.float().numpy()).astype(jnp.bfloat16)]
+    else:
+        kernel = functools.partial(jexp_band._bwd_kernel_orient,
+                                   transposed=variant == "NN")
+        windows = [(win_t if variant == "NN" else win).numpy()]
+    rows = _pallas_rows(kernel, grid, slot_tile, lane_b, windows, chunk,
+                        "tile")
+    twin = tbin._bwd_gather_plain(slot_tile, lane_b, win, chunk, terms=2)
+    err = _scaled_err(twin, rows)
+    assert err < 1e-6, f"{variant} vs twin: {err:.3e}"
+
+
+def test_experiments_own_checks():
+    """The two experiments at a small size: the candidate agrees with the
+    base exactly, and NN, TN and presplit agree bit for bit."""
+    res = exp_xsel.run("cpu", (128, 128), 3000, 2, iters=1, warmup=0)
+    assert res["max_abs_diff"] == 0.0 and res["scale"] > 0
+    assert set(res["ms"]) == {"base", "candidate"}
+    assert len(exp_xsel.report(res)) == 4
+    res = exp_band.run("cpu", (300, 300), 3000, 2, iters=1, warmup=0)
+    assert res["nn_tn_bit_exact"] and res["presplit_bit_exact"]
+    assert set(res["ms"]) == {"NN", "TN", "presplit"}
+    assert "NN vs TN bit-exact: True" in exp_band.report(res)
+    with pytest.raises(ValueError, match="single tile"):
+        exp_xsel.run("cpu", (300, 300))
+    with pytest.raises(ValueError, match="multi-tile"):
+        exp_band.run("cpu", (128, 128))
+
+
+@pytest.mark.parametrize("module", [profile_binned, exp_xsel, exp_band])
+def test_cuda_device_never_falls_back(module, monkeypatch):
+    """The scripts' default device is the card; without one they exit
+    instead of timing the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="is False"):
+        module.main([])
+
+
+def test_profiling_hooks(tmp_path, monkeypatch):
+    calls = []
+    ms, spread = profiling.time_fn(lambda: calls.append(1), "cpu", iters=5,
+                                   warmup=2)
+    assert len(calls) == 7 and ms >= 0 and spread >= 0
+    with profiling.trace(tmp_path / "trace", device="cpu") as prof:
+        with profiling.annotate("splat"):
+            torch.ones(8).sum()
+    assert (tmp_path / "trace" / "trace.json").exists()
+    assert any(e.key == "splat" for e in prof.key_averages())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        profiling.time_fn(lambda: None, "cuda")
+    with pytest.raises(ValueError, match="no clock"):
+        profiling.time_fn(lambda: None, "meta")
