@@ -8,8 +8,9 @@ orthographic, 64 poses, 10^5 points, 128x128) and at 1024x1024:
 - the forward `raster` through `auto` (kernels B1, and B2 at 1024^2),
   checked against the port's scatter oracle on the card;
 - the training step, `torch.autograd.grad` through `raster` (B1 + B4,
-  and B2 + B3 at 1024^2), checked against the same autograd through the
-  oracle on the card, and a few SGD steps of a point-cloud fit.
+  and B2 at 1024^2, where B4 cuts its windows out of the cotangent
+  itself and B3 does not run), checked against the same autograd through
+  the oracle on the card, and a few SGD steps of a point-cloud fit.
 
 The [3d] phase drives the 3-D path, 10^6 points into 128^3 with one
 pose (the forward and the training step through `auto`, on the 3-D
@@ -19,7 +20,9 @@ same way.
 At small sizes the forward and `raster_pullback` are checked against the
 float64 numpy oracles, in 2-D and 3-D.  Then it times the kernels
 against their twins, and the forward and the training step against the
-same work run through the twins.
+same work run through the twins; B4's grid source against the route it
+replaced (B3, then B4 on the windows B3 wrote) in turns; and, once each,
+the `F.fold` / `F.unfold` routes that compute what B2 / B3 compute.
 
 The [bf16] phase does the same for the `binned_bf16` fast mode: its B1
 and B4 instances (`terms=1`) against their twins, and the forward and
@@ -37,8 +40,10 @@ Run from the root of the repository:
 
 The last line of its output is one JSON object, ``{"ok": true, "device":
 {...}}``; the line before it lists the kernels with their launch counts
-on the training path, errors and times.  It exits non-zero when no CUDA
-device is present or any check fails.
+on the training path, errors, times and bounds (the least time the card
+could take: bytes moved once over its memory rate, or operations over its
+fp32 rate).  It exits non-zero when no CUDA device is present or any
+check fails.
 """
 
 from __future__ import annotations
@@ -66,6 +71,17 @@ SMALL_GRIDS = ((128, 128), (256, 256), (999, 777), (5, 5), (3, 200),
                (130, 1))
 GRAD_NAMES = ("points", "rotation", "translation", "background",
               "out_weight", "point_weight")
+# the grids, poses and points at which B2 and B4's grid source are held to
+# their twins beside the main path's: multi-tile grids whose edges cut a
+# tile, one whose rows are no multiple of 16 bytes (no TMA box there, the
+# kernel stages with plain loads), and for B4 the single tile
+ODD_GRIDS = (((300, 200), 3, 5000), ((130, 1000), 3, 5000),
+             ((1023, 1021), 3, 20000))
+
+# the card's peak rates for a kernel's bound: device memory bytes/s and
+# fp32 operations/s outside the tensor cores (NVIDIA H100 SXM data sheet)
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
 
 # the 3-D path: BASELINE config 4 (10^6 points into 128^3, one pose), and
 # a pose batch at a tenth of the points
@@ -93,18 +109,90 @@ def scaled_err(out, ref):
     return float((out - ref).abs().max() / max(float(ref.abs().max()), 1.0))
 
 
-def flagship_inputs(seed=0):
+def bound(n_bytes, n_ops):
+    """The least milliseconds the card could take to move `n_bytes` (each
+    input read once, each output written once) or to do `n_ops` fp32
+    operations, whichever is larger -> (ms, "bytes" | "operations")."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return ((by_bytes, "bytes") if by_bytes >= by_ops
+            else (by_ops, "operations"))
+
+
+def live_rows(slot_tile, chunk):
+    """Frame rows in live slots, which B1 and B4 read."""
+    return int(slot_tile[:, -1].sum()) * chunk
+
+
+def b1_bound(slot_tile, lane, nt, win, chunk):
+    """B1 on these arguments: the live rows' lane planes and the slot
+    ranges read, the windows written; 14 (2-D) or 34 (3-D) operations a
+    row (the hat weights, their products, the adds)."""
+    rows = live_rows(slot_tile, chunk)
+    bsz, n_lane, _ = lane.shape
+    n_bytes = (rows * n_lane + 2 * bsz * nt
+               + bsz * nt * int(np.prod(win))) * 4
+    return bound(n_bytes, rows * (14 if len(win) == 2 else 34))
+
+
+def b4_bound(slot_tile, lane_b, win, chunk):
+    """B4 on these arguments: the live rows' lane planes, the slot table
+    and the window source (windows, a presplit pair, or the cotangent)
+    read once, every output row written; 18 (2-D) or 45 (3-D) operations
+    a row."""
+    rows = live_rows(slot_tile, chunk)
+    bsz, n_lane, s_pad = lane_b.shape
+    n_out = 2 if n_lane == 4 else 3
+    wins = win if isinstance(win, tuple) else (win,)
+    n_bytes = ((rows * n_lane + bsz * (n_out + 1) * s_pad
+                + slot_tile.numel()) * 4
+               + sum(w.numel() * w.element_size() for w in wins))
+    return bound(n_bytes, rows * (18 if n_out == 2 else 45))
+
+
+def copy_bound(src, dst, ops_per_out=0):
+    """B2 / B3: `src` read once, `dst` written once."""
+    return bound((src.numel() + dst.numel()) * 4, dst.numel() * ops_per_out)
+
+
+def fold_library(ext, grid, ts, ow, bg):
+    """What B2 computes through `F.fold` (kernel 128, stride 127): a
+    permute of the windows to columns, the fold onto the padded grid, the
+    slice and the epilogue -- more than one call."""
+    gy, gx = grid
+    n0, n1 = -(-gy // ts[0]), -(-gx // ts[1])
+    cols = ext.reshape(ext.shape[0], n0 * n1, -1).transpose(1, 2)
+    out = torch.nn.functional.fold(
+        cols, (n0 * ts[0] + 1, n1 * ts[1] + 1), kernel_size=ts[0] + 1,
+        stride=ts[0])
+    return out[:, 0, :gy, :gx] * ow[:, None, None] + bg[:, None, None]
+
+
+def unfold_library(g, grid, ts):
+    """What B3 computes through `F.unfold`: the padding, the unfold, and
+    the permute of its columns to windows -- more than one call."""
+    gy, gx = grid
+    n0, n1 = -(-gy // ts[0]), -(-gx // ts[1])
+    padded = torch.nn.functional.pad(
+        g, (0, n1 * ts[1] + 1 - gx, 0, n0 * ts[0] + 1 - gy))[:, None]
+    cols = torch.nn.functional.unfold(padded, kernel_size=ts[0] + 1,
+                                      stride=ts[0])
+    return cols.transpose(1, 2).reshape(g.shape[0], n0 * n1, ts[0] + 1,
+                                        ts[1] + 1)
+
+
+def flagship_inputs(seed=0, n_points=N_POINTS, n_poses=N_POSES):
     """The flagship benchmark's inputs: a Gaussian cloud and rotations
     about the y axis projected onto (x, y)."""
     rng = np.random.default_rng(seed)
-    points = (rng.standard_normal((N_POINTS, 3)) * 0.4).astype(np.float32)
-    angles = rng.uniform(0, 2 * np.pi, N_POSES)
+    points = (rng.standard_normal((n_points, 3)) * 0.4).astype(np.float32)
+    angles = rng.uniform(0, 2 * np.pi, n_poses)
     c, s = np.cos(angles), np.sin(angles)
-    rot = np.zeros((N_POSES, 2, 3), np.float32)
+    rot = np.zeros((n_poses, 2, 3), np.float32)
     rot[:, 0, 0], rot[:, 0, 2] = c, -s
     rot[:, 1, 1] = 1.0
-    translation = (rng.standard_normal((N_POSES, 2)) * 0.1).astype(np.float32)
-    point_weight = rng.uniform(0.5, 2.0, N_POINTS).astype(np.float32)
+    translation = (rng.standard_normal((n_poses, 2)) * 0.1).astype(np.float32)
+    point_weight = rng.uniform(0.5, 2.0, n_points).astype(np.float32)
     return points, rot, translation, point_weight
 
 
@@ -130,6 +218,11 @@ def reset_launches(sb):
         sb.LAUNCHES[name] = 0
 
 
+def ran(launched):
+    """The kernels of a launch count that ran at all."""
+    return {name: count for name, count in launched.items() if count}
+
+
 def train_inputs(pts, rot, tr, pw, weighted):
     """The six `raster` inputs as leaves that require grad: per-pose
     background and out_weight, and a per-point or a scalar point weight
@@ -153,8 +246,7 @@ def phase_train(dprast_torch, sb, pts, rot, tr, pw, cots, totals):
     """[train]: autograd through `auto` vs the oracle backend on the card,
     each run between a reset and a read of the launch counts."""
     want = {FLAGSHIP: ("fwd_splat", "bwd_gather"),
-            MULTI_TILE: ("fwd_splat", "band_fold", "band_unfold",
-                         "bwd_gather")}
+            MULTI_TILE: ("fwd_splat", "band_fold", "bwd_gather_grid")}
     for grid in GRIDS:
         for weighted in (False, True):
             inputs = train_inputs(pts, rot, tr, pw, weighted)
@@ -164,9 +256,12 @@ def phase_train(dprast_torch, sb, pts, rot, tr, pw, cots, totals):
             launched = dict(sb.LAUNCHES)
             for name in launched:
                 totals[name] += launched[name]
-            for name in want[grid]:
-                check(launched[name] >= 1,
-                      f"{name} ran in the training step at {grid}")
+            for name, count in launched.items():
+                # one launch of each kernel of the path and no other: at
+                # 1024^2 B4 reads the cotangent and B3 does not run
+                check(count == (name in want[grid]),
+                      f"{name} ran {count} times in the training step at "
+                      f"{grid}")
             ref = train_grads(dprast_torch, grid, inputs, cots[grid],
                               backend="xla")
             errs = {}
@@ -175,16 +270,17 @@ def phase_train(dprast_torch, sb, pts, rot, tr, pw, cots, totals):
                       f"finite d_{name} of shape {tuple(x.shape)} at {grid}")
                 errs[name] = scaled_err(a, r)
             label = "weighted" if weighted else "uniform"
-            print(f"[train] auto {grid} {label}: launches {launched}; "
+            print(f"[train] auto {grid} {label}: launches {ran(launched)}; "
                   f"scaled max-abs err vs the xla backend (tol 2e-5): "
                   + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
             check(max(errs.values()) <= 2e-5, f"training grads at {grid}")
 
 
-def phase_small(dprast_torch, oracle, dev, tag, cases):
+def phase_small(dprast_torch, oracle, dev, tag, cases, backend="binned",
+                tol=1e-5):
     """[small] / [3d small]: the forward and `raster_pullback` on the
-    binned backend vs the f64 oracles; `cases` are (grid, seed, points,
-    poses) of the fixtures."""
+    `backend` vs the f64 oracles within `tol`; `cases` are (grid, seed,
+    points, poses) of the fixtures."""
     rng = np.random.default_rng(7)
     for grid, seed, n_points, n_poses in cases:
         fx = oracle.fixtures(seed=seed, n_points=n_points,
@@ -196,12 +292,12 @@ def phase_small(dprast_torch, oracle, dev, tag, cases):
             args = on_dev if weighted else on_dev[:5]
             ref = oracle.raster_numpy(grid, *small[:5],
                                       small[5] if weighted else ones)
-            out = dprast_torch.raster(grid, *args, backend="binned")
+            out = dprast_torch.raster(grid, *args, backend=backend)
             err = scaled_err(out, ref)
-            print(f"{tag} binned {grid} x {n_poses} poses x {n_points} "
+            print(f"{tag} {backend} {grid} x {n_poses} poses x {n_points} "
                   f"points {'weighted' if weighted else 'uniform'}: forward "
-                  f"scaled max-abs err vs f64 oracle {err:.3e} (tol 1e-5)")
-            check(err <= 1e-5, f"binned forward vs f64 oracle at {grid}")
+                  f"scaled max-abs err vs f64 oracle {err:.3e} (tol {tol:g})")
+            check(err <= tol, f"{backend} forward vs f64 oracle at {grid}")
         g = rng.standard_normal((n_poses,) + grid)
         g_dev = torch.from_numpy(g.astype(np.float32)).to(dev)
         # a per-point weight, the defaulted one (exact per-point d_pw) and
@@ -214,15 +310,87 @@ def phase_small(dprast_torch, oracle, dev, tag, cases):
             if label.startswith("scalar"):
                 ref["point_weight"] = ref["point_weight"].sum()
             res = dprast_torch.raster_pullback(g_dev, *on_dev[:5], pw,
-                                               backend="binned")
+                                               backend=backend)
             errs = {k: scaled_err(getattr(res, k), ref[k])
                     for k in GRAD_NAMES}
             worst = max(errs, key=errs.get)
-            print(f"{tag} binned raster_pullback {grid} {label}: scaled "
+            print(f"{tag} {backend} raster_pullback {grid} {label}: scaled "
                   f"max-abs err vs f64 oracle {errs[worst]:.3e} (d_{worst}; "
-                  f"tol 1e-5)")
-            check(errs[worst] <= 1e-5,
-                  f"binned pullback vs f64 oracle at {grid} ({label})")
+                  f"tol {tol:g})")
+            check(errs[worst] <= tol,
+                  f"{backend} pullback vs f64 oracle at {grid} ({label})")
+
+
+def phase_b2(sb, dev, ext_mt, ow, bg):
+    """[B2]: the band fold bit-equal to its twin on the 1024^2 windows of
+    B1 and on random windows at `ODD_GRIDS` -> worst scaled error."""
+    cases = [(MULTI_TILE, ext_mt, ow, bg)]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for grid, n_poses, _ in ODD_GRIDS:
+        cases.append((grid, torch.randn(
+            (n_poses, sb.n_tiles(grid), sb.TILE, sb.TILE), device=dev,
+            generator=gen), ow[:n_poses].contiguous(),
+            bg[:n_poses].contiguous()))
+    worst = 0.0
+    for grid, ext, ow_g, bg_g in cases:
+        ts = sb.tile_shape_for(grid)
+        out_k = sb.band_fold(ext, grid, ts, ow_g, bg_g)
+        out_p = sb._band_fold_plain(ext, grid, ts, ow_g, bg_g)
+        torch.cuda.synchronize()
+        err = scaled_err(out_k, out_p)
+        worst = max(worst, err)
+        same = torch.equal(out_k, out_p)
+        print(f"[B2 band_fold] {grid}: out {tuple(out_k.shape)}, scaled "
+              f"max-abs err vs twin {err:.3e}, bit-equal {same}")
+        check(same, f"B2 bit-equal to its twin at {grid}")
+    return worst
+
+
+def phase_b4_grid(sb, dev, b4_cases):
+    """[B4 grid]: B4's grid source (the cotangent itself) at terms 0 and 1,
+    bit-equal to its twin and to B3 followed by the natural instance, on
+    the frames `b4_cases` of the main path ((grid, label, st, lane_b, g,
+    chunk)) and on standalone frames at `ODD_GRIDS` -> ({counter: worst
+    scaled error}, {counter: its (st, lane_b, g, chunk, terms) at the
+    1024^2 grid, or at the first grid that took that counter's staging})."""
+    cases = list(b4_cases)
+    for grid, n_poses, n_points in ODD_GRIDS:
+        pts, rot, tr = (torch.from_numpy(a).to(dev) for a in flagship_inputs(
+            3, n_points, n_poses)[:3])
+        data, st, chunk = sb._bwd_frame(grid, pts, rot, tr)
+        lane_b = sb._planes_bwd(data[:, :2],
+                                sb.tile_shape_for(grid)).contiguous()
+        g = torch.from_numpy(np.random.default_rng(2).standard_normal(
+            (n_poses,) + grid).astype(np.float32)).to(dev)
+        cases.append((grid, "standalone frame", st, lane_b, g, chunk))
+    errs, timed = {}, {}
+    for grid, label, st, lane_b, g, chunk in cases:
+        ts = sb.tile_shape_for(grid)
+        win = g if sb._single_tile(grid) else sb.band_unfold(g, grid, ts)
+        for terms in (0, 1):
+            before = dict(sb.LAUNCHES)
+            buf_k = sb.bwd_gather(st, lane_b, g, chunk, terms=terms,
+                                  layout="grid")
+            (counter,) = (k for k, v in sb.LAUNCHES.items()
+                          if v != before[k])
+            buf_p = sb._bwd_gather_plain(st, lane_b, g, chunk, terms=terms,
+                                         layout="grid")
+            buf_n = sb.bwd_gather(st, lane_b, win, chunk, terms=terms)
+            torch.cuda.synchronize()
+            err = scaled_err(buf_k, buf_p)
+            errs[counter] = max(errs.get(counter, 0.0), err)
+            if counter not in timed or grid == MULTI_TILE:
+                timed[counter] = (st, lane_b, g, chunk, terms)
+            same = torch.equal(buf_k, buf_p)
+            same_n = torch.equal(buf_k, buf_n)
+            print(f"[B4 grid] {grid} x {g.shape[0]} {label} terms={terms} "
+                  f"({counter}): rows {tuple(buf_k.shape)}, bit-equal to "
+                  f"twin {same}, to B3 + the natural instance {same_n}")
+            check(same, f"B4 grid bit-equal to its twin at {grid} "
+                        f"(terms={terms}, {label})")
+            check(same_n, f"B4 grid bit-equal to B3 + natural B4 at {grid} "
+                          f"(terms={terms}, {label})")
+    return errs, timed
 
 
 def phase_fit(dprast_torch, pts, rot, tr, steps=5):
@@ -364,9 +532,9 @@ def phase_3d(dprast_torch, sb, dev):
             ref = dprast_torch.raster(grid, pts, rot, tr, bg, ow, w,
                                       backend="xla")
             err = scaled_err(img, ref)
-            print(f"{tag} forward auto {weight}: launches {launched}; image "
-                  f"sum {float(img.double().sum()):.6e}, scaled max-abs err "
-                  f"vs the xla backend {err:.3e} (tol 2e-5)")
+            print(f"{tag} forward auto {weight}: launches {ran(launched)}; "
+                  f"image sum {float(img.double().sum()):.6e}, scaled max-abs "
+                  f"err vs the xla backend {err:.3e} (tol 2e-5)")
             check(err <= 2e-5, f"{tag}: auto vs xla forward ({weight})")
 
             # the training step: every input a leaf; the uniform case
@@ -390,8 +558,8 @@ def phase_3d(dprast_torch, sb, dev):
                 check(a.shape == x.shape and bool(torch.isfinite(a).all()),
                       f"{tag}: finite d_{name} of shape {tuple(x.shape)}")
                 errs[name] = scaled_err(a, r)
-            print(f"{tag} train auto {weight}: launches {launched}; scaled "
-                  f"max-abs err vs the xla backend (tol 2e-5): "
+            print(f"{tag} train auto {weight}: launches {ran(launched)}; "
+                  f"scaled max-abs err vs the xla backend (tol 2e-5): "
                   + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
             check(max(errs.values()) <= 2e-5,
                   f"{tag}: training grads vs xla ({weight})")
@@ -418,6 +586,8 @@ def times_3d(dprast_torch, sb, core, dev, smi):
         lane_b = sb._planes_bwd(data[:, :3], ts).contiguous()
         buf = sb.bwd_gather(st, lane_b, win, chunk)
         ow, bg = canon[4].reshape(-1, 1, 1, 1), canon[3].reshape(-1, 1, 1, 1)
+        ms["b1_bound", n_points] = b1_bound(*splat_args)
+        ms["b4_bound", n_points] = b4_bound(st, lane_b, win, chunk)
 
         def step():
             _, res = sb.raster_fwd_res(grid, *canon, pw_uniform=True)
@@ -462,6 +632,10 @@ def times_3d(dprast_torch, sb, core, dev, smi):
         }
         for key, fn in stages.items():
             ms[key, n_points] = time_ms(fn)
+        ms["b1_dev_us", n_points] = kernel_device_us(stages["b1"],
+                                                     "fwd_splat_kernel")
+        ms["b4_dev_us", n_points] = kernel_device_us(stages["b4"],
+                                                     "bwd_gather_kernel")
         t = {k: ms[k, n_points] for k in stages}
         print(f"[3d times] {smi} | {grid} x 1 pose x {n_points} points, "
               f"uniform weights, median ms: frame {t['frame']:.4f}, B1-3D "
@@ -485,6 +659,8 @@ BF16_TOL = 2e-2
 # B4 instances, the fast mode's and the harness's, by (n_out, terms)
 BF16_B4 = {2: "bwd_gather_bf16", 3: "bwd_gather_3d_bf16"}
 BF16_B1 = {2: "fwd_splat_bf16", 3: "fwd_splat_3d_bf16"}
+# on a multi-tile 2-D grid the fast mode's B4 reads the cotangent itself
+BF16_B4_GRID = "bwd_gather_grid_bf16"
 
 
 def bf16_kernels(sb, grid, tag, splat_args, data, win, ms):
@@ -508,6 +684,8 @@ def bf16_kernels(sb, grid, tag, splat_args, data, win, ms):
           f"{same} (err {b4_err:.3e})")
     check(b1_err <= 1e-6, f"{tag}: B1 terms=1 vs twin")
     check(same, f"{tag}: B4 terms=1 bit-equal to its twin")
+    ms[key, "b1_bound"] = b1_bound(*splat_args)
+    ms[key, "b4_bound"] = b4_bound(*b4_args)
     ms[key, "b1_plain"] = time_ms(
         lambda: sb._fwd_splat_plain(*splat_args, terms=1))
     ms[key, "b4_plain"] = time_ms(
@@ -531,21 +709,42 @@ def bf16_kernels(sb, grid, tag, splat_args, data, win, ms):
     return b1_err, b4_err
 
 
-def kernel_device_us(fn, kernel, launches=10):
-    """Mean device time in microseconds of the kernels named `kernel` over
-    `launches` calls of `fn`, from `torch.profiler`; 0 when the trace holds
+def kernel_device_us(fn, kernel, calls=10):
+    """Device time in microseconds that one call of `fn` spends in the
+    kernels whose name holds `kernel` (or one of a tuple of names), the
+    mean over `calls` calls, from `torch.profiler`; 0 when the trace holds
     none of them."""
     import tempfile
+
+    from dprast_torch.utils import profiling
+    names = (kernel,) if isinstance(kernel, str) else kernel
+    fn()
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp) as prof:
+            for _ in range(calls):
+                fn()
+    return sum(e.device_time_total for e in prof.key_averages()
+               if any(name in e.key for name in names)) / calls
+
+
+def device_busy(fn, calls=5):
+    """What one call of `fn` keeps the card busy with, the mean over
+    `calls` calls from `torch.profiler`: (microseconds in kernels and
+    copies, their number)."""
+    import tempfile
+
+    from torch.autograd import DeviceType
 
     from dprast_torch.utils import profiling
     fn()
     with tempfile.TemporaryDirectory() as tmp:
         with profiling.trace(tmp) as prof:
-            for _ in range(launches):
+            for _ in range(calls):
                 fn()
-    rows = [e for e in prof.key_averages() if kernel in e.key]
-    count = sum(e.count for e in rows)
-    return sum(e.device_time_total for e in rows) / count if count else 0.0
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    return (sum(e.device_time_total for e in rows) / calls,
+            sum(e.count for e in rows) / calls)
 
 
 def phase_bf16(dprast_torch, sb, dev, smi, pts, rot, tr, pw, cots, frames):
@@ -614,13 +813,14 @@ def phase_bf16(dprast_torch, sb, dev, smi, pts, rot, tr, pw, cots, frames):
             launched = dict(sb.LAUNCHES)
             for name in launched:
                 launches[name] += launched[name] + fwd_launched[name]
-            for name in (BF16_B1[n_out], BF16_B4[n_out]):
+            b4 = BF16_B4_GRID if grid == MULTI_TILE else BF16_B4[n_out]
+            for name in (BF16_B1[n_out], b4):
                 check(launched[name] >= 1,
                       f"[bf16] {name} ran in the training step at {grid}")
             check(fwd_launched[BF16_B1[n_out]] >= 1,
                   f"[bf16] {BF16_B1[n_out]} ran in the forward at {grid}")
             exact = ("fwd_splat", "bwd_gather", "fwd_splat_3d",
-                     "bwd_gather_3d")
+                     "bwd_gather_3d", "bwd_gather_grid", "band_unfold")
             check(all(launched[k] == fwd_launched[k] == 0 for k in exact),
                   f"[bf16] no exact instance ran at {grid}")
             ref_g = train_grads(dprast_torch, grid, leaves, g, backend="xla")
@@ -630,10 +830,9 @@ def phase_bf16(dprast_torch, sb, dev, smi, pts, rot, tr, pw, cots, frames):
                       f"[bf16] finite d_{name} at {grid}")
                 gerrs[name] = scaled_err(a, r)
             worst = max(worst, err_img, *gerrs.values())
-            ran = {k: v for k, v in launched.items() if v}
             print(f"[bf16] binned_bf16 {grid} {label}: forward launches "
-                  f"{ {k: v for k, v in fwd_launched.items() if v} }, step "
-                  f"launches {ran}; scaled max-abs err vs the xla backend "
+                  f"{ran(fwd_launched)}, step launches {ran(launched)}; "
+                  f"scaled max-abs err vs the xla backend "
                   f"(tol {BF16_TOL:g}): image {err_img:.3e}, "
                   + ", ".join(f"{k} {v:.3e}" for k, v in gerrs.items()))
             check(max(err_img, *gerrs.values()) <= BF16_TOL,
@@ -687,7 +886,8 @@ def phase_profile(sb, dev, smi):
     """[profile]: the stage profiler at 1024^2 x 64 x 10^5 and 128^3 x 1 x
     10^6, each run between a reset and a read of the launch counts; its
     standalone B1 / B4 outputs held to their twins on the same frame.  ->
-    {grid: (launches, B1 err, B4 err, B1 ms, twin ms, B4 ms, twin ms)}."""
+    {grid: {launched, and for b1 / b4: _err, _ms, _plain (twin ms), _bound,
+    _dev_us (the kernel's own device time)}}."""
     from dprast_torch.benchmarks import profile_binned
     out = {}
     for grid, points, batch in PROFILE_CASES:
@@ -703,8 +903,7 @@ def phase_profile(sb, dev, smi):
         torch.cuda.synchronize()
         b1_err = scaled_err(res["ext"], ext_p)
         same = torch.equal(res["buf"], buf_p)
-        print(f"[profile] {grid}: launches "
-              f"{ {k: v for k, v in launched.items() if v} }; standalone "
+        print(f"[profile] {grid}: launches {ran(launched)}; standalone "
               f"B1 scaled max-abs err vs twin {b1_err:.3e} (tol 1e-5), "
               f"standalone B4 bit-equal to twin {same}")
         check(b1_err <= 1e-5, f"[profile] B1 vs twin at {grid}")
@@ -713,13 +912,26 @@ def phase_profile(sb, dev, smi):
         b4 = "bwd_gather_3d" if len(grid) == 3 else "bwd_gather"
         check(launched[b1] >= 1 and launched[b4] >= 1,
               f"[profile] B1 and B4 launched alone at {grid}")
-        out[grid] = (launched, b1_err, scaled_err(res["buf"], buf_p),
-                     res["ms"]["fwd kernel"],
-                     time_ms(lambda: sb._fwd_splat_plain(
-                         *res["fwd_splat_args"])),
-                     res["ms"]["bwd kernel"],
-                     time_ms(lambda: sb._bwd_gather_plain(
-                         *res["bwd_gather_args"])))
+        out[grid] = {
+            "launched": launched, "b1_err": b1_err,
+            "b4_err": scaled_err(res["buf"], buf_p),
+            "b1_ms": res["ms"]["fwd kernel"],
+            "b1_plain": time_ms(lambda: sb._fwd_splat_plain(
+                *res["fwd_splat_args"])),
+            "b4_ms": res["ms"]["bwd kernel"],
+            "b4_plain": time_ms(lambda: sb._bwd_gather_plain(
+                *res["bwd_gather_args"])),
+            "b1_bound": b1_bound(*res["fwd_splat_args"]),
+            "b4_bound": b4_bound(*res["bwd_gather_args"]),
+            "b1_dev_us": kernel_device_us(
+                lambda: sb.fwd_splat(*res["fwd_splat_args"]),
+                "fwd_splat_kernel"),
+            "b4_dev_us": kernel_device_us(
+                lambda: sb.bwd_gather(*res["bwd_gather_args"]),
+                "bwd_gather_kernel")}
+        print(f"[profile] {smi} | {grid}: standalone kernel device us "
+              f"(torch.profiler): B1 {out[grid]['b1_dev_us']:.2f}, B4 "
+              f"{out[grid]['b4_dev_us']:.2f}")
     return out
 
 
@@ -728,7 +940,7 @@ def phase_exp(sb, dev, smi):
     each run between a reset and a read of the launch counts; each of the
     three harness instances held to its twin (terms=2, natural window),
     the experiments' bit-exactness relations checked.  -> {entry: (launches,
-    err, ms, twin ms)}."""
+    err, ms, twin ms, bound, device us)}."""
     from dprast_torch.benchmarks import exp_band, exp_xsel
     out = {}
     reset_launches(sb)
@@ -752,15 +964,16 @@ def phase_exp(sb, dev, smi):
         check(launched[name] >= 1, f"[exp] {name} ran in exp_xsel")
         check(err <= 1e-6, f"[exp] exp_xsel {key} vs twin")
     # the candidate is the counterpart of `_kernel_absums`
-    out["xsel", "bwd_gather_split_t"] = (
-        launched["bwd_gather_split_t"],
-        scaled_err(xs["candidate"], twin), xs["ms"]["candidate"], twin_ms)
     check(xs["max_abs_diff"] == 0.0, "[exp] exp_xsel candidate == base")
     st, lane_b, g, chunk = xs["gather_args"]
-    in_turns(smi, "exp_xsel", {
+    us = in_turns(smi, "exp_xsel", {
         "base": lambda: sb.bwd_gather(st, lane_b, g, chunk, terms=2),
         "candidate": lambda: sb.bwd_gather(st, lane_b, xs["g_t"], chunk,
                                            terms=2, layout="transposed")})
+    out["xsel", "bwd_gather_split_t"] = (
+        launched["bwd_gather_split_t"],
+        scaled_err(xs["candidate"], twin), xs["ms"]["candidate"], twin_ms,
+        b4_bound(st, lane_b, xs["g_t"], chunk), us["candidate"])
 
     reset_launches(sb)
     eb = exp_band.run(dev, *EXP_BAND)
@@ -772,9 +985,17 @@ def phase_exp(sb, dev, smi):
     torch.cuda.synchronize()
     twin_ms = time_ms(lambda: sb._bwd_gather_plain(*eb["gather_args"],
                                                    terms=2))
-    for name, key in (("bwd_gather_split", "TN"),
-                      ("bwd_gather_split_t", "NN"),
-                      ("bwd_gather_presplit", "presplit")):
+    st, lane_b, g_n, chunk = eb["gather_args"]
+    us = in_turns(smi, "exp_band", {
+        "NN": lambda: sb.bwd_gather(st, lane_b, eb["g_t"], chunk, terms=2,
+                                    layout="transposed"),
+        "TN": lambda: sb.bwd_gather(st, lane_b, g_n, chunk, terms=2),
+        "presplit": lambda: sb.bwd_gather(st, lane_b, eb["g_split"], chunk,
+                                          terms=2, layout="presplit")})
+    for name, key, win in (("bwd_gather_split", "TN", g_n),
+                           ("bwd_gather_split_t", "NN", eb["g_t"]),
+                           ("bwd_gather_presplit", "presplit",
+                            eb["g_split"])):
         rows = eb["rows"][key]
         err = scaled_err(rows, twin)
         same = torch.equal(rows, twin)
@@ -784,32 +1005,51 @@ def phase_exp(sb, dev, smi):
         if key == "presplit":
             check(same, "[exp] presplit bit-equal to its twin")
         check(err <= 1e-6, f"[exp] exp_band {key} vs twin")
-        out["band", name] = (launched[name], err, eb["ms"][key], twin_ms)
+        out["band", name] = (launched[name], err, eb["ms"][key], twin_ms,
+                             b4_bound(st, lane_b, win, chunk), us[key])
     check(eb["nn_tn_bit_exact"], "[exp] NN vs TN bit-exact")
     check(eb["presplit_bit_exact"], "[exp] presplit vs NN bit-exact")
-    st, lane_b, g_n, chunk = eb["gather_args"]
-    in_turns(smi, "exp_band", {
-        "NN": lambda: sb.bwd_gather(st, lane_b, eb["g_t"], chunk, terms=2,
-                                    layout="transposed"),
-        "TN": lambda: sb.bwd_gather(st, lane_b, g_n, chunk, terms=2),
-        "presplit": lambda: sb.bwd_gather(st, lane_b, eb["g_split"], chunk,
-                                          terms=2, layout="presplit")})
     return out
+
+
+def routes_in_turns(smi, ms, routes):
+    """[times]: each of `routes` ({key: (before, now)}) timed in turns
+    (before, now, now, before): median ms by CUDA events, and the device
+    microseconds a call spends in B3 and B4.  The means go to
+    ``ms[key + "_before" | "_now" (+ "_dev_us")]``."""
+    kernels = ("band_unfold_kernel", "bwd_gather_kernel")
+    for key, fns in routes.items():
+        runs = {0: [], 1: []}
+        dev_us = {0: [], 1: []}
+        for i in (0, 1, 1, 0):
+            runs[i].append(time_ms(fns[i]))
+            dev_us[i].append(kernel_device_us(fns[i], kernels))
+        for i, when in enumerate(("before", "now")):
+            ms[f"{key}_{when}"] = sum(runs[i]) / 2
+            ms[f"{key}_{when}_dev_us"] = sum(dev_us[i]) / 2
+        print(f"[times] {smi} | {MULTI_TILE} {key}, B3 + the natural B4 "
+              f"against B4's grid source in turns, median ms: "
+              f"{ms[key + '_before']:.4f} -> {ms[key + '_now']:.4f}; device "
+              f"us in B3 and B4: {ms[key + '_before_dev_us']:.2f} -> "
+              f"{ms[key + '_now_dev_us']:.2f}")
 
 
 def in_turns(smi, tag, variants):
     """The B4 kernel's device time per launch for each variant, profiled in
-    turns (a, b, .., b, a), printed beside the card."""
+    turns (a, b, .., b, a), printed beside the card -> {variant: mean us},
+    or None where the trace held no kernel rows."""
     us = {name: [] for name in variants}
     for name in list(variants) + list(variants)[::-1]:
         us[name].append(kernel_device_us(variants[name], "bwd_gather_kernel"))
     if not all(all(v) for v in us.values()):
         print(f"[exp] {tag} kernel device time: not measured (no kernel "
               f"rows in the trace)")
-        return
+        return dict.fromkeys(variants)
+    means = {name: sum(v) / len(v) for name, v in us.items()}
     print(f"[exp] {smi} | {tag} kernel device us per launch "
           f"(torch.profiler, in turns): "
-          + ", ".join(f"{k} {sum(v) / len(v):.2f}" for k, v in us.items()))
+          + ", ".join(f"{k} {v:.2f}" for k, v in means.items()))
+    return means
 
 
 def main():
@@ -890,14 +1130,7 @@ def main():
         np.float32)).to(dev)
     ext_mt = frames[MULTI_TILE, False][1]
     ts_mt = sb.tile_shape_for(MULTI_TILE)
-    out_k = sb.band_fold(ext_mt, MULTI_TILE, ts_mt, ow, bg)
-    out_p = sb._band_fold_plain(ext_mt, MULTI_TILE, ts_mt, ow, bg)
-    torch.cuda.synchronize()
-    b2_err = scaled_err(out_k, out_p)
-    print(f"[B2 band_fold] {MULTI_TILE}: out {tuple(out_k.shape)}, scaled "
-          f"max-abs err vs twin {b2_err:.3e} (tol 1e-6), bit-equal "
-          f"{torch.equal(out_k, out_p)}")
-    check(b2_err <= 1e-6, "B2 vs twin")
+    b2_err = phase_b2(sb, dev, ext_mt, ow, bg)
 
     # --- 6. B3 against its twin on the card ---
     cots = {grid: torch.from_numpy(
@@ -933,10 +1166,12 @@ def main():
     b4_cases.append((MULTI_TILE, "standalone frame", data_s, st_s, chunk_s))
     b4_err = 0.0
     b4_args = {}
+    grid_cases = []
     for grid, label, data, st, chunk in b4_cases:
         lane_b = sb._planes_bwd(data[:, :2],
                                 sb.tile_shape_for(grid)).contiguous()
         win = win_mt if grid == MULTI_TILE else cots[grid]
+        grid_cases.append((grid, label, st, lane_b, cots[grid], chunk))
         buf_k = sb.bwd_gather(st, lane_b, win, chunk)
         buf_p = sb._bwd_gather_plain(st, lane_b, win, chunk)
         torch.cuda.synchronize()
@@ -948,6 +1183,11 @@ def main():
         check(err <= 1e-6, f"B4 vs twin at {grid} ({label})")
         b4_args.setdefault(grid, (st, lane_b, win, chunk))
 
+    # --- 7b. B4's grid source: the window cut out of the cotangent ---
+    grid_errs, grid_timed = phase_b4_grid(sb, dev, grid_cases)
+    b4_grid_args = b4_args[MULTI_TILE][:2] + (cots[MULTI_TILE],
+                                              b4_args[MULTI_TILE][3])
+
     # --- 8. the forward path: raster through auto ---
     reset_launches(sb)
     img_flag = dprast_torch.raster(FLAGSHIP, pts, rot, tr)
@@ -956,8 +1196,8 @@ def main():
     img_mt = dprast_torch.raster(MULTI_TILE, pts, rot, tr)
     torch.cuda.synchronize()
     launches = dict(sb.LAUNCHES)
-    print(f"[main] launches: {FLAGSHIP} {after_flag}; {MULTI_TILE} "
-          f"{ {k: launches[k] - after_flag[k] for k in launches} }")
+    print(f"[main] launches: {FLAGSHIP} {ran(after_flag)}; {MULTI_TILE} "
+          f"{ran({k: launches[k] - after_flag[k] for k in launches})}")
     check(after_flag["fwd_splat"] >= 1, "B1 ran on the flagship forward")
     check(launches["fwd_splat"] > after_flag["fwd_splat"],
           "B1 ran on the 1024^2 forward")
@@ -979,8 +1219,20 @@ def main():
     phase_train(dprast_torch, sb, pts, rot, tr, pw, cots, train_launches)
 
     # --- 10. small configurations vs the f64 oracles ---
+    # (999, 777) and (130, 1) have rows that are no multiple of 16 bytes:
+    # there B4's grid source stages with plain loads (the `_ldg` counters)
+    reset_launches(sb)
     phase_small(dprast_torch, load_numpy_oracle(), dev, "[small]",
                 [(grid, 3, 1500, 4) for grid in SMALL_GRIDS])
+    phase_small(dprast_torch, load_numpy_oracle(), dev, "[small bf16]",
+                [((999, 777), 3, 1500, 4)], backend="binned_bf16",
+                tol=BF16_TOL)
+    small_launches = dict(sb.LAUNCHES)
+    print(f"[small] launches: {ran(small_launches)}")
+    for name in ("bwd_gather_grid", "bwd_gather_grid_ldg",
+                 "bwd_gather_grid_bf16_ldg"):
+        check(small_launches[name] >= 1, f"{name} ran in [small]")
+    check(small_launches["band_unfold"] == 0, "B3 did not run in [small]")
 
     # --- 11. a few SGD steps of a fit at the flagship width ---
     phase_fit(dprast_torch, pts, rot, tr)
@@ -1004,6 +1256,10 @@ def main():
         ms["b4", grid] = time_ms(lambda: sb.bwd_gather(*b4_args[grid]))
         ms["b4_plain", grid] = time_ms(
             lambda: sb._bwd_gather_plain(*b4_args[grid]))
+        ms["b1_dev_us", grid] = kernel_device_us(
+            lambda: sb.fwd_splat(*args), "fwd_splat_kernel")
+        ms["b4_dev_us", grid] = kernel_device_us(
+            lambda: sb.bwd_gather(*b4_args[grid]), "bwd_gather_kernel")
         ms["frame", grid] = time_ms(lambda: sb._fwd_frame(
             grid, pts, rot, tr, canon[5], True))
         ms["fwd", grid] = time_ms(lambda: dprast_torch.raster(grid, pts, rot,
@@ -1041,6 +1297,31 @@ def main():
             return sb.raster_pullback_res(grid, res, canon, g,
                                           pw_uniform=True)
 
+        if grid == MULTI_TILE:
+            def pullback_b3(res):
+                # the route through the unfold stage: B3 writes the
+                # windows, B4's natural instance reads them
+                coord, idx_rows, st = sb._residual_planes(res, True)
+                return sb._pullback_from_frame(
+                    grid, coord, idx_rows, st, pts, rot, canon[4], canon[5],
+                    g, chunk=chunk, pw_uniform=True, unfold=sb.band_unfold)
+
+            def step_b3():
+                return pullback_b3(sb.raster_fwd_res(grid, *canon,
+                                                     pw_uniform=True)[1])
+
+            st_g, lane_g, _, chunk_g = b4_grid_args
+            routes_in_turns(smi, ms, {
+                "b4_route": (
+                    lambda: sb.bwd_gather(st_g, lane_g, sb.band_unfold(
+                        g, grid, ts_mt), chunk_g),
+                    lambda: sb.bwd_gather(*b4_grid_args, layout="grid")),
+                "pullback_res": (lambda: pullback_b3(fwd_res),
+                                 lambda: sb.raster_pullback_res(
+                                     grid, fwd_res, canon, g,
+                                     pw_uniform=True)),
+                "step": (step_b3, step)})
+
         def step_twins():
             _, res = sb._fwd_impl(grid, *canon, pw_uniform=True,
                                   with_residuals=True,
@@ -1059,6 +1340,7 @@ def main():
             return torch.autograd.grad((out * g).sum(), pts_req)
 
         ms["step", grid] = time_ms(step)
+        ms["step_busy_us", grid], ms["step_kernels", grid] = device_busy(step)
         ms["step_plain", grid] = time_ms(step_twins)
         ms["step_autograd", grid] = time_ms(step_autograd)
         ms["step_xla", grid] = time_ms(lambda: core.raster_pullback_res(
@@ -1067,6 +1349,29 @@ def main():
         lambda: sb.band_fold(ext_mt, MULTI_TILE, ts_mt, ow, bg))
     ms["b2_plain", MULTI_TILE] = time_ms(
         lambda: sb._band_fold_plain(ext_mt, MULTI_TILE, ts_mt, ow, bg))
+    ms["b2_dev_us"] = kernel_device_us(
+        lambda: sb.band_fold(ext_mt, MULTI_TILE, ts_mt, ow, bg),
+        "band_fold_kernel")
+    ms["b3_dev_us"] = kernel_device_us(
+        lambda: sb.band_unfold(cots[MULTI_TILE], MULTI_TILE, ts_mt),
+        "band_unfold_kernel")
+    # the library routes to what B2 and B3 compute, timed once each and
+    # used nowhere in the package
+    lib_fold = fold_library(ext_mt, MULTI_TILE, ts_mt, ow, bg)
+    lib_unfold = unfold_library(cots[MULTI_TILE], MULTI_TILE, ts_mt)
+    torch.cuda.synchronize()
+    check(scaled_err(lib_fold, sb.band_fold(ext_mt, MULTI_TILE, ts_mt, ow,
+                                            bg)) <= 1e-6,
+          "the F.fold route computes what B2 computes")
+    check(torch.equal(lib_unfold, win_mt),
+          "the F.unfold route computes what B3 computes")
+    del lib_fold, lib_unfold
+    ms["b2_library"] = time_ms(
+        lambda: fold_library(ext_mt, MULTI_TILE, ts_mt, ow, bg), reps=5,
+        warmup=1)
+    ms["b3_library"] = time_ms(
+        lambda: unfold_library(cots[MULTI_TILE], MULTI_TILE, ts_mt), reps=5,
+        warmup=1)
     for grid in GRIDS:
         print(f"[times] {smi} | {grid} x {N_POSES} poses x {N_POINTS} "
               f"points, uniform weights, median ms: frame "
@@ -1088,9 +1393,21 @@ def main():
               f"forward + pullback {ms['step', grid]:.4f} ({rate:.4e} "
               f"points*splats/s), with twins {ms['step_plain', grid]:.4f}, "
               f"through autograd {ms['step_autograd', grid]:.4f}, xla "
-              f"backend {ms['step_xla', grid]:.4f}")
+              f"backend {ms['step_xla', grid]:.4f}; the fused step keeps the "
+              f"card busy {ms['step_busy_us', grid]:.1f} us in "
+              f"{ms['step_kernels', grid]:.0f} kernels and copies "
+              f"(torch.profiler): idle "
+              f"{1 - ms['step_busy_us', grid] / ms['step', grid] / 1e3:.1%} "
+              f"of the step")
     print(f"[times] {smi} | B2 {MULTI_TILE}: {ms['b2', MULTI_TILE]:.4f} ms "
-          f"(twin {ms['b2_plain', MULTI_TILE]:.4f} ms)")
+          f"(twin {ms['b2_plain', MULTI_TILE]:.4f} ms, the F.fold route "
+          f"{ms['b2_library']:.4f} ms), kernel device us "
+          f"{ms['b2_dev_us']:.2f}; B3: kernel device us "
+          f"{ms['b3_dev_us']:.2f} (the F.unfold route "
+          f"{ms['b3_library']:.4f} ms)")
+    print(f"[times] {smi} | kernel device us per launch (torch.profiler): "
+          + "; ".join(f"{grid} B1 {ms['b1_dev_us', grid]:.2f}, B4 natural "
+                      f"{ms['b4_dev_us', grid]:.2f}" for grid in GRIDS))
     ms_3d = times_3d(dprast_torch, sb, core, dev, smi)
 
     # --- 14. the binned_bf16 fast mode ---
@@ -1104,78 +1421,112 @@ def main():
     exp = phase_exp(sb, dev, smi)
 
     src = "dprast/ops/splat_binned.py"
+    fwd_cu = "dprast_torch/csrc/fwd_splat.cu"
+    bwd_cu = "dprast_torch/csrc/bwd_gather.cu"
+
+    def kernel(name, source, replaces, launches, err, k_ms, plain_ms, bound_,
+               shape, *, variant=None, device_us=None, library_ms=None):
+        """One entry of the `kernels` line; B1 and B4 have no library
+        call that computes them."""
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": launches,
+                 "max_abs_err": err, "ms": k_ms, "plain_ms": plain_ms,
+                 "bound_ms": bound_[0], "bound_by": bound_[1],
+                 "library_ms": library_ms, "shape": shape}
+        if variant is not None:
+            entry["variant"] = variant
+        if device_us is not None:
+            entry["device_us"] = device_us
+        return entry
+
+    flag = "128x128, 64 poses, 1e5 points, uniform"
+    vol = "128x128x128, 1 pose, 1e6 points, uniform"
+    n_vol = VOLUME_TIMED[0]
     kernels = [
-        {"name": "fwd_splat", "route": "cuda",
-         "source": "dprast_torch/csrc/fwd_splat.cu",
-         "replaces": f"{src}:538",
-         "launches": train_launches["fwd_splat"], "max_abs_err": b1_err,
-         "ms": ms["b1", FLAGSHIP], "plain_ms": ms["b1_plain", FLAGSHIP],
-         "shape": "128x128, 64 poses, 1e5 points, uniform"},
-        {"name": "band_fold", "route": "cuda",
-         "source": "dprast_torch/csrc/band_fold.cu",
-         "replaces": f"{src}:687",
-         "launches": train_launches["band_fold"], "max_abs_err": b2_err,
-         "ms": ms["b2", MULTI_TILE], "plain_ms": ms["b2_plain", MULTI_TILE],
-         "shape": "1024x1024, 64 poses"},
-        {"name": "band_unfold", "route": "cuda",
-         "source": "dprast_torch/csrc/band_unfold.cu",
-         "replaces": f"{src}:836",
-         "launches": train_launches["band_unfold"], "max_abs_err": b3_err,
-         "ms": ms["b3", MULTI_TILE], "plain_ms": ms["b3_plain", MULTI_TILE],
-         "shape": "1024x1024, 64 poses"},
-        {"name": "bwd_gather", "route": "cuda",
-         "source": "dprast_torch/csrc/bwd_gather.cu",
-         "replaces": f"{src}:1085",
-         "launches": train_launches["bwd_gather"], "max_abs_err": b4_err,
-         "ms": ms["b4", FLAGSHIP], "plain_ms": ms["b4_plain", FLAGSHIP],
-         "shape": "128x128, 64 poses, 1e5 points, uniform"},
-        {"name": "fwd_splat_3d", "route": "cuda",
-         "source": "dprast_torch/csrc/fwd_splat.cu",
-         "replaces": f"{src}:584",
-         "launches": launches_3d["fwd_splat_3d"], "max_abs_err": b1_3d_err,
-         "ms": ms_3d["b1", VOLUME_TIMED[0]],
-         "plain_ms": ms_3d["b1_plain", VOLUME_TIMED[0]],
-         "shape": "128x128x128, 1 pose, 1e6 points, uniform"},
-        {"name": "bwd_gather_3d", "route": "cuda",
-         "source": "dprast_torch/csrc/bwd_gather.cu",
-         "replaces": f"{src}:1135",
-         "launches": launches_3d["bwd_gather_3d"], "max_abs_err": b4_3d_err,
-         "ms": ms_3d["b4", VOLUME_TIMED[0]],
-         "plain_ms": ms_3d["b4_plain", VOLUME_TIMED[0]],
-         "shape": "128x128x128, 1 pose, 1e6 points, uniform"},
+        kernel("fwd_splat", fwd_cu, f"{src}:538", train_launches["fwd_splat"],
+               b1_err, ms["b1", FLAGSHIP], ms["b1_plain", FLAGSHIP],
+               b1_bound(*frames[FLAGSHIP, False][0]), flag,
+               device_us=ms["b1_dev_us", FLAGSHIP]),
+        kernel("fwd_splat", fwd_cu, f"{src}:538", train_launches["fwd_splat"],
+               b1_err, ms["b1", MULTI_TILE], ms["b1_plain", MULTI_TILE],
+               b1_bound(*frames[MULTI_TILE, False][0]),
+               "1024x1024, 64 poses, 1e5 points, uniform",
+               device_us=ms["b1_dev_us", MULTI_TILE]),
+        kernel("band_fold", "dprast_torch/csrc/band_fold.cu", f"{src}:687",
+               train_launches["band_fold"], b2_err, ms["b2", MULTI_TILE],
+               ms["b2_plain", MULTI_TILE],
+               copy_bound(ext_mt, cots[MULTI_TILE], ops_per_out=2),
+               "1024x1024, 64 poses", device_us=ms["b2_dev_us"],
+               library_ms=ms["b2_library"]),
+        kernel("band_unfold", "dprast_torch/csrc/band_unfold.cu",
+               f"{src}:836", prof[MULTI_TILE]["launched"]["band_unfold"],
+               b3_err,
+               ms["b3", MULTI_TILE], ms["b3_plain", MULTI_TILE],
+               copy_bound(cots[MULTI_TILE], win_mt), "1024x1024, 64 poses",
+               variant="the unfold stage of profile_binned and exp_band; no "
+                       "launch in the training step, where B4 reads the "
+                       "cotangent",
+               device_us=ms["b3_dev_us"], library_ms=ms["b3_library"]),
+        kernel("bwd_gather", bwd_cu, f"{src}:1085",
+               train_launches["bwd_gather"], b4_err, ms["b4", FLAGSHIP],
+               ms["b4_plain", FLAGSHIP], b4_bound(*b4_args[FLAGSHIP]), flag,
+               device_us=ms["b4_dev_us", FLAGSHIP]),
+        kernel("fwd_splat_3d", fwd_cu, f"{src}:584",
+               launches_3d["fwd_splat_3d"], b1_3d_err, ms_3d["b1", n_vol],
+               ms_3d["b1_plain", n_vol], ms_3d["b1_bound", n_vol], vol,
+               device_us=ms_3d["b1_dev_us", n_vol]),
+        kernel("bwd_gather_3d", bwd_cu, f"{src}:1135",
+               launches_3d["bwd_gather_3d"], b4_3d_err, ms_3d["b4", n_vol],
+               ms_3d["b4_plain", n_vol], ms_3d["b4_bound", n_vol], vol,
+               device_us=ms_3d["b4_dev_us", n_vol]),
     ]
-    for n_out, grid, shape in (
-            (2, FLAGSHIP, "128x128, 64 poses, 1e5 points, uniform"),
-            (3, VOLUME, "128x128x128, 1 pose, 1e6 points, uniform")):
+    # B4's grid source: the instances of the training step at 1024^2
+    # (exact and fast mode) and their plain-load staging, which [small]
+    # drives at (999, 777) and (130, 1)
+    grid_launches = {"bwd_gather_grid": train_launches,
+                     "bwd_gather_grid_bf16": launches_bf16,
+                     "bwd_gather_grid_ldg": small_launches,
+                     "bwd_gather_grid_bf16_ldg": small_launches}
+    for name, counted in grid_launches.items():
+        st, lane_b, g, chunk, terms = grid_timed[name]
+
+        def run(twin=False):
+            fn = sb._bwd_gather_plain if twin else sb.bwd_gather
+            return fn(st, lane_b, g, chunk, terms=terms, layout="grid")
+
+        staging = ("plain loads" if name.endswith("_ldg")
+                   else "TMA tiled load")
+        kernels.append(kernel(
+            name, bwd_cu, f"{src}:1085", counted[name], grid_errs[name],
+            time_ms(run), time_ms(lambda: run(twin=True), reps=5, warmup=1),
+            b4_bound(st, lane_b, g, chunk),
+            f"{g.shape[1]}x{g.shape[2]}, {g.shape[0]} poses, "
+            f"{live_rows(st, chunk)} live rows",
+            variant=f"terms={terms}, window cut out of the cotangent "
+                    f"(replaces `_unfold_pl_2d` + `_bwd_kernel`), {staging}",
+            device_us=kernel_device_us(run, "bwd_gather_kernel")))
+    for n_out, grid, shape in ((2, FLAGSHIP, flag), (3, VOLUME, vol)):
         for stage, name, line, cu in (
-                ("b1", BF16_B1[n_out], 538, "fwd_splat"),
-                ("b4", BF16_B4[n_out], 1085, "bwd_gather")):
-            kernels.append({
-                "name": name, "route": "cuda",
-                "source": f"dprast_torch/csrc/{cu}.cu",
-                "replaces": f"{src}:{line}", "variant": "terms=1",
-                "launches": launches_bf16[name],
-                "max_abs_err": errs_bf16[stage, n_out],
-                "ms": ms_bf16[grid, stage],
-                "plain_ms": ms_bf16[grid, f"{stage}_plain"], "shape": shape})
+                ("b1", BF16_B1[n_out], 538, fwd_cu),
+                ("b4", BF16_B4[n_out], 1085, bwd_cu)):
+            kernels.append(kernel(
+                name, cu, f"{src}:{line}", launches_bf16[name],
+                errs_bf16[stage, n_out], ms_bf16[grid, stage],
+                ms_bf16[grid, f"{stage}_plain"],
+                ms_bf16[grid, f"{stage}_bound"], shape, variant="terms=1",
+                device_us=ms_bf16[grid, f"{stage}_dev_us"]))
     for grid, shape, dims in (
             ((1024, 1024), "1024x1024, 64 poses, 1e5 points, weighted", ""),
             (VOLUME, "128x128x128, 1 pose, 1e6 points, weighted", "_3d")):
-        launched, b1_err, b4_err, b1_ms, b1_plain, b4_ms, b4_plain = \
-            prof[grid]
         kernels += [
-            {"name": f"fwd_splat{dims}", "route": "cuda",
-             "source": "dprast_torch/csrc/fwd_splat.cu",
-             "replaces": "benchmarks/profile_binned.py:131",
-             "variant": "standalone (profile_binned)",
-             "launches": launched[f"fwd_splat{dims}"], "max_abs_err": b1_err,
-             "ms": b1_ms, "plain_ms": b1_plain, "shape": shape},
-            {"name": f"bwd_gather{dims}", "route": "cuda",
-             "source": "dprast_torch/csrc/bwd_gather.cu",
-             "replaces": "benchmarks/profile_binned.py:195",
-             "variant": "standalone (profile_binned)",
-             "launches": launched[f"bwd_gather{dims}"], "max_abs_err": b4_err,
-             "ms": b4_ms, "plain_ms": b4_plain, "shape": shape}]
+            kernel(f"{name}{dims}", cu, f"benchmarks/profile_binned.py:{line}",
+                   prof[grid]["launched"][f"{name}{dims}"],
+                   prof[grid][f"{stage}_err"], prof[grid][f"{stage}_ms"],
+                   prof[grid][f"{stage}_plain"], prof[grid][f"{stage}_bound"],
+                   shape, variant="standalone (profile_binned)",
+                   device_us=prof[grid][f"{stage}_dev_us"])
+            for stage, name, cu, line in (("b1", "fwd_splat", fwd_cu, 131),
+                                          ("b4", "bwd_gather", bwd_cu, 195))]
     band = "1024x1024, 64 poses, 1e5 points"
     for key, replaces, variant, shape in (
             (("xsel", "bwd_gather_split_t"), "benchmarks/exp_xsel.py:38",
@@ -1187,12 +1538,13 @@ def main():
              "terms=2, transposed windows (transposed=True)", band),
             (("band", "bwd_gather_presplit"), "benchmarks/exp_band.py:91",
              "terms=2, presplit bf16 windows", band)):
-        launched, err, k_ms, plain_ms = exp[key]
-        kernels.append({
-            "name": key[1], "route": "cuda",
-            "source": "dprast_torch/csrc/bwd_gather.cu", "replaces": replaces,
-            "variant": variant, "launches": launched, "max_abs_err": err,
-            "ms": k_ms, "plain_ms": plain_ms, "shape": shape})
+        launched, err, k_ms, plain_ms, bound_, dev_us = exp[key]
+        kernels.append(kernel(key[1], bwd_cu, replaces, launched, err, k_ms,
+                              plain_ms, bound_, shape, variant=variant,
+                              device_us=dev_us))
+    for entry in kernels:
+        check(entry["launches"] >= 1,
+              f"{entry['name']} ({entry['shape']}) was launched on its path")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

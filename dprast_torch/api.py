@@ -13,8 +13,11 @@ Layout (the JAX package's, so both take the same arrays):
     output       (*grid_size)   or (B, *grid_size)
 
 Inputs may be tensors, numpy arrays, nested lists or Python scalars.  The
-device is that of the tensor inputs, which must agree; with no tensor
-input it is the `device` argument (default CPU).
+device is that of the tensor inputs, which must agree (a CPU tensor asks
+for the CPU); with no tensor input it is the `device` argument, and with
+neither it is the current CUDA device: the entry points run on the card
+unless the caller asks for the CPU with ``device="cpu"``, and raise where
+there is no card.
 """
 
 from __future__ import annotations
@@ -26,7 +29,6 @@ import torch
 
 from dprast_torch import ad
 from dprast_torch.ops import dispatch
-
 
 
 class RasterGrads(NamedTuple):
@@ -41,7 +43,16 @@ class RasterGrads(NamedTuple):
 
 
 def _device_of(values, device):
+    """The device of a call: that of its tensor inputs and of the `device`
+    argument, which must agree; with neither, the current CUDA device."""
     devices = {v.device for v in values if isinstance(v, torch.Tensor)}
+    if device is None and not devices:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "dprast_torch runs on the CUDA device by default and "
+                "torch.cuda.is_available() is False; pass device=\"cpu\" "
+                "(or CPU tensors) to run on the CPU")
+        device = "cuda"
     if device is not None:
         device = torch.device(device)
         if device.type == "cuda" and device.index is None:
@@ -50,7 +61,7 @@ def _device_of(values, device):
     if len(devices) > 1:
         raise ValueError(
             f"all inputs must be on one device; got {sorted(map(str, devices))}")
-    return devices.pop() if devices else torch.device("cpu")
+    return devices.pop()
 
 
 def _as_tensor(value, device):
@@ -194,7 +205,9 @@ def raster(grid_size, points, rotation, translation, background=None,
         float32.
       backend: 'auto' | 'xla' | 'binned' | 'binned_bf16' (the ~2e-3 fast
         mode of 'binned', never chosen by 'auto').
-      device: where numpy / list inputs go when no input is a tensor.
+      device: where numpy / list inputs go when no input is a tensor;
+        by default the current CUDA device (a RuntimeError where there is
+        none), ``"cpu"`` for the CPU.
 
     Returns:
       (*grid_size) for a single pose, (B, *grid_size) for a batch.
@@ -230,7 +243,9 @@ def raster_pullback(ds_dout, points, rotation, translation, background=None,
     Gradient shapes follow the input forms: a batch gets per-pose
     gradients, a single pose squeezed ones, and a scalar that was
     broadcast gets the summed gradient.  A defaulted `point_weight` gets
-    the exact per-point gradient; a scalar one gets its sum.
+    the exact per-point gradient; a scalar one gets its sum.  `device`
+    is `raster`'s: the card unless a tensor input or ``device="cpu"`` asks
+    for the CPU.
     """
     device = _device_of((ds_dout, points, rotation, translation, background,
                          out_weight, point_weight), device)

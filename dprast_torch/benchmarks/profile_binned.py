@@ -7,9 +7,12 @@ launched, so the JAX script's chained fit and its forcing of every sort
 chunk have no counterpart here.  The two kernel stages launch B1
 (`fwd_splat`) and B4 (`bwd_gather`) alone on the forward's frame, the
 counterparts of the JAX script's `fwd_kernel` and `bwd_kernel`.  The fold
-and unfold are what the backend runs: B2 / B3 on a multi-tile 2-D grid,
-the plain `_fold` / `_unfold` in 3-D; a single tile has no unfold and no
-unsort.
+is what the backend runs: B2 on a multi-tile 2-D grid, the plain `_fold`
+in 3-D.  The unfold is B3 in 2-D and the plain `_unfold` in 3-D, and the
+"bwd kernel" stage reads the windows it wrote; on a multi-tile 2-D grid
+the backend itself skips the unfold and B4 cuts its windows out of the
+cotangent, which is the "bwd kernel grid" stage.  A single tile has no
+unfold and no unsort.
 
 The inputs are the JAX script's: a 0.4-sigma Gaussian cloud, identity
 rotations, translations at 0.1 sigma, point weights uniform in (0.5, 2),
@@ -36,7 +39,8 @@ from dprast_torch.ops import splat_binned as sb
 from dprast_torch.utils import profiling
 
 STAGES = ("prep fwd", "prep bwd", "keys only", "fwd planes", "fwd kernel",
-          "fold", "unfold", "bwd planes", "bwd kernel", "bwd unsort")
+          "fold", "unfold", "bwd planes", "bwd kernel", "bwd kernel grid",
+          "bwd unsort")
 
 
 def cloud(grid, points, batch, device, seed=0):
@@ -106,12 +110,17 @@ def run(grid, points, batch, chunk=0, device="cuda", *, iters=15,
         "unfold": lambda: unfold(g),
         "bwd planes": lambda: sb._planes_bwd(coord, ts).contiguous(),
         "bwd kernel": lambda: sb.bwd_gather(*gather_args),
+        "bwd kernel grid": lambda: sb.bwd_gather(slot_tile, lane_b, g, chunk,
+                                                 layout="grid"),
         "bwd unsort": lambda: sb._unsort(buf, idx_rows, points),
     }
     if not halo:
         # one tile: the window is the cotangent and the rows keep the
         # point order
         del stages["unfold"], stages["bwd unsort"]
+    if n_out == 3 or not halo:
+        # only a multi-tile 2-D grid has the grid-source instance of B4
+        del stages["bwd kernel grid"]
     ms, spread = {}, {}
     for name, fn in stages.items():
         ms[name], spread[name] = profiling.time_fn(fn, device, iters, warmup)

@@ -101,9 +101,9 @@ def load():
         lib.dprast_band_unfold.argtypes = [vp, vp, i32, i32, i32, i32, i32,
                                            vp]
         lib.dprast_band_unfold.restype = i32
-        lib.dprast_bwd_gather.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32,
+        lib.dprast_bwd_gather.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32,
                                           i32, i64, i32, i32, i32, i32, i32,
-                                          i32, vp]
+                                          i32, i32, i32, i32, i32, i32, vp]
         lib.dprast_bwd_gather.restype = i32
         lib.dprast_error_string.argtypes = [i32]
         lib.dprast_error_string.restype = ctypes.c_char_p

@@ -28,9 +28,13 @@ The forward, for a batch of B poses:
 The pullback reuses the forward's frame (`raster_fwd_res`, the fused
 autograd pair) or builds its own (`raster_pullback`):
 
-6. **Unfold**: the cotangent is cut into the same overlapping windows,
-   zero outside the grid -- kernel B3 (`band_unfold`) in 2-D, plain
-   torch (`_unfold`) in 3-D.  A single tile reads the cotangent itself.
+6. **Windows**: the gather reads the cotangent through the same
+   overlapping windows, zero outside the grid.  On a multi-tile 2-D grid
+   B4 cuts them out of the cotangent itself (its ``"grid"`` window
+   source) and nothing is unfolded; a single tile's window is the
+   cotangent; 3-D unfolds with plain torch (`_unfold`).  Kernel B3
+   (`band_unfold`) writes the 2-D windows out for the harness, and for a
+   pullback that is handed it as its ``unfold`` stage.
 7. **Gather** (`bwd_gather`, kernel B4): every frame row reads its four
    (2-D) or eight (3-D) window values and writes ``[du_y, du_x, gw]`` or
    ``[du_z, du_y, du_x, gw]``; rows of dead slots write zeros.
@@ -71,23 +75,37 @@ _SPLIT_TERMS = 2
 # (n_out, terms, window layout); their names are the launch counters
 _B1_INSTANCES = {(2, 0): "fwd_splat", (3, 0): "fwd_splat_3d",
                  (2, 1): "fwd_splat_bf16", (3, 1): "fwd_splat_3d_bf16"}
-# B4's window layouts, by their code in csrc/bwd_gather.cu: natural
-# (rows_e, cols_e) fp32; transposed (cols_e, rows_e) fp32; presplit, a
-# pair (hi, lo) of transposed bf16 windows
-_LAYOUTS = ("natural", "transposed", "presplit")
+# B4's window sources, by their code in csrc/bwd_gather.cu: natural
+# (rows_e, cols_e) fp32 windows; transposed (cols_e, rows_e) fp32;
+# presplit, a pair (hi, lo) of transposed bf16 windows; grid, the 2-D
+# cotangent (B, gy, gx) itself, out of which the kernel cuts the windows
+# that `_unfold` would write
+_LAYOUTS = ("natural", "transposed", "presplit", "grid")
 _B4_INSTANCES = {(2, 0, "natural"): "bwd_gather",
                  (3, 0, "natural"): "bwd_gather_3d",
                  (2, 1, "natural"): "bwd_gather_bf16",
                  (3, 1, "natural"): "bwd_gather_3d_bf16",
                  (2, 2, "natural"): "bwd_gather_split",
                  (2, 2, "transposed"): "bwd_gather_split_t",
-                 (2, 2, "presplit"): "bwd_gather_presplit"}
+                 (2, 2, "presplit"): "bwd_gather_presplit",
+                 (2, 0, "grid"): "bwd_gather_grid",
+                 (2, 1, "grid"): "bwd_gather_grid_bf16"}
+# how B4 stages a window into shared memory, by its code in
+# csrc/bwd_gather.cu: plain loads, one bulk copy of a contiguous fp32
+# window, or one TMA tiled load of a box of the cotangent
+_STAGINGS = ("loads", "bulk", "tensor")
+# a grid-source launch that cannot take the tiled load (a grid row that is
+# no multiple of 16 bytes) stages with plain loads and counts under the
+# instance's name with this suffix
+_GRID_LOADS = "_ldg"
 
 # kernel launches per CUDA instance: a run reads these to show that its
 # path went through the kernels (CPU twin calls do not count)
-LAUNCHES = dict.fromkeys(["band_fold", "band_unfold",
-                          *_B1_INSTANCES.values(),
-                          *_B4_INSTANCES.values()], 0)
+LAUNCHES = dict.fromkeys(
+    ["band_fold", "band_unfold", *_B1_INSTANCES.values(),
+     *_B4_INSTANCES.values(),
+     *(name + _GRID_LOADS for (_, _, layout), name in _B4_INSTANCES.items()
+       if layout == "grid")], 0)
 
 
 def tile_shape_for(grid_size):
@@ -350,19 +368,16 @@ def _planes_bwd(coord, ts):
     return torch.stack(sub + [ix0.to(f32), dlx], dim=1)
 
 
-def _slot_ranges(slot_tile, nt, dead=False):
-    """Each tile's live slot range ``[first, end)``, (B, nt) int32 each.
-    The frame is tile-sorted, so a searchsorted over the slot table with
-    the dead slots (past ``slot_tile[b, -1]``) pushed to ``nt`` finds
-    them.  With ``dead=True`` a last range, (B, nt + 1), holds the dead
-    slots."""
+def _slot_ranges(slot_tile, nt):
+    """Each tile's live slot range ``[first, end)``, (B, nt) int32 each,
+    for B1 (B4 searches the slot table in its kernel).  The frame is
+    tile-sorted, so a searchsorted over the slot table with the dead slots
+    (past ``slot_tile[b, -1]``) pushed to ``nt`` finds them."""
     bsz, n_slots = slot_tile.shape[0], slot_tile.shape[1] - 1
     dev = slot_tile.device
     live = torch.arange(n_slots, device=dev) < slot_tile[:, n_slots:]
     st = torch.where(live, slot_tile[:, :n_slots].long(), nt).contiguous()
-    n_ranges = nt + 1 if dead else nt
-    tiles = torch.arange(n_ranges, device=dev).expand(bsz,
-                                                      n_ranges).contiguous()
+    tiles = torch.arange(nt, device=dev).expand(bsz, nt).contiguous()
     first = torch.searchsorted(st, tiles, out_int32=True)
     end = torch.searchsorted(st, tiles, right=True, out_int32=True)
     return first, end
@@ -660,10 +675,14 @@ def _split_terms(x, terms):
 def _staged_window(win, terms, layout):
     """B4's window in the natural layout, as the kernel stages it: a
     transposed window is transposed back, a presplit pair ``(hi, lo)`` is
-    ``float(hi) + float(lo)``."""
+    ``float(hi) + float(lo)``, and the grid source's cotangent (B, gy,
+    gx) is cut into the windows of `_unfold`."""
     if layout == "presplit":
         hi, lo = win
         return (hi.float() + lo.float()).transpose(-1, -2)
+    if layout == "grid":
+        grid_size = tuple(win.shape[1:])
+        win = _unfold(win, grid_size, tile_shape_for(grid_size))
     win = _split_terms(win, terms)
     return win.transpose(-1, -2) if layout == "transposed" else win
 
@@ -685,8 +704,9 @@ def _bwd_gather_plain(slot_tile, lane_b, win, chunk, terms=0,
     du_y, du_x, gw]``, see `_combine_3d`.  Rows of dead slots (past
     ``slot_tile[b, -1]``) are zeros.  `win` is (B, nt, rows_e, cols_e),
     or the whole single-tile grid (B, gy, gx), in the `layout` of
-    `_LAYOUTS`; it is read through `_staged_window`, so ``terms=1`` and
-    ``terms=2`` read its bf16 rounding or split."""
+    `_LAYOUTS`; with ``layout="grid"`` it is the 2-D cotangent (B, gy,
+    gx) of any tiling.  It is read through `_staged_window`, so
+    ``terms=1`` and ``terms=2`` read its bf16 rounding or split."""
     bsz, n_lane, s_pad = lane_b.shape
     _b4_instance({4: 2, 8: 3}.get(n_lane), terms, layout)
     dev = lane_b.device
@@ -757,8 +777,12 @@ def bwd_gather(slot_tile, lane_b, win, chunk, terms=0, layout="natural"):
     (B, n_out + 1, s_pad) ``[du_y, du_x, gw]`` in 2-D, ``[du_z, du_y,
     du_x, gw]`` in 3-D (see `_bwd_gather_plain`).  `terms` and `layout`
     pick one of `_B4_INSTANCES`; a presplit `win` is the pair ``(hi,
-    lo)``.  CPU tensors take the plain twin, CUDA tensors the kernel in
-    `csrc/bwd_gather.cu`."""
+    lo)``, a grid-source `win` the 2-D cotangent (B, gy, gx).  CPU tensors
+    take the plain twin, CUDA tensors the kernel in `csrc/bwd_gather.cu`,
+    which finds each tile's slots itself: nothing is launched before it.
+    The copy engines stage its windows where their alignment rules hold
+    (`_b4_staging`); a grid source that cannot take the tiled load counts
+    under ``instance + "_ldg"``."""
     bsz, n_lane, s_pad = lane_b.shape
     n_out = {4: 2, 8: 3}.get(n_lane)
     instance = _b4_instance(n_out, terms, layout)
@@ -774,33 +798,63 @@ def bwd_gather(slot_tile, lane_b, win, chunk, terms=0, layout="natural"):
         raise ValueError(f"bwd_gather: lane {tuple(lane_b.shape)} and slot "
                          f"table {tuple(slot_tile.shape)} do not form a "
                          f"frame of chunk {chunk}")
+    if chunk % 4 or lane_b.data_ptr() % 16:
+        raise ValueError(f"bwd_gather: the kernel reads four rows at a "
+                         f"time: chunk {chunk} must be a multiple of 4 and "
+                         f"the lane planes 16-byte aligned")
     if hi.dim() not in (3, 4) or hi.shape[0] != bsz or \
             lo.shape != hi.shape:
         raise ValueError(f"bwd_gather: window {tuple(hi.shape)} is neither "
                          f"(B, nt, rows, cols) nor (B, rows, cols) for "
                          f"B={bsz}")
-    nt = hi.shape[1] if hi.dim() == 4 else 1
-    rows_e, cols_e = hi.shape[-2:]
-    if layout != "natural":
-        rows_e, cols_e = cols_e, rows_e
+    gy = gx = t0 = t1 = 0
+    if layout == "grid":
+        if hi.dim() != 3:
+            raise ValueError(f"bwd_gather: the grid source is the cotangent "
+                             f"(B, gy, gx); got {tuple(hi.shape)}")
+        gy, gx = hi.shape[1:]
+        t0, t1 = tile_shape_for((gy, gx))
+        nt = n_tiles((gy, gx))
+        rows_e = cols_e = TILE
+    else:
+        nt = hi.shape[1] if hi.dim() == 4 else 1
+        rows_e, cols_e = hi.shape[-2:]
+        if layout != "natural":
+            rows_e, cols_e = cols_e, rows_e
     if rows_e * cols_e * 4 > _build.MAX_WINDOW_BYTES or bsz > 65535 \
             or nt >= 65535:
         raise ValueError(f"bwd_gather: window {rows_e}x{cols_e}, B={bsz}, "
                          f"nt={nt} exceed the kernel's launch bounds")
     dev = lane_b.device
-    # range nt holds the dead slots, which the kernel zeroes
-    first, end = _slot_ranges(slot_tile, nt, dead=True)
+    staging = _b4_staging(layout, hi, rows_e * cols_e)
     nsplit = _split_count(dev, bsz * nt)
     buf = torch.empty((bsz, n_out + 1, s_pad), dtype=torch.float32,
                       device=dev)
     lib = _build.load()
     rc = lib.dprast_bwd_gather(
-        _ptr(lane_b), _ptr(first), _ptr(end), _ptr(hi), _ptr(lo), _ptr(buf),
-        bsz, nt, n_out, s_pad, chunk, rows_e, cols_e, nsplit, terms,
-        _LAYOUTS.index(layout), _stream(dev))
+        _ptr(lane_b), _ptr(slot_tile), _ptr(hi), _ptr(lo), _ptr(buf), bsz,
+        nt, n_out, n_slots, s_pad, chunk, rows_e, cols_e, nsplit, terms,
+        _LAYOUTS.index(layout), gy, gx, t0, t1, _STAGINGS.index(staging),
+        _stream(dev))
     _raise_on(rc, "bwd_gather")
+    if layout == "grid" and staging == "loads":
+        instance += _GRID_LOADS
     LAUNCHES[instance] += 1
     return buf
+
+
+def _b4_staging(layout, win, n_win):
+    """How B4's kernel stages a window of `n_win` fp32 entries out of the
+    CUDA tensor `win` (one of `_STAGINGS`): the TMA tiled load for a grid
+    source whose rows are multiples of 16 bytes, one bulk copy for a
+    contiguous fp32 window whose size is, plain loads otherwise (and for
+    the presplit bf16 pair, which is added up on the way)."""
+    aligned = win.data_ptr() % 16 == 0
+    if layout == "grid":
+        return "tensor" if aligned and win.shape[-1] % 4 == 0 else "loads"
+    if layout == "presplit":
+        return "loads"
+    return "bulk" if aligned and n_win % 4 == 0 else "loads"
 
 
 def _unsort(rows, idx_rows, p):
@@ -1046,10 +1100,14 @@ def raster_pullback_res(grid_size, residuals, args, ds_dout, *,
 def _pullback_from_frame(grid_size, coord, idx_rows, slot_tile, points,
                          rotation, out_weight, point_weight, ds_dout, *,
                          chunk, pw_uniform=False, terms=0,
-                         unfold=band_unfold, gather=bwd_gather):
+                         unfold=None, gather=bwd_gather):
     """The pullback from a frame, with its two kernel stages as arguments
-    (as in `_fwd_impl`).  The `unfold` stage serves multi-tile 2-D grids;
-    3-D grids take the plain `_unfold`, as in the JAX package."""
+    (as in `_fwd_impl`).  On a multi-tile 2-D grid the gather reads the
+    cotangent itself (``layout="grid"``) and nothing is unfolded; an
+    `unfold` stage (`band_unfold`, or its twin `_unfold`) writes the
+    windows out first and the gather reads them in the natural layout, as
+    a measurement may ask.  3-D grids take the plain `_unfold`, as in the
+    JAX package."""
     n_out = len(grid_size)
     ts = tile_shape_for(grid_size)
     halo = not _single_tile(grid_size)
@@ -1058,12 +1116,17 @@ def _pullback_from_frame(grid_size, coord, idx_rows, slot_tile, points,
     f32 = torch.float32
     g_cot = ds_dout.to(f32).contiguous()
     # the single tile's window is the cotangent itself
+    layout = "natural"
     if not halo:
         g_in = g_cot
+    elif n_out == 3:
+        g_in = _unfold(g_cot, grid_size, ts)
+    elif unfold is None:
+        g_in, layout = g_cot, "grid"
     else:
-        g_in = (unfold if n_out == 2 else _unfold)(g_cot, grid_size, ts)
+        g_in = unfold(g_cot, grid_size, ts)
     buf = gather(slot_tile, _planes_bwd(coord, ts).contiguous(), g_in,
-                 chunk, terms=terms)
+                 chunk, terms=terms, layout=layout)
 
     # back to point order; on the uniform-weight path the weight-gradient
     # plane skips the unsort (its sums are order-free, and every

@@ -21,6 +21,12 @@ from test_golden import CASES, CENTER, CROSS, EYE, GRID, NO_T  # noqa: E402
 
 torch.set_num_threads(2)
 
+
+def _raster(*args, **kw):
+    """`dprast_torch.raster` on the CPU (the entry points default to the
+    card)."""
+    return dprast_torch.raster(*args, device="cpu", **kw)
+
 BACKENDS = ["xla", "binned"]
 
 
@@ -32,7 +38,7 @@ def _np(x):
 @pytest.mark.parametrize("case", range(len(CASES)))
 def test_golden_tables(backend, case):
     pts, rot, t, bg, ow, pw, expected = CASES[case]
-    out = dprast_torch.raster(GRID, pts, rot, t, bg, ow, pw, backend=backend)
+    out = _raster(GRID, pts, rot, t, bg, ow, pw, backend=backend)
     np.testing.assert_allclose(_np(out), np.asarray(expected, dtype=float),
                                atol=1e-12)
 
@@ -40,20 +46,20 @@ def test_golden_tables(backend, case):
 @pytest.mark.parametrize("backend", BACKENDS)
 def test_golden_batched_background_and_drops(backend):
     sub = [c for c in CASES if c[0] == CROSS and c[5] is None]
-    out = dprast_torch.raster(GRID, CROSS, [c[1] for c in sub],
+    out = _raster(GRID, CROSS, [c[1] for c in sub],
                               [c[2] for c in sub], [c[3] for c in sub],
                               [c[4] for c in sub], backend=backend)
     assert out.shape == (len(sub),) + GRID
     for i, c in enumerate(sub):
         np.testing.assert_allclose(_np(out[i]), np.asarray(c[6], float),
                                    atol=1e-12)
-    out = dprast_torch.raster(GRID, CENTER, EYE, NO_T, 0.5, 4.0,
+    out = _raster(GRID, CENTER, EYE, NO_T, 0.5, 4.0,
                               backend=backend)
     expected = np.full(GRID, 0.5)
     expected[2, 2] += 4.0
     np.testing.assert_allclose(_np(out), expected, atol=1e-12)
     # out-of-grid points drop; a straddling stencil keeps its in-grid half
-    out = dprast_torch.raster(GRID, [[5.0, 5.0], [-5.0, 0.0], [0.0, 0.0],
+    out = _raster(GRID, [[5.0, 5.0], [-5.0, 0.0], [0.0, 0.0],
                                      [-1.0, 0.0]], EYE, NO_T,
                               backend=backend)
     expected = np.zeros(GRID)
@@ -63,7 +69,7 @@ def test_golden_batched_background_and_drops(backend):
     # orthographic projection: the dropped coordinate does not matter
     proj = np.array([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]])
     for z in (-0.9, 0.0, 2.5):
-        out = dprast_torch.raster(GRID, [[0.0, 0.4, z]], proj, NO_T, 0.0,
+        out = _raster(GRID, [[0.0, 0.4, z]], proj, NO_T, 0.0,
                                   4.0, backend=backend)
         expected = np.zeros(GRID)
         expected[2, 3] = 4.0
@@ -77,25 +83,25 @@ def _fx(**kw):
 def test_arg_forms_defaults_and_scalars_agree():
     fx = _fx()
     b, p = fx["rotation"].shape[0], fx["points"].shape[0]
-    ref = dprast_torch.raster((8, 8), **fx)
-    as_lists = dprast_torch.raster((8, 8), *(v.tolist() for v in fx.values()))
-    as_tensors = dprast_torch.raster(
+    ref = _raster((8, 8), **fx)
+    as_lists = _raster((8, 8), *(v.tolist() for v in fx.values()))
+    as_tensors = _raster(
         (8, 8), *(torch.from_numpy(v) for v in fx.values()))
     np.testing.assert_allclose(_np(as_lists), _np(ref))
     np.testing.assert_allclose(_np(as_tensors), _np(ref))
-    explicit = dprast_torch.raster((8, 8), fx["points"], fx["rotation"],
+    explicit = _raster((8, 8), fx["points"], fx["rotation"],
                                    fx["translation"], np.zeros(b), np.ones(b),
                                    np.ones(p))
-    defaulted = dprast_torch.raster((8, 8), fx["points"], fx["rotation"],
+    defaulted = _raster((8, 8), fx["points"], fx["rotation"],
                                     fx["translation"])
     np.testing.assert_allclose(_np(defaulted), _np(explicit))
-    vectors = dprast_torch.raster((8, 8), fx["points"], fx["rotation"],
+    vectors = _raster((8, 8), fx["points"], fx["rotation"],
                                   fx["translation"], np.full(b, 0.3),
                                   np.full(b, 2.0), np.full(p, 1.5))
-    scalars = dprast_torch.raster((8, 8), fx["points"], fx["rotation"],
+    scalars = _raster((8, 8), fx["points"], fx["rotation"],
                                   fx["translation"], 0.3, 2.0, 1.5)
     np.testing.assert_allclose(_np(scalars), _np(vectors))
-    single = dprast_torch.raster((8, 8), fx["points"], fx["rotation"][0],
+    single = _raster((8, 8), fx["points"], fx["rotation"][0],
                                  fx["translation"][0], fx["background"][0],
                                  fx["out_weight"][0], fx["point_weight"])
     assert single.shape == (8, 8)
@@ -105,18 +111,18 @@ def test_arg_forms_defaults_and_scalars_agree():
 def test_dtype_promotion():
     fx = _fx()
     f32 = {k: np.asarray(v, np.float32) for k, v in fx.items()}
-    out = dprast_torch.raster((8, 8), f32["points"],
+    out = _raster((8, 8), f32["points"],
                               np.asarray(fx["rotation"], np.float64),
                               f32["translation"])
     assert out.dtype == torch.float64
-    assert dprast_torch.raster((8, 8), f32["points"], f32["rotation"],
+    assert _raster((8, 8), f32["points"], f32["rotation"],
                                f32["translation"], 0.5,
                                2.0).dtype == torch.float32
-    outi = dprast_torch.raster((8, 8), np.asarray(10 * fx["points"],
+    outi = _raster((8, 8), np.asarray(10 * fx["points"],
                                                   np.int32),
                                f32["rotation"], f32["translation"])
     assert outi.dtype == torch.float32
-    assert dprast_torch.raster((8, 8), *f32.values(),
+    assert _raster((8, 8), *f32.values(),
                                dtype=torch.float64).dtype == torch.float64
 
 
@@ -150,21 +156,21 @@ def test_dimension_errors(case):
     if what == "out_weight":
         kw["out_weight"] = np.ones(4)
     with pytest.raises(ValueError, match=match):
-        dprast_torch.raster((8, 8), fx["points"], rot, tr, **kw)
+        _raster((8, 8), fx["points"], rot, tr, **kw)
 
 
 def test_empty_cloud_and_backend_validation():
-    out = dprast_torch.raster((8, 8), np.zeros((0, 2)), np.eye(2),
+    out = _raster((8, 8), np.zeros((0, 2)), np.eye(2),
                               np.zeros(2), 0.7)
     assert out.shape == (8, 8)
     np.testing.assert_allclose(_np(out), 0.7)
-    out = dprast_torch.raster((8, 8), np.zeros((0, 2)), np.stack([np.eye(2)]
+    out = _raster((8, 8), np.zeros((0, 2)), np.stack([np.eye(2)]
                                                                   * 3),
                               np.zeros((3, 2)), np.array([0.1, 0.2, 0.3]),
                               backend="binned")
     np.testing.assert_allclose(_np(out)[:, 4, 4], [0.1, 0.2, 0.3])
     with pytest.raises(ValueError, match="backend"):
-        dprast_torch.raster((8, 8), np.zeros((0, 3)), np.eye(3)[:2],
+        _raster((8, 8), np.zeros((0, 3)), np.eye(3)[:2],
                             np.zeros(2), backend="bogus")
 
 
@@ -175,7 +181,7 @@ def test_requires_grad_and_devices_raise():
     for backend in BACKENDS:
         pts = torch.from_numpy(fx["points"]).requires_grad_()
         rot = torch.from_numpy(fx["rotation"]).requires_grad_()
-        out = dprast_torch.raster((8, 8), pts, rot, fx["translation"],
+        out = _raster((8, 8), pts, rot, fx["translation"],
                                   backend=backend)
         assert out.requires_grad
         d_pts, d_rot = torch.autograd.grad(out.sum(), (pts, rot))
@@ -183,10 +189,10 @@ def test_requires_grad_and_devices_raise():
         assert bool(torch.isfinite(d_pts).all()) and d_pts.abs().sum() > 0
     # no tensor that requires grad, or no grad mode: a plain forward
     with torch.no_grad():
-        assert not dprast_torch.raster((8, 8), pts, rot,
+        assert not _raster((8, 8), pts, rot,
                                        fx["translation"]).requires_grad
     with pytest.raises(ValueError, match="one device"):
-        dprast_torch.raster((8, 8), torch.from_numpy(fx["points"]),
+        _raster((8, 8), torch.from_numpy(fx["points"]),
                             torch.zeros((5, 2, 3), device="meta"),
                             fx["translation"])
 
@@ -217,7 +223,7 @@ def test_xla_backend_matches_jax_oracle(case):
     grid, n_in, n_out = ORACLE_CASES[case]
     fx = fixtures(seed=6, n_points=40, batch_size=3, n_in=n_in, n_out=n_out)
     args = [np.asarray(v, np.float32) for v in fx.values()]
-    out = dprast_torch.raster(grid, *args, backend="xla")
+    out = _raster(grid, *args, backend="xla")
     ref = np.asarray(jcore.raster_fwd(grid, *(jnp.asarray(a) for a in args)))
     assert out.dtype == torch.float32
     err = np.max(np.abs(_np(out) - ref)) / max(np.max(np.abs(ref)), 1.0)
@@ -256,3 +262,48 @@ def test_auto_dispatch_matches_jax(row, monkeypatch):
     assert tdispatch.resolve_pair("auto", n_out, grid, p) == ("xla", "xla")
     assert tdispatch.resolve_pair("auto", n_out, grid, p, accelerator=True,
                                   f64=True) == ("xla", "xla")
+
+
+def _default_device_args():
+    fx = {k: np.asarray(v, np.float32) for k, v in _fx().items()}
+    g = np.random.default_rng(3).standard_normal((5, 8, 8)).astype(
+        np.float32)
+    return fx, g
+
+
+@pytest.mark.parametrize("entry", ["raster", "raster_pullback"])
+def test_default_device_is_the_card(entry, monkeypatch):
+    """With no tensor among the inputs and no `device`, the entry points
+    run on the CUDA device; where there is none they raise and name
+    ``device="cpu"``, and never carry on on the CPU."""
+    fx, g = _default_device_args()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    first = (8, 8) if entry == "raster" else g
+    with pytest.raises(RuntimeError, match=r'device="cpu"'):
+        getattr(dprast_torch, entry)(first, *fx.values())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        getattr(dprast_torch, entry)(first, *(v.tolist()
+                                              for v in fx.values()))
+
+
+@pytest.mark.parametrize("entry", ["raster", "raster_pullback"])
+def test_cpu_tensors_and_device_cpu_ask_for_the_cpu(entry, monkeypatch):
+    """A CPU tensor among the inputs, or ``device="cpu"``, is the caller
+    asking for the CPU: both compute the same there, card or no card."""
+    fx, g = _default_device_args()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fn = getattr(dprast_torch, entry)
+    first = (8, 8) if entry == "raster" else g
+    by_arg = fn(first, *fx.values(), device="cpu")
+    tensors = [torch.from_numpy(v) for v in fx.values()]
+    by_tensor = fn(first, *tensors)
+    one_tensor = fn(first, tensors[0], *list(fx.values())[1:])
+    both = fn(first, *tensors, device="cpu")
+    if entry == "raster":
+        by_arg, by_tensor, one_tensor, both = ((x,) for x in (
+            by_arg, by_tensor, one_tensor, both))
+    for a, b, c, d in zip(by_arg, by_tensor, one_tensor, both):
+        assert a.device.type == "cpu" and a.abs().sum() > 0
+        assert torch.equal(a, b) and torch.equal(a, c) and torch.equal(a, d)
+    with pytest.raises(ValueError, match="one device"):
+        fn(first, *tensors, device="meta")

@@ -38,6 +38,17 @@ from dprast_torch.ops import splat_binned as tbin  # noqa: E402
 
 torch.set_num_threads(2)
 
+
+def _raster(*args, **kw):
+    """`dprast_torch.raster` on the CPU (the entry points default to the
+    card)."""
+    return dprast_torch.raster(*args, device="cpu", **kw)
+
+
+def _raster_pullback(*args, **kw):
+    """`dprast_torch.raster_pullback` on the CPU."""
+    return dprast_torch.raster_pullback(*args, device="cpu", **kw)
+
 FIELDS = ("points", "rotation", "translation", "background", "out_weight",
           "point_weight")
 # a single tile, a multi-tile strip (tests/test_grads.py:177-214), and a
@@ -71,7 +82,7 @@ def _cot(grid, batch):
 def test_forward_matches_jax_fast_mode(grid, weighted):
     args = _args(grid)
     pw = args[5] if weighted else None
-    out = dprast_torch.raster(grid, *args[:5], pw, backend="binned_bf16")
+    out = _raster(grid, *args[:5], pw, backend="binned_bf16")
     ref = dprast.raster(grid, *map(jnp.asarray, args[:5]),
                         None if pw is None else jnp.asarray(pw),
                         backend="binned_bf16")
@@ -79,7 +90,7 @@ def test_forward_matches_jax_fast_mode(grid, weighted):
     err = _scaled_err(out, ref)
     assert err < 1e-5, f"binned_bf16 forward vs JAX: {err:.3e}"
     # the rounding is really taken: the exact backend differs by ~bf16
-    exact = dprast_torch.raster(grid, *args[:5], pw, backend="binned")
+    exact = _raster(grid, *args[:5], pw, backend="binned")
     assert 1e-5 < _scaled_err(out, exact) < 2e-2
 
 
@@ -221,9 +232,9 @@ def test_gradients_match_jax_and_envelope(grid, weighted):
     leaves = [torch.from_numpy(a).requires_grad_() for a in args[:5]]
     leaves.append(torch.tensor(1.5, requires_grad=True) if scalar
                   else torch.from_numpy(args[5]).requires_grad_())
-    out = dprast_torch.raster(grid, *leaves, backend="binned_bf16")
+    out = _raster(grid, *leaves, backend="binned_bf16")
     auto = torch.autograd.grad((out * torch.from_numpy(g)).sum(), leaves)
-    pb = dprast_torch.raster_pullback(g, *args[:5], 1.5 if scalar
+    pb = _raster_pullback(g, *args[:5], 1.5 if scalar
                                       else args[5], backend="binned_bf16")
     ref_auto = _loss_grads_jax(grid, args, g, scalar)
     ref_pb = dprast.raster_pullback(
@@ -270,7 +281,7 @@ def test_autograd_pair_runs_fast_mode_both_ways(grid, weighted, monkeypatch):
     leaves = [x.clone().requires_grad_() for x in t[:5]]
     leaves.append(torch.tensor(1.5, requires_grad=True) if not weighted
                   else t[5].clone().requires_grad_())
-    out = dprast_torch.raster(grid, *leaves, backend="binned_bf16")
+    out = _raster(grid, *leaves, backend="binned_bf16")
     assert torch.equal(out.detach(), out_ref)
     grads = torch.autograd.grad((out * g).sum(), leaves)
     for name, a, r, e in zip(FIELDS, grads, ref, exact):
@@ -312,7 +323,7 @@ def test_binned_bits_unchanged(grid):
     for weighted in (False, True):
         splat_args, _ = tbin._fwd_frame(grid, pts, rot, tr, pw, not weighted)
         got.append(_digest(tbin._fwd_splat_plain(*splat_args, terms=0)))
-        got.append(_digest(dprast_torch.raster(
+        got.append(_digest(_raster(
             grid, pts, rot, tr, bg, ow, pw if weighted else None,
             backend="binned")))
     g = torch.from_numpy(np.random.default_rng(3).standard_normal(

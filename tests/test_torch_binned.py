@@ -24,6 +24,17 @@ from dprast_torch.ops import splat_binned as tbin  # noqa: E402
 
 torch.set_num_threads(2)
 
+
+def _raster(*args, **kw):
+    """`dprast_torch.raster` on the CPU (the entry points default to the
+    card)."""
+    return dprast_torch.raster(*args, device="cpu", **kw)
+
+
+def _raster_pullback(*args, **kw):
+    """`dprast_torch.raster_pullback` on the CPU."""
+    return dprast_torch.raster_pullback(*args, device="cpu", **kw)
+
 # the parity contract of the faithful backends (max-abs error scaled by
 # max(|reference|, 1)), as in tests_tpu/test_hardware_parity.py
 TOL = 1e-5
@@ -212,13 +223,13 @@ def test_raster_binned_matches_jax_and_oracle(case):
     ref_f64 = raster_numpy(grid, *(a.astype(np.float64)
                                    for a in (pts, rot, tr, bg, ow, pw)))
     if single:
-        out = dprast_torch.raster(grid, pts, rot[0], tr[0], float(bg[0]),
+        out = _raster(grid, pts, rot[0], tr[0], float(bg[0]),
                                   float(ow[0]), pw if weighted else None,
                                   backend="binned")
         assert out.shape == grid
         out = out[None]
     else:
-        out = dprast_torch.raster(grid, pts, rot, tr, bg, ow,
+        out = _raster(grid, pts, rot, tr, bg, ow,
                                   pw if weighted else None, backend="binned")
     assert out.dtype == torch.float32 and out.shape == ref_f64.shape
     assert _scaled_err(out.numpy(), ref_jax) < TOL
@@ -232,7 +243,7 @@ def test_raster_binned_edge_grids_match_oracle(grid):
     one-column multi-tile grid."""
     args = _f32(fixtures(seed=9, n_points=300, batch_size=2, n_in=3,
                          n_out=2))
-    out = dprast_torch.raster(grid, *args, backend="binned")
+    out = _raster(grid, *args, backend="binned")
     ref = raster_numpy(grid, *(a.astype(np.float64) for a in args))
     assert _scaled_err(out.numpy(), ref) < TOL
 
@@ -446,7 +457,7 @@ def test_raster_binned_3d_matches_jax_and_oracle(grid, weighted):
                                          pw_uniform=not weighted))
     ref_f64 = raster_numpy(grid, *(a.astype(np.float64)
                                    for a in (pts, rot, tr, bg, ow, pw)))
-    out = dprast_torch.raster(grid, pts, rot, tr, bg, ow,
+    out = _raster(grid, pts, rot, tr, bg, ow,
                               pw if weighted else None, backend="binned")
     assert out.dtype == torch.float32 and out.shape == ref_f64.shape
     assert _scaled_err(out.numpy(), ref_f64) < TOL
@@ -466,7 +477,7 @@ def test_pullback_binned_3d_matches_jax_and_oracle(grid, form):
                               pw.shape) if form != "weighted" else pw
     g = np.random.default_rng(6).standard_normal((2,) + grid).astype(
         np.float32)
-    res = dprast_torch.raster_pullback(g, pts, rot, tr, bg, ow, w,
+    res = _raster_pullback(g, pts, rot, tr, bg, ow, w,
                                        backend="binned")
     arrays = (pts, rot, tr, bg, ow, np.ascontiguousarray(pw_full), g)
     ref_j = jbin.raster_pullback(grid, *map(jnp.asarray, arrays),
@@ -511,13 +522,18 @@ def test_wrappers_run_the_twin_only_on_cpu():
                         terms=2, layout="presplit")
     with pytest.raises(ValueError, match="CUDA"):
         tbin.fwd_splat(st, lane, 1, (8, 8), 128, terms=1)
+    with pytest.raises(ValueError, match="CUDA"):
+        tbin.bwd_gather(st, lane, torch.zeros((1, 200, 200), device="meta"),
+                        128, layout="grid")
     # every CUDA instance has a counter, and none counted here
     assert tbin.LAUNCHES == {
         "fwd_splat": 0, "band_fold": 0, "band_unfold": 0, "bwd_gather": 0,
         "fwd_splat_3d": 0, "bwd_gather_3d": 0, "fwd_splat_bf16": 0,
         "fwd_splat_3d_bf16": 0, "bwd_gather_bf16": 0,
         "bwd_gather_3d_bf16": 0, "bwd_gather_split": 0,
-        "bwd_gather_split_t": 0, "bwd_gather_presplit": 0}
+        "bwd_gather_split_t": 0, "bwd_gather_presplit": 0,
+        "bwd_gather_grid": 0, "bwd_gather_grid_bf16": 0,
+        "bwd_gather_grid_ldg": 0, "bwd_gather_grid_bf16_ldg": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -678,3 +694,113 @@ def test_residual_pair_matches_standalone(weighted):
         np.testing.assert_allclose(getattr(fused, name).numpy(),
                                    getattr(alone, name).numpy(), rtol=1e-5,
                                    atol=1e-4, err_msg=name)
+
+
+GRID_SOURCE_GRIDS = [(130, 140), (300, 200), (255, 129), (40, 56)]
+
+
+@pytest.mark.parametrize("terms", [0, 1])
+@pytest.mark.parametrize("grid", GRID_SOURCE_GRIDS,
+                         ids=[f"{gy}x{gx}" for gy, gx in GRID_SOURCE_GRIDS])
+def test_grid_source_is_unfold_then_natural(grid, terms):
+    """B4's grid source reads the cotangent itself: its twin (and the
+    wrapper on CPU tensors) gives the bits of `_unfold` followed by the
+    natural twin, on multi-tile grids and on a single tile."""
+    _, pts, rot, tr, _ = _random_cloud(grid=grid, n_points=400)
+    data, slot_tile, chunk = tbin._bwd_frame(
+        grid, *(torch.from_numpy(a) for a in (pts, rot, tr)))
+    ts = tbin.tile_shape_for(grid)
+    lane_b = tbin._planes_bwd(data[:, :2], ts)
+    g = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (3,) + grid).astype(np.float32))
+    ref = tbin._bwd_gather_plain(slot_tile, lane_b, tbin._unfold(g, grid, ts),
+                                 chunk, terms=terms)
+    assert ref.abs().sum() > 0
+    twin = tbin._bwd_gather_plain(slot_tile, lane_b, g, chunk, terms=terms,
+                                  layout="grid")
+    assert torch.equal(twin, ref)
+    assert torch.equal(tbin.bwd_gather(slot_tile, lane_b, g, chunk,
+                                       terms=terms, layout="grid"), ref)
+    if tbin._single_tile(grid):
+        # the single tile's natural window is the cotangent too
+        assert torch.equal(tbin._bwd_gather_plain(slot_tile, lane_b, g, chunk,
+                                                  terms=terms), ref)
+
+
+def test_grid_source_instances_and_staging():
+    """Only 2-D has a grid source, at terms 0 and 1; the copy engines
+    stage a window where their alignment rules hold."""
+    assert tbin._b4_instance(2, 0, "grid") == "bwd_gather_grid"
+    assert tbin._b4_instance(2, 1, "grid") == "bwd_gather_grid_bf16"
+    for n_out, terms in ((3, 0), (2, 2)):
+        with pytest.raises(ValueError, match="no instance"):
+            tbin._b4_instance(n_out, terms, "grid")
+    with pytest.raises(ValueError, match="no instance"):
+        tbin._bwd_gather_plain(torch.zeros((1, 2), dtype=torch.int32),
+                               torch.zeros((1, 8, 128)),
+                               torch.zeros((1, 8, 16, 128)), 128,
+                               layout="grid")
+    assert tbin._b4_staging("grid", torch.zeros((2, 300, 200)),
+                            128 * 128) == "tensor"
+    assert tbin._b4_staging("grid", torch.zeros((2, 1023, 1021)),
+                            128 * 128) == "loads"
+    assert tbin._b4_staging("natural", torch.zeros((2, 6, 128, 128)),
+                            128 * 128) == "bulk"
+    assert tbin._b4_staging("transposed", torch.zeros((2, 100, 90)),
+                            100 * 90) == "bulk"
+    assert tbin._b4_staging("natural", torch.zeros((2, 5, 5)),
+                            25) == "loads"
+    assert tbin._b4_staging("natural", torch.zeros((2, 101, 90))[:, 1:],
+                            100 * 90) == "loads"
+    assert tbin._b4_staging("presplit", torch.zeros((2, 128, 128)),
+                            128 * 128) == "loads"
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("terms", [0, 1])
+@pytest.mark.parametrize("grid", [(300, 200), (130, 257)],
+                         ids=["300x200", "130x257"])
+def test_pullback_reads_the_cotangent_without_unfold(grid, terms, weighted):
+    """On a multi-tile 2-D grid the pullback hands B4 the cotangent itself
+    and never calls an unfold stage; its six gradients are the bits of the
+    route through `_unfold` and the natural twin."""
+    _, pts, rot, tr, pw = _random_cloud(grid=grid, n_points=500)
+    if not weighted:
+        pw = np.ones_like(pw)
+    ow = np.linspace(0.5, 2.0, 3).astype(np.float32)
+    t_pts, t_rot, t_tr, t_ow, t_pw = map(torch.from_numpy,
+                                         (pts, rot, tr, ow, pw))
+    g = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (3,) + grid).astype(np.float32))
+    data, slot_tile, chunk = tbin._bwd_frame(grid, t_pts, t_rot, t_tr)
+    frame = (grid, data[:, :2], data[:, 2], slot_tile, t_pts, t_rot, t_ow,
+             t_pw, g)
+    kw = dict(chunk=chunk, pw_uniform=not weighted, terms=terms)
+    seen = []
+
+    def gather(slot_tile, lane_b, win, chunk, terms, layout):
+        seen.append((layout, tuple(win.shape)))
+        return tbin.bwd_gather(slot_tile, lane_b, win, chunk, terms=terms,
+                               layout=layout)
+
+    def unfold(*args):
+        seen.append(("unfold",))
+        return tbin._unfold(*args)
+
+    direct = tbin._pullback_from_frame(*frame, gather=gather, **kw)
+    assert seen == [("grid", (3,) + grid)]
+    seen.clear()
+    old = tbin._pullback_from_frame(*frame, unfold=unfold, gather=gather,
+                                    **kw)
+    nt = tbin.n_tiles(grid)
+    assert seen == [("unfold",), ("natural", (3, nt, 128, 128))]
+    plain = tbin._pullback_from_frame(*frame, unfold=tbin._unfold,
+                                      gather=tbin._bwd_gather_plain, **kw)
+    for name in direct._fields:
+        assert torch.equal(getattr(direct, name), getattr(plain, name)), name
+        assert torch.equal(getattr(old, name), getattr(plain, name)), name
+    # the public pullback takes the same route
+    res = tbin.raster_pullback(grid, t_pts, t_rot, t_tr, torch.zeros(3), t_ow,
+                               t_pw, g, pw_uniform=not weighted, terms=terms)
+    for name in direct._fields:
+        assert torch.equal(getattr(res, name), getattr(direct, name)), name

@@ -28,6 +28,17 @@ from dprast_torch.ops import splat_binned as tbin  # noqa: E402
 
 torch.set_num_threads(2)
 
+
+def _raster(*args, **kw):
+    """`dprast_torch.raster` on the CPU (the entry points default to the
+    card)."""
+    return dprast_torch.raster(*args, device="cpu", **kw)
+
+
+def _raster_pullback(*args, **kw):
+    """`dprast_torch.raster_pullback` on the CPU."""
+    return dprast_torch.raster_pullback(*args, device="cpu", **kw)
+
 TOL = 1e-5
 FIELDS = ("points", "rotation", "translation", "background", "out_weight",
           "point_weight")
@@ -108,7 +119,7 @@ def test_gradcheck_xla_batched(n_in, n_out):
     inputs = _f64_inputs(n_in, n_out)
 
     def f(*a):
-        return dprast_torch.raster(grid, *a, backend="xla")
+        return _raster(grid, *a, backend="xla")
 
     assert torch.autograd.gradcheck(f, inputs, eps=1e-6, atol=1e-6,
                                     rtol=1e-6)
@@ -118,7 +129,7 @@ def test_gradcheck_xla_single_pose():
     pts, rot, tr = _f64_inputs(3, 2, batch=1)[:3]
 
     def f(points, rotation, translation):
-        return dprast_torch.raster((8, 8), points, rotation[0],
+        return _raster((8, 8), points, rotation[0],
                                    translation[0], backend="xla")
 
     assert torch.autograd.gradcheck(f, (pts, rot, tr), eps=1e-6, atol=1e-6,
@@ -169,7 +180,7 @@ def test_autograd_matches_jax_grad(case):
     if not weighted:
         ref_np["point_weight"] = ref_np["point_weight"].sum()
     inputs = [torch.tensor(a).requires_grad_() for a in arrays]
-    out = dprast_torch.raster(grid, *inputs, backend=backend)
+    out = _raster(grid, *inputs, backend=backend)
     grads = torch.autograd.grad((out * torch.from_numpy(g)).sum(), inputs)
     tol_jax = TOL if backend == "xla" else 2e-5
     for name, a, r, x in zip(FIELDS, grads, ref, inputs):
@@ -188,7 +199,7 @@ def test_binned_autograd_matches_xla(grid):
 
     def grads(backend):
         inputs = [torch.from_numpy(a).requires_grad_() for a in args]
-        out = dprast_torch.raster(grid, *inputs, backend=backend)
+        out = _raster(grid, *inputs, backend=backend)
         return torch.autograd.grad((out ** 2).sum(), inputs)
 
     for name, a, r in zip(FIELDS, grads("binned"), grads("xla")):
@@ -200,11 +211,11 @@ def test_grad_matches_analytic_pullback():
     the same cotangent (both on the oracle in float64)."""
     fx = fixtures(seed=1, n_points=16, batch_size=5, n_in=3, n_out=2)
     inputs = [torch.from_numpy(v).requires_grad_() for v in fx.values()]
-    out = dprast_torch.raster((8, 8), *inputs)
+    out = _raster((8, 8), *inputs)
     g = torch.from_numpy(np.random.default_rng(2).standard_normal(
         out.shape))
     grads = torch.autograd.grad((out * g).sum(), inputs)
-    pb = dprast_torch.raster_pullback(g, *fx.values())
+    pb = _raster_pullback(g, *fx.values())
     assert isinstance(pb, dprast_torch.RasterGrads)
     for name, a in zip(FIELDS, grads):
         np.testing.assert_allclose(a.numpy(), getattr(pb, name).numpy(),
@@ -225,11 +236,11 @@ def test_fused_pair_matches_standalone_pullback(backend, weighted):
     g = torch.from_numpy(_cot((3, 256, 256), seed=6))
     leaves = [torch.from_numpy(a).requires_grad_()
               for a in ((pts, tr, pw) if weighted else (pts, tr))]
-    out = dprast_torch.raster((256, 256), leaves[0], rot, leaves[1],
+    out = _raster((256, 256), leaves[0], rot, leaves[1],
                               point_weight=leaves[2] if weighted else None,
                               backend=backend)
     grads = torch.autograd.grad((out * g).sum(), leaves)
-    res = dprast_torch.raster_pullback(g, pts, rot, tr,
+    res = _raster_pullback(g, pts, rot, tr,
                                        point_weight=pw if weighted else None,
                                        backend=backend)
     assert all(bool(torch.isfinite(a).all()) for a in grads)
@@ -259,9 +270,9 @@ def test_fused_pair_matches_standalone_pullback_3d(weighted):
     g = _cot((2,) + grid, seed=9)
     inputs = [torch.tensor(a).requires_grad_()
               for a in (pts, rot, tr, bg, ow, pw)]
-    out = dprast_torch.raster(grid, *inputs, backend="binned")
+    out = _raster(grid, *inputs, backend="binned")
     grads = torch.autograd.grad((out * torch.from_numpy(g)).sum(), inputs)
-    res = dprast_torch.raster_pullback(g, pts, rot, tr, bg, ow, pw,
+    res = _raster_pullback(g, pts, rot, tr, bg, ow, pw,
                                        backend="binned")
     for name, a in zip(FIELDS, grads):
         assert bool(torch.isfinite(a).all()), name
@@ -270,7 +281,7 @@ def test_fused_pair_matches_standalone_pullback_3d(weighted):
 
 
 def _both_pullbacks(g, *args, **kw):
-    ours = dprast_torch.raster_pullback(g, *args, **kw)
+    ours = _raster_pullback(g, *args, **kw)
     # Python scalars stay Python scalars: weakly typed in both packages
     ref = dprast.raster_pullback(
         g, *(a if a is None or isinstance(a, float) else jnp.asarray(a)
@@ -326,10 +337,10 @@ def test_raster_pullback_empty_cloud_and_errors():
     np.testing.assert_allclose(ours.background.numpy(),
                                g.reshape(3, -1).sum(-1), rtol=1e-6)
     with pytest.raises(ValueError, match="ds_dout shape"):
-        dprast_torch.raster_pullback(g[:2], np.zeros((4, 2)), rot,
+        _raster_pullback(g[:2], np.zeros((4, 2)), rot,
                                      np.zeros((3, 2)))
     with pytest.raises(ValueError, match="Dimension of translation"):
-        dprast_torch.raster_pullback(g, np.zeros((4, 2)), rot,
+        _raster_pullback(g, np.zeros((4, 2)), rot,
                                      np.zeros((3, 3)))
 
 
@@ -341,7 +352,7 @@ def test_binned_raster_pullback_scalar_weight_sum_exact():
     pts, rot, tr, bg, ow, _ = _f32(fixtures(seed=25, n_points=300,
                                             batch_size=3, n_in=3, n_out=2))
     g = _cot((3,) + grid, seed=27)
-    res = dprast_torch.raster_pullback(g, pts, rot, tr, bg, ow, 1.7,
+    res = _raster_pullback(g, pts, rot, tr, bg, ow, 1.7,
                                        backend="binned")
     ref = raster_pullback_numpy(grid, pts, rot, tr, bg, ow,
                                 np.full(300, 1.7), g)
@@ -366,7 +377,7 @@ def test_binned_3d_scalar_weight_sum_exact():
     ref["point_weight"] = ref["point_weight"].sum()
     inputs = [torch.tensor(a).requires_grad_()
               for a in (pts, rot, tr, bg, ow, np.float32(1.7))]
-    out = dprast_torch.raster(grid, *inputs, backend="binned")
+    out = _raster(grid, *inputs, backend="binned")
     grads = torch.autograd.grad((out * torch.from_numpy(g)).sum(), inputs)
     assert grads[5].shape == ()
     for name, a in zip(FIELDS, grads):

@@ -48,13 +48,18 @@ PROFILE_CASES = {"256x256": ((256, 256), 2000, 2),
 def test_profile_stages_match_the_backend(case):
     """Every stage is timed, and the standalone B1 / B4 launches give the
     bits of the same stages inside `_fwd_impl` and `_pullback_from_frame`
-    on the same frame."""
+    on the same frame (in 2-D with B3 as the pullback's unfold stage, the
+    route the profiler times; the default route, B4 on the cotangent
+    itself, gives the same rows)."""
     grid, points, batch = PROFILE_CASES[case]
+    n_out = len(grid)
     res = profile_binned.run(grid, points, batch, device="cpu", iters=1,
                              warmup=0)
-    assert tuple(res["ms"]) == profile_binned.STAGES
+    stages = tuple(s for s in profile_binned.STAGES
+                   if n_out == 2 or s != "bwd kernel grid")
+    assert tuple(res["ms"]) == stages
     assert all(ms >= 0 for ms in res["ms"].values())
-    assert len(profile_binned.report(res)) == 1 + len(profile_binned.STAGES)
+    assert len(profile_binned.report(res)) == 1 + len(stages)
     pts, rot, tr, pw, g = res["inputs"]
     ow, bg = torch.ones(batch), torch.zeros(batch)
     seen = {}
@@ -63,22 +68,26 @@ def test_profile_stages_match_the_backend(case):
         seen["ext"] = tbin.fwd_splat(*args, terms=terms)
         return seen["ext"]
 
-    def gather(*args, terms):
-        seen["gather_args"] = args
-        seen["buf"] = tbin.bwd_gather(*args, terms=terms)
+    def gather(*args, terms, layout):
+        seen["gather_args"], seen["layout"] = args, layout
+        seen["buf"] = tbin.bwd_gather(*args, terms=terms, layout=layout)
         return seen["buf"]
 
     out, (data, slot_tile) = tbin._fwd_impl(
         grid, pts, rot, tr, bg, ow, pw, with_residuals=True, splat=splat)
     assert torch.equal(seen["ext"], res["ext"])
     assert torch.equal(data, res["frame"][0])
-    n_out = len(grid)
-    tbin._pullback_from_frame(grid, data[:, :n_out], data[:, -1], slot_tile,
-                              pts, rot, ow, pw, g, chunk=res["chunk"],
-                              gather=gather)
+    frame = (grid, data[:, :n_out], data[:, -1], slot_tile, pts, rot, ow, pw,
+             g)
+    tbin._pullback_from_frame(*frame, chunk=res["chunk"], gather=gather,
+                              unfold=tbin.band_unfold)
+    assert seen["layout"] == "natural"
     assert torch.equal(seen["buf"], res["buf"])
     for a, b in zip(seen["gather_args"], res["bwd_gather_args"]):
         assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+    tbin._pullback_from_frame(*frame, chunk=res["chunk"], gather=gather)
+    assert seen["layout"] == ("grid" if n_out == 2 else "natural")
+    assert torch.equal(seen["buf"], res["buf"])
     # the profiler's fold stage is the forward's fold (ow = 1, bg = 0)
     ts = tbin.tile_shape_for(grid)
     fold = tbin.band_fold(res["ext"], grid, ts, ow, bg) if n_out == 2 \
@@ -239,3 +248,44 @@ def test_profiling_hooks(tmp_path, monkeypatch):
         profiling.time_fn(lambda: None, "cuda")
     with pytest.raises(ValueError, match="no clock"):
         profiling.time_fn(lambda: None, "meta")
+
+
+def test_chip_smoke_bounds_and_library_routes():
+    """`chip_smoke.py`'s yardsticks on the CPU: the `F.fold` / `F.unfold`
+    routes compute what B2 / B3 compute, and a kernel's bound counts each
+    byte of its arguments once."""
+    import chip_smoke as cs
+    grid = (300, 200)
+    ts, nt = tbin.tile_shape_for(grid), tbin.n_tiles(grid)
+    rng = np.random.default_rng(2)
+    ext = torch.from_numpy(rng.standard_normal((2, nt, 128, 128)).astype(
+        np.float32))
+    ow = torch.tensor([0.5, 2.0])
+    bg = torch.tensor([0.25, -1.0])
+    np.testing.assert_allclose(
+        cs.fold_library(ext, grid, ts, ow, bg).numpy(),
+        tbin._band_fold_plain(ext, grid, ts, ow, bg).numpy(), rtol=1e-6,
+        atol=1e-6)
+    g = torch.from_numpy(rng.standard_normal((2,) + grid).astype(np.float32))
+    assert torch.equal(cs.unfold_library(g, grid, ts),
+                       tbin._unfold(g, grid, ts))
+    slot_tile, lane_b, _, chunk = _frame_2d(grid)
+    rows = int(slot_tile[:, -1].sum()) * chunk
+    assert cs.live_rows(slot_tile, chunk) == rows
+    n_bytes = (rows * 4 + 2 * 3 * lane_b.shape[-1] + slot_tile.numel()
+               + g.numel()) * 4
+    assert cs.b4_bound(slot_tile, lane_b, g, chunk) == (
+        n_bytes / cs.HBM_BYTES_PER_S * 1e3, "bytes")
+    assert cs.copy_bound(g, ext) == cs.bound((g.numel() + ext.numel()) * 4,
+                                             0)
+    assert cs.bound(1, 1e9)[1] == "operations"
+
+
+def test_compare_checkouts_needs_a_card(monkeypatch):
+    """The two-checkout comparison times nothing on the CPU: its worker is
+    valid Python, and without a CUDA device it stops."""
+    from dprast_torch.benchmarks import compare_checkouts
+    compile(compare_checkouts.WORKER, "worker", "exec")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="is_available"):
+        compare_checkouts.main(["a", "b"])
