@@ -1,9 +1,11 @@
 """Smoke run of dprast_torch on one CUDA card.
 
 Builds the port's CUDA kernels from `dprast_torch/csrc/`, holds each
-against its plain torch twin on the card at the shapes of the main path,
-and drives the two 2-D main paths at the flagship size (3D->2D
-orthographic, 64 poses, 10^5 points, 128x128) and at 1024x1024:
+against its plain torch twin on the card at the shapes of the main path
+(B1 also at every size of its thread-block cluster, on odd grids and on a
+frame with empty tiles and dead slots), and drives the two 2-D main
+paths at the flagship size (3D->2D orthographic, 64 poses, 10^5 points,
+128x128) and at 1024x1024:
 
 - the forward `raster` through `auto` (kernels B1, and B2 at 1024^2),
   checked against the port's scatter oracle on the card;
@@ -126,11 +128,11 @@ def live_rows(slot_tile, chunk):
 
 def b1_bound(slot_tile, lane, nt, win, chunk):
     """B1 on these arguments: the live rows' lane planes and the slot
-    ranges read, the windows written; 14 (2-D) or 34 (3-D) operations a
+    table read, the windows written; 14 (2-D) or 34 (3-D) operations a
     row (the hat weights, their products, the adds)."""
     rows = live_rows(slot_tile, chunk)
     bsz, n_lane, _ = lane.shape
-    n_bytes = (rows * n_lane + 2 * bsz * nt
+    n_bytes = (rows * n_lane + slot_tile.numel()
                + bsz * nt * int(np.prod(win))) * 4
     return bound(n_bytes, rows * (14 if len(win) == 2 else 34))
 
@@ -211,6 +213,37 @@ def load_numpy_oracle():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def sass_atomics(so, nvcc, kernel="fwd_splat_kernel"):
+    """What the atomics of the library's kernels named `kernel` compiled
+    to: per template instance, its distinct ATOMS (shared), ATOM and RED
+    (global) instructions with their counts, from `cuobjdump -sass` ->
+    lines, or one line that says why there are none."""
+    import re
+    import subprocess
+    tool = Path(nvcc).with_name("cuobjdump")
+    try:
+        sass = subprocess.run([str(tool), "-sass", str(so)],
+                              capture_output=True, text=True,
+                              check=True).stdout
+    except (OSError, subprocess.CalledProcessError) as exc:
+        return [f"SASS not read: {exc}"]
+    found, name = {}, None
+    for line in sass.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            inst = re.search(kernel + r"ILi(\d+)ELi(\d+)E", fn.group(1))
+            name = f"{kernel}<{inst.group(1)}, {inst.group(2)}>" if inst \
+                else None
+            continue
+        op = re.search(r"\s((?:ATOMS|ATOM|RED)[.\w]*)\s", line)
+        if name and op:
+            ops = found.setdefault(name, {})
+            ops[op.group(1)] = ops.get(op.group(1), 0) + 1
+    return [f"SASS {name}: " + ", ".join(f"{k} x{v}" for k, v in ops.items())
+            for name, ops in found.items()] or [
+        f"SASS: no atomics found in kernels named {kernel}"]
 
 
 def reset_launches(sb):
@@ -319,6 +352,104 @@ def phase_small(dprast_torch, oracle, dev, tag, cases, backend="binned",
                   f"tol {tol:g})")
             check(errs[worst] <= tol,
                   f"{backend} pullback vs f64 oracle at {grid} ({label})")
+
+
+def slots_per_tile(slot_tile, nt):
+    """The live slots of each (pose, tile) of a slot table -> (B, nt)."""
+    bsz, n_slots = slot_tile.shape[0], slot_tile.shape[1] - 1
+    dev = slot_tile.device
+    live = torch.arange(n_slots, device=dev) < slot_tile[:, n_slots:]
+    flat = (slot_tile[:, :n_slots].long()
+            + torch.arange(bsz, device=dev)[:, None] * nt)
+    return torch.bincount(flat[live], minlength=bsz * nt).reshape(bsz, nt)
+
+
+def sparse_frame(sb, grid, pts, rot, tr):
+    """A frame that has tiles without a slot and dead slots (the
+    standalone pullback's, which gives an empty tile none), as arguments of
+    B1.  The rows of its dead slots are overwritten with those of the first
+    slot, which lie inside a window: B1 must add nothing for them."""
+    ts = sb.tile_shape_for(grid)
+    data, st, chunk = sb._bwd_frame(grid, pts, rot, tr)
+    n_out = len(grid)
+    lane = sb._planes_fwd(data[:, :n_out], None).contiguous()
+    n_slots = st.shape[1] - 1
+    dead = torch.repeat_interleave(
+        torch.arange(n_slots, device=st.device) >= st[:, n_slots:], chunk,
+        dim=1)
+    lane = torch.where(dead[:, None, :], lane[:, :, :chunk].repeat(
+        1, 1, n_slots), lane).contiguous()
+    nt = sb.n_tiles(grid)
+    per_tile = slots_per_tile(st, nt)
+    check(bool((per_tile == 0).any()) and bool(dead.any()),
+          f"the sparse frame at {grid} has an empty tile and dead slots")
+    return st, lane, nt, tuple(t + 1 for t in ts), chunk
+
+
+def b1_clusters(sb, tag, args, tol=1e-5):
+    """B1 on the frame `args` at every cluster size against its twin
+    within `tol`, and two runs of one launch compared bit for bit at the
+    least and the largest size -> worst scaled error."""
+    ext_p = sb._fwd_splat_plain(*args)
+    errs, same = {}, {}
+    for c in range(1, sb._MAX_CLUSTER + 1):
+        ext_k = sb.fwd_splat(*args, cluster=c)
+        torch.cuda.synchronize()
+        errs[c] = scaled_err(ext_k, ext_p)
+        if c in (1, sb._MAX_CLUSTER):
+            same[c] = torch.equal(ext_k, sb.fwd_splat(*args, cluster=c))
+    print(f"[B1 clusters] {tag}: ext {tuple(ext_p.shape)}, scaled max-abs "
+          f"err vs twin (tol {tol:g}) by cluster size: "
+          + ", ".join(f"{c}: {e:.3e}" for c, e in errs.items())
+          + "; two runs bit-equal: "
+          + ", ".join(f"{c}: {v}" for c, v in same.items()))
+    worst = max(errs.values())
+    check(worst <= tol, f"B1 vs twin at every cluster size, {tag}")
+    return worst
+
+
+def phase_b1(sb, dev, pts, rot, tr, pw):
+    """[B1]: the forward splat against its twin on the card.  At the main
+    shapes through the cluster size the wrapper picks; then at every
+    cluster size there, at `ODD_GRIDS`, at the single tile with a point
+    count that is no multiple of the chunk, and on a frame with an empty
+    tile and dead slots.  -> ({(grid, weighted): (args, ext, data)}, worst
+    scaled error)."""
+    frames = {}
+    b1_err = 0.0
+    for grid in GRIDS:
+        for weighted in (False, True):
+            args, data = sb._fwd_frame(grid, pts, rot, tr, pw, not weighted)
+            ext_k = sb.fwd_splat(*args)
+            ext_p = sb._fwd_splat_plain(*args)
+            torch.cuda.synchronize()
+            err = scaled_err(ext_k, ext_p)
+            b1_err = max(b1_err, err)
+            print(f"[B1 fwd_splat] {grid} {'weighted' if weighted else 'uniform'}"
+                  f": ext {tuple(ext_k.shape)}, cluster "
+                  f"{sb._b1_cluster(dev, N_POSES, args[2], args[3])}, scaled "
+                  f"max-abs err vs twin {err:.3e} (tol 1e-5)")
+            check(err <= 1e-5, f"B1 vs twin at {grid}")
+            frames[grid, weighted] = (args, ext_k, data)
+        b1_err = max(b1_err, b1_clusters(
+            sb, f"{grid} x {N_POSES} x {N_POINTS} uniform",
+            frames[grid, False][0]))
+    cases = [(grid, n_poses, n_points, "weighted")
+             for grid, n_poses, n_points in ODD_GRIDS]
+    cases.append((FLAGSHIP, 3, 4321, "weighted"))
+    cases.append(((5, 5), 3, 700, "uniform"))
+    for grid, n_poses, n_points, label in cases:
+        p_, r_, t_, w_ = (torch.from_numpy(a).to(dev) for a in
+                          flagship_inputs(3, n_points, n_poses))
+        args, _ = sb._fwd_frame(grid, p_, r_, t_, w_, label == "uniform")
+        b1_err = max(b1_err, b1_clusters(
+            sb, f"{grid} x {n_poses} x {n_points} {label}", args))
+    p_, r_, t_ = (torch.from_numpy(a).to(dev) for a in
+                  flagship_inputs(3, 3000, 3)[:3])
+    b1_err = max(b1_err, b1_clusters(
+        sb, "(1023, 1021) x 3 x 3000, empty tiles and dead slots",
+        sparse_frame(sb, (1023, 1021), p_ * 0.3, r_, t_)))
+    return frames, b1_err
 
 
 def phase_b2(sb, dev, ext_mt, ow, bg):
@@ -448,7 +579,8 @@ def volume_inputs(n_poses, n_points, seed=11):
 
 def phase_3d(dprast_torch, sb, dev):
     """[3d]: at 128^3, for one pose x 10^6 points and 4 poses x 10^5:
-    the coordinates CUDA vs CPU, the 3-D branches of B1 and B4 against
+    the coordinates CUDA vs CPU, the 3-D branches of B1 (at every cluster
+    size, and on a frame with empty tiles and dead slots) and B4 against
     their twins, `raster` and the training step through `auto` against
     the `xla` backend on the card, each path run between a reset and a
     read of the launch counts.  Returns (launch counts of the 10^6-point
@@ -493,16 +625,25 @@ def phase_3d(dprast_torch, sb, dev):
                   f"max-abs err vs twin {err:.3e} (tol 1e-5)")
             check(err <= 1e-5, f"{tag}: B1-3D vs twin")
             if not weighted:
-                # the load of B1's and B4's busiest (pose, tile) block
-                first, end = sb._slot_ranges(splat_args[0], nt)
-                slots = (end - first).float()
+                b1_err = max(b1_err, b1_clusters(sb, f"{grid} {label} uniform",
+                                                 splat_args))
+                # the load of the busiest (pose, tile), and of B1's busiest
+                # block once the tile's cluster has shared its slots out
+                slots = slots_per_tile(splat_args[0], nt)
+                c = sb._b1_cluster(dev, n_poses, nt, splat_args[3])
                 print(f"{tag} tile load: live slots per (pose, tile) max "
-                      f"{int(slots.max())}, mean {float(slots.mean()):.2f}, "
-                      f"one slot (empty or nearly) in "
-                      f"{int((slots == 1).sum())} of {slots.numel()}; chunk "
-                      f"{splat_args[-1]}")
+                      f"{int(slots.max())}, mean "
+                      f"{float(slots.float().mean()):.2f}, one slot (empty "
+                      f"or nearly) in {int((slots == 1).sum())} of "
+                      f"{slots.numel()}; chunk {splat_args[-1]}; B1's "
+                      f"cluster of {c}: busiest block "
+                      f"{-(-int(slots.max()) // c)} slots")
                 b4_frames.append(("forward frame", data[:, :3],
                                   splat_args[0], splat_args[-1]))
+        if n_poses > 1:
+            b1_err = max(b1_err, b1_clusters(
+                sb, f"{grid} {label}, empty tiles and dead slots",
+                sparse_frame(sb, grid, pts * 0.3, rot, tr)))
         data_s, st_s, chunk_s = sb._bwd_frame(grid, pts, rot, tr)
         b4_frames.append(("standalone frame", data_s[:, :3], st_s, chunk_s))
         for frame, coord, st, chunk in b4_frames:
@@ -712,19 +853,24 @@ def bf16_kernels(sb, grid, tag, splat_args, data, win, ms):
 def kernel_device_us(fn, kernel, calls=10):
     """Device time in microseconds that one call of `fn` spends in the
     kernels whose name holds `kernel` (or one of a tuple of names), the
-    mean over `calls` calls, from `torch.profiler`; 0 when the trace holds
-    none of them."""
+    mean over `calls` calls, from `torch.profiler`; 0 when three traces in
+    a row hold none of them."""
     import tempfile
 
     from dprast_torch.utils import profiling
     names = (kernel,) if isinstance(kernel, str) else kernel
     fn()
-    with tempfile.TemporaryDirectory() as tmp:
-        with profiling.trace(tmp) as prof:
-            for _ in range(calls):
-                fn()
-    return sum(e.device_time_total for e in prof.key_averages()
-               if any(name in e.key for name in names)) / calls
+    # now and then a trace comes back without its kernel rows: ask again
+    for _ in range(3):
+        with tempfile.TemporaryDirectory() as tmp:
+            with profiling.trace(tmp) as prof:
+                for _ in range(calls):
+                    fn()
+        total = sum(e.device_time_total for e in prof.key_averages()
+                    if any(name in e.key for name in names))
+        if total:
+            break
+    return total / calls
 
 
 def device_busy(fn, calls=5):
@@ -1080,9 +1226,10 @@ def main():
     _build.load()
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for ln in so.with_suffix(".log").read_text()
-             .splitlines() if "registers" in ln or "Compiling entry" in ln]
+             .splitlines() if "registers" in ln or "Compiling entry" in ln
+             or "spill" in ln]
     print(f"[build] {build_s:.1f} s -> {so.relative_to(ROOT)}")
-    for ln in ptxas:
+    for ln in ptxas + sass_atomics(so, _build._nvcc()):
         print(f"[build] {ln}")
 
     pts_np, rot_np, tr_np, pw_np = flagship_inputs()
@@ -1106,21 +1253,7 @@ def main():
           f"points")
 
     # --- 4. B1 against its twin on the card ---
-    frames = {}
-    b1_err = 0.0
-    for grid in GRIDS:
-        for weighted in (False, True):
-            args, data = sb._fwd_frame(grid, pts, rot, tr, pw, not weighted)
-            ext_k = sb.fwd_splat(*args)
-            ext_p = sb._fwd_splat_plain(*args)
-            torch.cuda.synchronize()
-            err = scaled_err(ext_k, ext_p)
-            b1_err = max(b1_err, err)
-            print(f"[B1 fwd_splat] {grid} {'weighted' if weighted else 'uniform'}"
-                  f": ext {tuple(ext_k.shape)}, scaled max-abs err vs twin "
-                  f"{err:.3e} (tol 1e-5)")
-            check(err <= 1e-5, f"B1 vs twin at {grid}")
-            frames[grid, weighted] = (args, ext_k, data)
+    frames, b1_err = phase_b1(sb, dev, pts, rot, tr, pw)
 
     # --- 5. B2 against its twin on the card ---
     rng = np.random.default_rng(1)
@@ -1442,15 +1575,23 @@ def main():
     flag = "128x128, 64 poses, 1e5 points, uniform"
     vol = "128x128x128, 1 pose, 1e6 points, uniform"
     n_vol = VOLUME_TIMED[0]
+
+    def b1_cluster(n_poses, grid):
+        size = sb._b1_cluster(dev, n_poses, sb.n_tiles(grid),
+                              sb._window(grid))
+        return f"thread-block cluster of {size}"
+
     kernels = [
         kernel("fwd_splat", fwd_cu, f"{src}:538", train_launches["fwd_splat"],
                b1_err, ms["b1", FLAGSHIP], ms["b1_plain", FLAGSHIP],
                b1_bound(*frames[FLAGSHIP, False][0]), flag,
+               variant=b1_cluster(N_POSES, FLAGSHIP),
                device_us=ms["b1_dev_us", FLAGSHIP]),
         kernel("fwd_splat", fwd_cu, f"{src}:538", train_launches["fwd_splat"],
                b1_err, ms["b1", MULTI_TILE], ms["b1_plain", MULTI_TILE],
                b1_bound(*frames[MULTI_TILE, False][0]),
                "1024x1024, 64 poses, 1e5 points, uniform",
+               variant=b1_cluster(N_POSES, MULTI_TILE),
                device_us=ms["b1_dev_us", MULTI_TILE]),
         kernel("band_fold", "dprast_torch/csrc/band_fold.cu", f"{src}:687",
                train_launches["band_fold"], b2_err, ms["b2", MULTI_TILE],
@@ -1474,6 +1615,7 @@ def main():
         kernel("fwd_splat_3d", fwd_cu, f"{src}:584",
                launches_3d["fwd_splat_3d"], b1_3d_err, ms_3d["b1", n_vol],
                ms_3d["b1_plain", n_vol], ms_3d["b1_bound", n_vol], vol,
+               variant=b1_cluster(1, VOLUME),
                device_us=ms_3d["b1_dev_us", n_vol]),
         kernel("bwd_gather_3d", bwd_cu, f"{src}:1135",
                launches_3d["bwd_gather_3d"], b4_3d_err, ms_3d["b4", n_vol],

@@ -11,5 +11,7 @@ oracle (any rank, any device) and the ``"binned"`` backend for 2-D and
 from dprast_torch.api import RasterGrads, raster, raster_pullback
 from dprast_torch.ops.dispatch import available_backends, default_backend
 
+__version__ = "0.2.0"
+
 __all__ = ["raster", "raster_pullback", "RasterGrads", "available_backends",
-           "default_backend"]
+           "default_backend", "__version__"]

@@ -54,18 +54,42 @@ class _Raster(torch.autograd.Function):
         return (None, None, None) + tuple(grads)
 
 
+class _RasterOnce(_Raster):
+    """`_Raster` for a backend whose pullback runs CUDA kernels (or, on the
+    CPU, their plain twins): the kernels record no graph, so a gradient
+    taken with ``create_graph=True`` would be cut from it without a word.
+    Asking for such a gradient raises instead."""
+
+    @staticmethod
+    def backward(ctx, ds_dout):
+        # grad mode is on inside a backward only under create_graph=True
+        if torch.is_grad_enabled():
+            raise RuntimeError(
+                f"raster: the {ctx.backend[1]!r} backend can be "
+                f"differentiated once; a gradient with create_graph=True "
+                f"(a second derivative) needs backend='xla'")
+        return _Raster.backward(ctx, ds_dout)
+
+
+# the backend whose pullback is plain differentiable torch
+_TWICE_DIFFERENTIABLE = ("xla",)
+
+
 def raster_canonical(grid_size, backend, pw_uniform, points, rotation,
                      translation, background, out_weight, point_weight):
     """Forward rasterisation on canonical batched args -> (B, *grid_size),
     differentiable in the six tensors.  `backend` is a resolved name or a
     (forward, backward) name pair.  Without a tensor that requires grad
     (or under `torch.no_grad`) this is the plain forward, which keeps no
-    residuals."""
+    residuals.  Only a backward on `_TWICE_DIFFERENTIABLE` can itself be
+    differentiated; on any other a backward under ``create_graph=True``
+    raises."""
     if isinstance(backend, str):
         backend = (backend, backend)
     args = (points, rotation, translation, background, out_weight,
             point_weight)
     if torch.is_grad_enabled() and any(a.requires_grad for a in args):
-        return _Raster.apply(grid_size, tuple(backend), pw_uniform, *args)
+        fn = _Raster if backend[1] in _TWICE_DIFFERENTIABLE else _RasterOnce
+        return fn.apply(grid_size, tuple(backend), pw_uniform, *args)
     return dispatch.fwd_fn(backend[0])(grid_size, *args,
                                        pw_uniform=pw_uniform)

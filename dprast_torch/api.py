@@ -191,7 +191,10 @@ def raster(grid_size, points, rotation, translation, background=None,
     point_weight`` is distributed onto the 2^N nearest voxels by
     multilinear interpolation.  The output starts at `background`.
     Gradients of all six inputs flow through autograd to the analytic
-    pullback of the chosen backend.
+    pullback of the chosen backend.  A numpy float64 input makes the whole
+    call float64 and sends 'auto' to the float64 oracle, so cast what
+    `np.random` returns to float32 first.  The 'binned' backends can be
+    differentiated once; 'xla' also a second time.
 
     Args:
       grid_size: tuple of N_out ints, the output grid shape.

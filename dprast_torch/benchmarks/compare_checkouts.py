@@ -10,10 +10,11 @@ points, uniform weights) on 128^2 and 1024^2:
 
 - B1, B2, B3 and B4 (natural windows) alone: the median milliseconds of
   the wrapper by CUDA events and the kernel's own device microseconds from
-  `torch.profiler`;
+  `torch.profiler` (B1 also at 128^3, one pose x 10^6 points);
 - B4 on the cotangent itself (the grid source), where the checkout has it;
 - the pullback from the forward's frame and the fused forward + pullback
-  step.
+  step, and what the step keeps the card busy with (`torch.profiler`: the
+  microseconds in kernels and copies, and their number).
 
 It prints one line per quantity with the readings of the four runs and
 the means of each checkout.  Usage, from the root of the newer checkout,
@@ -82,10 +83,19 @@ for grid in cs.GRIDS:
         lambda: sb.raster_pullback_res(grid, res, canon, g, pw_uniform=True))
     out[f"forward {tag} ms"] = cs.time_ms(
         lambda: sb.raster_fwd(grid, *canon, pw_uniform=True))
-    out[f"fused step {tag} ms"] = cs.time_ms(
-        lambda: sb.raster_pullback_res(
+    def step():
+        return sb.raster_pullback_res(
             grid, sb.raster_fwd_res(grid, *canon, pw_uniform=True)[1], canon,
-            g, pw_uniform=True))
+            g, pw_uniform=True)
+
+    out[f"fused step {tag} ms"] = cs.time_ms(step)
+    (out[f"fused step {tag} device-busy us"],
+     out[f"fused step {tag} kernels and copies"]) = cs.device_busy(step)
+# B1 in 3-D: 128^3, one pose x 10^6 points, uniform weights
+vol = [torch.from_numpy(a).to(dev) for a in cs.volume_inputs(1, 1_000_000)]
+args, _ = sb._fwd_frame(cs.VOLUME, *vol[:3], vol[5], True)
+both("B1 " + "x".join(map(str, cs.VOLUME)), lambda: sb.fwd_splat(*args),
+     "fwd_splat_kernel")
 print("RESULT " + json.dumps(out))
 '''
 

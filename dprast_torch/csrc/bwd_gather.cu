@@ -33,7 +33,8 @@
 //   so every read of a row hits shared memory, and loops over the tile's
 //   live slots.
 // - The block finds its slots itself: two warps search the pose's sorted
-//   slot table for the tile's [first, end) (each step 32 lanes probe
+//   slot table for the tile's [first, end) (`warp_lower_bound` of
+//   slots.cuh, which B1 shares: each step 32 lanes probe
 //   evenly spaced entries and a ballot picks the interval: two steps at
 //   472 slots), so the wrapper launches nothing before the kernel.
 // - The copy engines stage the window.  The grid source starts one TMA
@@ -90,6 +91,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "slots.cuh"
+
 namespace {
 
 constexpr int kThreads = 512;
@@ -125,31 +128,6 @@ __device__ __forceinline__ float split(float v) {
       return __fadd_rn(
           hi, __bfloat162float(__float2bfloat16_rn(__fsub_rn(v, hi))));
   }
-}
-
-// The first index in [0, n) of the non-decreasing a[] whose entry is
-// >= x (n if none), found by one whole warp: each step the 32 lanes probe
-// evenly spaced entries of the open interval and a ballot keeps the one
-// stretch between a "<" and a ">=".
-__device__ __forceinline__ int warp_lower_bound(const int* __restrict__ a,
-                                                int n, int x) {
-  const int lane = threadIdx.x & 31;
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int step = (hi - lo + 31) / 32;
-    const int i = lo + lane * step;
-    const bool ge = i >= hi || a[i] >= x;
-    const unsigned m = __ballot_sync(0xffffffffu, ge);
-    const int k = m ? __ffs(m) - 1 : 32;  // the first lane at or past x
-    if (k == 0) {
-      hi = lo;
-    } else {
-      const int top = lo + k * step;
-      lo += (k - 1) * step + 1;
-      hi = top < hi ? top : hi;
-    }
-  }
-  return lo;
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {

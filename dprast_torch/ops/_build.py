@@ -23,6 +23,9 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dprast_torch"
 _SOURCES = ("fwd_splat.cu", "band_fold.cu", "band_unfold.cu",
             "bwd_gather.cu")
+# headers the sources include: not compiled on their own, but part of the
+# library's name, so that an edited header rebuilds it
+_HEADERS = ("slots.cuh",)
 
 # B1 and B4 keep one tile window in dynamic shared memory: 128 x 128 fp32
 MAX_WINDOW_BYTES = 128 * 128 * 4
@@ -40,7 +43,7 @@ def _nvcc() -> str:
 
 def _library_path() -> Path:
     digest = hashlib.sha256()
-    for name in _SOURCES:
+    for name in _SOURCES + _HEADERS:
         digest.update(name.encode())
         digest.update((_CSRC / name).read_bytes())
     return _BUILD_DIR / f"libdprast_torch_{digest.hexdigest()[:16]}.so"
@@ -91,9 +94,9 @@ def load():
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.dprast_fwd_splat.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32,
+        lib.dprast_fwd_splat.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32,
                                          i64, i32, i32, i32, i32, i32, i32,
-                                         vp]
+                                         vp, vp]
         lib.dprast_fwd_splat.restype = i32
         lib.dprast_band_fold.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32,
                                          i32, vp]

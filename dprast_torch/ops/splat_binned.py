@@ -368,21 +368,6 @@ def _planes_bwd(coord, ts):
     return torch.stack(sub + [ix0.to(f32), dlx], dim=1)
 
 
-def _slot_ranges(slot_tile, nt):
-    """Each tile's live slot range ``[first, end)``, (B, nt) int32 each,
-    for B1 (B4 searches the slot table in its kernel).  The frame is
-    tile-sorted, so a searchsorted over the slot table with the dead slots
-    (past ``slot_tile[b, -1]``) pushed to ``nt`` finds them."""
-    bsz, n_slots = slot_tile.shape[0], slot_tile.shape[1] - 1
-    dev = slot_tile.device
-    live = torch.arange(n_slots, device=dev) < slot_tile[:, n_slots:]
-    st = torch.where(live, slot_tile[:, :n_slots].long(), nt).contiguous()
-    tiles = torch.arange(nt, device=dev).expand(bsz, nt).contiguous()
-    first = torch.searchsorted(st, tiles, out_int32=True)
-    end = torch.searchsorted(st, tiles, right=True, out_int32=True)
-    return first, end
-
-
 # ---------------------------------------------------------------------------
 # B1: the forward splat
 # ---------------------------------------------------------------------------
@@ -450,18 +435,85 @@ def _fwd_splat_plain(slot_tile, lane, nt, win, chunk, terms=0):
 
 
 def _split_count(device, blocks):
-    """Blocks per tile for B1: enough (pose, tile) blocks to give every SM
+    """Blocks per tile for B4: enough (pose, tile) blocks to give every SM
     two, at most 16 per tile."""
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, min(16, -(-2 * n_sm // blocks)))
 
 
-def fwd_splat(slot_tile, lane, nt, win, chunk, terms=0):
+# B1's thread-block cluster, the blocks that share one (pose, tile): 8 is
+# the largest every Hopper card schedules
+_MAX_CLUSTER = 8
+# B1's blocks per SM that `_cluster_size` aims at where a pose has several
+# tiles: more than the three an SM holds, because tiles are uneven (a
+# 0.4-sigma cloud at 128^3 puts 96 of a pose's 3,977 slots into the busiest
+# of 342 tiles), so a card that is merely full waits for its busiest block
+# (read on an H100 by `dprast_torch.benchmarks.exp_b1_cluster`)
+_B1_BLOCKS_PER_SM = 8
+
+
+def _cluster_size(bsz, nt, n_sm, held):
+    """B1's cluster size from shapes and the card's occupancy alone.
+    ``held[c - 1]`` is how many clusters of `c` blocks the card holds at
+    once.  A single tile holds every row of its pose, so all blocks are
+    equally heavy and a second wave of clusters costs as much as the
+    first: the largest size of which the card holds all `bsz` clusters at
+    once, 1 if it holds them at no size.  Several tiles are uneven: as
+    many blocks per (pose, tile) as give `n_sm` SMs `_B1_BLOCKS_PER_SM`
+    blocks each.  Never a size the card cannot hold; 0 if it holds
+    none."""
+    pairs = bsz * nt
+    sizes = [c for c in range(1, _MAX_CLUSTER + 1) if held[c - 1] > 0]
+    if not sizes:
+        return 0
+    if nt == 1:
+        most = max([c for c in sizes if held[c - 1] >= pairs], default=1)
+    else:
+        most = -(-_B1_BLOCKS_PER_SM * n_sm // pairs)
+    return max([c for c in sizes if c <= most], default=sizes[0])
+
+
+_HELD = {}
+
+
+def _clusters_held(device, win, terms=0):
+    """How many of B1's clusters of 1 .. `_MAX_CLUSTER` blocks, for windows
+    of shape `win`, the card `device` holds at once
+    (`cudaOccupancyMaxActiveClusters`, asked once per card, window and
+    instance) -> tuple.  A size the card cannot schedule counts 0."""
+    n_out = len(win)
+    key = (torch.device(device), tuple(win), terms)
+    if key not in _HELD:
+        _b1_instance(n_out, terms)
+        entry = _build.load().dprast_fwd_splat
+        held = []
+        for cluster in range(1, _MAX_CLUSTER + 1):
+            n = ctypes.c_int(0)
+            _launch("fwd_splat", device, entry, None, None, None, 1, 1,
+                    n_out, 0, 2 * n_out, 0, 4, win[-2], math.prod(win[:-1]),
+                    win[-1], cluster, terms, ctypes.byref(n))
+            held.append(n.value)
+        _HELD[key] = tuple(held)
+    return _HELD[key]
+
+
+def _b1_cluster(device, bsz, nt, win, terms=0):
+    """The cluster size `fwd_splat` runs (B, nt) windows of shape `win`
+    with on the card `device`."""
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    return _cluster_size(bsz, nt, n_sm, _clusters_held(device, win, terms))
+
+
+def fwd_splat(slot_tile, lane, nt, win, chunk, terms=0, *, cluster=None):
     """B1: splat the lane planes of a slot frame into the per-tile windows
     of shape `win` -> ext (B, nt, rows_e, cols_e) f32, with `terms` 0
     (fp32) or 1 (bf16 products; see `_fwd_splat_plain`).  CPU tensors
-    take the plain twin, CUDA tensors the kernel in
-    `csrc/fwd_splat.cu`."""
+    take the plain twin, CUDA tensors the kernel in `csrc/fwd_splat.cu`,
+    which finds each tile's slots itself and writes every window once:
+    nothing is launched before it.  `cluster` forces the size of the
+    thread-block cluster that shares one (pose, tile), 1 to `_MAX_CLUSTER`
+    (the default is `_b1_cluster`'s); only measurements and tests pass
+    it.  A size the card cannot schedule raises."""
     n_out = len(win)
     instance = _b1_instance(n_out, terms)
     if lane.device.type == "cpu":
@@ -475,22 +527,28 @@ def fwd_splat(slot_tile, lane, nt, win, chunk, terms=0):
         raise ValueError(f"fwd_splat: lane {tuple(lane.shape)}, slot table "
                          f"{tuple(slot_tile.shape)} and window {win} do not "
                          f"form a frame of chunk {chunk}")
+    _check_four_rows("fwd_splat", chunk, lane)
     rows_e, cols_e = math.prod(win[:-1]), win[-1]
     if rows_e * cols_e * 4 > _build.MAX_WINDOW_BYTES or bsz > 65535 \
             or nt > 65535:
         raise ValueError(f"fwd_splat: window {win}, B={bsz}, nt={nt} exceed "
                          f"the kernel's launch bounds")
+    if cluster is not None and not 1 <= cluster <= _MAX_CLUSTER:
+        raise ValueError(f"fwd_splat: cluster {cluster} is not in 1.."
+                         f"{_MAX_CLUSTER}")
     dev = lane.device
-    first, end = _slot_ranges(slot_tile, nt)
-    nsplit = _split_count(dev, bsz * nt)
-    alloc = torch.zeros if nsplit > 1 else torch.empty
-    ext = alloc((bsz, nt, rows_e, cols_e), dtype=torch.float32, device=dev)
-    lib = _build.load()
-    rc = lib.dprast_fwd_splat(
-        _ptr(lane), _ptr(first), _ptr(end), _ptr(ext), bsz, nt, n_out,
-        n_lane, s_pad, chunk, win[-2], rows_e, cols_e, nsplit, terms,
-        _stream(dev))
-    _raise_on(rc, "fwd_splat")
+    held = _clusters_held(dev, win, terms)
+    if cluster is None:
+        cluster = _b1_cluster(dev, bsz, nt, win, terms)
+    if cluster == 0 or held[cluster - 1] < 1:
+        raise RuntimeError(f"fwd_splat: {dev} holds no thread-block cluster "
+                           f"of {cluster or 1} blocks with a {win} window "
+                           f"(cudaOccupancyMaxActiveClusters: {held})")
+    ext = torch.empty((bsz, nt, rows_e, cols_e), dtype=torch.float32,
+                      device=dev)
+    _launch("fwd_splat", dev, _build.load().dprast_fwd_splat, _ptr(lane),
+            _ptr(slot_tile), _ptr(ext), bsz, nt, n_out, n_slots, n_lane,
+            s_pad, chunk, win[-2], rows_e, cols_e, cluster, terms, None)
     LAUNCHES[instance] += 1
     return ext
 
@@ -571,11 +629,8 @@ def band_fold(ext, grid_size, ts, ow, bg):
         raise ValueError(f"band_fold: B={bsz}, gy={gy} exceed the kernel's "
                          f"launch bounds")
     out = torch.empty((bsz, gy, gx), dtype=torch.float32, device=ext.device)
-    lib = _build.load()
-    rc = lib.dprast_band_fold(
-        _ptr(ext), _ptr(ow), _ptr(bg), _ptr(out), bsz, gy, gx, t0, t1,
-        _stream(ext.device))
-    _raise_on(rc, "band_fold")
+    _launch("band_fold", ext.device, _build.load().dprast_band_fold,
+            _ptr(ext), _ptr(ow), _ptr(bg), _ptr(out), bsz, gy, gx, t0, t1)
     LAUNCHES["band_fold"] += 1
     return out
 
@@ -637,10 +692,8 @@ def band_unfold(g, grid_size, ts):
                          f"the kernel's launch bounds")
     win = torch.empty((bsz, n0 * n1, t0 + 1, t1 + 1), dtype=torch.float32,
                       device=g.device)
-    lib = _build.load()
-    rc = lib.dprast_band_unfold(_ptr(g), _ptr(win), bsz, gy, gx, t0, t1,
-                                _stream(g.device))
-    _raise_on(rc, "band_unfold")
+    _launch("band_unfold", g.device, _build.load().dprast_band_unfold,
+            _ptr(g), _ptr(win), bsz, gy, gx, t0, t1)
     LAUNCHES["band_unfold"] += 1
     return win
 
@@ -798,10 +851,7 @@ def bwd_gather(slot_tile, lane_b, win, chunk, terms=0, layout="natural"):
         raise ValueError(f"bwd_gather: lane {tuple(lane_b.shape)} and slot "
                          f"table {tuple(slot_tile.shape)} do not form a "
                          f"frame of chunk {chunk}")
-    if chunk % 4 or lane_b.data_ptr() % 16:
-        raise ValueError(f"bwd_gather: the kernel reads four rows at a "
-                         f"time: chunk {chunk} must be a multiple of 4 and "
-                         f"the lane planes 16-byte aligned")
+    _check_four_rows("bwd_gather", chunk, lane_b)
     if hi.dim() not in (3, 4) or hi.shape[0] != bsz or \
             lo.shape != hi.shape:
         raise ValueError(f"bwd_gather: window {tuple(hi.shape)} is neither "
@@ -830,13 +880,11 @@ def bwd_gather(slot_tile, lane_b, win, chunk, terms=0, layout="natural"):
     nsplit = _split_count(dev, bsz * nt)
     buf = torch.empty((bsz, n_out + 1, s_pad), dtype=torch.float32,
                       device=dev)
-    lib = _build.load()
-    rc = lib.dprast_bwd_gather(
-        _ptr(lane_b), _ptr(slot_tile), _ptr(hi), _ptr(lo), _ptr(buf), bsz,
-        nt, n_out, n_slots, s_pad, chunk, rows_e, cols_e, nsplit, terms,
-        _LAYOUTS.index(layout), gy, gx, t0, t1, _STAGINGS.index(staging),
-        _stream(dev))
-    _raise_on(rc, "bwd_gather")
+    _launch("bwd_gather", dev, _build.load().dprast_bwd_gather,
+            _ptr(lane_b), _ptr(slot_tile), _ptr(hi), _ptr(lo), _ptr(buf),
+            bsz, nt, n_out, n_slots, s_pad, chunk, rows_e, cols_e, nsplit,
+            terms, _LAYOUTS.index(layout), gy, gx, t0, t1,
+            _STAGINGS.index(staging))
     if layout == "grid" and staging == "loads":
         instance += _GRID_LOADS
     LAUNCHES[instance] += 1
@@ -883,6 +931,15 @@ def _check_cuda(name, *pairs):
                              f"{t.is_contiguous()}")
 
 
+def _check_four_rows(name, chunk, lane):
+    """B1 and B4 read the lane planes of four consecutive rows with one
+    128-bit load per plane."""
+    if chunk % 4 or lane.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernel reads four rows at a time: "
+                         f"chunk {chunk} must be a multiple of 4 and the "
+                         f"lane planes 16-byte aligned")
+
+
 def _ptr(t):
     return ctypes.c_void_p(t.data_ptr())
 
@@ -891,7 +948,13 @@ def _stream(device):
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def _raise_on(rc, name):
+def _launch(name, device, entry, *args):
+    """Call the kernel library's `entry` with `args` and `device`'s current
+    stream as its last argument, with `device` current (a tensor on a card
+    that is not the current one launches there), and raise on a CUDA
+    error."""
+    with torch.cuda.device(device):
+        rc = entry(*args, _stream(device))
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} "
                            f"({_build.error_string(rc)})")
@@ -910,6 +973,13 @@ def _check_args(grid_size, p):
         raise ValueError("binned backend requires n_points > 0")
 
 
+def _window(grid_size):
+    """The shape of B1's windows: a tile's body + 1 halo voxel per axis, or
+    the single tile itself."""
+    ts = tile_shape_for(grid_size)
+    return tuple(ts) if _single_tile(grid_size) else tuple(t + 1 for t in ts)
+
+
 def _fwd_frame(grid_size, points, rotation, translation, point_weight,
                pw_uniform):
     """Coordinates -> frame -> lane planes.  Returns the arguments of
@@ -917,15 +987,12 @@ def _fwd_frame(grid_size, points, rotation, translation, point_weight,
     planes ``data`` (B, n_out + 1 | n_out + 2, s_pad): ``[coords...,
     (w,) point id]``."""
     n_out = len(grid_size)
-    ts = tile_shape_for(grid_size)
     data, slot_tile, nt, chunk = _fwd_prep(grid_size, points, rotation,
                                            translation, point_weight,
                                            pw_uniform)
     w_plane = None if pw_uniform else data[:, n_out]
     lane = _planes_fwd(data[:, :n_out], w_plane).contiguous()
-    # the window: body + 1 halo voxel per axis, or the single tile itself
-    halo = not _single_tile(grid_size)
-    win = tuple(t + 1 for t in ts) if halo else tuple(ts)
+    win = _window(grid_size)
     return (slot_tile.contiguous(), lane, nt, win, chunk), data
 
 

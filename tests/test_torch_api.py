@@ -197,6 +197,12 @@ def test_requires_grad_and_devices_raise():
                             fx["translation"])
 
 
+def test_version_is_the_jax_package_s():
+    import dprast
+    assert dprast_torch.__version__ == dprast.__version__ == "0.2.0"
+    assert "__version__" in dprast_torch.__all__
+
+
 def test_surface():
     assert dprast_torch.available_backends() == ("xla", "binned",
                                                  "binned_bf16")

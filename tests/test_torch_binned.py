@@ -804,3 +804,157 @@ def test_pullback_reads_the_cotangent_without_unfold(grid, terms, weighted):
                                t_pw, g, pw_uniform=not weighted, terms=terms)
     for name in direct._fields:
         assert torch.equal(getattr(res, name), getattr(direct, name)), name
+
+
+# ---------------------------------------------------------------------------
+# B1's thread-block cluster: the size rule, the partition of a tile's slots
+# ---------------------------------------------------------------------------
+
+
+# clusters of 1 .. 8 blocks of 512 threads and a 64 KB window that an H100
+# (132 SMs, three such blocks each) holds at once, as
+# `cudaOccupancyMaxActiveClusters` answers `_clusters_held` there
+_H100_HELD = (396, 198, 124, 92, 69, 62, 47, 45)
+
+
+@pytest.mark.parametrize("bsz,nt,want", [
+    (64, 1, 5),       # 128^2, 64 poses: 69 clusters of 5 fit, 62 of 6
+    (64, 81, 1),      # 1024^2, 64 poses: 5,184 tiles fill the card alone
+    (1, 342, 4),      # 128^3, one pose: uneven slabs, 8 blocks an SM
+    (4, 342, 1),      # 128^3, four poses
+    (1, 1, 8),        # a single tile, a single pose
+])
+def test_cluster_size_rule(bsz, nt, want):
+    """B1's cluster size is a pure function of (poses, tiles, SMs, the
+    clusters of each size the card holds): at one tile the largest size
+    whose clusters all run at once, at several tiles 8 blocks per SM
+    spread over the (pose, tile) pairs."""
+    assert tbin._cluster_size(bsz, nt, 132, _H100_HELD) == want
+    for tiles in (1, 9):
+        sizes = [tbin._cluster_size(n, tiles, 132, _H100_HELD)
+                 for n in range(1, 500, 3)]
+        assert all(1 <= c <= tbin._MAX_CLUSTER for c in sizes)
+        assert sizes == sorted(sizes, reverse=True) and sizes[-1] == 1
+    # one wave at a single tile: 124 clusters of 3 fit, 92 of 4; past the
+    # 396 single blocks the card holds, one block per pose
+    assert [tbin._cluster_size(n, 1, 132, _H100_HELD)
+            for n in (45, 46, 92, 93, 124, 125, 198, 199, 397)] == \
+        [8, 7, 4, 3, 3, 2, 2, 1, 1]
+    # a size the card cannot hold is never picked; none at all gives 0
+    few = (396, 198, 124, 0, 0, 0, 0, 0)
+    assert tbin._cluster_size(64, 1, 132, few) == 3
+    assert tbin._cluster_size(1, 342, 132, few) == 3
+    assert tbin._cluster_size(1, 342, 132, (0, 198) + (0,) * 6) == 2
+    assert tbin._cluster_size(64, 1, 132, (0,) * 8) == 0
+
+
+def _live_range(table, t):
+    """Mirror of the kernel's search: the live slots [first, end) of tile
+    `t` in one pose's slot table (its last entry counts the live slots)."""
+    n_slots = len(table) - 1
+    live = table[:min(table[n_slots], n_slots)]
+    return (int(np.searchsorted(live, t, side="left")),
+            int(np.searchsorted(live, t + 1, side="left")))
+
+
+def _rank_slots(first, end, n_ranks, rank):
+    """Mirror of the kernel's partition: the slots of `rank`."""
+    return range(first + rank, end, n_ranks)
+
+
+def _stripe(n_units, n_active, rank):
+    return rank * n_units // n_active, (rank + 1) * n_units // n_active
+
+
+def _random_slot_table(rng, nt, n_slots):
+    """A sorted slot table with empty tiles and dead slots, as
+    `_prep_binned` lays it out (dead slots carry the last tile)."""
+    n_live = int(rng.integers(0, n_slots + 1))
+    tiles = np.sort(rng.choice(nt, size=n_live, replace=True))
+    table = np.full(n_slots + 1, nt - 1, np.int32)
+    table[:n_live] = tiles
+    table[n_slots] = n_live
+    return table
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_cluster_partition_covers_every_live_slot_once(seed):
+    """Every live slot goes to exactly one (tile, rank), a dead slot to
+    none, the ranks with slots are 0 .. n_active - 1, and their stripes
+    tile the window exactly."""
+    rng = np.random.default_rng(seed)
+    nt, n_slots = int(rng.integers(1, 40)), int(rng.integers(1, 60))
+    table = _random_slot_table(rng, nt, n_slots)
+    if seed == 0:
+        # a real frame's table: the standalone pullback's, whose empty
+        # tiles own no slot
+        grid, pts, rot, tr, pw = _sparse_cloud()
+        key, planes, fills, nt = _frame_planes(grid, pts, rot, tr, pw, False)
+        _, st = tbin._prep_binned(key, planes, fills, nt, 128, False,
+                                  pack_idx=True)
+        table = st[0].numpy()
+        n_slots = len(table) - 1
+    n_live = table[n_slots]
+    for n_ranks in range(1, tbin._MAX_CLUSTER + 1):
+        owner = np.zeros(n_slots, np.int64)
+        for t in range(nt):
+            first, end = _live_range(table, t)
+            assert 0 <= first <= end <= n_live
+            n_active = min(n_ranks, end - first)
+            for rank in range(n_ranks):
+                slots = _rank_slots(first, end, n_ranks, rank)
+                assert (len(slots) > 0) == (rank < n_active)
+                for s in slots:
+                    assert table[s] == t
+                    owner[s] += 1
+            if n_active:
+                bounds = [_stripe(4096, n_active, r) for r in range(n_active)]
+                assert bounds[0][0] == 0 and bounds[-1][1] == 4096
+                assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+        assert (owner[:n_live] == 1).all() and (owner[n_live:] == 0).all()
+
+
+def test_fwd_splat_reads_rows_in_fours(monkeypatch):
+    """The kernel takes four rows per 128-bit load: a chunk that is no
+    multiple of 4, or lane planes off a 16-byte boundary, are refused
+    before anything is launched; so is a cluster size the kernel does not
+    have."""
+    monkeypatch.setattr(tbin, "_check_cuda", lambda *a: None)
+    st = torch.zeros((1, 2), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="multiple of 4"):
+        tbin.fwd_splat(st, torch.zeros((1, 4, 130), device="meta"), 1,
+                       (8, 8), 130)
+    off = torch.zeros(4 * 128 + 1, device="meta")[1:].reshape(1, 4, 128)
+    assert off.data_ptr() % 16 == 4
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tbin.fwd_splat(st, off, 1, (8, 8), 128)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tbin.bwd_gather(st, off, torch.zeros((1, 8, 8), device="meta"), 128)
+    lane = torch.zeros((1, 4, 128), device="meta")
+    with pytest.raises(ValueError, match="cluster 9"):
+        tbin.fwd_splat(st, lane, 1, (8, 8), 128, cluster=9)
+    with pytest.raises(ValueError, match="cluster 0"):
+        tbin.fwd_splat(st, lane, 1, (8, 8), 128, cluster=0)
+    assert tbin.LAUNCHES["fwd_splat"] == 0
+
+
+def test_fwd_splat_twin_ignores_cluster_and_dead_rows():
+    """On the CPU the wrapper is the twin whatever cluster it is asked
+    for, and rows of dead slots add nothing even where they hold
+    coordinates inside a window."""
+    grid, pts, rot, tr, pw = _random_cloud()
+    args = [torch.from_numpy(a) for a in (pts, rot, tr)]
+    data, st, chunk = tbin._bwd_frame(grid, *args)
+    lane = tbin._planes_fwd(data[:, :2], None).contiguous()
+    nt, win = tbin.n_tiles(grid), (128, 128)
+    n_slots = st.shape[1] - 1
+    dead = torch.repeat_interleave(
+        torch.arange(n_slots) >= st[:, n_slots:], chunk, dim=1)
+    assert bool(dead.any())
+    filled = torch.where(dead[:, None, :],
+                         lane[:, :, :chunk].repeat(1, 1, n_slots), lane)
+    ref = tbin._fwd_splat_plain(st, lane, nt, win, chunk)
+    for cluster in (None, 1, 8):
+        out = tbin.fwd_splat(st, filled.contiguous(), nt, win, chunk,
+                             cluster=cluster)
+        assert torch.equal(out, ref)

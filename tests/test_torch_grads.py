@@ -382,3 +382,50 @@ def test_binned_3d_scalar_weight_sum_exact():
     assert grads[5].shape == ()
     for name, a in zip(FIELDS, grads):
         assert _scaled_err(a, ref[name]) < TOL, name
+
+
+@pytest.mark.parametrize("backend", ["binned", "binned_bf16"])
+def test_double_backward_raises_on_kernel_backends(backend):
+    """The kernels record no graph: a gradient taken with
+    ``create_graph=True`` raises instead of coming back cut from it.  A
+    plain first derivative is untouched."""
+    fx = fixtures(seed=4, n_points=60, batch_size=2, n_in=3, n_out=2)
+    pts = torch.from_numpy(np.asarray(fx["points"], np.float32)
+                           ).requires_grad_()
+    rot, tr = (torch.from_numpy(np.asarray(fx[k], np.float32))
+               for k in ("rotation", "translation"))
+    out = dprast_torch.raster((16, 16), pts, rot, tr, backend=backend)
+    (first,) = torch.autograd.grad((out ** 2).sum(), pts, retain_graph=True)
+    assert bool(torch.isfinite(first).all()) and not first.requires_grad
+    with pytest.raises(RuntimeError, match="differentiated once"):
+        torch.autograd.grad((out ** 2).sum(), pts, create_graph=True)
+
+
+def test_double_backward_works_on_xla():
+    """The oracle backend's pullback is plain torch: its gradient can be
+    differentiated again, and agrees with finite differences of the first
+    derivative."""
+    fx = fixtures(seed=4, n_points=12, batch_size=2, n_in=2, n_out=2)
+    pts = torch.from_numpy(np.asarray(fx["points"], np.float64))
+    rot, tr = (torch.from_numpy(np.asarray(fx[k], np.float64))
+               for k in ("rotation", "translation"))
+    w = torch.linspace(0.5, 2.0, 12, dtype=torch.float64).requires_grad_()
+
+    def first(weights):
+        x = pts.clone().requires_grad_()
+        out = dprast_torch.raster((8, 8), x, rot, tr, None, None, weights,
+                                  backend="xla")
+        (g,) = torch.autograd.grad((out ** 2).sum(), x, create_graph=True)
+        return g
+
+    g = first(w)
+    assert g.requires_grad
+    (second,) = torch.autograd.grad(g.sum(), w)
+    assert second.shape == w.shape and float(second.abs().sum()) > 0
+    eps = 1e-6
+    for i in (0, 5, 11):
+        step = torch.zeros_like(w)
+        step[i] = eps
+        fd = (first(w + step).sum() - first(w - step).sum()) / (2 * eps)
+        np.testing.assert_allclose(float(second[i]), float(fd), rtol=1e-5,
+                                   atol=1e-8)

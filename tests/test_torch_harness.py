@@ -26,7 +26,8 @@ from benchmarks import exp_band as jexp_band  # noqa: E402
 from benchmarks import exp_xsel as jexp_xsel  # noqa: E402
 from dprast.ops import splat_binned as jbin  # noqa: E402
 from dprast.utils.testing import fixtures  # noqa: E402
-from dprast_torch.benchmarks import exp_band, exp_xsel  # noqa: E402
+from dprast_torch.benchmarks import (  # noqa: E402
+    exp_b1_cluster, exp_band, exp_xsel)
 from dprast_torch.benchmarks import profile_binned  # noqa: E402
 from dprast_torch.ops import splat_binned as tbin  # noqa: E402
 from dprast_torch.utils import profiling  # noqa: E402
@@ -224,7 +225,8 @@ def test_experiments_own_checks():
         exp_band.run("cpu", (128, 128))
 
 
-@pytest.mark.parametrize("module", [profile_binned, exp_xsel, exp_band])
+@pytest.mark.parametrize("module", [profile_binned, exp_xsel, exp_band,
+                                    exp_b1_cluster])
 def test_cuda_device_never_falls_back(module, monkeypatch):
     """The scripts' default device is the card; without one they exit
     instead of timing the CPU."""
@@ -289,3 +291,47 @@ def test_compare_checkouts_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="is_available"):
         compare_checkouts.main(["a", "b"])
+
+
+def test_chip_smoke_b1_helpers():
+    """`chip_smoke.py`'s B1 helpers on the CPU: the bound reads the slot
+    table once, the slots per tile add up to the live slots, and the
+    sparse frame has what it promises while its dead rows change nothing."""
+    import chip_smoke as cs
+    grid = (300, 200)
+    pts, rot, tr, pw = (torch.from_numpy(a)
+                        for a in cs.flagship_inputs(3, 900, 2))
+    args, _ = tbin._fwd_frame(grid, pts, rot, tr, pw, True)
+    st, lane, nt, win, chunk = args
+    rows = cs.live_rows(st, chunk)
+    n_bytes = (rows * 4 + st.numel() + 2 * nt * 128 * 128) * 4
+    assert cs.b1_bound(*args) == (n_bytes / cs.HBM_BYTES_PER_S * 1e3,
+                                  "bytes")
+    per_tile = cs.slots_per_tile(st, nt)
+    assert per_tile.shape == (2, nt) and bool((per_tile >= 1).all())
+    assert torch.equal(per_tile.sum(1), st[:, -1].long())
+    sparse = cs.sparse_frame(tbin, grid, pts * 0.2, rot, tr)
+    assert bool((cs.slots_per_tile(sparse[0], nt) == 0).any())
+    data, st_b, _ = tbin._bwd_frame(grid, pts * 0.2, rot, tr)
+    clean = tbin._planes_fwd(data[:, :2], None).contiguous()
+    assert not torch.equal(clean, sparse[1])
+    assert torch.equal(tbin._fwd_splat_plain(*sparse),
+                       tbin._fwd_splat_plain(st_b, clean, *sparse[2:]))
+
+
+def test_library_name_follows_the_shared_header(tmp_path, monkeypatch):
+    """`slots.cuh` is compiled into two sources and is no source itself:
+    an edit to it must still name a new library."""
+    import shutil
+
+    from dprast_torch.ops import _build
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build._CSRC, csrc)
+    monkeypatch.setattr(_build, "_CSRC", csrc)
+    before = _build._library_path()
+    assert before == _build._library_path()
+    with open(csrc / "slots.cuh", "a") as f:
+        f.write("// edited\n")
+    assert _build._library_path() != before
+    assert all((csrc / name).exists()
+               for name in _build._SOURCES + _build._HEADERS)
