@@ -36,6 +36,16 @@ profile_binned`, B1 and B4 launched alone) at 1024^2 and 128^3, and the
 at 1024^2), whose B4 instances read the window through the two-part
 bf16 split in three layouts; each instance is held to its twin.
 
+The [matmul] phase drives the path of the small grids, where `auto`
+picks the `matmul` backend (one-hot matrix products, `torch.bmm` on bf16
+planes with an fp32 result): the forward and the training step at 64^2 x
+64 poses x 10^5 points, at 32^3 x 4 x 10^5 and at (4096,) x 4 x 10^4
+against the `xla` backend, small cases against the f64 oracles, an empty
+cloud, and its times beside `xla` and `binned` at 64^2, 128^2 and 256^2
+in turns.  The [examples] phase runs `examples/fit_langevin_torch.py` and
+`examples/tomography_torch.py` for a few steps and checks that their
+losses fall.
+
 Run from the root of the repository:
 
     python3 chip_smoke.py
@@ -1197,6 +1207,288 @@ def in_turns(smi, tag, variants):
           + ", ".join(f"{k} {v:.2f}" for k, v in means.items()))
     return means
 
+# the grids of the `matmul` path: (grid, poses, points); the first is
+# driven with the flagship cloud, the volume with `volume_inputs`, the
+# line with `line_inputs`
+MATMUL_FLAG = ((64, 64), N_POSES, N_POINTS)
+MATMUL_VOLUME = ((32, 32, 32), 4, 100_000)
+MATMUL_LINE = ((4096,), 4, 10_000)
+# where `matmul` is timed beside `xla` and `binned`
+MATMUL_TIMED = ((64, 64), (128, 128), (256, 256))
+# the small configurations of `matmul` against the f64 oracles (grid,
+# seed, points, poses; 3-D inputs)
+MATMUL_SMALL = (((64, 64), 3, 1500, 4), ((16, 16, 16), 5, 1500, 4),
+                ((200,), 3, 1500, 4), ((300, 200), 3, 1500, 4))
+
+
+def line_inputs(n_poses, n_points, seed=13):
+    """A 1-D cloud: points (P, 1) at 0.4 sigma, one scale per pose as its
+    (1, 1) rotation, translations at 0.1 sigma, per-point weights in
+    (0.5, 2) -> float32 numpy arrays in `volume_inputs`' order."""
+    rng = np.random.default_rng(seed)
+    scale = np.where(np.arange(n_poses) % 2 == 0, 1.0, -1.0) * rng.uniform(
+        0.6, 1.0, n_poses)
+    return tuple(np.asarray(a, np.float32) for a in (
+        rng.standard_normal((n_points, 1)) * 0.4, scale[:, None, None],
+        rng.standard_normal((n_poses, 1)) * 0.1, np.zeros(n_poses),
+        np.ones(n_poses), rng.uniform(0.5, 2.0, n_points)))
+
+
+class Bf16Products:
+    """While open, counts the `torch.bmm` calls on bf16 operands and keeps,
+    for each, whether the reduced-precision reduction was off and the
+    result fp32."""
+
+    def __enter__(self):
+        self.calls = []
+        self._bmm = torch.bmm
+        mm = torch.backends.cuda.matmul
+
+        def bmm(a, b, **kw):
+            if a.dtype == torch.bfloat16:
+                self.calls.append(
+                    mm.allow_bf16_reduced_precision_reduction is False
+                    and kw.get("out_dtype") is torch.float32)
+            return self._bmm(a, b, **kw)
+
+        torch.bmm = bmm
+        return self
+
+    def __exit__(self, *exc):
+        torch.bmm = self._bmm
+
+
+def phase_matmul(dprast_torch, sb, dev, smi, oracle, pts, rot, tr, pw):
+    """[matmul]: the path of the small grids.  `auto` resolves to `matmul`
+    at 64^2 x 64 x 10^5 (the flagship cloud), 32^3 x 4 x 10^5 and (4096,) x
+    4 x 10^4; there the forward and `torch.autograd.grad` of all six
+    inputs through `auto` are held to the `xla` backend on the card within
+    2e-5, with TF32 and the bf16 reduced-precision reduction off in every
+    product; small cases against the f64 oracles (`matmul_bf16` within
+    2e-2); an empty cloud at 64^2.  Then forward and fused-step ms of
+    `matmul`, `xla` and `binned` in turns.  -> ms."""
+    from dprast_torch.ops import dispatch
+    mm = torch.backends.cuda.matmul
+    check(mm.allow_tf32 is False, "[matmul] TF32 matmul is off")
+    flag_before = mm.allow_bf16_reduced_precision_reduction
+    cases = [(MATMUL_FLAG, (pts, rot, tr, None, None, pw))]
+    for spec, make in ((MATMUL_VOLUME, volume_inputs),
+                       (MATMUL_LINE, line_inputs)):
+        cases.append((spec, tuple(torch.from_numpy(a).to(dev)
+                                  for a in make(spec[1], spec[2]))))
+    for (grid, n_poses, n_points), (p_, r_, t_, _, _, w_) in cases:
+        n_out = len(grid)
+        tag = f"[matmul] {grid} x {n_poses} poses x {n_points} points"
+        picked = dispatch.resolve_pair("auto", n_out, grid, n_points,
+                                       accelerator=True)
+        check(picked == ("matmul", "matmul"), f"{tag}: auto picks matmul")
+        reset_launches(sb)
+        with Bf16Products() as fwd_products:
+            img = dprast_torch.raster(grid, p_, r_, t_)
+            torch.cuda.synchronize()
+        ref = dprast_torch.raster(grid, p_, r_, t_, backend="xla")
+        check(img.shape == (n_poses,) + grid and img.dtype == torch.float32
+              and bool(torch.isfinite(img).all()), f"{tag}: finite image")
+        err_img = scaled_err(img, ref)
+        rng = np.random.default_rng(6)
+        leaves = [x.clone().requires_grad_() for x in (
+            p_, r_, t_,
+            torch.from_numpy((rng.standard_normal(n_poses) * 0.1).astype(
+                np.float32)).to(dev),
+            torch.from_numpy(rng.uniform(0.5, 2.0, n_poses).astype(
+                np.float32)).to(dev), w_)]
+        g = torch.from_numpy(rng.standard_normal((n_poses,) + grid).astype(
+            np.float32)).to(dev)
+        with Bf16Products() as step_products:
+            grads = train_grads(dprast_torch, grid, leaves, g)
+            torch.cuda.synchronize()
+        ref_g = train_grads(dprast_torch, grid, leaves, g, backend="xla")
+        errs = {}
+        for name, a, r, x in zip(GRAD_NAMES, grads, ref_g, leaves):
+            check(a.shape == x.shape and bool(torch.isfinite(a).all()),
+                  f"{tag}: finite d_{name} of shape {tuple(x.shape)}")
+            errs[name] = scaled_err(a, r)
+        products = fwd_products.calls + step_products.calls
+        print(f"{tag}: auto -> {picked[0]}; bf16 products with an fp32 "
+              f"result and full-precision sums: forward "
+              f"{len(fwd_products.calls)}, training step "
+              f"{len(step_products.calls)}; scaled max-abs err vs the xla "
+              f"backend (tol 2e-5): image {err_img:.3e}, "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+        check(len(fwd_products.calls) >= 2 * 2 and len(step_products.calls)
+              >= 2 * 2 + 2, f"{tag}: the path ran the matmul products")
+        check(all(products), f"{tag}: every bf16 product ran with an fp32 "
+                             f"result and the reduced-precision reduction "
+                             f"off")
+        check(not ran(sb.LAUNCHES), f"{tag}: no binned kernel ran")
+        check(max(err_img, *errs.values()) <= 2e-5, f"{tag}: auto vs xla")
+    check(mm.allow_bf16_reduced_precision_reduction is flag_before,
+          "[matmul] the reduction flag is as it was found")
+
+    phase_small(dprast_torch, oracle, dev, "[matmul small]", MATMUL_SMALL,
+                backend="matmul")
+    phase_small(dprast_torch, oracle, dev, "[matmul small]", MATMUL_SMALL,
+                backend="matmul_bf16", tol=BF16_TOL)
+
+    # an empty cloud at 64^2 through auto: the background image, and zero
+    # gradients but d_background
+    grid = MATMUL_FLAG[0]
+    bg = torch.linspace(-1.0, 1.0, N_POSES, device=dev)
+    empty = pts[:0]
+    img = dprast_torch.raster(grid, empty, rot, tr, bg)
+    check(torch.equal(img, bg[:, None, None].expand(img.shape)),
+          "[matmul] an empty cloud gives the background")
+    g = torch.ones((N_POSES,) + grid, device=dev)
+    res = dprast_torch.raster_pullback(g, empty, rot, tr, bg)
+    check(res.points.shape == (0, 3) and not bool(res.rotation.any())
+          and not bool(res.translation.any())
+          and bool((res.background == grid[0] * grid[1]).all()),
+          "[matmul] an empty cloud gives zero gradients but d_background")
+    print(f"[matmul] empty cloud at {grid} through auto: the background "
+          f"image, zero gradients")
+
+    # forward and fused step (forward + pullback; `matmul` has no fused
+    # pair, so its pullback recomputes from the six inputs, as under
+    # autograd) beside `xla` and `binned`, in turns
+    ms = {}
+    canon = (pts, rot, tr, torch.zeros(N_POSES, device=dev),
+             torch.ones(N_POSES, device=dev),
+             torch.ones(N_POINTS, device=dev))
+    names = ("matmul", "xla", "binned")
+    for grid in MATMUL_TIMED:
+        g = torch.from_numpy(np.random.default_rng(2).standard_normal(
+            (N_POSES,) + grid).astype(np.float32)).to(dev)
+
+        def step(name):
+            pair = dispatch.vjp_pair(name)
+            if pair is None:
+                dispatch.fwd_fn(name)(grid, *canon, pw_uniform=True)
+                return dispatch.bwd_fn(name)(grid, *canon, g,
+                                             pw_uniform=True)
+            _, res = pair[0](grid, *canon, pw_uniform=True)
+            return pair[1](grid, res, canon, g, pw_uniform=True)
+
+        runs = {(name, what): [] for name in names
+                for what in ("fwd", "step")}
+        for name in names + names[::-1]:
+            reps = 2 if name == "matmul" else 7
+            runs[name, "fwd"].append(time_ms(
+                lambda: dprast_torch.raster(grid, pts, rot, tr,
+                                            backend=name), reps, 1))
+            runs[name, "step"].append(time_ms(lambda: step(name), reps, 1))
+        for key, got in runs.items():
+            ms[(grid,) + key] = sum(got) / len(got)
+        print(f"[matmul] {smi} | {grid} x {N_POSES} poses x {N_POINTS} "
+              f"points, uniform weights, median ms in turns (matmul, xla, "
+              f"binned, binned, xla, matmul): forward "
+              + " / ".join(f"{n} {ms[grid, n, 'fwd']:.4f}" for n in names)
+              + "; fused step "
+              + " / ".join(f"{n} {ms[grid, n, 'step']:.4f}" for n in names))
+    grid = MATMUL_TIMED[0]
+    busy_us, n_kernels = device_busy(
+        lambda: dprast_torch.raster(grid, pts, rot, tr, backend="matmul"),
+        calls=3)
+    ms["busy_us"], ms["kernels"] = busy_us, n_kernels
+    print(f"[matmul] {smi} | {grid} matmul forward keeps the card busy "
+          f"{busy_us:.1f} us in {n_kernels:.0f} kernels and copies "
+          f"(torch.profiler): idle "
+          f"{1 - busy_us / ms[grid, 'matmul', 'fwd'] / 1e3:.1%} of the call")
+    return ms
+
+
+def load_example(name):
+    """A module of `examples/`, loaded by path."""
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def example_vs_xla(dprast_torch, sb, tag, grid, inputs):
+    """One training step of an example at its own shapes: the image and the
+    gradients of `inputs` (points, rotation, translation, background,
+    out_weight) through `auto`, which must launch B1 and B4 once each and
+    no other kernel, held to the `xla` backend within 2e-5."""
+    leaves = [x.detach().clone().requires_grad_() for x in inputs]
+    reset_launches(sb)
+    img = dprast_torch.raster(grid, *leaves)
+    g = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        tuple(img.shape)).astype(np.float32)).to(img.device)
+    grads = torch.autograd.grad((img * g).sum(), leaves)
+    launched = dict(sb.LAUNCHES)
+    ref = dprast_torch.raster(grid, *leaves, backend="xla")
+    ref_g = torch.autograd.grad((ref * g).sum(), leaves)
+    check(img.shape == ref.shape and bool(torch.isfinite(img).all()),
+          f"{tag}: finite image")
+    errs = {"image": scaled_err(img.detach(), ref.detach())}
+    for name, a, r, x in zip(GRAD_NAMES, grads, ref_g, leaves):
+        check(a.shape == x.shape and bool(torch.isfinite(a).all()),
+              f"{tag}: finite d_{name} of shape {tuple(x.shape)}")
+        errs[name] = scaled_err(a, r)
+    print(f"{tag}: image {tuple(img.shape)}, launches {ran(launched)}; "
+          f"scaled max-abs err vs the xla backend (tol 2e-5): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    check(ran(launched) == {"fwd_splat": 1, "bwd_gather": 1},
+          f"{tag}: the step ran B1 and B4 once each and no other kernel")
+    check(max(errs.values()) <= 2e-5, f"{tag}: auto vs xla")
+
+
+def phase_examples(dprast_torch, sb, dev, steps=20):
+    """[examples]: the two single-card examples for `steps` steps on the
+    card through `auto` (one tile: B1 and B4).  Their losses must fall, B1
+    must run once per step and per rendered target or final loss and B4
+    once per step, and one step at each example's own inputs is held to
+    the `xla` backend."""
+    import contextlib
+    import io
+    fit = load_example("fit_langevin_torch")
+    reset_launches(sb)
+    with contextlib.redirect_stdout(io.StringIO()):
+        target = fit.make_target(torch.Generator().manual_seed(42), dev)
+        points, _, log_w, hist = fit.langevin_fit(target, steps=steps,
+                                                  log_every=steps)
+    torch.cuda.synchronize()
+    launched = dict(sb.LAUNCHES)
+    print(f"[examples] fit_langevin_torch {fit.GRID} x {fit.N_POINTS} "
+          f"points, {steps} Langevin steps: loss {hist[0][1]:.6e} -> "
+          f"{hist[-1][1]:.6e}; launches {ran(launched)}")
+    check(points.device.type == "cuda" and bool(torch.isfinite(points).all()),
+          "[examples] the fit's points are finite and on the card")
+    check(hist[-1][1] < hist[0][1], "[examples] the Langevin fit's loss fell")
+    # the target's render and one forward per step; one backward per step
+    check(ran(launched) == {"fwd_splat": steps + 1, "bwd_gather": steps},
+          "[examples] the fit ran B1 once per step and for the target, B4 "
+          "once per step, and no other kernel")
+    example_vs_xla(dprast_torch, sb, f"[examples] fit_langevin_torch "
+                   f"{fit.GRID}, the fitted points, one pose", fit.GRID,
+                   (points, torch.eye(2, device=dev),
+                    torch.zeros(2, device=dev), torch.zeros((), device=dev),
+                    torch.exp(log_w)))
+
+    tomo = load_example("tomography_torch")
+    reset_launches(sb)
+    with contextlib.redirect_stdout(io.StringIO()):
+        first, final = tomo.reconstruct(steps=steps, device=dev)
+    torch.cuda.synchronize()
+    launched = dict(sb.LAUNCHES)
+    print(f"[examples] tomography_torch {tomo.GRID} x {tomo.N_VIEWS} views "
+          f"x {tomo.N_POINTS} points, {steps} gradient steps: loss "
+          f"{first:.6e} -> {final:.6e}; launches {ran(launched)}")
+    check(final < first, "[examples] the reconstruction's loss fell")
+    # the target's render, one forward per step and the two final losses
+    check(ran(launched) == {"fwd_splat": steps + 3, "bwd_gather": steps},
+          "[examples] the reconstruction ran B1 once per step, for the "
+          "target and for the two final losses, B4 once per step, and no "
+          "other kernel")
+    example_vs_xla(dprast_torch, sb, f"[examples] tomography_torch "
+                   f"{tomo.GRID}, the truth, {tomo.N_VIEWS} views", tomo.GRID,
+                   (tomo.make_truth(torch.Generator().manual_seed(1), dev),
+                    tomo.view_matrices(dev),
+                    torch.zeros((tomo.N_VIEWS, 2), device=dev),
+                    torch.zeros(tomo.N_VIEWS, device=dev),
+                    torch.ones(tomo.N_VIEWS, device=dev)))
+
 
 def main():
     if not torch.cuda.is_available():
@@ -1270,9 +1562,10 @@ def main():
         np.random.default_rng(2).standard_normal((N_POSES,) + grid)
         .astype(np.float32)).to(dev) for grid in GRIDS}
     b3_err = 0.0
-    for grid, g in ((MULTI_TILE, cots[MULTI_TILE]),
-                    ((999, 777), torch.randn((3, 999, 777), device=dev)),
-                    ((130, 1), torch.randn((3, 130, 1), device=dev))):
+    b3_cases = [(MULTI_TILE, cots[MULTI_TILE])] + [
+        (grid, torch.randn((3,) + grid, device=dev))
+        for grid in ((999, 777), (130, 1)) + tuple(g for g, _, _ in ODD_GRIDS)]
+    for grid, g in b3_cases:
         ts = sb.tile_shape_for(grid)
         win_k = sb.band_unfold(g, grid, ts)
         win_p = sb._unfold(g, grid, ts)
@@ -1285,6 +1578,14 @@ def main():
         check(same, f"B3 bit-equal to its twin at {grid}")
         if grid == MULTI_TILE:
             win_mt = win_k
+    # the kernel is written for the 128-wide window: another width is
+    # refused, not copied by a twin
+    try:
+        sb.band_unfold(cots[MULTI_TILE][:1], MULTI_TILE, (127, 63))
+    except ValueError as exc:
+        print(f"[B3 band_unfold] tiles (127, 63) refused: {exc}")
+    else:
+        check(False, "B3 refuses a window that is not 128 columns wide")
 
     # --- 7. B4 against its twin on the card ---
     # the forward's residual frames (an empty tile keeps a slot) and, at
@@ -1488,6 +1789,7 @@ def main():
     ms["b3_dev_us"] = kernel_device_us(
         lambda: sb.band_unfold(cots[MULTI_TILE], MULTI_TILE, ts_mt),
         "band_unfold_kernel")
+    b3_bound = copy_bound(cots[MULTI_TILE], win_mt)
     # the library routes to what B2 and B3 compute, timed once each and
     # used nowhere in the package
     lib_fold = fold_library(ext_mt, MULTI_TILE, ts_mt, ow, bg)
@@ -1535,9 +1837,12 @@ def main():
     print(f"[times] {smi} | B2 {MULTI_TILE}: {ms['b2', MULTI_TILE]:.4f} ms "
           f"(twin {ms['b2_plain', MULTI_TILE]:.4f} ms, the F.fold route "
           f"{ms['b2_library']:.4f} ms), kernel device us "
-          f"{ms['b2_dev_us']:.2f}; B3: kernel device us "
-          f"{ms['b3_dev_us']:.2f} (the F.unfold route "
-          f"{ms['b3_library']:.4f} ms)")
+          f"{ms['b2_dev_us']:.2f}; B3 {ms['b3', MULTI_TILE]:.4f} ms (twin "
+          f"{ms['b3_plain', MULTI_TILE]:.4f} ms, the F.unfold route "
+          f"{ms['b3_library']:.4f} ms), kernel device us "
+          f"{ms['b3_dev_us']:.2f}, "
+          f"{b3_bound[0] * 1e3 / max(ms['b3_dev_us'], 1e-9):.1%} of its "
+          f"{b3_bound[0] * 1e3:.1f} us bound")
     print(f"[times] {smi} | kernel device us per launch (torch.profiler): "
           + "; ".join(f"{grid} B1 {ms['b1_dev_us', grid]:.2f}, B4 natural "
                       f"{ms['b4_dev_us', grid]:.2f}" for grid in GRIDS))
@@ -1552,6 +1857,13 @@ def main():
 
     # --- 16. the gather experiments: B4 in three window layouts ---
     exp = phase_exp(sb, dev, smi)
+
+    # --- 17. the small grids: auto -> the matmul backend ---
+    phase_matmul(dprast_torch, sb, dev, smi, load_numpy_oracle(), pts, rot,
+                 tr, pw)
+
+    # --- 18. the single-card examples ---
+    phase_examples(dprast_torch, sb, dev)
 
     src = "dprast/ops/splat_binned.py"
     fwd_cu = "dprast_torch/csrc/fwd_splat.cu"
@@ -1603,7 +1915,7 @@ def main():
                f"{src}:836", prof[MULTI_TILE]["launched"]["band_unfold"],
                b3_err,
                ms["b3", MULTI_TILE], ms["b3_plain", MULTI_TILE],
-               copy_bound(cots[MULTI_TILE], win_mt), "1024x1024, 64 poses",
+               b3_bound, "1024x1024, 64 poses",
                variant="the unfold stage of profile_binned and exp_band; no "
                        "launch in the training step, where B4 reads the "
                        "cotangent",

@@ -55,10 +55,13 @@ class _Raster(torch.autograd.Function):
 
 
 class _RasterOnce(_Raster):
-    """`_Raster` for a backend whose pullback runs CUDA kernels (or, on the
-    CPU, their plain twins): the kernels record no graph, so a gradient
-    taken with ``create_graph=True`` would be cut from it without a word.
-    Asking for such a gradient raises instead."""
+    """`_Raster` for a backend whose pullback cannot itself be
+    differentiated.  The binned pullback runs CUDA kernels (or, on the CPU,
+    their plain twins), which record no graph, so a gradient taken with
+    ``create_graph=True`` would be cut from it without a word; the matmul
+    pullback rounds its operands to bf16 planes, through which autograd
+    would carry a second derivative in bf16.  Asking for such a gradient
+    raises instead."""
 
     @staticmethod
     def backward(ctx, ds_dout):
@@ -71,7 +74,7 @@ class _RasterOnce(_Raster):
         return _Raster.backward(ctx, ds_dout)
 
 
-# the backend whose pullback is plain differentiable torch
+# the backend whose pullback is plain torch in the inputs' own precision
 _TWICE_DIFFERENTIABLE = ("xla",)
 
 

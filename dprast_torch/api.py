@@ -193,8 +193,8 @@ def raster(grid_size, points, rotation, translation, background=None,
     Gradients of all six inputs flow through autograd to the analytic
     pullback of the chosen backend.  A numpy float64 input makes the whole
     call float64 and sends 'auto' to the float64 oracle, so cast what
-    `np.random` returns to float32 first.  The 'binned' backends can be
-    differentiated once; 'xla' also a second time.
+    `np.random` returns to float32 first.  The 'binned' and 'matmul'
+    backends can be differentiated once; 'xla' also a second time.
 
     Args:
       grid_size: tuple of N_out ints, the output grid shape.
@@ -206,8 +206,12 @@ def raster(grid_size, points, rotation, translation, background=None,
       point_weight: scalar or (P,) per point (default 1).
       dtype: result dtype; defaults to the promoted input dtype, at least
         float32.
-      backend: 'auto' | 'xla' | 'binned' | 'binned_bf16' (the ~2e-3 fast
-        mode of 'binned', never chosen by 'auto').
+      backend: 'auto' | 'xla' | 'matmul' | 'matmul_bf16' | 'binned' |
+        'binned_bf16' (the `_bf16` names are the ~2e-3 fast modes of
+        'matmul' and 'binned', never chosen by 'auto').  On a CUDA device
+        'auto' takes 'matmul' for small grids (2-D up to 256^2 voxels but
+        for a single tile above 64 per axis, 3-D up to 32^3, 1-D) and
+        'binned' for larger ones; on the CPU and for float64 'xla'.
       device: where numpy / list inputs go when no input is a tensor;
         by default the current CUDA device (a RuntimeError where there is
         none), ``"cpu"`` for the CPU.
@@ -246,9 +250,9 @@ def raster_pullback(ds_dout, points, rotation, translation, background=None,
     Gradient shapes follow the input forms: a batch gets per-pose
     gradients, a single pose squeezed ones, and a scalar that was
     broadcast gets the summed gradient.  A defaulted `point_weight` gets
-    the exact per-point gradient; a scalar one gets its sum.  `device`
-    is `raster`'s: the card unless a tensor input or ``device="cpu"`` asks
-    for the CPU.
+    the exact per-point gradient; a scalar one gets its sum.  `backend`
+    and `device` are `raster`'s: one of the five backends or 'auto'; the
+    card unless a tensor input or ``device="cpu"`` asks for the CPU.
     """
     device = _device_of((ds_dout, points, rotation, translation, background,
                          out_weight, point_weight), device)

@@ -4,28 +4,33 @@ A backend is a kernel strategy:
 
 - ``"xla"``     plain-torch scatter/gather oracle (`dprast_torch.ops.core`),
                 any dims, any device (the name is the JAX package's)
+- ``"matmul"``  scatter-free one-hot matrix products (`splat_matmul`),
+                1-D to 3-D grids
 - ``"binned"``  slot-scheduled tile-binned kernels (`splat_binned`),
                 2-D and 3-D grids
 - ``"auto"``    the JAX package's choice for the given dims / grid /
                 device
 
-plus the documented ~2e-3 fast mode ``"binned_bf16"`` (B1 rounds each
-weight product to bf16, B4 the cotangent window; ``terms=1``), which
-`auto` never picks, as in the JAX package.  On Hopper it saves no work:
-the kernels have no matrix product whose operands it narrows.
+plus the two documented ~2e-3 fast modes ``"matmul_bf16"`` (one bf16 plane
+per value operand) and ``"binned_bf16"`` (B1 rounds each weight product to
+bf16, B4 the cotangent window; ``terms=1``), which `auto` never picks, as
+in the JAX package.  On Hopper `binned_bf16` saves no work: the kernels
+have no matrix product whose operands it narrows.
 
 `auto` follows the JAX package's rules with "the inputs are on CUDA" in
-place of "running on a TPU".  Where those rules pick the matmul backend,
-which this package does not have yet, `resolve_pair` raises
-`NotImplementedError` naming ROADMAP A8; it never substitutes another
-backend.
+place of "running on a TPU": small grids (2-D up to 256^2 voxels, 3-D up
+to 32^3, every 1-D grid) go to `matmul`, except a single 2-D tile above 64
+per axis, which goes to `binned` with the larger grids; very sparse large
+grids, ranks above 3, float64 inputs and every CPU call go to `xla`.  The
+rules were measured on the JAX package's own chip and are still to be
+re-derived from readings on this one.
 """
 
 from __future__ import annotations
 
 import functools
 
-from dprast_torch.ops import core, splat_binned
+from dprast_torch.ops import core, splat_binned, splat_matmul
 
 _REGISTRY = {}
 
@@ -44,6 +49,14 @@ def register(name: str, fwd, bwd, supports, vjp_pair=None):
 register("xla", core.raster_fwd, core.raster_pullback,
          lambda n_out, grid=None, n_points=None: True,
          vjp_pair=(core.raster_fwd_res, core.raster_pullback_res))
+register("matmul", splat_matmul.raster_fwd, splat_matmul.raster_pullback,
+         lambda n_out, grid=None, n_points=None:
+         splat_matmul.supported(n_out))
+register("matmul_bf16",
+         functools.partial(splat_matmul.raster_fwd, terms=1),
+         functools.partial(splat_matmul.raster_pullback, terms=1),
+         lambda n_out, grid=None, n_points=None:
+         splat_matmul.supported(n_out))
 register("binned", splat_binned.raster_fwd, splat_binned.raster_pullback,
          splat_binned.supported,
          vjp_pair=(splat_binned.raster_fwd_res,
@@ -63,11 +76,6 @@ def available_backends() -> tuple[str, ...]:
 
 def default_backend() -> str:
     return "auto"
-
-
-def _matmul_supported(n_out: int) -> bool:
-    # the JAX package's `splat_matmul.supported`
-    return n_out in (1, 2, 3)
 
 
 def resolve(backend: str, n_out: int, grid_size=None, n_points=None, *,
@@ -102,7 +110,7 @@ def resolve(backend: str, n_out: int, grid_size=None, n_points=None, *,
             if splat_binned.profitable(n_out, grid_size, n_points):
                 return "binned"
             return "xla"
-    if _matmul_supported(n_out):
+    if splat_matmul.supported(n_out):
         return "matmul"
     return "xla"
 
@@ -120,10 +128,6 @@ def resolve_pair(backend: str, n_out: int, grid_size=None, n_points=None,
             and min(grid_size) > 64
             and splat_binned.profitable(n_out, grid_size, n_points)):
         name = "binned"
-    if name == "matmul":
-        raise NotImplementedError(
-            f"'auto' picks the matmul backend for N_out={n_out} "
-            f"grid={grid_size} on CUDA; it is not ported yet (ROADMAP A8)")
     return name, name
 
 

@@ -676,7 +676,8 @@ def band_unfold(g, grid_size, ts):
     """B3: cut the 2-D cotangent g (B, gy, gx) into the multi-tile
     windows (B, n0*n1, t0+1, t1+1), zero outside the grid.  CPU tensors
     take the plain twin, CUDA tensors the kernel in
-    `csrc/band_unfold.cu`."""
+    `csrc/band_unfold.cu`, which is written for the 128-column window of
+    `tile_shape_for` and raises for another width."""
     if g.device.type == "cpu":
         return _unfold(g, grid_size, ts)
     _check_cuda("band_unfold", g, torch.float32)
@@ -687,7 +688,10 @@ def band_unfold(g, grid_size, ts):
     if g.shape != (bsz, gy, gx):
         raise ValueError(f"band_unfold: g {tuple(g.shape)} does not match "
                          f"grid {grid_size}")
-    if bsz > 65535 or n0 * n1 * (t0 + 1) >= 2 ** 31:
+    if t1 + 1 != TILE:
+        raise ValueError(f"band_unfold: the kernel cuts windows {TILE} "
+                         f"columns wide, tiles {ts} give {t1 + 1}")
+    if bsz > 65535 or n0 * n1 * (t0 + 1) >= 2 ** 30:
         raise ValueError(f"band_unfold: B={bsz}, grid {grid_size} exceed "
                          f"the kernel's launch bounds")
     win = torch.empty((bsz, n0 * n1, t0 + 1, t1 + 1), dtype=torch.float32,

@@ -27,7 +27,7 @@ def _raster(*args, **kw):
     card)."""
     return dprast_torch.raster(*args, device="cpu", **kw)
 
-BACKENDS = ["xla", "binned"]
+BACKENDS = ["xla", "matmul", "binned"]
 
 
 def _np(x):
@@ -172,6 +172,14 @@ def test_empty_cloud_and_backend_validation():
     with pytest.raises(ValueError, match="backend"):
         _raster((8, 8), np.zeros((0, 3)), np.eye(3)[:2],
                             np.zeros(2), backend="bogus")
+    # on a CUDA device `raster` resolves `auto` before its empty-cloud
+    # branch: at 64^2 that is the matmul backend, which exists
+    assert tdispatch.resolve_pair("auto", 2, (64, 64), 0,
+                                  accelerator=True) == ("matmul", "matmul")
+    out = _raster((64, 64), np.zeros((0, 3), np.float32),
+                  np.eye(3, dtype=np.float32)[:2], np.zeros(2, np.float32),
+                  0.7, backend="matmul")
+    np.testing.assert_allclose(_np(out), 0.7)
 
 
 def test_requires_grad_and_devices_raise():
@@ -204,15 +212,22 @@ def test_version_is_the_jax_package_s():
 
 
 def test_surface():
-    assert dprast_torch.available_backends() == ("xla", "binned",
-                                                 "binned_bf16")
+    import dprast
+    assert dprast_torch.available_backends() == (
+        "xla", "matmul", "matmul_bf16", "binned", "binned_bf16")
+    # the reference's five names, in its order
+    assert dprast_torch.available_backends() == dprast.available_backends()
     assert dprast_torch.default_backend() == "auto"
     assert dprast_torch.RasterGrads._fields == (
         "points", "rotation", "translation", "background", "out_weight",
         "point_weight")
     for name in tdispatch.available_backends():
+        assert callable(tdispatch.fwd_fn(name))
         assert callable(tdispatch.bwd_fn(name))
-        assert len(tdispatch.vjp_pair(name)) == 2
+        # a fused autograd pair where the reference registers one
+        pair, want = tdispatch.vjp_pair(name), jdispatch.vjp_pair(name)
+        assert (pair is None) == (want is None)
+        assert pair is None or len(pair) == 2
 
 
 ORACLE_CASES = {
@@ -249,21 +264,17 @@ DISPATCH_TABLE = [
 @pytest.mark.parametrize("row", range(len(DISPATCH_TABLE)))
 def test_auto_dispatch_matches_jax(row, monkeypatch):
     """With the accelerator flag set, `auto` picks what the JAX package
-    picks on a TPU, 3-D `binned` included; where that is the matmul
-    backend, not ported yet, it raises."""
+    picks on a TPU on every row, the matmul backend and 3-D `binned`
+    included."""
     n_out, grid, p = DISPATCH_TABLE[row]
     monkeypatch.setattr(jdispatch, "_on_tpu", lambda: True)
     with jax.enable_x64(False):
         want = jdispatch.resolve_pair("auto", n_out, grid, p)
     assert want[0] == want[1]
-    if want[0] == "matmul":
-        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-            tdispatch.resolve_pair("auto", n_out, grid, p, accelerator=True)
-    else:
-        assert tdispatch.resolve_pair("auto", n_out, grid, p,
-                                      accelerator=True) == want
-    # auto never picks the fast mode, in either package
-    assert "binned_bf16" not in want
+    assert tdispatch.resolve_pair("auto", n_out, grid, p,
+                                  accelerator=True) == want
+    # auto never picks a fast mode, in either package
+    assert "binned_bf16" not in want and "matmul_bf16" not in want
     # off the accelerator, and for f64 inputs, auto is the oracle
     assert tdispatch.resolve_pair("auto", n_out, grid, p) == ("xla", "xla")
     assert tdispatch.resolve_pair("auto", n_out, grid, p, accelerator=True,
