@@ -36,15 +36,24 @@ profile_binned`, B1 and B4 launched alone) at 1024^2 and 128^3, and the
 at 1024^2), whose B4 instances read the window through the two-part
 bf16 split in three layouts; each instance is held to its twin.
 
-The [matmul] phase drives the path of the small grids, where `auto`
-picks the `matmul` backend (one-hot matrix products, `torch.bmm` on bf16
-planes with an fp32 result): the forward and the training step at 64^2 x
-64 poses x 10^5 points, at 32^3 x 4 x 10^5 and at (4096,) x 4 x 10^4
-against the `xla` backend, small cases against the f64 oracles, an empty
-cloud, and its times beside `xla` and `binned` at 64^2, 128^2 and 256^2
-in turns.  The [examples] phase runs `examples/fit_langevin_torch.py` and
-`examples/tomography_torch.py` for a few steps and checks that their
-losses fall.
+The [matmul] phase drives the small grids, which the JAX package sends to
+its `matmul` backend (one-hot matrix products, `torch.bmm` on bf16
+planes with an fp32 result) and this package, on the card, does not:
+the forward and the training step at 64^2 x 64 poses x 10^5 points, at
+32^3 x 4 x 10^5 and at (4096,) x 4 x 10^4 on `matmul` by name and through
+`auto` against the `xla` backend, small cases against the f64 oracles, an
+empty cloud, and `matmul`'s times beside `xla` and `binned` in turns, one
+row per regime (few poses, a tiny grid, a small cloud, 3-D, 1-D): the rows
+`auto`'s rule is derived from.  The [examples] phase runs
+`examples/fit_langevin_torch.py` and `examples/tomography_torch.py` for a
+few steps and checks that their losses fall.
+
+The [sharded] phase drives the distribution layer
+(`dprast_torch.parallel`): `raster_sharded` and autograd through it on the
+1 x 1 mesh in this process at 128^2 and 1024^2, and on a 2 x 2 mesh of
+four worker processes that share the one card and talk over Gloo; every
+rank checks its launches, its shard, its image and gradients against the
+`xla` backend, and that all ranks hold the same bits.
 
 Run from the root of the repository:
 
@@ -1207,14 +1216,19 @@ def in_turns(smi, tag, variants):
           + ", ".join(f"{k} {v:.2f}" for k, v in means.items()))
     return means
 
-# the grids of the `matmul` path: (grid, poses, points); the first is
-# driven with the flagship cloud, the volume with `volume_inputs`, the
-# line with `line_inputs`
-MATMUL_FLAG = ((64, 64), N_POSES, N_POINTS)
-MATMUL_VOLUME = ((32, 32, 32), 4, 100_000)
-MATMUL_LINE = ((4096,), 4, 10_000)
-# where `matmul` is timed beside `xla` and `binned`
-MATMUL_TIMED = ((64, 64), (128, 128), (256, 256))
+# the grids of the `matmul` path: (grid, poses, points, what `auto` picks
+# there on the card); the first is driven with the flagship cloud, the
+# volume with `volume_inputs`, the line with `line_inputs`
+MATMUL_FLAG = ((64, 64), N_POSES, N_POINTS, "binned")
+MATMUL_VOLUME = ((32, 32, 32), 4, 100_000, "binned")
+MATMUL_LINE = ((4096,), 4, 10_000, "xla")
+# the regimes in which `matmul` is timed beside `xla` and `binned`, one
+# row each: (grid, poses, points).  `auto`'s rule on CUDA tensors
+# (`dprast_torch.ops.dispatch.resolve`) is derived from these rows
+MATMUL_TIMED = (((64, 64), N_POSES, N_POINTS), ((64, 64), 4, N_POINTS),
+                ((64, 64), 1, N_POINTS), ((32, 32), N_POSES, N_POINTS),
+                ((64, 64), N_POSES, 1000), MATMUL_VOLUME[:3],
+                MATMUL_LINE[:3])
 # the small configurations of `matmul` against the f64 oracles (grid,
 # seed, points, poses; 3-D inputs)
 MATMUL_SMALL = (((64, 64), 3, 1500, 4), ((16, 16, 16), 5, 1500, 4),
@@ -1258,15 +1272,62 @@ class Bf16Products:
         torch.bmm = self._bmm
 
 
+def timed_inputs(grid, n_poses, n_points, dev):
+    """The canonical six arguments of a timed row on the card, uniform
+    weights: the flagship cloud in 2-D, `volume_inputs` in 3-D,
+    `line_inputs` in 1-D."""
+    if len(grid) == 2:
+        p_, r_, t_, _ = flagship_inputs(n_points=n_points, n_poses=n_poses)
+    else:
+        make = volume_inputs if len(grid) == 3 else line_inputs
+        p_, r_, t_ = make(n_poses, n_points)[:3]
+    return tuple(torch.from_numpy(a).to(dev) for a in (p_, r_, t_)) + (
+        torch.zeros(n_poses, device=dev), torch.ones(n_poses, device=dev),
+        torch.ones(n_points, device=dev))
+
+
+def vs_xla(dprast_torch, tag, grid, inputs, backend):
+    """The image and `torch.autograd.grad` of all six inputs on `backend`
+    against the `xla` backend on the card -> (image err, {name: err}),
+    scaled max-abs; the shapes and finiteness are checked here."""
+    p_, r_, t_, _, _, w_ = inputs
+    n_poses = r_.shape[0]
+    dev = p_.device
+    img = dprast_torch.raster(grid, p_, r_, t_, backend=backend)
+    ref = dprast_torch.raster(grid, p_, r_, t_, backend="xla")
+    check(img.shape == (n_poses,) + grid and img.dtype == torch.float32
+          and bool(torch.isfinite(img).all()), f"{tag}: finite image")
+    rng = np.random.default_rng(6)
+    leaves = [x.clone().requires_grad_() for x in (
+        p_, r_, t_,
+        torch.from_numpy((rng.standard_normal(n_poses) * 0.1).astype(
+            np.float32)).to(dev),
+        torch.from_numpy(rng.uniform(0.5, 2.0, n_poses).astype(
+            np.float32)).to(dev), w_)]
+    g = torch.from_numpy(rng.standard_normal((n_poses,) + grid).astype(
+        np.float32)).to(dev)
+    grads = train_grads(dprast_torch, grid, leaves, g, backend=backend)
+    torch.cuda.synchronize()
+    ref_g = train_grads(dprast_torch, grid, leaves, g, backend="xla")
+    errs = {}
+    for name, a, r, x in zip(GRAD_NAMES, grads, ref_g, leaves):
+        check(a.shape == x.shape and bool(torch.isfinite(a).all()),
+              f"{tag}: finite d_{name} of shape {tuple(x.shape)}")
+        errs[name] = scaled_err(a, r)
+    return scaled_err(img, ref), errs
+
+
 def phase_matmul(dprast_torch, sb, dev, smi, oracle, pts, rot, tr, pw):
-    """[matmul]: the path of the small grids.  `auto` resolves to `matmul`
-    at 64^2 x 64 x 10^5 (the flagship cloud), 32^3 x 4 x 10^5 and (4096,) x
-    4 x 10^4; there the forward and `torch.autograd.grad` of all six
-    inputs through `auto` are held to the `xla` backend on the card within
-    2e-5, with TF32 and the bf16 reduced-precision reduction off in every
-    product; small cases against the f64 oracles (`matmul_bf16` within
-    2e-2); an empty cloud at 64^2.  Then forward and fused-step ms of
-    `matmul`, `xla` and `binned` in turns.  -> ms."""
+    """[matmul]: the small grids.  At 64^2 x 64 x 10^5 (the flagship
+    cloud), 32^3 x 4 x 10^5 and (4096,) x 4 x 10^4 the forward and
+    `torch.autograd.grad` of all six inputs on ``backend="matmul"`` are
+    held to the `xla` backend on the card within 2e-5, with TF32 and the
+    bf16 reduced-precision reduction off in every product, and so is
+    whatever `auto` picks there; small cases against the f64 oracles
+    (`matmul_bf16` within 2e-2); an empty cloud at 64^2.  Then forward and
+    fused-step ms of `matmul`, `xla` and `binned` in turns, one row per
+    regime (`MATMUL_TIMED`): the rows `auto`'s rule is derived from.
+    -> ms."""
     from dprast_torch.ops import dispatch
     mm = torch.backends.cuda.matmul
     check(mm.allow_tf32 is False, "[matmul] TF32 matmul is off")
@@ -1276,51 +1337,41 @@ def phase_matmul(dprast_torch, sb, dev, smi, oracle, pts, rot, tr, pw):
                        (MATMUL_LINE, line_inputs)):
         cases.append((spec, tuple(torch.from_numpy(a).to(dev)
                                   for a in make(spec[1], spec[2]))))
-    for (grid, n_poses, n_points), (p_, r_, t_, _, _, w_) in cases:
-        n_out = len(grid)
+    for (grid, n_poses, n_points, auto_picks), inputs in cases:
         tag = f"[matmul] {grid} x {n_poses} poses x {n_points} points"
-        picked = dispatch.resolve_pair("auto", n_out, grid, n_points,
-                                       accelerator=True)
-        check(picked == ("matmul", "matmul"), f"{tag}: auto picks matmul")
         reset_launches(sb)
-        with Bf16Products() as fwd_products:
-            img = dprast_torch.raster(grid, p_, r_, t_)
-            torch.cuda.synchronize()
-        ref = dprast_torch.raster(grid, p_, r_, t_, backend="xla")
-        check(img.shape == (n_poses,) + grid and img.dtype == torch.float32
-              and bool(torch.isfinite(img).all()), f"{tag}: finite image")
-        err_img = scaled_err(img, ref)
-        rng = np.random.default_rng(6)
-        leaves = [x.clone().requires_grad_() for x in (
-            p_, r_, t_,
-            torch.from_numpy((rng.standard_normal(n_poses) * 0.1).astype(
-                np.float32)).to(dev),
-            torch.from_numpy(rng.uniform(0.5, 2.0, n_poses).astype(
-                np.float32)).to(dev), w_)]
-        g = torch.from_numpy(rng.standard_normal((n_poses,) + grid).astype(
-            np.float32)).to(dev)
-        with Bf16Products() as step_products:
-            grads = train_grads(dprast_torch, grid, leaves, g)
-            torch.cuda.synchronize()
-        ref_g = train_grads(dprast_torch, grid, leaves, g, backend="xla")
-        errs = {}
-        for name, a, r, x in zip(GRAD_NAMES, grads, ref_g, leaves):
-            check(a.shape == x.shape and bool(torch.isfinite(a).all()),
-                  f"{tag}: finite d_{name} of shape {tuple(x.shape)}")
-            errs[name] = scaled_err(a, r)
-        products = fwd_products.calls + step_products.calls
-        print(f"{tag}: auto -> {picked[0]}; bf16 products with an fp32 "
-              f"result and full-precision sums: forward "
-              f"{len(fwd_products.calls)}, training step "
-              f"{len(step_products.calls)}; scaled max-abs err vs the xla "
-              f"backend (tol 2e-5): image {err_img:.3e}, "
+        with Bf16Products() as products:
+            err_img, errs = vs_xla(dprast_torch, tag, grid, inputs, "matmul")
+        print(f"{tag}: matmul by name; {len(products.calls)} bf16 products "
+              f"with an fp32 result and full-precision sums in a forward "
+              f"and a training step; scaled max-abs err vs the xla backend "
+              f"(tol 2e-5): image {err_img:.3e}, "
               + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
-        check(len(fwd_products.calls) >= 2 * 2 and len(step_products.calls)
-              >= 2 * 2 + 2, f"{tag}: the path ran the matmul products")
-        check(all(products), f"{tag}: every bf16 product ran with an fp32 "
-                             f"result and the reduced-precision reduction "
-                             f"off")
+        # a forward and the step's forward, 2 planes x 2 branches each,
+        # and the pullback's products
+        check(len(products.calls) >= 2 * 2 * 2 + 2,
+              f"{tag}: the path ran the matmul products")
+        check(all(products.calls),
+              f"{tag}: every bf16 product ran with an fp32 result and the "
+              f"reduced-precision reduction off")
         check(not ran(sb.LAUNCHES), f"{tag}: no binned kernel ran")
+        check(max(err_img, *errs.values()) <= 2e-5, f"{tag}: matmul vs xla")
+
+        picked = dispatch.resolve_pair("auto", len(grid), grid, n_points,
+                                       accelerator=True)
+        check(picked == (auto_picks, auto_picks),
+              f"{tag}: auto picks {auto_picks}")
+        with Bf16Products() as products:
+            err_img, errs = vs_xla(dprast_torch, tag, grid, inputs, "auto")
+        launched = ran(sb.LAUNCHES)
+        print(f"{tag}: auto -> {picked[0]}; launches {launched}; scaled "
+              f"max-abs err vs the xla backend (tol 2e-5): image "
+              f"{err_img:.3e}, "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+        check(not products.calls, f"{tag}: auto ran no bf16 product")
+        check(bool(launched) == (auto_picks == "binned"),
+              f"{tag}: auto ran the binned kernels only where it picks "
+              f"binned")
         check(max(err_img, *errs.values()) <= 2e-5, f"{tag}: auto vs xla")
     check(mm.allow_bf16_reduced_precision_reduction is flag_before,
           "[matmul] the reduction flag is as it was found")
@@ -1351,13 +1402,12 @@ def phase_matmul(dprast_torch, sb, dev, smi, oracle, pts, rot, tr, pw):
     # pair, so its pullback recomputes from the six inputs, as under
     # autograd) beside `xla` and `binned`, in turns
     ms = {}
-    canon = (pts, rot, tr, torch.zeros(N_POSES, device=dev),
-             torch.ones(N_POSES, device=dev),
-             torch.ones(N_POINTS, device=dev))
-    names = ("matmul", "xla", "binned")
-    for grid in MATMUL_TIMED:
+    for grid, n_poses, n_points in MATMUL_TIMED:
+        canon = timed_inputs(grid, n_poses, n_points, dev)
         g = torch.from_numpy(np.random.default_rng(2).standard_normal(
-            (N_POSES,) + grid).astype(np.float32)).to(dev)
+            (n_poses,) + grid).astype(np.float32)).to(dev)
+        names = ("matmul", "xla") + (
+            ("binned",) if sb.supported(len(grid), grid, n_points) else ())
 
         def step(name):
             pair = dispatch.vjp_pair(name)
@@ -1373,26 +1423,31 @@ def phase_matmul(dprast_torch, sb, dev, smi, oracle, pts, rot, tr, pw):
         for name in names + names[::-1]:
             reps = 2 if name == "matmul" else 7
             runs[name, "fwd"].append(time_ms(
-                lambda: dprast_torch.raster(grid, pts, rot, tr,
+                lambda: dprast_torch.raster(grid, *canon[:3],
                                             backend=name), reps, 1))
             runs[name, "step"].append(time_ms(lambda: step(name), reps, 1))
         for key, got in runs.items():
-            ms[(grid,) + key] = sum(got) / len(got)
-        print(f"[matmul] {smi} | {grid} x {N_POSES} poses x {N_POINTS} "
-              f"points, uniform weights, median ms in turns (matmul, xla, "
-              f"binned, binned, xla, matmul): forward "
-              + " / ".join(f"{n} {ms[grid, n, 'fwd']:.4f}" for n in names)
+            ms[(grid, n_poses, n_points) + key] = sum(got) / len(got)
+        row = (grid, n_poses, n_points)
+        fastest = min(names, key=lambda n: ms[row + (n, "step")])
+        auto = dispatch.resolve_pair("auto", len(grid), grid, n_points,
+                                     accelerator=True)[0]
+        print(f"[matmul] {smi} | {grid} x {n_poses} poses x {n_points} "
+              f"points, uniform weights, median ms in turns ("
+              + ", ".join(names + names[::-1]) + "): forward "
+              + " / ".join(f"{n} {ms[row + (n, 'fwd')]:.4f}" for n in names)
               + "; fused step "
-              + " / ".join(f"{n} {ms[grid, n, 'step']:.4f}" for n in names))
-    grid = MATMUL_TIMED[0]
+              + " / ".join(f"{n} {ms[row + (n, 'step')]:.4f}" for n in names)
+              + f"; fastest fused step {fastest}; auto picks {auto}")
+    row = MATMUL_TIMED[0]
     busy_us, n_kernels = device_busy(
-        lambda: dprast_torch.raster(grid, pts, rot, tr, backend="matmul"),
+        lambda: dprast_torch.raster(row[0], pts, rot, tr, backend="matmul"),
         calls=3)
     ms["busy_us"], ms["kernels"] = busy_us, n_kernels
-    print(f"[matmul] {smi} | {grid} matmul forward keeps the card busy "
+    print(f"[matmul] {smi} | {row[0]} matmul forward keeps the card busy "
           f"{busy_us:.1f} us in {n_kernels:.0f} kernels and copies "
           f"(torch.profiler): idle "
-          f"{1 - busy_us / ms[grid, 'matmul', 'fwd'] / 1e3:.1%} of the call")
+          f"{1 - busy_us / ms[row + ('matmul', 'fwd')] / 1e3:.1%} of the call")
     return ms
 
 
@@ -1490,9 +1545,269 @@ def phase_examples(dprast_torch, sb, dev, steps=20):
                     torch.ones(tomo.N_VIEWS, device=dev)))
 
 
+# the 2 x 2 mesh of [sharded]: (grid, poses, points, pw_fast).  10^5 + 1
+# points pad the points axis, which turns the uniform-weight fast path
+# off; 7 poses pad the poses axis with an inert pose
+SHARDED_CASES = ((FLAGSHIP, N_POSES, N_POINTS + 1, False),
+                 (MULTI_TILE, N_POSES, N_POINTS + 1, False),
+                 (FLAGSHIP, N_POSES, N_POINTS, True),
+                 (FLAGSHIP, 7, N_POINTS, True))
+SHARDED_MESH = (2, 2)
+# the kernels of one training step per process, by grid
+SHARDED_WANT = {FLAGSHIP: {"fwd_splat": 1, "bwd_gather": 1},
+                MULTI_TILE: {"fwd_splat": 1, "band_fold": 1,
+                             "bwd_gather_grid": 1}}
+# seconds the four workers may take, CUDA start-up included, before the
+# parent kills them and fails
+SHARDED_TIMEOUT = 120
+
+
+def sharded_leaves(n_poses, n_points, dev):
+    """The six inputs of a [sharded] case as leaves that require grad: the
+    flagship cloud, per-pose background and out_weight, and a scalar point
+    weight (the uniform path)."""
+    p_, r_, t_, _ = flagship_inputs(n_points=n_points, n_poses=n_poses)
+    rng = np.random.default_rng(4)
+    bg = (rng.standard_normal(n_poses) * 0.1).astype(np.float32)
+    ow = rng.uniform(0.5, 2.0, n_poses).astype(np.float32)
+    return [torch.from_numpy(a).to(dev).requires_grad_()
+            for a in (p_, r_, t_, bg, ow, np.asarray(1.5, np.float32))]
+
+
+def sharded_vs_xla(dprast_torch, tag, grid, leaves, g, out, grads):
+    """The image and the six gradients of a sharded step against the
+    single-device `xla` backend on the same leaves -> {name: scaled
+    max-abs err}."""
+    ref = dprast_torch.raster(grid, *leaves, backend="xla")
+    ref_g = torch.autograd.grad((ref * g).sum(), leaves)
+    check(out.shape == ref.shape and out.dtype == torch.float32
+          and bool(torch.isfinite(out).all()), f"{tag}: finite image")
+    errs = {"image": scaled_err(out.detach(), ref.detach())}
+    for name, a, r, x in zip(GRAD_NAMES, grads, ref_g, leaves):
+        check(a.shape == x.shape and bool(torch.isfinite(a).all()),
+              f"{tag}: finite d_{name} of shape {tuple(x.shape)}")
+        errs[name] = scaled_err(a, r)
+    return errs
+
+
+def sharded_worker(rank, store, out_dir):
+    """One of the four processes of [sharded]'s 2 x 2 mesh, all on the one
+    card, joined by Gloo (NCCL refuses two processes on one card).  Runs
+    every case of `SHARDED_CASES` through `raster_sharded` and autograd,
+    checks its own launch counts, the size of its shard, its image and
+    gradients against the single-device `xla` backend (2e-5) and that
+    its gradients are rank 0's bit for bit, and writes what it read to
+    ``out_dir/rank<rank>.json``.  Any failed check is an exception: the
+    process exits non-zero."""
+    import torch.distributed as dist
+    import dprast_torch
+    from dprast_torch import ad
+    from dprast_torch.ops import splat_binned as sb
+    from dprast_torch.parallel import make_mesh, multihost, raster_sharded
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    multihost.initialize(init_method=f"file://{store}",
+                         world_size=SHARDED_MESH[0] * SHARDED_MESH[1],
+                         rank=rank, backend="gloo", timeout=SHARDED_TIMEOUT)
+    report = {"rank": rank, "cases": []}
+    shards = []
+    real = ad.raster_canonical
+
+    def spy(grid_size, backend, pw_uniform, *args):
+        shards.append((backend[0], pw_uniform, args[0].shape[0],
+                       args[1].shape[0], str(args[0].device)))
+        return real(grid_size, backend, pw_uniform, *args)
+
+    try:
+        mesh = make_mesh(*SHARDED_MESH)
+        check(dist.get_backend() == "gloo", "the group runs on Gloo")
+        for grid, n_poses, n_points, pw_fast in SHARDED_CASES:
+            tag = (f"[sharded] rank {rank} {grid} x {n_poses} poses x "
+                   f"{n_points} points")
+            leaves = sharded_leaves(n_poses, n_points, dev)
+            g = torch.from_numpy(np.random.default_rng(2).standard_normal(
+                (n_poses,) + grid).astype(np.float32)).to(dev)
+
+            def step():
+                out = raster_sharded(grid, *leaves, mesh=mesh)
+                return out, torch.autograd.grad((out * g).sum(), leaves)
+
+            del shards[:]
+            ad.raster_canonical = spy
+            reset_launches(sb)
+            try:
+                out, grads = step()
+                torch.cuda.synchronize()
+            finally:
+                ad.raster_canonical = real
+            launched = ran(sb.LAUNCHES)
+            check(launched == SHARDED_WANT[grid],
+                  f"{tag}: one launch of each kernel of the step and no "
+                  f"other, got {launched}")
+            # a quarter of the work, on the card, on the binned backend
+            want = ("binned", pw_fast, -(-n_points // SHARDED_MESH[1]),
+                    -(-n_poses // SHARDED_MESH[0]), str(dev))
+            check(shards == [want], f"{tag}: the shard is {want}, got "
+                                    f"{shards}")
+            errs = sharded_vs_xla(dprast_torch, tag, grid, leaves, g, out,
+                                  grads)
+            check(max(errs.values()) <= 2e-5, f"{tag}: sharded vs xla, "
+                                              f"{errs}")
+            for name, a in zip(("image",) + GRAD_NAMES, (out,) + grads):
+                first = a.detach().clone()
+                dist.broadcast(first, src=0)
+                check(torch.equal(first.view(torch.int32),
+                                  a.detach().view(torch.int32)),
+                      f"{tag}: {name} is rank 0's bit for bit")
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                dist.barrier()
+                t0 = time.perf_counter()
+                step()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            report["cases"].append({
+                "grid": list(grid), "poses": n_poses, "points": n_points,
+                "launches": launched, "errs": errs,
+                "step_ms": float(np.median(times))})
+        Path(out_dir, f"rank{rank}.json").write_text(json.dumps(report))
+    finally:
+        multihost.shutdown()
+
+
+def run_sharded_workers():
+    """Start the four workers of the 2 x 2 mesh on the one card, wait for
+    them under one deadline, kill what is left at it -> the ranks'
+    reports.  A worker that exits non-zero, or the deadline, fails the
+    run."""
+    import os
+    import shutil
+    import subprocess
+    import tempfile
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="sharded_", dir=ROOT / "build"))
+    launcher = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT",
+                "LOCAL_RANK", "LOCAL_WORLD_SIZE")
+    env = {k: v for k, v in os.environ.items() if k not in launcher}
+    n = SHARDED_MESH[0] * SHARDED_MESH[1]
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--sharded-worker",
+         str(rank), str(work / "store"), str(work)], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for rank in range(n)]
+    deadline = time.monotonic() + SHARDED_TIMEOUT
+    outs, timed_out = [], False
+    try:
+        for proc in procs:
+            try:
+                outs.append(proc.communicate(
+                    timeout=max(1.0, deadline - time.monotonic()))[0])
+            except subprocess.TimeoutExpired:
+                timed_out = True
+                break
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    try:
+        check(not timed_out, f"[sharded] the workers ended within "
+                             f"{SHARDED_TIMEOUT} s")
+        for rank, (proc, out) in enumerate(zip(procs, outs)):
+            check(proc.returncode == 0,
+                  f"[sharded] worker {rank} exited {proc.returncode}:\n"
+                  f"{out[-3000:]}")
+        return [json.loads((work / f"rank{rank}.json").read_text())
+                for rank in range(n)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def phase_sharded(dprast_torch, sb, smi, pts, rot, tr, pw, cots):
+    """[sharded]: the distribution layer.  On the 1 x 1 mesh in this
+    process (no process group): `raster_sharded` through `auto` and
+    `torch.autograd.grad` of all six inputs at 128^2 and 1024^2 x 64 x
+    10^5, exactly the unsharded step's launches, held to `raster` on the
+    `xla` backend within 2e-5, and its step timed beside the unsharded
+    one in turns.  On a 2 x 2 mesh: four worker processes on this one
+    card over Gloo (`sharded_worker`).  -> (launches on the 1 x 1 mesh,
+    launches summed over the four workers)."""
+    from dprast_torch.parallel import make_mesh, raster_sharded
+    mesh = make_mesh()
+    check(mesh.shape == {"poses": 1, "points": 1} and not mesh.groups,
+          "[sharded] without a process group the mesh is 1 x 1")
+    totals = {name: 0 for name in sb.LAUNCHES}
+    for grid in GRIDS:
+        tag = f"[sharded] 1 x 1 {grid} x {N_POSES} poses x {N_POINTS} points"
+        leaves = train_inputs(pts, rot, tr, pw, False)
+        g = cots[grid]
+
+        def sharded_step():
+            out = raster_sharded(grid, *leaves, mesh=mesh)
+            return out, torch.autograd.grad((out * g).sum(), leaves)
+
+        def plain_step():
+            out = dprast_torch.raster(grid, *leaves)
+            return out, torch.autograd.grad((out * g).sum(), leaves)
+
+        reset_launches(sb)
+        out, grads = sharded_step()
+        torch.cuda.synchronize()
+        launched = dict(sb.LAUNCHES)
+        for name in launched:
+            totals[name] += launched[name]
+        check(ran(launched) == SHARDED_WANT[grid],
+              f"{tag}: one launch of each kernel of the unsharded step and "
+              f"no other, got {ran(launched)}")
+        errs = sharded_vs_xla(dprast_torch, tag, grid, leaves, g, out, grads)
+        runs = {"plain": [], "sharded": []}
+        for name, fn in (("plain", plain_step), ("sharded", sharded_step),
+                         ("sharded", sharded_step), ("plain", plain_step)):
+            runs[name].append(time_ms(fn, reps=7, warmup=2))
+        print(f"{tag}: launches {ran(launched)}; scaled max-abs err vs the "
+              f"xla backend (tol 2e-5): "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f"; {smi} | training step through autograd, all six "
+                f"gradients, median ms in turns (raster, raster_sharded, "
+                f"raster_sharded, raster): raster "
+              + " / ".join(f"{v:.4f}" for v in runs["plain"])
+              + ", raster_sharded "
+              + " / ".join(f"{v:.4f}" for v in runs["sharded"]))
+        check(max(errs.values()) <= 2e-5, f"{tag}: sharded vs xla")
+
+    t0 = time.perf_counter()
+    reports = run_sharded_workers()
+    took = time.perf_counter() - t0
+    workers = {name: 0 for name in sb.LAUNCHES}
+    for i, (grid, n_poses, n_points, pw_fast) in enumerate(SHARDED_CASES):
+        cases = [r["cases"][i] for r in reports]
+        for case in cases:
+            for name, count in case["launches"].items():
+                workers[name] += count
+        worst = max(max(c["errs"].values()) for c in cases)
+        print(f"[sharded] 2 x 2, four processes on one card over Gloo, "
+              f"{tuple(grid)} x {n_poses} poses x {n_points} points "
+              f"(uniform fast path {'on' if pw_fast else 'off'}): every "
+              f"rank launched {cases[0]['launches']} on its quarter, is "
+              f"within {worst:.3e} of the single-device xla backend (tol "
+              f"2e-5) and holds rank 0's image and gradients bit for bit; "
+              f"{smi} | step ms by rank "
+              + " / ".join(f"{c['step_ms']:.2f}" for c in cases))
+    print(f"[sharded] the four processes share one card, and Gloo sums in "
+          f"host memory: the 2 x 2 times above say what the layer costs "
+          f"there and are no scaling number; workers took {took:.1f} s "
+          f"with their start-up")
+    return totals, workers
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False")
+    if sys.argv[1:2] == ["--sharded-worker"]:
+        # one process of [sharded]'s 2 x 2 mesh, started by the run itself
+        return sharded_worker(int(sys.argv[2]), *sys.argv[3:5])
 
     import dprast_torch
     from dprast_torch.ops import _build, core, splat_binned as sb
@@ -1865,6 +2180,10 @@ def main():
     # --- 18. the single-card examples ---
     phase_examples(dprast_torch, sb, dev)
 
+    # --- 19. the distribution layer: 1 x 1 here, 2 x 2 in four workers ---
+    sharded_launches, worker_launches = phase_sharded(
+        dprast_torch, sb, smi, pts, rot, tr, pw, cots)
+
     src = "dprast/ops/splat_binned.py"
     fwd_cu = "dprast_torch/csrc/fwd_splat.cu"
     bwd_cu = "dprast_torch/csrc/bwd_gather.cu"
@@ -1996,6 +2315,15 @@ def main():
         kernels.append(kernel(key[1], bwd_cu, replaces, launched, err, k_ms,
                               plain_ms, bound_, shape, variant=variant,
                               device_us=dev_us))
+    # [sharded] is a main path too: its 1 x 1 mesh, driven in this
+    # process between a reset and a read of the counts, adds to `launches`;
+    # the four workers' own counts stand beside it
+    for entry in kernels:
+        if (entry["replaces"].startswith(src)
+                and sharded_launches.get(entry["name"])):
+            entry["launches"] += sharded_launches[entry["name"]]
+            entry["launches_sharded_workers"] = worker_launches[
+                entry["name"]]
     for entry in kernels:
         check(entry["launches"] >= 1,
               f"{entry['name']} ({entry['shape']}) was launched on its path")

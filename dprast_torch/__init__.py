@@ -2,10 +2,12 @@
 hand-written CUDA kernels for NVIDIA Hopper.
 
 A port of the JAX package `dprast`, which stays the reference.  This
-package imports neither JAX nor `dprast`.  So far it covers `raster`
-(differentiable through autograd) and `raster_pullback` on the ``"xla"``
-oracle (any rank, any device) and the ``"binned"`` backend for 2-D and
-3-D grids, with its ``"binned_bf16"`` fast mode.
+package imports neither JAX nor `dprast`.  It covers `raster`
+(differentiable through autograd) and `raster_pullback` on the five
+backends of the JAX package (``"xla"``, ``"matmul"``, ``"matmul_bf16"``,
+``"binned"``, ``"binned_bf16"``), and in `dprast_torch.parallel` the
+("poses", "points") distribution layer over `torch.distributed`, which
+is imported only by who uses it.
 """
 
 from dprast_torch.api import RasterGrads, raster, raster_pullback

@@ -209,9 +209,9 @@ def raster(grid_size, points, rotation, translation, background=None,
       backend: 'auto' | 'xla' | 'matmul' | 'matmul_bf16' | 'binned' |
         'binned_bf16' (the `_bf16` names are the ~2e-3 fast modes of
         'matmul' and 'binned', never chosen by 'auto').  On a CUDA device
-        'auto' takes 'matmul' for small grids (2-D up to 256^2 voxels but
-        for a single tile above 64 per axis, 3-D up to 32^3, 1-D) and
-        'binned' for larger ones; on the CPU and for float64 'xla'.
+        'auto' takes 'binned' for 2-D and 3-D grids (but for a cloud too
+        sparse for its grid) and 'xla' otherwise; on the CPU and for
+        float64 'xla'.
       device: where numpy / list inputs go when no input is a tensor;
         by default the current CUDA device (a RuntimeError where there is
         none), ``"cpu"`` for the CPU.

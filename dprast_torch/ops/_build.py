@@ -8,6 +8,12 @@ checkout, named by a hash of the sources, so an edited source never
 loads a stale library.  The compiler's output (register and
 shared-memory use per kernel, from ``-Xptxas -v``) is kept beside it in a
 ``.log`` file.
+
+Several processes may build at once (the workers of a process group that
+start with nothing built): each compiles into files named by its own
+process id and renames the finished library and log into place, so no
+two of them ever write one file and a reader sees a whole library or
+none.
 """
 
 from __future__ import annotations
@@ -77,8 +83,10 @@ def build() -> Path:
         outs.append(proc.stdout)
         if proc.returncode != 0:
             failed = [(link, proc.stdout)]
-    so.with_suffix(".log").write_text("".join(
+    log = so.with_name(f"{tag}.log.tmp")
+    log.write_text("".join(
         " ".join(cmd) + "\n" + out for cmd, out in zip(cmds, outs)))
+    os.replace(log, so.with_suffix(".log"))
     for obj in objs:
         obj.unlink(missing_ok=True)
     if failed:

@@ -8,8 +8,8 @@ A backend is a kernel strategy:
                 1-D to 3-D grids
 - ``"binned"``  slot-scheduled tile-binned kernels (`splat_binned`),
                 2-D and 3-D grids
-- ``"auto"``    the JAX package's choice for the given dims / grid /
-                device
+- ``"auto"``    the fastest faithful backend for the given dims / grid
+                / device, as measured on the card
 
 plus the two documented ~2e-3 fast modes ``"matmul_bf16"`` (one bf16 plane
 per value operand) and ``"binned_bf16"`` (B1 rounds each weight product to
@@ -17,13 +17,13 @@ bf16, B4 the cotangent window; ``terms=1``), which `auto` never picks, as
 in the JAX package.  On Hopper `binned_bf16` saves no work: the kernels
 have no matrix product whose operands it narrows.
 
-`auto` follows the JAX package's rules with "the inputs are on CUDA" in
-place of "running on a TPU": small grids (2-D up to 256^2 voxels, 3-D up
-to 32^3, every 1-D grid) go to `matmul`, except a single 2-D tile above 64
-per axis, which goes to `binned` with the larger grids; very sparse large
-grids, ranks above 3, float64 inputs and every CPU call go to `xla`.  The
-rules were measured on the JAX package's own chip and are still to be
-re-derived from readings on this one.
+`auto` on CUDA tensors: 2-D and 3-D grids go to `binned` where
+`splat_binned.profitable` says so, everything else (very sparse large
+grids, 1-D grids, ranks above 3) to `xla`; float64 inputs and every CPU
+call go to `xla`.  `matmul`, which the JAX package picks for small grids
+on its own chip, is picked nowhere: on the H100 it is the slowest fused
+step in every regime read (the rows are in `resolve`'s docstring).  It
+stays selectable by name.
 """
 
 from __future__ import annotations
@@ -86,7 +86,26 @@ def resolve(backend: str, n_out: int, grid_size=None, n_points=None, *,
     are float64.  f64 inputs keep the f64 oracle on every device (the JAX
     package reaches the same end on the CPU; on a TPU under x64 it takes
     its matmul backend, which this package replaces by the oracle so that
-    f64 stays f64)."""
+    f64 stays f64).
+
+    On CUDA `auto` never picks `matmul`: a rule taken from the rows that
+    `chip_smoke.py` [matmul] reads (NVIDIA H100 80GB HBM3, 700.00 W;
+    uniform weights; median ms of the fused step, forward + pullback, in
+    turns matmul, xla, binned, binned, xla, matmul):
+
+        grid x poses x points     matmul       xla    binned
+        64^2 x 64 x 10^5         90.4135   19.0378    7.6844
+        64^2 x  4 x 10^5          9.2645    2.5285    2.5556
+        64^2 x  1 x 10^5          4.0756    2.2231    2.7632
+        32^2 x 64 x 10^5         54.8481   19.3827    7.7503
+        64^2 x 64 x 10^3          5.9918    3.2640    4.0930
+        32^3 x  4 x 10^5         47.3670    3.5682    5.3064
+        (4096,) x 4 x 10^4       10.5422    1.7132    (2-D, 3-D only)
+
+    `matmul` is the fastest in none of them, so 2-D and 3-D grids take
+    `binned` where `splat_binned.profitable` holds (the slot frame's
+    padding does not dwarf the cloud) and `xla` otherwise, and 1-D grids
+    and ranks above 3 take `xla`."""
     if backend != "auto":
         if backend not in _REGISTRY:
             raise ValueError(
@@ -99,35 +118,19 @@ def resolve(backend: str, n_out: int, grid_size=None, n_points=None, *,
         return backend
     if not accelerator or f64:
         return "xla"
-    if grid_size is not None:
-        # large grids: dense one-hot paths do O(prod(grid)) work per
-        # point; the binned backend does O(tile), and very sparse cases
-        # go to the scatter oracle, whose cost scales with splats
-        voxels = 1
-        for s in grid_size:
-            voxels *= s
-        if voxels > (256 * 256 if n_out == 2 else 32 ** 3):
-            if splat_binned.profitable(n_out, grid_size, n_points):
-                return "binned"
-            return "xla"
-    if splat_matmul.supported(n_out):
-        return "matmul"
+    if grid_size is not None and splat_binned.profitable(n_out, grid_size,
+                                                         n_points):
+        return "binned"
     return "xla"
 
 
 def resolve_pair(backend: str, n_out: int, grid_size=None, n_points=None,
                  *, accelerator: bool = False,
                  f64: bool = False) -> tuple[str, str]:
-    """Per-direction (forward, backward) strategy.  As in the JAX package,
-    `auto` runs both directions of a single-tile 2-D grid above 64 per
-    axis on the binned backend, where the JAX rules would say matmul."""
+    """Per-direction (forward, backward) strategy: both directions run on
+    the backend `resolve` names."""
     name = resolve(backend, n_out, grid_size, n_points,
                    accelerator=accelerator, f64=f64)
-    if (backend == "auto" and name == "matmul" and grid_size is not None
-            and n_out == 2 and splat_binned._single_tile(grid_size)
-            and min(grid_size) > 64
-            and splat_binned.profitable(n_out, grid_size, n_points)):
-        name = "binned"
     return name, name
 
 

@@ -173,9 +173,10 @@ def test_empty_cloud_and_backend_validation():
         _raster((8, 8), np.zeros((0, 3)), np.eye(3)[:2],
                             np.zeros(2), backend="bogus")
     # on a CUDA device `raster` resolves `auto` before its empty-cloud
-    # branch: at 64^2 that is the matmul backend, which exists
+    # branch: at 64^2 that is the binned backend; matmul, which the JAX
+    # package picks there, serves the empty cloud by name
     assert tdispatch.resolve_pair("auto", 2, (64, 64), 0,
-                                  accelerator=True) == ("matmul", "matmul")
+                                  accelerator=True) == ("binned", "binned")
     out = _raster((64, 64), np.zeros((0, 3), np.float32),
                   np.eye(3, dtype=np.float32)[:2], np.zeros(2, np.float32),
                   0.7, backend="matmul")
@@ -260,25 +261,57 @@ DISPATCH_TABLE = [
     (1, (4096,), 100),
 ]
 
+# The rows where the port, on CUDA tensors, leaves the JAX package's
+# choice: the JAX package picks `matmul` there from readings on its own
+# chip; on the H100 `matmul` is the fastest fused step in no row that
+# `chip_smoke.py` [matmul] times (`dispatch.resolve`'s docstring), so
+# the port picks what its rule gives without it.
+PORT_PICKS = {
+    # the 64^2 x 64 x 10^5 row (and its 1-pose, 4-pose, 10^3-point kin)
+    (2, (64, 64), 100_000): "binned",
+    # the 64^2 row again, and the 256^2 x 64 x 10^5 reading before it
+    (2, (256, 256), 100_000): "binned",
+    # the 64^2 row: a multi-tile grid of under 256^2 voxels
+    (2, (300, 200), 100_000): "binned",
+    # the 32^3 x 4 x 10^5 row
+    (3, (16, 16, 16), 1000): "binned",
+    # the (4096,) x 4 x 10^4 row: `binned` has no 1-D form, `xla` wins
+    (1, (4096,), 100): "xla",
+}
+
 
 @pytest.mark.parametrize("row", range(len(DISPATCH_TABLE)))
 def test_auto_dispatch_matches_jax(row, monkeypatch):
     """With the accelerator flag set, `auto` picks what the JAX package
-    picks on a TPU on every row, the matmul backend and 3-D `binned`
-    included."""
+    picks on a TPU on every row, 3-D `binned` included, but where the JAX
+    package picks `matmul`: there the port picks `binned` (2-D, 3-D) or
+    `xla` (1-D), as the H100's readings say."""
     n_out, grid, p = DISPATCH_TABLE[row]
     monkeypatch.setattr(jdispatch, "_on_tpu", lambda: True)
     with jax.enable_x64(False):
         want = jdispatch.resolve_pair("auto", n_out, grid, p)
     assert want[0] == want[1]
-    assert tdispatch.resolve_pair("auto", n_out, grid, p,
-                                  accelerator=True) == want
+    got = tdispatch.resolve_pair("auto", n_out, grid, p, accelerator=True)
+    if DISPATCH_TABLE[row] in PORT_PICKS:
+        assert want == ("matmul", "matmul")
+        name = PORT_PICKS[DISPATCH_TABLE[row]]
+        assert got == (name, name)
+    else:
+        assert got == want
+    # `auto` picks `matmul` nowhere on the card
+    assert "matmul" not in got
     # auto never picks a fast mode, in either package
     assert "binned_bf16" not in want and "matmul_bf16" not in want
+    assert "binned_bf16" not in got and "matmul_bf16" not in got
     # off the accelerator, and for f64 inputs, auto is the oracle
     assert tdispatch.resolve_pair("auto", n_out, grid, p) == ("xla", "xla")
     assert tdispatch.resolve_pair("auto", n_out, grid, p, accelerator=True,
                                   f64=True) == ("xla", "xla")
+    # the matmul backends stay selectable by name wherever they apply
+    for name in ("matmul", "matmul_bf16"):
+        if n_out <= 3:
+            assert tdispatch.resolve_pair(name, n_out, grid, p,
+                                          accelerator=True) == (name, name)
 
 
 def _default_device_args():

@@ -343,6 +343,10 @@ def test_port_imports_no_jax():
     files = list(root.rglob("*.py")) + [
         root.parent / "chip_smoke.py",
         root.parent / "examples" / "fit_langevin_torch.py",
-        root.parent / "examples" / "tomography_torch.py"]
+        root.parent / "examples" / "tomography_torch.py",
+        root.parent / "examples" / "sharded_fit_torch.py"]
+    # rglob reaches the distribution layer too
+    assert {"sharded.py", "multihost.py", "__init__.py"} <= {
+        path.name for path in (root / "parallel").glob("*.py")}
     for path in files:
         assert not pat.search(path.read_text()), path
