@@ -3,14 +3,16 @@
 Builds the port's CUDA kernels from `dprast_torch/csrc/`, holds each
 against its plain torch twin on the card at the shapes of the main path
 (B1 also at every size of its thread-block cluster, on odd grids and on a
-frame with empty tiles and dead slots), and drives the two 2-D main
-paths at the flagship size (3D->2D orthographic, 64 poses, 10^5 points,
-128x128) and at 1024x1024:
+frame with empty tiles and dead slots; B6, the coordinate stage, bit for
+bit against its twin on the card and on the CPU, also on an edge set of
+voxel centres, cell boundaries, grid edges and extreme poses), and drives
+the two 2-D main paths at the flagship size (3D->2D orthographic, 64
+poses, 10^5 points, 128x128) and at 1024x1024:
 
-- the forward `raster` through `auto` (kernels B1, and B2 at 1024^2),
+- the forward `raster` through `auto` (kernels B6, B1, and B2 at 1024^2),
   checked against the port's scatter oracle on the card;
-- the training step, `torch.autograd.grad` through `raster` (B1 + B4,
-  and B2 at 1024^2, where B4 cuts its windows out of the cotangent
+- the training step, `torch.autograd.grad` through `raster` (B6 + B1 +
+  B4, and B2 at 1024^2, where B4 cuts its windows out of the cotangent
   itself and B3 does not run), checked against the same autograd through
   the oracle on the card, and a few SGD steps of a point-cloud fit.
 
@@ -171,6 +173,30 @@ def b4_bound(slot_tile, lane_b, win, chunk):
     return bound(n_bytes, rows * (18 if n_out == 2 else 45))
 
 
+def coords_ops(n_in, n_out):
+    """B6's rounded fp32 and integer operations per (pose, point), counted
+    from `csrc/coords.cu`: 4 per input axis (the point's split); per
+    output axis 17 per input axis (TwoProd 9, TwoSum 6, the lo term 2) and
+    63 (the + 1, * scale, - 1/2 and renormalising steps 35; voxel, delta
+    and fix-up 10; the cast 1; range tests, tile index, key and encoding
+    17).  The splits of the rotation entries and of the scales are done
+    once per block and not counted."""
+    return n_out * (17 * n_in + 63) + 4 * n_in
+
+
+def coords_bound(pts, rot, tr, want_key=True):
+    """B6 on these inputs: the cloud and the poses read once, one int32
+    key (where asked for) and one plane per output axis written per
+    (pose, point).  No operation of the compensated pipeline may fuse, so
+    each takes the instruction slot of a fused multiply-add, which the
+    card's fp32 rate counts as two."""
+    pairs = rot.shape[0] * pts.shape[0]
+    n_out, n_in = rot.shape[1:]
+    n_bytes = (pts.numel() + rot.numel() + tr.numel()
+               + pairs * (n_out + bool(want_key))) * 4
+    return bound(n_bytes, 2 * pairs * coords_ops(n_in, n_out))
+
+
 def copy_bound(src, dst, ops_per_out=0):
     """B2 / B3: `src` read once, `dst` written once."""
     return bound((src.numel() + dst.numel()) * 4, dst.numel() * ops_per_out)
@@ -221,17 +247,6 @@ def time_ms(fn, reps=15, warmup=3):
     """Median milliseconds of `fn` on the card, by CUDA events."""
     from dprast_torch.utils import profiling
     return profiling.time_fn(fn, "cuda", reps, warmup)[0]
-
-
-def load_numpy_oracle():
-    """`raster_numpy` and `raster_pullback_numpy` from
-    dprast/utils/testing.py, loaded by path so that the JAX package's
-    `__init__` never runs."""
-    spec = importlib.util.spec_from_file_location(
-        "dprast_numpy_oracle", ROOT / "dprast" / "utils" / "testing.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def sass_atomics(so, nvcc, kernel="fwd_splat_kernel"):
@@ -297,8 +312,9 @@ def train_grads(dprast_torch, grid, inputs, g, backend="auto"):
 def phase_train(dprast_torch, sb, pts, rot, tr, pw, cots, totals):
     """[train]: autograd through `auto` vs the oracle backend on the card,
     each run between a reset and a read of the launch counts."""
-    want = {FLAGSHIP: ("fwd_splat", "bwd_gather"),
-            MULTI_TILE: ("fwd_splat", "band_fold", "bwd_gather_grid")}
+    want = {FLAGSHIP: ("coords", "fwd_splat", "bwd_gather"),
+            MULTI_TILE: ("coords", "fwd_splat", "band_fold",
+                         "bwd_gather_grid")}
     for grid in GRIDS:
         for weighted in (False, True):
             inputs = train_inputs(pts, rot, tr, pw, weighted)
@@ -425,6 +441,131 @@ def b1_clusters(sb, tag, args, tol=1e-5):
     worst = max(errs.values())
     check(worst <= tol, f"B1 vs twin at every cluster size, {tag}")
     return worst
+
+
+def same_bits(a, b):
+    """Two tensors of 32-bit elements hold the same bits."""
+    return torch.equal(a.view(torch.int32).cpu(), b.view(torch.int32).cpu())
+
+
+def bits_apart(a, b):
+    """Largest absolute difference of two tensors of 32-bit elements, read
+    as int32 -> int; 0 where they hold the same bits."""
+    a, b = (x.view(torch.int32).cpu().long() for x in (a, b))
+    return int((a - b).abs().max()) if a.numel() else 0
+
+
+def coords_three_ways(sb, dev, tag, grid, host):
+    """B6 at `grid` on `host` = (points, rotation, translation) as float32
+    numpy arrays: the kernel on the card, its twin on the card and its
+    twin on the CPU must give the same keys and encoded planes bit for
+    bit, the kernel must count one launch, and the sentinel key must stand
+    exactly where the twin puts it.  -> the largest difference of the int32
+    views of keys and planes, kernel against either twin (0 if it got
+    here)."""
+    ts = sb.tile_shape_for(grid)
+    on_dev = [torch.from_numpy(a).to(dev) for a in host]
+    before = sb.LAUNCHES["coords"]
+    key_k, locs_k, nt = sb._keys_and_local(grid, ts, *on_dev)
+    check(sb.LAUNCHES["coords"] == before + 1, f"{tag}: B6 counted a launch")
+    twins = {"the twin on the card": sb._keys_and_local_plain(
+        grid, ts, *on_dev), "the twin on the CPU": sb._keys_and_local_plain(
+        grid, ts, *(torch.from_numpy(a) for a in host))}
+    check(sb.LAUNCHES["coords"] == before + 1, f"{tag}: a twin launches "
+                                               f"nothing")
+    torch.cuda.synchronize()
+    apart = 0
+    for where, (key_t, locs_t, nt_t) in twins.items():
+        apart = max(apart, bits_apart(key_k, key_t), *(
+            bits_apart(a, b) for a, b in zip(locs_k, locs_t, strict=True)))
+        check(nt_t == nt and same_bits(key_k, key_t),
+              f"{tag}: tile keys bit-equal to {where}")
+        check(torch.equal((key_k == nt).cpu(), (key_t == nt).cpu()),
+              f"{tag}: the sentinel key stands where {where} puts it")
+        for i, (a, b) in enumerate(zip(locs_k, locs_t, strict=True)):
+            check(same_bits(a, b),
+                  f"{tag}: encoded plane {i} bit-equal to {where}")
+    n_out, n_in = host[1].shape[1:]
+    print(f"[B6 coords] {tag}: {grid}, {n_in} -> {n_out}, {host[1].shape[0]} "
+          f"poses x {host[0].shape[0]} points, {nt} tiles: keys and encoded "
+          f"planes of the kernel, the twin on the card and the twin on the "
+          f"CPU bit-equal (largest difference of the int32 views {apart}); "
+          f"{int((key_k == nt).sum())} sentinel keys")
+    return float(apart)
+
+
+def phase_coords(sb, dev, testing, main_host):
+    """[B6 coords]: the coordinate kernel against its twin, three ways
+    (`coords_three_ways`), no tolerance: at the main shapes (128^2 and
+    1024^2 x 64 x 10^5, 128^3 x 1 x 10^6), a 2 -> 2 cloud, the odd grids,
+    the edge set of `dprast_torch.utils.testing.coords_edge_set` on six
+    grids from 2 and 3 input axes, and from 1 and 4 input axes (the
+    instance that reads the count at run time); without keys, the planes
+    are the same and no key comes back.  -> the difference read at each
+    main shape, by grid."""
+    apart = {grid: coords_three_ways(sb, dev, "main", grid, main_host)
+             for grid in GRIDS}
+    apart[VOLUME] = coords_three_ways(
+        sb, dev, "main", VOLUME,
+        volume_inputs(*VOLUME_CASES["1 pose x 1e6"])[:3])
+    coords_three_ways(sb, dev, "pose batch", VOLUME,
+                      volume_inputs(*VOLUME_CASES["4 poses x 1e5"])[:3])
+    pts, rot, tr = flagship_inputs(3, 20_000, 8)[:3]
+    flat = (np.ascontiguousarray(pts[:, :2]),
+            np.ascontiguousarray(rot[:, :, :2]), tr)
+    coords_three_ways(sb, dev, "flat cloud", (300, 200), flat)
+    for grid, n_poses, n_points in ((g, 4, 1500) for g in SMALL_GRIDS):
+        coords_three_ways(sb, dev, "small", grid,
+                          flagship_inputs(3, n_points, n_poses)[:3])
+    for grid, n_poses, n_points in ODD_GRIDS:
+        coords_three_ways(sb, dev, "odd", grid,
+                          flagship_inputs(3, n_points, n_poses)[:3])
+    for grid in testing.COORDS_EDGE_GRIDS:
+        for n_in in (2, 3):
+            fx = testing.coords_edge_set(grid, n_in=n_in)
+            coords_three_ways(sb, dev, "edge set", grid, tuple(fx.values()))
+    for n_in in (1, 4):
+        fx = testing.coords_edge_set((300, 200), n_in=n_in)
+        coords_three_ways(sb, dev, "edge set", (300, 200),
+                          tuple(fx.values()))
+    on_dev = [torch.from_numpy(a).to(dev) for a in main_host]
+    ts = sb.tile_shape_for(FLAGSHIP)
+    _, locs, _ = sb._keys_and_local(FLAGSHIP, ts, *on_dev)
+    key, locs_nokey, _ = sb._keys_and_local(FLAGSHIP, ts, *on_dev,
+                                            want_key=False)
+    check(key is None and all(same_bits(a, b) for a, b in
+                              zip(locs, locs_nokey, strict=True)),
+          "[B6 coords] without keys the planes are the same")
+    print(f"[B6 coords] {FLAGSHIP} without keys: the same planes, no key "
+          f"written")
+    return apart
+
+
+def coords_in_turns(sb, smi, tag, grid, on_dev, phase="[times]"):
+    """[times] / [3d times]: the coordinate stage at `grid`, kernel
+    against twin in turns (kernel, twin, twin, kernel) -> (kernel ms, twin
+    ms, the kernel's device us, the twin's device-busy us, the twin's
+    launches), ms the median by CUDA events and the mean of the two
+    turns."""
+    ts = sb.tile_shape_for(grid)
+    fns = {"kernel": lambda: sb._keys_and_local(grid, ts, *on_dev),
+           "twin": lambda: sb._keys_and_local_plain(grid, ts, *on_dev)}
+    runs = {name: [] for name in fns}
+    for name in ("kernel", "twin", "twin", "kernel"):
+        runs[name].append(time_ms(fns[name]))
+    dev_us = kernel_device_us(fns["kernel"], "coords_kernel")
+    twin_us, twin_launches = device_busy(fns["twin"])
+    k_ms, t_ms = (sum(runs[name]) / 2 for name in ("kernel", "twin"))
+    bound_ms, by = coords_bound(*on_dev)
+    print(f"{phase} {smi} | {tag} keys (B6), kernel against twin in turns, "
+          f"median ms: kernel "
+          + " / ".join(f"{v:.4f}" for v in runs["kernel"]) + ", twin "
+          + " / ".join(f"{v:.4f}" for v in runs["twin"])
+          + f"; kernel device us {dev_us:.2f}, "
+            f"{bound_ms * 1e3 / max(dev_us, 1e-9):.1%} of its "
+            f"{bound_ms * 1e3:.1f} us bound (by {by}); the twin keeps the "
+            f"card busy {twin_us:.1f} us in {twin_launches:.0f} launches")
+    return k_ms, t_ms, dev_us, twin_us, twin_launches
 
 
 def phase_b1(sb, dev, pts, rot, tr, pw):
@@ -597,9 +738,10 @@ def volume_inputs(n_poses, n_points, seed=11):
 
 
 def phase_3d(dprast_torch, sb, dev):
-    """[3d]: at 128^3, for one pose x 10^6 points and 4 poses x 10^5:
-    the coordinates CUDA vs CPU, the 3-D branches of B1 (at every cluster
-    size, and on a frame with empty tiles and dead slots) and B4 against
+    """[3d]: at 128^3, for one pose x 10^6 points and 4 poses x 10^5 (the
+    coordinates of both are held in [B6 coords]): the 3-D branches of B1
+    (at every cluster size, and on a frame with empty tiles and dead
+    slots) and B4 against
     their twins, `raster` and the training step through `auto` against
     the `xla` backend on the card, each path run between a reset and a
     read of the launch counts.  Returns (launch counts of the 10^6-point
@@ -614,15 +756,7 @@ def phase_3d(dprast_torch, sb, dev):
         pts, rot, tr, bg, ow, pw = args
         tag = f"[3d] {grid} {label}"
 
-        k_dev, l_dev, nt = sb._keys_and_local(grid, ts, pts, rot, tr)
-        k_cpu, l_cpu, _ = sb._keys_and_local(
-            grid, ts, *(torch.from_numpy(a) for a in host[:3]))
-        check(torch.equal(k_dev.cpu(), k_cpu), f"{tag}: tile keys")
-        for a, b in zip(l_dev, l_cpu, strict=True):
-            check(torch.equal(a.cpu().view(torch.int32),
-                              b.view(torch.int32)), f"{tag}: encoded planes")
-        print(f"{tag}: keys and encoded planes bit-equal CUDA vs CPU, "
-              f"{nt} tiles")
+        nt = sb.n_tiles(grid)
 
         # B1 against its twin; B4 against its twin on the forward's frame
         # (an empty tile keeps a slot) and the standalone pullback's
@@ -685,8 +819,8 @@ def phase_3d(dprast_torch, sb, dev):
             img = dprast_torch.raster(grid, pts, rot, tr, bg, ow, w)
             torch.cuda.synchronize()
             launched = dict(sb.LAUNCHES)
-            check(launched["fwd_splat_3d"] >= 1,
-                  f"{tag}: B1-3D ran in the forward")
+            check(launched["fwd_splat_3d"] >= 1 and launched["coords"] == 1,
+                  f"{tag}: B6 and B1-3D ran in the forward")
             check(img.shape == (n_poses,) + grid and
                   bool(torch.isfinite(img).all()), f"{tag}: finite image")
             ref = dprast_torch.raster(grid, pts, rot, tr, bg, ow, w,
@@ -709,6 +843,9 @@ def phase_3d(dprast_torch, sb, dev):
             for name in ("fwd_splat_3d", "bwd_gather_3d"):
                 check(launched[name] >= 1,
                       f"{tag}: {name} ran in the training step")
+            # the fused pair reuses the forward's frame
+            check(launched["coords"] == 1,
+                  f"{tag}: B6 ran once in the training step")
             if n_poses == 1:
                 for name in launched:
                     train_launches[name] += launched[name]
@@ -757,6 +894,7 @@ def times_3d(dprast_torch, sb, core, dev, smi):
         def step_twins():
             _, res = sb._fwd_impl(grid, *canon, pw_uniform=True,
                                   with_residuals=True,
+                                  coords=sb._keys_and_local_plain,
                                   splat=sb._fwd_splat_plain)
             coord, idx_rows, st_r = sb._residual_planes(res, True)
             return sb._pullback_from_frame(
@@ -792,6 +930,13 @@ def times_3d(dprast_torch, sb, core, dev, smi):
         }
         for key, fn in stages.items():
             ms[key, n_points] = time_ms(fn)
+        (ms["keys", n_points], ms["keys_plain", n_points],
+         ms["keys_dev_us", n_points], _, _) = coords_in_turns(
+            sb, smi, f"{grid} x 1 pose x {n_points} points", grid,
+            (pts, rot, tr), phase="[3d times]")
+        ms["keys_bound", n_points] = coords_bound(pts, rot, tr)
+        ms["step_busy_us", n_points], ms["step_kernels", n_points] = \
+            device_busy(step)
         ms["b1_dev_us", n_points] = kernel_device_us(stages["b1"],
                                                      "fwd_splat_kernel")
         ms["b4_dev_us", n_points] = kernel_device_us(stages["b4"],
@@ -809,7 +954,13 @@ def times_3d(dprast_torch, sb, core, dev, smi):
         print(f"[3d times] {smi} | {grid} x {n_points} training step, median "
               f"ms: fused forward + pullback {t['step']:.4f}, through "
               f"autograd {t['step_autograd']:.4f}, with twins "
-              f"{t['step_plain']:.4f}, xla backend {t['step_xla']:.4f}")
+              f"{t['step_plain']:.4f}, xla backend {t['step_xla']:.4f}; the "
+              f"fused step keeps the card busy "
+              f"{ms['step_busy_us', n_points]:.1f} us in "
+              f"{ms['step_kernels', n_points]:.0f} kernels and copies "
+              f"(torch.profiler): idle "
+              f"{1 - ms['step_busy_us', n_points] / t['step'] / 1e3:.1%} of "
+              f"the step")
     return ms
 
 
@@ -1463,7 +1614,7 @@ def load_example(name):
 def example_vs_xla(dprast_torch, sb, tag, grid, inputs):
     """One training step of an example at its own shapes: the image and the
     gradients of `inputs` (points, rotation, translation, background,
-    out_weight) through `auto`, which must launch B1 and B4 once each and
+    out_weight) through `auto`, which must launch B6, B1 and B4 once each and
     no other kernel, held to the `xla` backend within 2e-5."""
     leaves = [x.detach().clone().requires_grad_() for x in inputs]
     reset_launches(sb)
@@ -1484,14 +1635,14 @@ def example_vs_xla(dprast_torch, sb, tag, grid, inputs):
     print(f"{tag}: image {tuple(img.shape)}, launches {ran(launched)}; "
           f"scaled max-abs err vs the xla backend (tol 2e-5): "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
-    check(ran(launched) == {"fwd_splat": 1, "bwd_gather": 1},
-          f"{tag}: the step ran B1 and B4 once each and no other kernel")
+    check(ran(launched) == {"coords": 1, "fwd_splat": 1, "bwd_gather": 1},
+          f"{tag}: the step ran B6, B1 and B4 once each and no other kernel")
     check(max(errs.values()) <= 2e-5, f"{tag}: auto vs xla")
 
 
 def phase_examples(dprast_torch, sb, dev, steps=20):
     """[examples]: the two single-card examples for `steps` steps on the
-    card through `auto` (one tile: B1 and B4).  Their losses must fall, B1
+    card through `auto` (one tile: B6, B1 and B4).  Their losses must fall, B1
     must run once per step and per rendered target or final loss and B4
     once per step, and one step at each example's own inputs is held to
     the `xla` backend."""
@@ -1512,9 +1663,10 @@ def phase_examples(dprast_torch, sb, dev, steps=20):
           "[examples] the fit's points are finite and on the card")
     check(hist[-1][1] < hist[0][1], "[examples] the Langevin fit's loss fell")
     # the target's render and one forward per step; one backward per step
-    check(ran(launched) == {"fwd_splat": steps + 1, "bwd_gather": steps},
-          "[examples] the fit ran B1 once per step and for the target, B4 "
-          "once per step, and no other kernel")
+    check(ran(launched) == {"coords": steps + 1, "fwd_splat": steps + 1,
+                            "bwd_gather": steps},
+          "[examples] the fit ran B6 and B1 once per step and for the "
+          "target, B4 once per step, and no other kernel")
     example_vs_xla(dprast_torch, sb, f"[examples] fit_langevin_torch "
                    f"{fit.GRID}, the fitted points, one pose", fit.GRID,
                    (points, torch.eye(2, device=dev),
@@ -1532,10 +1684,11 @@ def phase_examples(dprast_torch, sb, dev, steps=20):
           f"{first:.6e} -> {final:.6e}; launches {ran(launched)}")
     check(final < first, "[examples] the reconstruction's loss fell")
     # the target's render, one forward per step and the two final losses
-    check(ran(launched) == {"fwd_splat": steps + 3, "bwd_gather": steps},
-          "[examples] the reconstruction ran B1 once per step, for the "
-          "target and for the two final losses, B4 once per step, and no "
-          "other kernel")
+    check(ran(launched) == {"coords": steps + 3, "fwd_splat": steps + 3,
+                            "bwd_gather": steps},
+          "[examples] the reconstruction ran B6 and B1 once per step, for "
+          "the target and for the two final losses, B4 once per step, and "
+          "no other kernel")
     example_vs_xla(dprast_torch, sb, f"[examples] tomography_torch "
                    f"{tomo.GRID}, the truth, {tomo.N_VIEWS} views", tomo.GRID,
                    (tomo.make_truth(torch.Generator().manual_seed(1), dev),
@@ -1554,8 +1707,8 @@ SHARDED_CASES = ((FLAGSHIP, N_POSES, N_POINTS + 1, False),
                  (FLAGSHIP, 7, N_POINTS, True))
 SHARDED_MESH = (2, 2)
 # the kernels of one training step per process, by grid
-SHARDED_WANT = {FLAGSHIP: {"fwd_splat": 1, "bwd_gather": 1},
-                MULTI_TILE: {"fwd_splat": 1, "band_fold": 1,
+SHARDED_WANT = {FLAGSHIP: {"coords": 1, "fwd_splat": 1, "bwd_gather": 1},
+                MULTI_TILE: {"coords": 1, "fwd_splat": 1, "band_fold": 1,
                              "bwd_gather_grid": 1}}
 # seconds the four workers may take, CUDA start-up included, before the
 # parent kills them and fails
@@ -1811,7 +1964,7 @@ def main():
 
     import dprast_torch
     from dprast_torch.ops import _build, core, splat_binned as sb
-    from dprast_torch.utils import profiling
+    from dprast_torch.utils import profiling, testing
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -1843,21 +1996,8 @@ def main():
     pts, rot, tr, pw = (torch.from_numpy(a).to(dev)
                         for a in (pts_np, rot_np, tr_np, pw_np))
 
-    # --- 3. geometry on the card is bit-equal to the CPU ---
-    for grid in GRIDS:
-        ts = sb.tile_shape_for(grid)
-        k_gpu, l_gpu, _ = sb._keys_and_local(grid, ts, pts, rot, tr)
-        k_cpu, l_cpu, _ = sb._keys_and_local(
-            grid, ts, *(torch.from_numpy(a) for a in (pts_np, rot_np,
-                                                       tr_np)))
-        check(torch.equal(k_gpu.cpu(), k_cpu), f"tile keys at {grid}")
-        for a, b in zip(l_gpu, l_cpu, strict=True):
-            check(torch.equal(a.cpu().view(torch.int32),
-                              b.view(torch.int32)),
-                  f"encoded planes at {grid}")
-    print(f"[geometry] keys and encoded planes bit-equal CUDA vs CPU at "
-          f"{FLAGSHIP} and {MULTI_TILE}, {N_POSES} poses x {N_POINTS} "
-          f"points")
+    # --- 3. B6 against its twin, on the card and on the CPU ---
+    coords_err = phase_coords(sb, dev, testing, (pts_np, rot_np, tr_np))
 
     # --- 4. B1 against its twin on the card ---
     frames, b1_err = phase_b1(sb, dev, pts, rot, tr, pw)
@@ -1971,9 +2111,9 @@ def main():
     # (999, 777) and (130, 1) have rows that are no multiple of 16 bytes:
     # there B4's grid source stages with plain loads (the `_ldg` counters)
     reset_launches(sb)
-    phase_small(dprast_torch, load_numpy_oracle(), dev, "[small]",
+    phase_small(dprast_torch, testing, dev, "[small]",
                 [(grid, 3, 1500, 4) for grid in SMALL_GRIDS])
-    phase_small(dprast_torch, load_numpy_oracle(), dev, "[small bf16]",
+    phase_small(dprast_torch, testing, dev, "[small bf16]",
                 [((999, 777), 3, 1500, 4)], backend="binned_bf16",
                 tol=BF16_TOL)
     small_launches = dict(sb.LAUNCHES)
@@ -1988,7 +2128,7 @@ def main():
 
     # --- 12. the 3-D path at 128^3, and small volumes vs the f64 oracles ---
     launches_3d, b1_3d_err, b4_3d_err = phase_3d(dprast_torch, sb, dev)
-    phase_small(dprast_torch, load_numpy_oracle(), dev, "[3d small]",
+    phase_small(dprast_torch, testing, dev, "[3d small]",
                 [(grid, seed, n, 2) for grid, seed, n in SMALL_VOLUMES])
 
     # --- 13. times ---
@@ -2009,13 +2149,17 @@ def main():
             lambda: sb.fwd_splat(*args), "fwd_splat_kernel")
         ms["b4_dev_us", grid] = kernel_device_us(
             lambda: sb.bwd_gather(*b4_args[grid]), "bwd_gather_kernel")
+        (ms["keys", grid], ms["keys_plain", grid], ms["keys_dev_us", grid],
+         _, _) = coords_in_turns(
+            sb, smi, f"{grid} x {N_POSES} poses x {N_POINTS} points", grid,
+            (pts, rot, tr))
         ms["frame", grid] = time_ms(lambda: sb._fwd_frame(
             grid, pts, rot, tr, canon[5], True))
         ms["fwd", grid] = time_ms(lambda: dprast_torch.raster(grid, pts, rot,
                                                               tr))
         ms["fwd_plain", grid] = time_ms(lambda: sb._fwd_impl(
-            grid, *canon, pw_uniform=True, splat=sb._fwd_splat_plain,
-            fold=sb._band_fold_plain))
+            grid, *canon, pw_uniform=True, coords=sb._keys_and_local_plain,
+            splat=sb._fwd_splat_plain, fold=sb._band_fold_plain))
         ms["fwd_xla", grid] = time_ms(lambda: dprast_torch.raster(
             grid, pts, rot, tr, backend="xla"))
 
@@ -2074,6 +2218,7 @@ def main():
         def step_twins():
             _, res = sb._fwd_impl(grid, *canon, pw_uniform=True,
                                   with_residuals=True,
+                                  coords=sb._keys_and_local_plain,
                                   splat=sb._fwd_splat_plain,
                                   fold=sb._band_fold_plain)
             coord, idx_rows, st = sb._residual_planes(res, True)
@@ -2090,6 +2235,8 @@ def main():
 
         ms["step", grid] = time_ms(step)
         ms["step_busy_us", grid], ms["step_kernels", grid] = device_busy(step)
+        ms["fwd_busy_us", grid], ms["fwd_kernels", grid] = device_busy(
+            lambda: sb.raster_fwd(grid, *canon, pw_uniform=True))
         ms["step_plain", grid] = time_ms(step_twins)
         ms["step_autograd", grid] = time_ms(step_autograd)
         ms["step_xla", grid] = time_ms(lambda: core.raster_pullback_res(
@@ -2124,11 +2271,14 @@ def main():
         warmup=1)
     for grid in GRIDS:
         print(f"[times] {smi} | {grid} x {N_POSES} poses x {N_POINTS} "
-              f"points, uniform weights, median ms: frame "
-              f"{ms['frame', grid]:.4f}, B1 {ms['b1', grid]:.4f} (twin "
+              f"points, uniform weights, median ms: keys (B6) "
+              f"{ms['keys', grid]:.4f} (twin {ms['keys_plain', grid]:.4f}), "
+              f"frame {ms['frame', grid]:.4f}, B1 {ms['b1', grid]:.4f} (twin "
               f"{ms['b1_plain', grid]:.4f}), forward {ms['fwd', grid]:.4f} "
               f"(with twins {ms['fwd_plain', grid]:.4f}, xla backend "
-              f"{ms['fwd_xla', grid]:.4f})")
+              f"{ms['fwd_xla', grid]:.4f}); the forward keeps the card busy "
+              f"{ms['fwd_busy_us', grid]:.1f} us in "
+              f"{ms['fwd_kernels', grid]:.0f} kernels and copies")
         b3 = (f", B3 {ms['b3', grid]:.4f} (twin {ms['b3_plain', grid]:.4f})"
               f", unsort {ms['unsort', grid]:.4f}" if grid == MULTI_TILE
               else "")
@@ -2174,7 +2324,7 @@ def main():
     exp = phase_exp(sb, dev, smi)
 
     # --- 17. the small grids: auto -> the matmul backend ---
-    phase_matmul(dprast_torch, sb, dev, smi, load_numpy_oracle(), pts, rot,
+    phase_matmul(dprast_torch, sb, dev, smi, testing, pts, rot,
                  tr, pw)
 
     # --- 18. the single-card examples ---
@@ -2212,7 +2362,25 @@ def main():
                               sb._window(grid))
         return f"thread-block cluster of {size}"
 
+    coords_cu = "dprast_torch/csrc/coords.cu"
     kernels = [
+        kernel("coords", coords_cu, f"{src}:189", train_launches["coords"],
+               coords_err[grid], ms["keys", grid], ms["keys_plain", grid],
+               coords_bound(pts, rot, tr), shape,
+               variant=f"{coords_ops(3, 2)} unfused operations per (pose, "
+                       f"point); bit-equal to its twin on the card and on "
+                       f"the CPU ([B6 coords])",
+               device_us=ms["keys_dev_us", grid])
+        for grid, shape in ((FLAGSHIP, flag), (
+            MULTI_TILE, "1024x1024, 64 poses, 1e5 points, uniform"))]
+    kernels += [
+        kernel("coords", coords_cu, f"{src}:189", launches_3d["coords"],
+               coords_err[VOLUME], ms_3d["keys", n_vol],
+               ms_3d["keys_plain", n_vol], ms_3d["keys_bound", n_vol], vol,
+               variant=f"{coords_ops(3, 3)} unfused operations per (pose, "
+                       f"point); bit-equal to its twin on the card and on "
+                       f"the CPU ([B6 coords])",
+               device_us=ms_3d["keys_dev_us", n_vol]),
         kernel("fwd_splat", fwd_cu, f"{src}:538", train_launches["fwd_splat"],
                b1_err, ms["b1", FLAGSHIP], ms["b1_plain", FLAGSHIP],
                b1_bound(*frames[FLAGSHIP, False][0]), flag,
@@ -2319,7 +2487,7 @@ def main():
     # process between a reset and a read of the counts, adds to `launches`;
     # the four workers' own counts stand beside it
     for entry in kernels:
-        if (entry["replaces"].startswith(src)
+        if (entry["replaces"].startswith(src) and entry["shape"] != vol
                 and sharded_launches.get(entry["name"])):
             entry["launches"] += sharded_launches[entry["name"]]
             entry["launches_sharded_workers"] = worker_launches[

@@ -8,13 +8,17 @@ the order before, after, after, before; each worker builds that
 checkout's kernels and times, at the flagship cloud (64 poses x 10^5
 points, uniform weights) on 128^2 and 1024^2:
 
+- the coordinate stage (`_keys_and_local`: kernel B6 where the checkout
+  has it, ~170 eager launches where not): its median milliseconds and
+  what it keeps the card busy with;
 - B1, B2, B3 and B4 (natural windows) alone: the median milliseconds of
   the wrapper by CUDA events and the kernel's own device microseconds from
   `torch.profiler` (B1 also at 128^3, one pose x 10^6 points);
 - B4 on the cotangent itself (the grid source), where the checkout has it;
-- the pullback from the forward's frame and the fused forward + pullback
-  step, and what the step keeps the card busy with (`torch.profiler`: the
-  microseconds in kernels and copies, and their number).
+- the pullback from the forward's frame, the forward and the fused
+  forward + pullback step, and what the step keeps the card busy with
+  (`torch.profiler`: the microseconds in kernels and copies, and their
+  number); the forward and the step also at 128^3, one pose x 10^6 points.
 
 It prints one line per quantity with the readings of the four runs and
 the means of each checkout.  Usage, from the root of the newer checkout,
@@ -62,6 +66,11 @@ for grid in cs.GRIDS:
     st, chunk = args[0], args[-1]
     lane_b = sb._planes_bwd(data[:, :2], ts).contiguous()
     g = torch.randn((cs.N_POSES,) + grid, device=dev)
+    out[f"keys {tag} ms"] = cs.time_ms(
+        lambda: sb._keys_and_local(grid, ts, pts, rot, tr))
+    (out[f"keys {tag} device-busy us"],
+     out[f"keys {tag} kernels and copies"]) = cs.device_busy(
+        lambda: sb._keys_and_local(grid, ts, pts, rot, tr))
     both(f"B1 {tag}", lambda: sb.fwd_splat(*args), "fwd_splat_kernel")
     win = g
     if not sb._single_tile(grid):
@@ -94,8 +103,27 @@ for grid in cs.GRIDS:
 # B1 in 3-D: 128^3, one pose x 10^6 points, uniform weights
 vol = [torch.from_numpy(a).to(dev) for a in cs.volume_inputs(1, 1_000_000)]
 args, _ = sb._fwd_frame(cs.VOLUME, *vol[:3], vol[5], True)
-both("B1 " + "x".join(map(str, cs.VOLUME)), lambda: sb.fwd_splat(*args),
-     "fwd_splat_kernel")
+tag = "x".join(map(str, cs.VOLUME))
+both(f"B1 {tag}", lambda: sb.fwd_splat(*args), "fwd_splat_kernel")
+canon = (*vol[:3], torch.zeros(1, device=dev), torch.ones(1, device=dev),
+         torch.ones(1_000_000, device=dev))
+g = torch.randn((1,) + cs.VOLUME, device=dev)
+ts = sb.tile_shape_for(cs.VOLUME)
+out[f"keys {tag} ms"] = cs.time_ms(
+    lambda: sb._keys_and_local(cs.VOLUME, ts, *vol[:3]))
+out[f"forward {tag} ms"] = cs.time_ms(
+    lambda: sb.raster_fwd(cs.VOLUME, *canon, pw_uniform=True))
+
+
+def step_3d():
+    return sb.raster_pullback_res(
+        cs.VOLUME, sb.raster_fwd_res(cs.VOLUME, *canon, pw_uniform=True)[1],
+        canon, g, pw_uniform=True)
+
+
+out[f"fused step {tag} ms"] = cs.time_ms(step_3d)
+(out[f"fused step {tag} device-busy us"],
+ out[f"fused step {tag} kernels and copies"]) = cs.device_busy(step_3d)
 print("RESULT " + json.dumps(out))
 '''
 

@@ -6,9 +6,11 @@ events (`dprast_torch.utils.profiling.time_fn`): the events time what was
 launched, so the JAX script's chained fit and its forcing of every sort
 chunk have no counterpart here.  The two kernel stages launch B1
 (`fwd_splat`) and B4 (`bwd_gather`) alone on the forward's frame, the
-counterparts of the JAX script's `fwd_kernel` and `bwd_kernel`.  The fold
-is what the backend runs: B2 on a multi-tile 2-D grid, the plain `_fold`
-in 3-D.  The unfold is B3 in 2-D and the plain `_unfold` in 3-D, and the
+counterparts of the JAX script's `fwd_kernel` and `bwd_kernel`.  "keys
+only" is the coordinate stage as the backend runs it (kernel B6,
+`csrc/coords.cu`) and "keys only (eager)" its plain twin, ~170
+elementwise launches.  The fold is what the backend runs: B2 on a
+multi-tile 2-D grid, the plain `_fold` in 3-D.  The unfold is B3 in 2-D and the plain `_unfold` in 3-D, and the
 "bwd kernel" stage reads the windows it wrote; on a multi-tile 2-D grid
 the backend itself skips the unfold and B4 cuts its windows out of the
 cotangent, which is the "bwd kernel grid" stage.  A single tile has no
@@ -24,6 +26,11 @@ Usage, from the root of the repository:
     python3 -m dprast_torch.benchmarks.profile_binned --grid 128,128,128 \\
         --points 1000000 --batch 1
 
+``--by-kernel`` lists instead what one fused step (`raster_fwd_res`, then
+`raster_pullback_res` on its frame, uniform weights) keeps the card busy
+with: `torch.profiler`'s device microseconds and launches per step by
+kernel name, the ``--top`` longest, under the step's median milliseconds.
+
 ``--device cpu`` runs the same stages through the kernels' plain twins;
 the default ``cuda`` raises where there is no card.
 """
@@ -31,16 +38,18 @@ the default ``cuda`` raises where there is no card.
 from __future__ import annotations
 
 import argparse
+import tempfile
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
 
 from dprast_torch.ops import splat_binned as sb
 from dprast_torch.utils import profiling
 
-STAGES = ("prep fwd", "prep bwd", "keys only", "fwd planes", "fwd kernel",
-          "fold", "unfold", "bwd planes", "bwd kernel", "bwd kernel grid",
-          "bwd unsort")
+STAGES = ("prep fwd", "prep bwd", "keys only", "keys only (eager)",
+          "fwd planes", "fwd kernel", "fold", "unfold", "bwd planes",
+          "bwd kernel", "bwd kernel grid", "bwd unsort")
 
 
 def cloud(grid, points, batch, device, seed=0):
@@ -103,6 +112,8 @@ def run(grid, points, batch, chunk=0, device="cuda", *, iters=15,
         "prep fwd": lambda: sb._fwd_prep(grid, pts, rot, tr, pw, False),
         "prep bwd": lambda: sb._bwd_frame(grid, pts, rot, tr),
         "keys only": lambda: sb._keys_and_local(grid, ts, pts, rot, tr),
+        "keys only (eager)": lambda: sb._keys_and_local_plain(grid, ts, pts,
+                                                              rot, tr),
         "fwd planes": lambda: sb._planes_fwd(coord, data[:, n_out])
         .contiguous(),
         "fwd kernel": lambda: sb.fwd_splat(*splat_args),
@@ -147,6 +158,53 @@ def report(res) -> list[str]:
     return lines
 
 
+def step_by_kernel(grid, points, batch, device="cuda", *, calls=5, iters=15,
+                   warmup=3, seed=0):
+    """Trace `calls` fused steps at `grid` -> dict: ``rows`` [(name, us per
+    step, launches per step)] by falling time, ``busy_us`` and
+    ``launches`` per step, ``step_ms`` (median).  On the CPU the rows are
+    the host's operators by their own time."""
+    device = torch.device(device)
+    grid = tuple(grid)
+    pts, rot, tr, _, g = cloud(grid, points, batch, device, seed)
+    canon = (pts, rot, tr, torch.zeros(batch, device=device),
+             torch.ones(batch, device=device),
+             torch.ones(points, device=device))
+
+    def step():
+        _, res = sb.raster_fwd_res(grid, *canon, pw_uniform=True)
+        return sb.raster_pullback_res(grid, res, canon, g, pw_uniform=True)
+
+    step()
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp, device) as prof:
+            for _ in range(calls):
+                step()
+    on_card = device.type == "cuda"
+    events = [e for e in prof.key_averages() if e.device_type == (
+        DeviceType.CUDA if on_card else DeviceType.CPU)]
+    rows = sorted(((e.key, (e.device_time_total if on_card
+                            else e.self_cpu_time_total) / calls,
+                    e.count / calls) for e in events),
+                  key=lambda row: -row[1])
+    step_ms, _ = profiling.time_fn(step, device, iters, warmup)
+    return {"grid": grid, "points": points, "batch": batch,
+            "device": str(device), "rows": rows,
+            "busy_us": sum(row[1] for row in rows),
+            "launches": sum(row[2] for row in rows), "step_ms": step_ms}
+
+
+def report_by_kernel(res, top=15) -> list[str]:
+    """A headline and one line per kernel, the `top` longest."""
+    lines = [f"grid={res['grid']} batch={res['batch']} "
+             f"points={res['points']} device={res['device']}: fused step "
+             f"{res['step_ms']:.4f} ms, busy {res['busy_us']:.1f} us in "
+             f"{res['launches']:.0f} launches per step"]
+    for name, us, count in res["rows"][:top]:
+        lines.append(f"{us:10.1f} us  x{count:6.1f}  {name[:100]}")
+    return lines
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--grid", default="1024,1024")
@@ -154,6 +212,9 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--chunk", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--by-kernel", action="store_true",
+                    help="list a fused step's device time by kernel name")
+    ap.add_argument("--top", type=int, default=15)
     args = ap.parse_args(argv)
     grid = tuple(int(x) for x in args.grid.split(","))
     if args.device == "cuda":
@@ -164,6 +225,10 @@ def main(argv=None):
     else:
         print("device cpu: the kernels' plain twins, timed on the host",
               flush=True)
+    if args.by_kernel:
+        res = step_by_kernel(grid, args.points, args.batch, args.device)
+        print("\n".join(report_by_kernel(res, args.top)), flush=True)
+        return
     res = run(grid, args.points, args.batch, args.chunk, args.device)
     print("\n".join(report(res)), flush=True)
 

@@ -28,7 +28,7 @@ from pathlib import Path
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dprast_torch"
 _SOURCES = ("fwd_splat.cu", "band_fold.cu", "band_unfold.cu",
-            "bwd_gather.cu")
+            "bwd_gather.cu", "coords.cu")
 # headers the sources include: not compiled on their own, but part of the
 # library's name, so that an edited header rebuilds it
 _HEADERS = ("slots.cuh",)
@@ -102,6 +102,7 @@ def load():
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        f32 = ctypes.c_float
         lib.dprast_fwd_splat.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32,
                                          i64, i32, i32, i32, i32, i32, i32,
                                          vp, vp]
@@ -116,6 +117,10 @@ def load():
                                           i32, i64, i32, i32, i32, i32, i32,
                                           i32, i32, i32, i32, i32, i32, vp]
         lib.dprast_bwd_gather.restype = i32
+        lib.dprast_coords.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32,
+                                      i32, i32, i32, i32, i32, i32, f32, f32,
+                                      f32, vp]
+        lib.dprast_coords.restype = i32
         lib.dprast_error_string.argtypes = [i32]
         lib.dprast_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -91,16 +91,23 @@ def resolve(backend: str, n_out: int, grid_size=None, n_points=None, *,
     On CUDA `auto` never picks `matmul`: a rule taken from the rows that
     `chip_smoke.py` [matmul] reads (NVIDIA H100 80GB HBM3, 700.00 W;
     uniform weights; median ms of the fused step, forward + pullback, in
-    turns matmul, xla, binned, binned, xla, matmul):
+    turns matmul, xla, binned, binned, xla, matmul, all of one call).
+    `binned`'s column is read with its coordinate stage as one kernel
+    (`csrc/coords.cu`); with the eager stage an earlier call read 7.6844,
+    2.5556, 2.7632, 7.7503, 4.0930 and 5.3064 there (beside `matmul`
+    90.4135 and `xla` 19.0378 in its first row):
 
         grid x poses x points     matmul       xla    binned
-        64^2 x 64 x 10^5         90.4135   19.0378    7.6844
-        64^2 x  4 x 10^5          9.2645    2.5285    2.5556
-        64^2 x  1 x 10^5          4.0756    2.2231    2.7632
-        32^2 x 64 x 10^5         54.8481   19.3827    7.7503
-        64^2 x 64 x 10^3          5.9918    3.2640    4.0930
-        32^3 x  4 x 10^5         47.3670    3.5682    5.3064
-        (4096,) x 4 x 10^4       10.5422    1.7132    (2-D, 3-D only)
+        64^2 x 64 x 10^5         90.1773   19.3486    2.3504
+        64^2 x  4 x 10^5         10.3951    3.7466    1.8429
+        64^2 x  1 x 10^5          4.4984    2.4525    1.3361
+        32^2 x 64 x 10^5         55.2163   19.6254    2.1583
+        64^2 x 64 x 10^3          4.9772    2.4126    1.4147
+        32^3 x  4 x 10^5         47.3453    4.2418    5.5479
+        (4096,) x 4 x 10^4       10.7568    1.8195    (2-D, 3-D only)
+
+    (Rows of few poses and small clouds are paced by the host and differ
+    by up to 2x between calls; their order within a call does not.)
 
     `matmul` is the fastest in none of them, so 2-D and 3-D grids take
     `binned` where `splat_binned.profitable` holds (the slot frame's

@@ -17,6 +17,16 @@ compensated (double-f32) pipeline relies on each ``+``, ``-`` and ``*``
 being rounded on its own: eager torch runs every operator as its own
 kernel, so nothing is contracted into an FMA.  Do not put these functions
 under ``torch.compile``.
+
+Who runs the eager form: the ``xla`` and ``matmul`` backends
+(`pose_voxel_and_deltas` in `core.py` and `splat_matmul.py`) on any
+device, and every call on CPU tensors.  The ``binned`` backends on CUDA
+tensors do not: their coordinate stage, `splat_binned._keys_and_local`, is
+one hand-written kernel (`csrc/coords.cu`) that performs the operations of
+`grid_coords_2f` and `reference_voxel_and_deltas_2f` below with rounded
+intrinsics in the same order and gives the same bits.  These functions
+stay the definition that kernel is held to, and ``xla`` stays an oracle
+that shares no device code with it.
 """
 
 from __future__ import annotations

@@ -3,9 +3,13 @@
 
 The forward, for a batch of B poses:
 
-1. **Coordinates.** `_keys_and_local` runs the compensated double-f32
-   transform and stores each point's tile-local coordinates as 31-bit
-   fixed point (`_FIX` fraction bits) plus a flat tile key.
+1. **Coordinates.** `_keys_and_local` (kernel B6) runs the compensated
+   double-f32 transform and stores each point's tile-local coordinates
+   as 31-bit fixed point (`_FIX` fraction bits) plus a flat tile key: one
+   launch of `csrc/coords.cu` on the card, whose every sum and product is
+   rounded on its own as in the eager twin `_keys_and_local_plain`
+   (`geometry.grid_coords_2f`, ~170 elementwise launches), to the same
+   bits.
 2. **Frame.** A single-tile 2-D grid (both axes <= 128) keeps the point
    order (`_prep_direct`).  A multi-tile grid sorts the points by tile
    into a padded *slot frame* (`_prep_binned`): slot ``s`` covers rows
@@ -51,7 +55,8 @@ split of the window, which only the harness's B4 variants run
 
 Each kernel wrapper runs its plain torch twin for a CPU tensor and the
 CUDA kernel (`dprast_torch/csrc/`) for a CUDA tensor; it raises for any
-other device and never falls back.
+other device and never falls back.  Nothing on the path calls a twin
+when its tensors are on the card.
 """
 
 from __future__ import annotations
@@ -102,7 +107,7 @@ _GRID_LOADS = "_ldg"
 # kernel launches per CUDA instance: a run reads these to show that its
 # path went through the kernels (CPU twin calls do not count)
 LAUNCHES = dict.fromkeys(
-    ["band_fold", "band_unfold", *_B1_INSTANCES.values(),
+    ["coords", "band_fold", "band_unfold", *_B1_INSTANCES.values(),
      *_B4_INSTANCES.values(),
      *(name + _GRID_LOADS for (_, _, layout), name in _B4_INSTANCES.items()
        if layout == "grid")], 0)
@@ -175,9 +180,12 @@ def _default_chunk(grid_size, n_points=None) -> int:
 _FIX = 23  # fixed-point fraction bits for encoded local coordinates
 
 
-def _keys_and_local(grid_size, ts, points, rotation, translation):
-    """Per (pose, point): flat tile key (sentinel nt if no grid overlap)
-    and one encoded-coordinate plane per axis, all (B, P).
+def _keys_and_local_plain(grid_size, ts, points, rotation, translation,
+                          want_key=True):
+    """Plain twin of B6.  Per (pose, point): flat tile key (sentinel nt if
+    no grid overlap) and one encoded-coordinate plane per axis, all (B, P)
+    -> ``(key, locs, nt)``; with ``want_key=False`` `key` is None, as the
+    kernel gives it.
 
     ``enc = (r0_local + 2) << 23 | round(dl * 2^23)``, bit-cast to f32 so
     the planes stack with the weights: uniform 2^-23 resolution at any
@@ -204,8 +212,53 @@ def _keys_and_local(grid_size, ts, points, rotation, translation):
             dl[..., i] * (1 << _FIX)).to(torch.int32)
         enc = torch.where(overlap, enc, 0)
         locs.append(enc.view(torch.float32))
-    key = torch.where(overlap, key, nt)
+    key = torch.where(overlap, key, nt) if want_key else None
     return key, locs, nt
+
+
+def _keys_and_local(grid_size, ts, points, rotation, translation,
+                    want_key=True):
+    """B6: the coordinate stage -> ``(key (B, P) int32, locs, nt)`` with
+    one encoded-coordinate plane (B, P) per axis in `locs` (see
+    `_keys_and_local_plain`).  CPU tensors take the plain twin, CUDA
+    tensors the kernel in `csrc/coords.cu`, which gives the twin's bits in
+    one launch; inputs of another type are cast to contiguous fp32 first,
+    as the twin casts them.  With ``want_key=False`` `key` is None (the
+    kernel leaves the keys unwritten): a single tile bins nothing."""
+    if points.device.type == "cpu":
+        return _keys_and_local_plain(grid_size, ts, points, rotation,
+                                     translation, want_key)
+    f32 = torch.float32
+    pts, rot, tr = (x.to(f32).contiguous()
+                    for x in (points, rotation, translation))
+    _check_cuda("coords", pts, f32, rot, f32, tr, f32)
+    n_out = len(grid_size)
+    bsz = rot.shape[0]
+    if n_out not in (2, 3) or len(ts) != n_out or pts.dim() != 2 or \
+            rot.shape != (bsz, n_out, pts.shape[1]) or \
+            tr.shape != (bsz, n_out):
+        raise ValueError(f"coords: points {tuple(pts.shape)}, rotation "
+                         f"{tuple(rot.shape)} and translation "
+                         f"{tuple(tr.shape)} do not form poses onto the "
+                         f"grid {tuple(grid_size)} with tiles {tuple(ts)}")
+    p, n_in = pts.shape
+    if not (1 <= bsz <= 65535 and 1 <= p < 2 ** 31 and n_in >= 1):
+        raise ValueError(f"coords: B={bsz}, P={p}, n_in={n_in} exceed the "
+                         f"kernel's launch bounds")
+    nt = n_tiles(grid_size, ts)
+    dev = pts.device
+    key = torch.empty((bsz, p), dtype=torch.int32, device=dev) \
+        if want_key else None
+    planes = torch.empty((n_out, bsz, p), dtype=f32, device=dev)
+    # g / 2, which the call rounds to fp32: the twin's halved fp32 grid
+    # size (halving commutes with the rounding)
+    scale = [g / 2 for g in grid_size]
+    pad = (0,) * (3 - n_out)
+    _launch("coords", dev, _build.load().dprast_coords, _ptr(pts), _ptr(rot),
+            _ptr(tr), None if key is None else _ptr(key), _ptr(planes), bsz,
+            p, n_in, n_out, *grid_size, *pad, *ts, *pad, *scale, *pad)
+    LAUNCHES["coords"] += 1
+    return key, list(planes.unbind(0)), nt
 
 
 def _decode_coord(col):
@@ -985,15 +1038,15 @@ def _window(grid_size):
 
 
 def _fwd_frame(grid_size, points, rotation, translation, point_weight,
-               pw_uniform):
+               pw_uniform, coords=_keys_and_local):
     """Coordinates -> frame -> lane planes.  Returns the arguments of
     `fwd_splat`, ``(slot_tile, lane, nt, win, chunk)``, and the frame's
     planes ``data`` (B, n_out + 1 | n_out + 2, s_pad): ``[coords...,
-    (w,) point id]``."""
+    (w,) point id]``.  `coords` is the coordinate stage."""
     n_out = len(grid_size)
     data, slot_tile, nt, chunk = _fwd_prep(grid_size, points, rotation,
                                            translation, point_weight,
-                                           pw_uniform)
+                                           pw_uniform, coords)
     w_plane = None if pw_uniform else data[:, n_out]
     lane = _planes_fwd(data[:, :n_out], w_plane).contiguous()
     win = _window(grid_size)
@@ -1001,17 +1054,18 @@ def _fwd_frame(grid_size, points, rotation, translation, point_weight,
 
 
 def _fwd_prep(grid_size, points, rotation, translation, point_weight,
-              pw_uniform):
+              pw_uniform, coords=_keys_and_local):
     """The forward's coordinates and sorted frame, before the planes ->
-    ``(data, slot_tile, nt, chunk)``."""
+    ``(data, slot_tile, nt, chunk)``.  `coords` is the coordinate stage
+    (B6 or its twin); a single tile asks it for no keys."""
     n_out = len(grid_size)
     ts = tile_shape_for(grid_size)
     halo = not _single_tile(grid_size)
     p = points.shape[0]
     bsz = rotation.shape[0]
     chunk = _default_chunk(grid_size, p)
-    key, locs, nt = _keys_and_local(grid_size, ts, points, rotation,
-                                    translation)
+    key, locs, nt = coords(grid_size, ts, points, rotation, translation,
+                           want_key=halo)
     planes = list(locs)
     fills = [0.0] * n_out                           # enc 0 = inert
     if not pw_uniform:
@@ -1063,16 +1117,16 @@ def raster_fwd_res(grid_size, points, rotation, translation, background,
 
 def _fwd_impl(grid_size, points, rotation, translation, background,
               out_weight, point_weight, *, pw_uniform=False,
-              with_residuals=False, terms=0, splat=fwd_splat,
-              fold=band_fold):
-    """`raster_fwd_res` with its two kernel stages as arguments, so a
+              with_residuals=False, terms=0, coords=_keys_and_local,
+              splat=fwd_splat, fold=band_fold):
+    """`raster_fwd_res` with its three kernel stages as arguments, so a
     measurement can run the same forward through the plain twins.  The
     `fold` stage serves multi-tile 2-D grids; a single tile and every
     3-D grid take the plain `_fold` and epilogue, as in the JAX package.
     Returns ``(out, residuals or None)``."""
     _check_args(grid_size, points.shape[0])
     splat_args, data = _fwd_frame(grid_size, points, rotation, translation,
-                                  point_weight, pw_uniform)
+                                  point_weight, pw_uniform, coords)
     ext = splat(*splat_args, terms=terms)
 
     f32 = torch.float32
@@ -1100,16 +1154,18 @@ def _fwd_impl(grid_size, points, rotation, translation, background,
 # ---------------------------------------------------------------------------
 
 
-def _bwd_frame(grid_size, points, rotation, translation):
+def _bwd_frame(grid_size, points, rotation, translation,
+               coords=_keys_and_local):
     """The standalone pullback's frame: ``(data (B, n_out + 1, s_pad)
     [coords..., point id], slot_tile, chunk)``.  Unlike the forward's, it
-    gives an empty tile no slot (``min_chunk_per_tile=False``)."""
+    gives an empty tile no slot (``min_chunk_per_tile=False``).  `coords`
+    is the coordinate stage (B6 or its twin)."""
     ts = tile_shape_for(grid_size)
     p = points.shape[0]
     bsz = rotation.shape[0]
     chunk = _default_chunk(grid_size, p)
-    key, locs, nt = _keys_and_local(grid_size, ts, points, rotation,
-                                    translation)
+    key, locs, nt = coords(grid_size, ts, points, rotation, translation,
+                           want_key=not _single_tile(grid_size))
     # the frame carries only the encoded coordinates (kernel input) and
     # the point id (for the unsort); weights, points and rotations enter
     # after the unsort, in point order

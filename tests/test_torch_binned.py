@@ -527,7 +527,7 @@ def test_wrappers_run_the_twin_only_on_cpu():
                         128, layout="grid")
     # every CUDA instance has a counter, and none counted here
     assert tbin.LAUNCHES == {
-        "fwd_splat": 0, "band_fold": 0, "band_unfold": 0, "bwd_gather": 0,
+        "coords": 0, "fwd_splat": 0, "band_fold": 0, "band_unfold": 0, "bwd_gather": 0,
         "fwd_splat_3d": 0, "bwd_gather_3d": 0, "fwd_splat_bf16": 0,
         "fwd_splat_3d_bf16": 0, "bwd_gather_bf16": 0,
         "bwd_gather_3d_bf16": 0, "bwd_gather_split": 0,

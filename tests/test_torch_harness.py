@@ -335,3 +335,18 @@ def test_library_name_follows_the_shared_header(tmp_path, monkeypatch):
     assert _build._library_path() != before
     assert all((csrc / name).exists()
                for name in _build._SOURCES + _build._HEADERS)
+
+
+def test_profiler_lists_a_step_by_kernel():
+    """`profile_binned --by-kernel` traces the fused step and sums it by
+    operator; on the CPU (the twins) the rows are the host's operators."""
+    from dprast_torch.benchmarks import profile_binned
+    res = profile_binned.step_by_kernel((256, 256), 400, 2, device="cpu",
+                                        calls=2, iters=1, warmup=0)
+    assert res["rows"] and res["busy_us"] > 0 and res["step_ms"] > 0
+    assert res["launches"] == sum(row[2] for row in res["rows"])
+    times = [row[1] for row in res["rows"]]
+    assert times == sorted(times, reverse=True)
+    lines = profile_binned.report_by_kernel(res, top=5)
+    assert len(lines) == 1 + min(5, len(res["rows"]))
+    assert "fused step" in lines[0]
