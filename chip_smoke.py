@@ -21,6 +21,15 @@ pose (the forward and the training step through `auto`, on the 3-D
 branches of B1 and B4), and a pose batch, 4 rotations x 10^5 points, the
 same way.
 
+The main path's B1 and B4 read the frame's encoded planes and decode each
+row themselves (their `_enc` instances), and kernels write the frame: B6
+on a single tile, the frame gather after the sort on several.  The
+[B7 frame] phase holds both writers to the plain `_prep_direct` /
+`_prep_binned` bit for bit, each `_enc` instance to the same kernel on
+lane planes and to its plain version (B4 bit for bit, B1 within its
+reordering of fp32 sums), times them, and fails if a fused step makes
+lane planes on the card.
+
 At small sizes the forward and `raster_pullback` are checked against the
 float64 numpy oracles, in 2-D and 3-D.  Then it times the kernels
 against their twins, and the forward and the training step against the
@@ -28,9 +37,9 @@ same work run through the twins; B4's grid source against the route it
 replaced (B3, then B4 on the windows B3 wrote) in turns; and, once each,
 the `F.fold` / `F.unfold` routes that compute what B2 / B3 compute.
 
-The [bf16] phase does the same for the `binned_bf16` fast mode: its B1
-and B4 instances (`terms=1`) against their twins, and the forward and
-the training step at 128^2, 1024^2 and 128^3 against the `xla` backend
+The [bf16] phase drives the `binned_bf16` fast mode (its B1 and B4
+instances, `terms=1`, are held in [B7 frame]): the forward and the
+training step at 128^2, 1024^2 and 128^3 against the `xla` backend
 within the fast mode's 2e-2 envelope, timed beside `binned`.  The
 [profile] phase runs the stage profiler (`dprast_torch.benchmarks.
 profile_binned`, B1 and B4 launched alone) at 1024^2 and 128^3, and the
@@ -71,6 +80,7 @@ check fails.
 
 from __future__ import annotations
 
+import functools
 import importlib.util
 import json
 import sys
@@ -163,14 +173,72 @@ def b4_bound(slot_tile, lane_b, win, chunk):
     and the window source (windows, a presplit pair, or the cotangent)
     read once, every output row written; 18 (2-D) or 45 (3-D) operations
     a row."""
+    n_out = 2 if lane_b.shape[1] == 4 else 3
+    return _b4_bound(slot_tile, lane_b.shape[1], n_out, lane_b.shape[2], win,
+                     chunk, 18 if n_out == 2 else 45)
+
+
+# operations a row spends decoding one encoded coordinate in the kernel
+# (two shifts, a subtract, a compare, two selects, a conversion and a
+# multiply)
+DECODE_OPS = 8
+
+
+def b1_enc_bound(slot_tile, data, nt, win, chunk):
+    """B1 on the frame (`fwd_splat_enc`): as `b1_bound`, with the live
+    rows' encoded planes and weight (every plane but the id) read in place
+    of lane planes, and the decode of each axis counted."""
+    n_out = len(win)
     rows = live_rows(slot_tile, chunk)
-    bsz, n_lane, s_pad = lane_b.shape
-    n_out = 2 if n_lane == 4 else 3
+    n_bytes = (rows * (data.shape[1] - 1) + slot_tile.numel()
+               + data.shape[0] * nt * int(np.prod(win))) * 4
+    return bound(n_bytes, rows * ((14 if n_out == 2 else 34)
+                                  + DECODE_OPS * n_out))
+
+
+def b4_enc_bound(slot_tile, coord, win, chunk):
+    """B4 on the frame (`bwd_gather_enc`): as `b4_bound`, with the live
+    rows' n_out encoded planes read in place of lane planes, and the
+    decode of each axis (and in 3-D the four flat rows, 3 operations each)
+    counted."""
+    n_out = coord.shape[1]
+    ops = (18 + 2 * DECODE_OPS if n_out == 2
+           else 45 + 3 * DECODE_OPS + 4 * 3)
+    return _b4_bound(slot_tile, n_out, n_out, coord.shape[2], win, chunk,
+                     ops)
+
+
+def _b4_bound(slot_tile, n_read, n_out, s_pad, win, chunk, ops_per_row):
+    rows = live_rows(slot_tile, chunk)
+    bsz = slot_tile.shape[0]
     wins = win if isinstance(win, tuple) else (win,)
-    n_bytes = ((rows * n_lane + bsz * (n_out + 1) * s_pad
+    n_bytes = ((rows * n_read + bsz * (n_out + 1) * s_pad
                 + slot_tile.numel()) * 4
                + sum(w.numel() * w.element_size() for w in wins))
-    return bound(n_bytes, rows * (18 if n_out == 2 else 45))
+    return bound(n_bytes, rows * ops_per_row)
+
+
+def frame_gather_bound(data, n_out, n_points):
+    """The frame gather writing `data` (B, n_planes, s_pad): the sort's
+    int64 index of every frame row, each point's n_out encoded values and
+    (where the frame has a weight plane) its weight read once, the frame
+    written once; no arithmetic."""
+    bsz, n_planes, s_pad = data.shape
+    weighted = n_planes == n_out + 2
+    n_bytes = (bsz * s_pad * 8 + (n_out * bsz + weighted) * n_points * 4
+               + data.numel() * 4)
+    return bound(n_bytes, 0)
+
+
+def direct_frame_bound(pts, rot, tr, data, slot_tile):
+    """B6 writing a single tile's frame (`direct_frame`): the cloud and the
+    poses read once, the padded frame and its slot table written once;
+    B6's operations per (pose, point), as in `coords_bound`."""
+    pairs = rot.shape[0] * pts.shape[0]
+    n_out, n_in = rot.shape[1:]
+    n_bytes = (pts.numel() + rot.numel() + tr.numel() + data.numel()
+               + slot_tile.numel()) * 4
+    return bound(n_bytes, 2 * pairs * coords_ops(n_in, n_out))
 
 
 def coords_ops(n_in, n_out):
@@ -267,9 +335,11 @@ def sass_atomics(so, nvcc, kernel="fwd_splat_kernel"):
     for line in sass.splitlines():
         fn = re.search(r"Function : (\S+)", line)
         if fn:
-            inst = re.search(kernel + r"ILi(\d+)ELi(\d+)E", fn.group(1))
-            name = f"{kernel}<{inst.group(1)}, {inst.group(2)}>" if inst \
-                else None
+            inst = re.search(kernel + r"ILi(\d+)ELi(\d+)E(?:Lb(\d)E)?",
+                             fn.group(1))
+            name = (f"{kernel}<{inst.group(1)}, {inst.group(2)}"
+                    f"{', enc' if inst.group(3) == '1' else ''}>"
+                    if inst else None)
             continue
         op = re.search(r"\s((?:ATOMS|ATOM|RED)[.\w]*)\s", line)
         if name and op:
@@ -312,9 +382,9 @@ def train_grads(dprast_torch, grid, inputs, g, backend="auto"):
 def phase_train(dprast_torch, sb, pts, rot, tr, pw, cots, totals):
     """[train]: autograd through `auto` vs the oracle backend on the card,
     each run between a reset and a read of the launch counts."""
-    want = {FLAGSHIP: ("coords", "fwd_splat", "bwd_gather"),
-            MULTI_TILE: ("coords", "fwd_splat", "band_fold",
-                         "bwd_gather_grid")}
+    want = {FLAGSHIP: ("coords", "fwd_splat_enc", "bwd_gather_enc"),
+            MULTI_TILE: ("coords", "frame_gather", "fwd_splat_enc",
+                         "band_fold", "bwd_gather_grid_enc")}
     for grid in GRIDS:
         for weighted in (False, True):
             inputs = train_inputs(pts, rot, tr, pw, weighted)
@@ -325,8 +395,9 @@ def phase_train(dprast_torch, sb, pts, rot, tr, pw, cots, totals):
             for name in launched:
                 totals[name] += launched[name]
             for name, count in launched.items():
-                # one launch of each kernel of the path and no other: at
-                # 1024^2 B4 reads the cotangent and B3 does not run
+                # one launch of each kernel of the path and no other: B1
+                # and B4 read the frame; at 1024^2 the frame gather writes
+                # it, B4 reads the cotangent and B3 does not run
                 check(count == (name in want[grid]),
                       f"{name} ran {count} times in the training step at "
                       f"{grid}")
@@ -573,10 +644,9 @@ def phase_b1(sb, dev, pts, rot, tr, pw):
     shapes through the cluster size the wrapper picks; then at every
     cluster size there, at `ODD_GRIDS`, at the single tile with a point
     count that is no multiple of the chunk, and on a frame with an empty
-    tile and dead slots.  -> ({(grid, weighted): (args, ext, data)}, worst
-    scaled error)."""
+    tile and dead slots.  -> {(grid, weighted): (args, ext, data)}; the
+    main path's instance on the frame is held to this one in [B7 frame]."""
     frames = {}
-    b1_err = 0.0
     for grid in GRIDS:
         for weighted in (False, True):
             args, data = sb._fwd_frame(grid, pts, rot, tr, pw, not weighted)
@@ -584,16 +654,14 @@ def phase_b1(sb, dev, pts, rot, tr, pw):
             ext_p = sb._fwd_splat_plain(*args)
             torch.cuda.synchronize()
             err = scaled_err(ext_k, ext_p)
-            b1_err = max(b1_err, err)
             print(f"[B1 fwd_splat] {grid} {'weighted' if weighted else 'uniform'}"
                   f": ext {tuple(ext_k.shape)}, cluster "
                   f"{sb._b1_cluster(dev, N_POSES, args[2], args[3])}, scaled "
                   f"max-abs err vs twin {err:.3e} (tol 1e-5)")
             check(err <= 1e-5, f"B1 vs twin at {grid}")
             frames[grid, weighted] = (args, ext_k, data)
-        b1_err = max(b1_err, b1_clusters(
-            sb, f"{grid} x {N_POSES} x {N_POINTS} uniform",
-            frames[grid, False][0]))
+        b1_clusters(sb, f"{grid} x {N_POSES} x {N_POINTS} uniform",
+                    frames[grid, False][0])
     cases = [(grid, n_poses, n_points, "weighted")
              for grid, n_poses, n_points in ODD_GRIDS]
     cases.append((FLAGSHIP, 3, 4321, "weighted"))
@@ -602,14 +670,12 @@ def phase_b1(sb, dev, pts, rot, tr, pw):
         p_, r_, t_, w_ = (torch.from_numpy(a).to(dev) for a in
                           flagship_inputs(3, n_points, n_poses))
         args, _ = sb._fwd_frame(grid, p_, r_, t_, w_, label == "uniform")
-        b1_err = max(b1_err, b1_clusters(
-            sb, f"{grid} x {n_poses} x {n_points} {label}", args))
+        b1_clusters(sb, f"{grid} x {n_poses} x {n_points} {label}", args)
     p_, r_, t_ = (torch.from_numpy(a).to(dev) for a in
                   flagship_inputs(3, 3000, 3)[:3])
-    b1_err = max(b1_err, b1_clusters(
-        sb, "(1023, 1021) x 3 x 3000, empty tiles and dead slots",
-        sparse_frame(sb, (1023, 1021), p_ * 0.3, r_, t_)))
-    return frames, b1_err
+    b1_clusters(sb, "(1023, 1021) x 3 x 3000, empty tiles and dead slots",
+                sparse_frame(sb, (1023, 1021), p_ * 0.3, r_, t_))
+    return frames
 
 
 def phase_b2(sb, dev, ext_mt, ow, bg):
@@ -641,9 +707,9 @@ def phase_b4_grid(sb, dev, b4_cases):
     """[B4 grid]: B4's grid source (the cotangent itself) at terms 0 and 1,
     bit-equal to its twin and to B3 followed by the natural instance, on
     the frames `b4_cases` of the main path ((grid, label, st, lane_b, g,
-    chunk)) and on standalone frames at `ODD_GRIDS` -> ({counter: worst
-    scaled error}, {counter: its (st, lane_b, g, chunk, terms) at the
-    1024^2 grid, or at the first grid that took that counter's staging})."""
+    chunk)) and on standalone frames at `ODD_GRIDS`.  The main path's grid
+    source reads the frame (`bwd_gather_grid_enc`): [B7 frame] holds it to
+    this lane instance."""
     cases = list(b4_cases)
     for grid, n_poses, n_points in ODD_GRIDS:
         pts, rot, tr = (torch.from_numpy(a).to(dev) for a in flagship_inputs(
@@ -654,7 +720,6 @@ def phase_b4_grid(sb, dev, b4_cases):
         g = torch.from_numpy(np.random.default_rng(2).standard_normal(
             (n_poses,) + grid).astype(np.float32)).to(dev)
         cases.append((grid, "standalone frame", st, lane_b, g, chunk))
-    errs, timed = {}, {}
     for grid, label, st, lane_b, g, chunk in cases:
         ts = sb.tile_shape_for(grid)
         win = g if sb._single_tile(grid) else sb.band_unfold(g, grid, ts)
@@ -668,10 +733,6 @@ def phase_b4_grid(sb, dev, b4_cases):
                                          layout="grid")
             buf_n = sb.bwd_gather(st, lane_b, win, chunk, terms=terms)
             torch.cuda.synchronize()
-            err = scaled_err(buf_k, buf_p)
-            errs[counter] = max(errs.get(counter, 0.0), err)
-            if counter not in timed or grid == MULTI_TILE:
-                timed[counter] = (st, lane_b, g, chunk, terms)
             same = torch.equal(buf_k, buf_p)
             same_n = torch.equal(buf_k, buf_n)
             print(f"[B4 grid] {grid} x {g.shape[0]} {label} terms={terms} "
@@ -681,7 +742,284 @@ def phase_b4_grid(sb, dev, b4_cases):
                         f"(terms={terms}, {label})")
             check(same_n, f"B4 grid bit-equal to B3 + natural B4 at {grid} "
                           f"(terms={terms}, {label})")
-    return errs, timed
+
+
+# [B7 frame]: (grid, poses, points) at which the frame writers and the
+# `_enc` instances of B1 and B4 are held to the plain writers, to the lane
+# instances and to the plain versions: the main path's three shapes, and a
+# grid whose rows are no multiple of 16 bytes, where B4's grid source
+# stages with plain loads (the `_ldg` counters)
+B7_CASES = ((FLAGSHIP, N_POSES, N_POINTS), (MULTI_TILE, N_POSES, N_POINTS),
+            ((1023, 1021), 3, 20_000), (VOLUME, 1, 1_000_000))
+# B1's shared atomics add a window's floats in no fixed order: an `_enc`
+# instance against the lane instance and against its plain version
+# (scaled max-abs)
+B1_REORDER_TOL = 7.3e-7
+
+
+def b7_inputs(grid, n_poses, n_points, dev):
+    """[B7 frame]'s cloud on the card: the main path's own at its shapes
+    (`flagship_inputs`, `volume_inputs`), seed 3 elsewhere -> (points,
+    rotation, translation, point_weight, cotangent)."""
+    if len(grid) == 3:
+        host = volume_inputs(n_poses, n_points)
+        host = host[:3] + host[5:]
+    else:
+        host = flagship_inputs(0 if grid in GRIDS else 3, n_points, n_poses)
+    g = np.random.default_rng(2).standard_normal((n_poses,) + grid)
+    return [torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+            for a in (*host, g)]
+
+
+def b7_writers(sb, tag, grid, pts, rot, tr, pw):
+    """The frame writers of the card (B6 on a single tile, the frame
+    gather after the sort on several) against the plain `_prep_direct` /
+    `_prep_binned` on B6's own planes, bit for bit (int32 views): the
+    forward's frame, uniform and weighted, and the standalone pullback's.
+    Each frame costs B6 one launch, and the frame gather one on several
+    tiles.  -> the largest difference of the int32 views of frame and slot
+    table, kernels against plain."""
+    def b6_planes(*args, **kw):
+        # B6, but not as the package's own stage: `_frame` then writes the
+        # frame the plain way
+        return sb._keys_and_local(*args, **kw)
+
+    halo = not sb._single_tile(grid)
+    want = {"coords": 1, "frame_gather": 1} if halo else {"coords": 1}
+    plain_name = "_prep_binned" if halo else "_prep_direct"
+    apart = 0
+    for label, build in (
+            ("forward, uniform",
+             lambda c: sb._fwd_prep(grid, pts, rot, tr, pw, True, c)),
+            ("forward, weighted",
+             lambda c: sb._fwd_prep(grid, pts, rot, tr, pw, False, c)),
+            ("standalone pullback",
+             lambda c: sb._bwd_frame(grid, pts, rot, tr, c))):
+        before = dict(sb.LAUNCHES)
+        kern = build(sb._keys_and_local)
+        torch.cuda.synchronize()
+        launched = ran({k: sb.LAUNCHES[k] - before[k] for k in before})
+        plain = build(b6_planes)
+        same = (kern[0].shape == plain[0].shape and torch.equal(
+            kern[0].view(torch.int32), plain[0].view(torch.int32))
+            and torch.equal(kern[1], plain[1]) and kern[2:] == plain[2:])
+        if same:
+            apart = max(apart, bits_apart(kern[0], plain[0]),
+                        bits_apart(kern[1], plain[1]))
+        print(f"[B7 frame] {tag} {label}: frame {tuple(kern[0].shape)} and "
+              f"slot table {tuple(kern[1].shape)} written by {launched}, "
+              f"bit-equal to {plain_name} on B6's planes {same}")
+        check(launched == want, f"{tag} {label}: the frame cost {want}")
+        check(same, f"{tag} {label}: the frame is {plain_name}'s bit for "
+                    f"bit")
+    return apart
+
+
+def b7_writer_times(sb, smi, tag, grid, pts, rot, tr):
+    """The writer of the uniform forward's frame at `grid`, timed against
+    its plain version on the same inputs: B6 writing a single tile's frame
+    (`direct_frame`), or the frame gather after the sort on several tiles
+    -> (counter, {ms, dev_us, plain_ms, bound})."""
+    ts = sb.tile_shape_for(grid)
+    chunk = sb._default_chunk(grid, pts.shape[0])
+    if sb._single_tile(grid):
+        args = (grid, ts, pts, rot, tr, None, chunk)
+        counter, name = "coords", "coords_kernel"
+        run = functools.partial(sb.direct_frame, *args)
+        plain = functools.partial(sb._direct_frame_plain, *args)
+        bnd = direct_frame_bound(pts, rot, tr, *run())
+    else:
+        key, locs, nt = sb._keys_and_local(grid, ts, pts, rot, tr)
+        perm = sb._slot_order(key, nt, chunk, True, True)[0]
+        counter, name = "frame_gather", "frame_gather_kernel"
+        run = functools.partial(sb.frame_gather, perm, locs, None)
+        plain = functools.partial(sb._frame_gather_plain, perm, locs, None)
+        bnd = frame_gather_bound(run(), len(grid), pts.shape[0])
+    entry = {"ms": time_ms(run), "dev_us": kernel_device_us(run, name,
+                                                            calls=5),
+             "plain_ms": time_ms(plain, reps=5, warmup=1), "bound": bnd}
+    what = "B6 writing the frame" if counter == "coords" else counter
+    print(f"[B7 frame] {smi} | {tag} {what}: {entry['ms']:.4f} ms (plain "
+          f"{entry['plain_ms']:.4f}), device {entry['dev_us']:.2f} us, "
+          f"{bnd[0] * 1e3 / max(entry['dev_us'], 1e-9):.1%} of its "
+          f"{bnd[0] * 1e3:.1f} us bound (by {bnd[1]})")
+    return counter, entry
+
+
+def b7_calls(sb, frame, win, ts, g_in, layout, terms, weighted):
+    """B1 and B4 on the forward's frame ``frame = (data, slot_tile, nt,
+    chunk)`` at `terms` -> {stage: (`_enc` call, lane call, plain call,
+    `_enc` bound)}; the lane calls read the frame's lane planes
+    (`_planes_fwd`, `_planes_bwd`), made here once."""
+    data, st, nt, chunk = frame
+    n_out = len(win)
+    coord = data[:, :n_out]
+    lane = sb._planes_fwd(coord, data[:, n_out] if weighted
+                          else None).contiguous()
+    lane_b = sb._planes_bwd(coord, ts).contiguous()
+    b1 = (st, data, nt, win, chunk)
+    b4 = (st, coord, ts, g_in, chunk)
+    return {
+        "b1": (lambda: sb.fwd_splat_enc(*b1, terms=terms),
+               lambda: sb.fwd_splat(st, lane, nt, win, chunk, terms=terms),
+               lambda: sb._fwd_splat_enc_plain(*b1, terms=terms),
+               b1_enc_bound(*b1)),
+        "b4": (lambda: sb.bwd_gather_enc(*b4, terms=terms, layout=layout),
+               lambda: sb.bwd_gather(st, lane_b, g_in, chunk, terms=terms,
+                                     layout=layout),
+               lambda: sb._bwd_gather_enc_plain(*b4, terms=terms,
+                                                layout=layout),
+               b4_enc_bound(st, coord, g_in, chunk))}
+
+
+def b7_kernels(sb, tag, grid, pts, rot, tr, pw, g):
+    """The `_enc` instances of B1 and B4 on the forward's frame, uniform
+    and weighted, terms 0 and 1, each against the same kernel on the
+    frame's lane planes and against its plain version (`b7_calls`): B1
+    within `B1_REORDER_TOL`, B4 bit-equal to both.  B4 reads what the main
+    path hands it: the cotangent on a single tile, the cotangent as its
+    grid source on several 2-D tiles, the unfolded windows in 3-D.  ->
+    ({counter: worst error}, {(stage, terms): (counter, enc call, plain
+    call, enc bound)} on the uniform frame)."""
+    ts = sb.tile_shape_for(grid)
+    win = sb._window(grid)
+    if len(grid) == 3:
+        layout, g_in = "natural", sb._unfold(g, grid, ts)
+    elif sb._single_tile(grid):
+        layout, g_in = "natural", g
+    else:
+        layout, g_in = "grid", g
+    errs, calls = {}, {}
+    for weighted in (False, True):
+        frame = sb._fwd_prep(grid, pts, rot, tr, pw, not weighted)
+        for terms in (0, 1):
+            line = []
+            for stage, (enc, lane, plain, bnd) in b7_calls(
+                    sb, frame, win, ts, g_in, layout, terms,
+                    weighted).items():
+                before = dict(sb.LAUNCHES)
+                out_e = enc()
+                (counter,) = (k for k in before if sb.LAUNCHES[k] != before[k])
+                out_l, out_p = lane(), plain()
+                torch.cuda.synchronize()
+                e_l, e_p = scaled_err(out_e, out_l), scaled_err(out_e, out_p)
+                errs[counter] = max(errs.get(counter, 0.0), e_l, e_p)
+                if stage == "b1":
+                    line.append(f"{counter} vs lanes {e_l:.3e}, vs plain "
+                                f"{e_p:.3e} (tol {B1_REORDER_TOL:g})")
+                    check(max(e_l, e_p) <= B1_REORDER_TOL,
+                          f"{tag} {counter} within B1's reordering of the "
+                          f"lane instance and the plain version")
+                else:
+                    same_l = torch.equal(out_e, out_l)
+                    same_p = torch.equal(out_e, out_p)
+                    line.append(f"{counter} bit-equal to lanes {same_l}, to "
+                                f"plain {same_p}")
+                    check(same_l and same_p, f"{tag} {counter} bit-equal to "
+                                             f"the lane instance and the "
+                                             f"plain version")
+                if not weighted:
+                    calls[stage, terms] = (counter, enc, plain, bnd)
+            label = "weighted" if weighted else "uniform"
+            print(f"[B7 frame] {tag} {label} terms={terms}: "
+                  + "; ".join(line))
+    return errs, calls
+
+
+def b7_times(smi, tag, calls):
+    """The `_enc` instances of `calls` (`b7_kernels`) timed: median ms by
+    CUDA events, the kernel's device us (`torch.profiler`) and their plain
+    version's ms -> {counter: {ms, dev_us, plain_ms, bound}}.  The lane
+    instances they replace are timed against them in turns by
+    `dprast_torch.benchmarks.compare_checkouts` (the parent's path)."""
+    kernel = {"b1": "fwd_splat_kernel", "b4": "bwd_gather_kernel"}
+    out = {}
+    for (stage, _), (counter, enc, plain, bnd) in calls.items():
+        entry = {"ms": time_ms(enc),
+                 "dev_us": kernel_device_us(enc, kernel[stage], calls=5),
+                 "plain_ms": time_ms(plain, reps=3, warmup=1), "bound": bnd}
+        out[counter] = entry
+        print(f"[B7 frame] {smi} | {tag} {counter}: {entry['ms']:.4f} ms "
+              f"(plain {entry['plain_ms']:.4f}), device "
+              f"{entry['dev_us']:.2f} us, "
+              f"{bnd[0] * 1e3 / max(entry['dev_us'], 1e-9):.1%} of its "
+              f"{bnd[0] * 1e3:.1f} us bound (by {bnd[1]})")
+    return out
+
+
+def b7_no_planes(dprast_torch, sb, dev):
+    """A fused step (`raster` and `torch.autograd.grad` of all six inputs)
+    through `binned` and `binned_bf16` at the main path's three shapes,
+    uniform and weighted, with spies on `_planes_fwd`, `_planes_bwd` and
+    `_decode_coord`: none of them may see a CUDA tensor."""
+    names = ("_planes_fwd", "_planes_bwd", "_decode_coord")
+    real = {name: getattr(sb, name) for name in names}
+    seen = []
+
+    def spy(name):
+        def wrapped(*args, **kw):
+            seen.append((name, [str(a.device) for a in args
+                                if isinstance(a, torch.Tensor)]))
+            return real[name](*args, **kw)
+        return wrapped
+
+    for grid, n_poses, n_points in (B7_CASES[0], B7_CASES[1], B7_CASES[3]):
+        pts, rot, tr, pw, g = b7_inputs(grid, n_poses, n_points, dev)
+        for backend in ("binned", "binned_bf16"):
+            for weighted in (False, True):
+                leaves = [t.clone().requires_grad_() for t in (
+                    pts, rot, tr, torch.zeros(n_poses, device=dev),
+                    torch.ones(n_poses, device=dev),
+                    pw if weighted else torch.tensor(1.5, device=dev))]
+                del seen[:]
+                for name in names:
+                    setattr(sb, name, spy(name))
+                reset_launches(sb)
+                try:
+                    out = dprast_torch.raster(grid, *leaves, backend=backend)
+                    grads = torch.autograd.grad((out * g).sum(), leaves)
+                    torch.cuda.synchronize()
+                finally:
+                    for name in names:
+                        setattr(sb, name, real[name])
+                launched = ran(sb.LAUNCHES)
+                on_card = [name for name, devs in seen
+                           if any(d.startswith("cuda") for d in devs)]
+                check(not on_card and all(torch.isfinite(x).all()
+                                          for x in (out, *grads)),
+                      f"[B7 frame] {grid} {backend}: no lane planes or "
+                      f"decode on the card ({on_card})")
+                print(f"[B7 frame] {grid} {backend} "
+                      f"{'weighted' if weighted else 'uniform'} fused step: "
+                      f"launches {launched}; calls of {', '.join(names)}: "
+                      f"{len(seen)}, on a CUDA tensor: {len(on_card)}")
+
+
+def phase_b7(dprast_torch, sb, dev, smi):
+    """[B7 frame]: the frame writers (`b7_writers`, timed at the main
+    shapes by `b7_writer_times`) and the `_enc` instances of B1 and B4
+    (`b7_kernels`, timed by `b7_times`) at `B7_CASES`, and fused steps at
+    the main shapes with no lane planes made on the card
+    (`b7_no_planes`).  -> {"errs": {counter: worst error; "frame": the
+    writers' largest difference of int32 views}, "times": {(grid,
+    counter): the timing dict}}."""
+    errs, times = {"frame": 0}, {}
+    for grid, n_poses, n_points in B7_CASES:
+        tag = f"{grid} x {n_poses} x {n_points}"
+        pts, rot, tr, pw, g = b7_inputs(grid, n_poses, n_points, dev)
+        errs["frame"] = max(errs["frame"],
+                            b7_writers(sb, tag, grid, pts, rot, tr, pw))
+        if grid in GRIDS or grid == VOLUME:
+            counter, entry = b7_writer_times(sb, smi, tag, grid, pts, rot,
+                                             tr)
+            times[grid, counter] = entry
+        got, calls = b7_kernels(sb, tag, grid, pts, rot, tr, pw, g)
+        for name, err in got.items():
+            errs[name] = max(errs.get(name, 0.0), err)
+        times.update({(grid, name): v
+                      for name, v in b7_times(smi, tag, calls).items()})
+    b7_no_planes(dprast_torch, sb, dev)
+    return {"errs": errs, "times": times}
 
 
 def phase_fit(dprast_torch, pts, rot, tr, steps=5):
@@ -744,12 +1082,12 @@ def phase_3d(dprast_torch, sb, dev):
     slots) and B4 against
     their twins, `raster` and the training step through `auto` against
     the `xla` backend on the card, each path run between a reset and a
-    read of the launch counts.  Returns (launch counts of the 10^6-point
-    training steps, B1 error, B4 error)."""
+    read of the launch counts.  The main path's instances on the frame are
+    held to these lane instances in [B7 frame].  Returns the launch counts
+    of the 10^6-point training steps."""
     grid = VOLUME
     ts = sb.tile_shape_for(grid)
     train_launches = {name: 0 for name in sb.LAUNCHES}
-    b1_err = b4_err = 0.0
     for label, (n_poses, n_points) in VOLUME_CASES.items():
         host = volume_inputs(n_poses, n_points)
         args = [torch.from_numpy(a).to(dev) for a in host]
@@ -771,15 +1109,13 @@ def phase_3d(dprast_torch, sb, dev):
             ext_p = sb._fwd_splat_plain(*splat_args)
             torch.cuda.synchronize()
             err = scaled_err(ext_k, ext_p)
-            b1_err = max(b1_err, err)
             print(f"{tag} B1 fwd_splat_3d "
                   f"{'weighted' if weighted else 'uniform'}: ext "
                   f"{tuple(ext_k.shape)}, frame {tuple(data.shape)}, scaled "
                   f"max-abs err vs twin {err:.3e} (tol 1e-5)")
             check(err <= 1e-5, f"{tag}: B1-3D vs twin")
             if not weighted:
-                b1_err = max(b1_err, b1_clusters(sb, f"{grid} {label} uniform",
-                                                 splat_args))
+                b1_clusters(sb, f"{grid} {label} uniform", splat_args)
                 # the load of the busiest (pose, tile), and of B1's busiest
                 # block once the tile's cluster has shared its slots out
                 slots = slots_per_tile(splat_args[0], nt)
@@ -794,9 +1130,8 @@ def phase_3d(dprast_torch, sb, dev):
                 b4_frames.append(("forward frame", data[:, :3],
                                   splat_args[0], splat_args[-1]))
         if n_poses > 1:
-            b1_err = max(b1_err, b1_clusters(
-                sb, f"{grid} {label}, empty tiles and dead slots",
-                sparse_frame(sb, grid, pts * 0.3, rot, tr)))
+            b1_clusters(sb, f"{grid} {label}, empty tiles and dead slots",
+                        sparse_frame(sb, grid, pts * 0.3, rot, tr))
         data_s, st_s, chunk_s = sb._bwd_frame(grid, pts, rot, tr)
         b4_frames.append(("standalone frame", data_s[:, :3], st_s, chunk_s))
         for frame, coord, st, chunk in b4_frames:
@@ -805,7 +1140,6 @@ def phase_3d(dprast_torch, sb, dev):
             buf_p = sb._bwd_gather_plain(st, lane_b, win, chunk)
             torch.cuda.synchronize()
             err = scaled_err(buf_k, buf_p)
-            b4_err = max(b4_err, err)
             print(f"{tag} B4 bwd_gather_3d {frame}: rows "
                   f"{tuple(buf_k.shape)}, scaled max-abs err vs twin "
                   f"{err:.3e} (tol 1e-6), bit-equal "
@@ -819,8 +1153,10 @@ def phase_3d(dprast_torch, sb, dev):
             img = dprast_torch.raster(grid, pts, rot, tr, bg, ow, w)
             torch.cuda.synchronize()
             launched = dict(sb.LAUNCHES)
-            check(launched["fwd_splat_3d"] >= 1 and launched["coords"] == 1,
-                  f"{tag}: B6 and B1-3D ran in the forward")
+            check(launched["fwd_splat_3d_enc"] >= 1
+                  and launched["coords"] == launched["frame_gather"] == 1,
+                  f"{tag}: B6, the frame gather and B1-3D ran in the "
+                  f"forward")
             check(img.shape == (n_poses,) + grid and
                   bool(torch.isfinite(img).all()), f"{tag}: finite image")
             ref = dprast_torch.raster(grid, pts, rot, tr, bg, ow, w,
@@ -840,12 +1176,13 @@ def phase_3d(dprast_torch, sb, dev):
             grads = train_grads(dprast_torch, grid, leaves, g)
             torch.cuda.synchronize()
             launched = dict(sb.LAUNCHES)
-            for name in ("fwd_splat_3d", "bwd_gather_3d"):
+            for name in ("fwd_splat_3d_enc", "bwd_gather_3d_enc"):
                 check(launched[name] >= 1,
                       f"{tag}: {name} ran in the training step")
             # the fused pair reuses the forward's frame
-            check(launched["coords"] == 1,
-                  f"{tag}: B6 ran once in the training step")
+            check(launched["coords"] == launched["frame_gather"] == 1,
+                  f"{tag}: B6 and the frame gather ran once in the training "
+                  f"step")
             if n_poses == 1:
                 for name in launched:
                     train_launches[name] += launched[name]
@@ -860,7 +1197,7 @@ def phase_3d(dprast_torch, sb, dev):
                   + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
             check(max(errs.values()) <= 2e-5,
                   f"{tag}: training grads vs xla ({weight})")
-    return train_launches, b1_err, b4_err
+    return train_launches
 
 
 def times_3d(dprast_torch, sb, core, dev, smi):
@@ -876,15 +1213,12 @@ def times_3d(dprast_torch, sb, core, dev, smi):
                  torch.ones(1, device=dev), torch.ones(n_points, device=dev))
         g = torch.from_numpy(np.random.default_rng(2).standard_normal(
             (1,) + grid).astype(np.float32)).to(dev)
-        splat_args, data = sb._fwd_frame(grid, pts, rot, tr, canon[5], True)
-        st, chunk = splat_args[0], splat_args[-1]
-        ext = sb.fwd_splat(*splat_args)
+        data, st, nt, chunk = sb._fwd_prep(grid, pts, rot, tr, canon[5],
+                                           True)
+        ext = sb.fwd_splat_enc(st, data, nt, sb._window(grid), chunk)
         win = sb._unfold(g, grid, ts)
-        lane_b = sb._planes_bwd(data[:, :3], ts).contiguous()
-        buf = sb.bwd_gather(st, lane_b, win, chunk)
+        buf = sb.bwd_gather_enc(st, data[:, :3], ts, win, chunk)
         ow, bg = canon[4].reshape(-1, 1, 1, 1), canon[3].reshape(-1, 1, 1, 1)
-        ms["b1_bound", n_points] = b1_bound(*splat_args)
-        ms["b4_bound", n_points] = b4_bound(st, lane_b, win, chunk)
 
         def step():
             _, res = sb.raster_fwd_res(grid, *canon, pw_uniform=True)
@@ -895,11 +1229,12 @@ def times_3d(dprast_torch, sb, core, dev, smi):
             _, res = sb._fwd_impl(grid, *canon, pw_uniform=True,
                                   with_residuals=True,
                                   coords=sb._keys_and_local_plain,
-                                  splat=sb._fwd_splat_plain)
+                                  splat=sb._fwd_splat_enc_plain)
             coord, idx_rows, st_r = sb._residual_planes(res, True)
             return sb._pullback_from_frame(
                 grid, coord, idx_rows, st_r, pts, rot, canon[4], canon[5], g,
-                chunk=chunk, pw_uniform=True, gather=sb._bwd_gather_plain)
+                chunk=chunk, pw_uniform=True,
+                gather=sb._bwd_gather_enc_plain)
 
         pts_req = pts.clone().requires_grad_()
 
@@ -908,19 +1243,13 @@ def times_3d(dprast_torch, sb, core, dev, smi):
             return torch.autograd.grad((out * g).sum(), pts_req)
 
         stages = {
-            "frame": lambda: sb._fwd_frame(grid, pts, rot, tr, canon[5],
-                                           True),
-            "b1": lambda: sb.fwd_splat(*splat_args),
-            "b1_plain": lambda: sb._fwd_splat_plain(*splat_args),
+            "frame": lambda: sb._fwd_prep(grid, pts, rot, tr, canon[5],
+                                          True),
             "fold": lambda: sb._fold(ext, grid, ts, True) * ow + bg,
             "fwd": lambda: dprast_torch.raster(grid, pts, rot, tr),
             "fwd_xla": lambda: dprast_torch.raster(grid, pts, rot, tr,
                                                    backend="xla"),
             "unfold": lambda: sb._unfold(g, grid, ts),
-            "planes_bwd": lambda: sb._planes_bwd(data[:, :3],
-                                                 ts).contiguous(),
-            "b4": lambda: sb.bwd_gather(st, lane_b, win, chunk),
-            "b4_plain": lambda: sb._bwd_gather_plain(st, lane_b, win, chunk),
             "unsort": lambda: sb._unsort(buf[:, :3], data[:, -1], n_points),
             "step": step,
             "step_autograd": step_autograd,
@@ -937,20 +1266,14 @@ def times_3d(dprast_torch, sb, core, dev, smi):
         ms["keys_bound", n_points] = coords_bound(pts, rot, tr)
         ms["step_busy_us", n_points], ms["step_kernels", n_points] = \
             device_busy(step)
-        ms["b1_dev_us", n_points] = kernel_device_us(stages["b1"],
-                                                     "fwd_splat_kernel")
-        ms["b4_dev_us", n_points] = kernel_device_us(stages["b4"],
-                                                     "bwd_gather_kernel")
         t = {k: ms[k, n_points] for k in stages}
         print(f"[3d times] {smi} | {grid} x 1 pose x {n_points} points, "
-              f"uniform weights, median ms: frame {t['frame']:.4f}, B1-3D "
-              f"{t['b1']:.4f} (twin {t['b1_plain']:.4f}), plain fold + "
-              f"epilogue {t['fold']:.4f}, forward {t['fwd']:.4f} (xla "
-              f"backend {t['fwd_xla']:.4f})")
+              f"uniform weights, median ms (B1-3D and B4-3D in [B7 frame]): "
+              f"frame {t['frame']:.4f}, plain fold + epilogue "
+              f"{t['fold']:.4f}, forward {t['fwd']:.4f} (xla backend "
+              f"{t['fwd_xla']:.4f})")
         print(f"[3d times] {smi} | {grid} x {n_points} backward, median ms: "
-              f"plain unfold {t['unfold']:.4f}, planes "
-              f"{t['planes_bwd']:.4f}, B4-3D {t['b4']:.4f} (twin "
-              f"{t['b4_plain']:.4f}), unsort {t['unsort']:.4f}")
+              f"plain unfold {t['unfold']:.4f}, unsort {t['unsort']:.4f}")
         print(f"[3d times] {smi} | {grid} x {n_points} training step, median "
               f"ms: fused forward + pullback {t['step']:.4f}, through "
               f"autograd {t['step_autograd']:.4f}, with twins "
@@ -967,57 +1290,11 @@ def times_3d(dprast_torch, sb, core, dev, smi):
 # the fast mode's envelope against the exact backends (scaled max-abs),
 # tests/test_grads.py::test_binned_bf16_fast_mode_close
 BF16_TOL = 2e-2
-# B4 instances, the fast mode's and the harness's, by (n_out, terms)
-BF16_B4 = {2: "bwd_gather_bf16", 3: "bwd_gather_3d_bf16"}
-BF16_B1 = {2: "fwd_splat_bf16", 3: "fwd_splat_3d_bf16"}
-# on a multi-tile 2-D grid the fast mode's B4 reads the cotangent itself
-BF16_B4_GRID = "bwd_gather_grid_bf16"
-
-
-def bf16_kernels(sb, grid, tag, splat_args, data, win, ms):
-    """B1 and B4 at terms=1 against their twins on the forward's frame at
-    `grid` (B4 bit for bit) -> (B1 error, B4 error); their times go to
-    `ms[grid, ...]`."""
-    n_out = len(grid)
-    key = grid
-    ext_k = sb.fwd_splat(*splat_args, terms=1)
-    ext_p = sb._fwd_splat_plain(*splat_args, terms=1)
-    lane_b = sb._planes_bwd(data[:, :n_out],
-                            sb.tile_shape_for(grid)).contiguous()
-    b4_args = (splat_args[0], lane_b, win, splat_args[-1])
-    buf_k = sb.bwd_gather(*b4_args, terms=1)
-    buf_p = sb._bwd_gather_plain(*b4_args, terms=1)
-    torch.cuda.synchronize()
-    b1_err, b4_err = scaled_err(ext_k, ext_p), scaled_err(buf_k, buf_p)
-    same = torch.equal(buf_k, buf_p)
-    print(f"[bf16] {tag} B1 {BF16_B1[n_out]}: scaled max-abs err vs twin "
-          f"{b1_err:.3e} (tol 1e-6); B4 {BF16_B4[n_out]}: bit-equal to twin "
-          f"{same} (err {b4_err:.3e})")
-    check(b1_err <= 1e-6, f"{tag}: B1 terms=1 vs twin")
-    check(same, f"{tag}: B4 terms=1 bit-equal to its twin")
-    ms[key, "b1_bound"] = b1_bound(*splat_args)
-    ms[key, "b4_bound"] = b4_bound(*b4_args)
-    ms[key, "b1_plain"] = time_ms(
-        lambda: sb._fwd_splat_plain(*splat_args, terms=1))
-    ms[key, "b4_plain"] = time_ms(
-        lambda: sb._bwd_gather_plain(*b4_args, terms=1))
-    # the exact and the fast instance in turns (0, 1, 1, 0): wrapper and
-    # kernel by CUDA events, and the kernel's own device time
-    for stage, fn, kernel in (
-            ("b1", lambda t: sb.fwd_splat(*splat_args, terms=t),
-             "fwd_splat_kernel"),
-            ("b4", lambda t: sb.bwd_gather(*b4_args, terms=t),
-             "bwd_gather_kernel")):
-        runs = {0: [], 1: []}
-        dev_us = {0: [], 1: []}
-        for t in (0, 1, 1, 0):
-            runs[t].append(time_ms(lambda: fn(t)))
-            dev_us[t].append(kernel_device_us(lambda: fn(t), kernel))
-        for t in (0, 1):
-            suffix = "" if t else "_exact"
-            ms[key, stage + suffix] = sum(runs[t]) / 2
-            ms[key, stage + suffix + "_dev_us"] = sum(dev_us[t]) / 2
-    return b1_err, b4_err
+# the fast mode's B1 and B4 instances on the main path, by n_out (they read
+# the frame); on a multi-tile 2-D grid its B4 reads the cotangent itself
+BF16_B4 = {2: "bwd_gather_bf16_enc", 3: "bwd_gather_3d_bf16_enc"}
+BF16_B1 = {2: "fwd_splat_bf16_enc", 3: "fwd_splat_3d_bf16_enc"}
+BF16_B4_GRID = "bwd_gather_grid_bf16_enc"
 
 
 def kernel_device_us(fn, kernel, calls=10):
@@ -1063,29 +1340,21 @@ def device_busy(fn, calls=5):
             sum(e.count for e in rows) / calls)
 
 
-def phase_bf16(dprast_torch, sb, dev, smi, pts, rot, tr, pw, cots, frames):
-    """[bf16]: the `binned_bf16` fast mode.  Its B1 and B4 instances
-    against their twins at 128^2 x 64 x 10^5 and 128^3 x 1 x 10^6; the
-    forward and `torch.autograd.grad` of all six inputs through `raster(...,
-    backend="binned_bf16")` at 128^2, 1024^2 and 128^3 against the `xla`
-    backend, each run between a reset and a read of the launch counts;
-    forward and fused-step times beside `binned`.  -> (launch counts of
-    the main-path runs, {instance: error}, ms)."""
+def phase_bf16(dprast_torch, sb, dev, smi, pts, rot, tr, pw, cots):
+    """[bf16]: the `binned_bf16` fast mode (its B1 and B4 instances are
+    held to the lane instances and their plain versions in [B7 frame]).
+    The forward and `torch.autograd.grad` of all six inputs through
+    `raster(..., backend="binned_bf16")` at 128^2, 1024^2 and 128^3 against
+    the `xla` backend, each run between a reset and a read of the launch
+    counts; forward and fused-step times beside `binned`.  -> (launch
+    counts of the main-path runs, ms)."""
     from dprast_torch.ops import dispatch
     launches = {name: 0 for name in sb.LAUNCHES}
-    errs, ms = {}, {}
+    ms = {}
     host = volume_inputs(1, VOLUME_CASES["1 pose x 1e6"][1])
     vol = [torch.from_numpy(a).to(dev) for a in host]
     g_vol = torch.from_numpy(np.random.default_rng(2).standard_normal(
         (1,) + VOLUME).astype(np.float32)).to(dev)
-    args_flag, _, data_flag = frames[FLAGSHIP, False]
-    errs["b1", 2], errs["b4", 2] = bf16_kernels(
-        sb, FLAGSHIP, f"{FLAGSHIP} x {N_POSES} x {N_POINTS}", args_flag,
-        data_flag, cots[FLAGSHIP], ms)
-    args_vol, data_vol = sb._fwd_frame(VOLUME, *vol[:3], vol[5], True)
-    errs["b1", 3], errs["b4", 3] = bf16_kernels(
-        sb, VOLUME, f"{VOLUME} x 1 x {host[0].shape[0]}", args_vol,
-        data_vol, sb._unfold(g_vol, VOLUME, sb.tile_shape_for(VOLUME)), ms)
 
     flag_canon = (pts, rot, tr, torch.zeros(N_POSES, device=dev),
                   torch.ones(N_POSES, device=dev),
@@ -1135,8 +1404,9 @@ def phase_bf16(dprast_torch, sb, dev, smi, pts, rot, tr, pw, cots, frames):
                       f"[bf16] {name} ran in the training step at {grid}")
             check(fwd_launched[BF16_B1[n_out]] >= 1,
                   f"[bf16] {BF16_B1[n_out]} ran in the forward at {grid}")
-            exact = ("fwd_splat", "bwd_gather", "fwd_splat_3d",
-                     "bwd_gather_3d", "bwd_gather_grid", "band_unfold")
+            exact = ("fwd_splat_enc", "bwd_gather_enc", "fwd_splat_3d_enc",
+                     "bwd_gather_3d_enc", "bwd_gather_grid_enc",
+                     "band_unfold")
             check(all(launched[k] == fwd_launched[k] == 0 for k in exact),
                   f"[bf16] no exact instance ran at {grid}")
             ref_g = train_grads(dprast_torch, grid, leaves, g, backend="xla")
@@ -1171,24 +1441,9 @@ def phase_bf16(dprast_torch, sb, dev, smi, pts, rot, tr, pw, cots, frames):
               f"{ms[grid, 'binned_bf16', 'fwd']:.4f}; fused step binned "
               f"{ms[grid, 'binned', 'step']:.4f} / binned_bf16 "
               f"{ms[grid, 'binned_bf16', 'step']:.4f}")
-    for key, tag in ((FLAGSHIP, "B1/B4 bf16 2-D"),
-                     (VOLUME, "B1/B4 bf16 3-D")):
-        dev_us = {k: ms[key, k] for k in (
-            "b1_dev_us", "b1_exact_dev_us", "b4_dev_us", "b4_exact_dev_us")}
-        dev = ("not measured (no kernel rows in the trace)"
-               if not all(dev_us.values()) else
-               f"B1 {dev_us['b1_dev_us']:.2f} (exact "
-               f"{dev_us['b1_exact_dev_us']:.2f}), B4 {dev_us['b4_dev_us']:.2f} "
-               f"(exact {dev_us['b4_exact_dev_us']:.2f})")
-        print(f"[bf16] {smi} | {tag} at {key}, terms=1 and terms=0 timed in "
-              f"turns, median ms (wrapper + kernel): B1 {ms[key, 'b1']:.4f} "
-              f"(exact {ms[key, 'b1_exact']:.4f}, twin "
-              f"{ms[key, 'b1_plain']:.4f}), B4 {ms[key, 'b4']:.4f} (exact "
-              f"{ms[key, 'b4_exact']:.4f}, twin {ms[key, 'b4_plain']:.4f}); "
-              f"kernel device us per launch (torch.profiler): {dev}")
     print(f"[bf16] worst scaled err vs xla over forward and six gradients: "
           f"{worst:.3e} (tol {BF16_TOL:g})")
-    return launches, errs, ms
+    return launches, ms
 
 
 # (grid, points, poses) of the stage profiler's runs and of the two
@@ -1635,7 +1890,8 @@ def example_vs_xla(dprast_torch, sb, tag, grid, inputs):
     print(f"{tag}: image {tuple(img.shape)}, launches {ran(launched)}; "
           f"scaled max-abs err vs the xla backend (tol 2e-5): "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
-    check(ran(launched) == {"coords": 1, "fwd_splat": 1, "bwd_gather": 1},
+    check(ran(launched) == {"coords": 1, "fwd_splat_enc": 1,
+                            "bwd_gather_enc": 1},
           f"{tag}: the step ran B6, B1 and B4 once each and no other kernel")
     check(max(errs.values()) <= 2e-5, f"{tag}: auto vs xla")
 
@@ -1663,8 +1919,8 @@ def phase_examples(dprast_torch, sb, dev, steps=20):
           "[examples] the fit's points are finite and on the card")
     check(hist[-1][1] < hist[0][1], "[examples] the Langevin fit's loss fell")
     # the target's render and one forward per step; one backward per step
-    check(ran(launched) == {"coords": steps + 1, "fwd_splat": steps + 1,
-                            "bwd_gather": steps},
+    check(ran(launched) == {"coords": steps + 1, "fwd_splat_enc": steps + 1,
+                            "bwd_gather_enc": steps},
           "[examples] the fit ran B6 and B1 once per step and for the "
           "target, B4 once per step, and no other kernel")
     example_vs_xla(dprast_torch, sb, f"[examples] fit_langevin_torch "
@@ -1684,8 +1940,8 @@ def phase_examples(dprast_torch, sb, dev, steps=20):
           f"{first:.6e} -> {final:.6e}; launches {ran(launched)}")
     check(final < first, "[examples] the reconstruction's loss fell")
     # the target's render, one forward per step and the two final losses
-    check(ran(launched) == {"coords": steps + 3, "fwd_splat": steps + 3,
-                            "bwd_gather": steps},
+    check(ran(launched) == {"coords": steps + 3, "fwd_splat_enc": steps + 3,
+                            "bwd_gather_enc": steps},
           "[examples] the reconstruction ran B6 and B1 once per step, for "
           "the target and for the two final losses, B4 once per step, and "
           "no other kernel")
@@ -1707,9 +1963,11 @@ SHARDED_CASES = ((FLAGSHIP, N_POSES, N_POINTS + 1, False),
                  (FLAGSHIP, 7, N_POINTS, True))
 SHARDED_MESH = (2, 2)
 # the kernels of one training step per process, by grid
-SHARDED_WANT = {FLAGSHIP: {"coords": 1, "fwd_splat": 1, "bwd_gather": 1},
-                MULTI_TILE: {"coords": 1, "fwd_splat": 1, "band_fold": 1,
-                             "bwd_gather_grid": 1}}
+SHARDED_WANT = {FLAGSHIP: {"coords": 1, "fwd_splat_enc": 1,
+                           "bwd_gather_enc": 1},
+                MULTI_TILE: {"coords": 1, "frame_gather": 1,
+                             "fwd_splat_enc": 1, "band_fold": 1,
+                             "bwd_gather_grid_enc": 1}}
 # seconds the four workers may take, CUDA start-up included, before the
 # parent kills them and fails
 SHARDED_TIMEOUT = 120
@@ -2000,7 +2258,7 @@ def main():
     coords_err = phase_coords(sb, dev, testing, (pts_np, rot_np, tr_np))
 
     # --- 4. B1 against its twin on the card ---
-    frames, b1_err = phase_b1(sb, dev, pts, rot, tr, pw)
+    frames = phase_b1(sb, dev, pts, rot, tr, pw)
 
     # --- 5. B2 against its twin on the card ---
     rng = np.random.default_rng(1)
@@ -2053,8 +2311,6 @@ def main():
         b4_cases.append((grid, "forward frame", data, st, chunk))
     data_s, st_s, chunk_s = sb._bwd_frame(MULTI_TILE, pts, rot, tr)
     b4_cases.append((MULTI_TILE, "standalone frame", data_s, st_s, chunk_s))
-    b4_err = 0.0
-    b4_args = {}
     grid_cases = []
     for grid, label, data, st, chunk in b4_cases:
         lane_b = sb._planes_bwd(data[:, :2],
@@ -2065,17 +2321,16 @@ def main():
         buf_p = sb._bwd_gather_plain(st, lane_b, win, chunk)
         torch.cuda.synchronize()
         err = scaled_err(buf_k, buf_p)
-        b4_err = max(b4_err, err)
         print(f"[B4 bwd_gather] {grid} {label}: rows {tuple(buf_k.shape)}, "
               f"scaled max-abs err vs twin {err:.3e} (tol 1e-6), bit-equal "
               f"{torch.equal(buf_k, buf_p)}")
         check(err <= 1e-6, f"B4 vs twin at {grid} ({label})")
-        b4_args.setdefault(grid, (st, lane_b, win, chunk))
 
     # --- 7b. B4's grid source: the window cut out of the cotangent ---
-    grid_errs, grid_timed = phase_b4_grid(sb, dev, grid_cases)
-    b4_grid_args = b4_args[MULTI_TILE][:2] + (cots[MULTI_TILE],
-                                              b4_args[MULTI_TILE][3])
+    phase_b4_grid(sb, dev, grid_cases)
+
+    # --- 7c. B7: the frame writers, and B1 and B4 on the frame ---
+    b7 = phase_b7(dprast_torch, sb, dev, smi)
 
     # --- 8. the forward path: raster through auto ---
     reset_launches(sb)
@@ -2087,8 +2342,8 @@ def main():
     launches = dict(sb.LAUNCHES)
     print(f"[main] launches: {FLAGSHIP} {ran(after_flag)}; {MULTI_TILE} "
           f"{ran({k: launches[k] - after_flag[k] for k in launches})}")
-    check(after_flag["fwd_splat"] >= 1, "B1 ran on the flagship forward")
-    check(launches["fwd_splat"] > after_flag["fwd_splat"],
+    check(after_flag["fwd_splat_enc"] >= 1, "B1 ran on the flagship forward")
+    check(launches["fwd_splat_enc"] > after_flag["fwd_splat_enc"],
           "B1 ran on the 1024^2 forward")
     check(launches["band_fold"] > after_flag["band_fold"],
           "B2 ran on the 1024^2 forward")
@@ -2118,8 +2373,8 @@ def main():
                 tol=BF16_TOL)
     small_launches = dict(sb.LAUNCHES)
     print(f"[small] launches: {ran(small_launches)}")
-    for name in ("bwd_gather_grid", "bwd_gather_grid_ldg",
-                 "bwd_gather_grid_bf16_ldg"):
+    for name in ("bwd_gather_grid_enc", "bwd_gather_grid_enc_ldg",
+                 "bwd_gather_grid_bf16_enc_ldg"):
         check(small_launches[name] >= 1, f"{name} ran in [small]")
     check(small_launches["band_unfold"] == 0, "B3 did not run in [small]")
 
@@ -2127,7 +2382,7 @@ def main():
     phase_fit(dprast_torch, pts, rot, tr)
 
     # --- 12. the 3-D path at 128^3, and small volumes vs the f64 oracles ---
-    launches_3d, b1_3d_err, b4_3d_err = phase_3d(dprast_torch, sb, dev)
+    launches_3d = phase_3d(dprast_torch, sb, dev)
     phase_small(dprast_torch, testing, dev, "[3d small]",
                 [(grid, seed, n, 2) for grid, seed, n in SMALL_VOLUMES])
 
@@ -2136,30 +2391,22 @@ def main():
     canon = (pts, rot, tr, torch.zeros(N_POSES, device=dev),
              torch.ones(N_POSES, device=dev),
              torch.ones(N_POINTS, device=dev))
+    # (B1 and B4 on the frame, and the frame writers, are timed in
+    # [B7 frame])
     for grid in GRIDS:
-        args = frames[grid, False][0]
         g = cots[grid]
         chunk = sb._default_chunk(grid, N_POINTS)
-        ms["b1", grid] = time_ms(lambda: sb.fwd_splat(*args))
-        ms["b1_plain", grid] = time_ms(lambda: sb._fwd_splat_plain(*args))
-        ms["b4", grid] = time_ms(lambda: sb.bwd_gather(*b4_args[grid]))
-        ms["b4_plain", grid] = time_ms(
-            lambda: sb._bwd_gather_plain(*b4_args[grid]))
-        ms["b1_dev_us", grid] = kernel_device_us(
-            lambda: sb.fwd_splat(*args), "fwd_splat_kernel")
-        ms["b4_dev_us", grid] = kernel_device_us(
-            lambda: sb.bwd_gather(*b4_args[grid]), "bwd_gather_kernel")
         (ms["keys", grid], ms["keys_plain", grid], ms["keys_dev_us", grid],
          _, _) = coords_in_turns(
             sb, smi, f"{grid} x {N_POSES} poses x {N_POINTS} points", grid,
             (pts, rot, tr))
-        ms["frame", grid] = time_ms(lambda: sb._fwd_frame(
+        ms["frame", grid] = time_ms(lambda: sb._fwd_prep(
             grid, pts, rot, tr, canon[5], True))
         ms["fwd", grid] = time_ms(lambda: dprast_torch.raster(grid, pts, rot,
                                                               tr))
         ms["fwd_plain", grid] = time_ms(lambda: sb._fwd_impl(
             grid, *canon, pw_uniform=True, coords=sb._keys_and_local_plain,
-            splat=sb._fwd_splat_plain, fold=sb._band_fold_plain))
+            splat=sb._fwd_splat_enc_plain, fold=sb._band_fold_plain))
         ms["fwd_xla", grid] = time_ms(lambda: dprast_torch.raster(
             grid, pts, rot, tr, backend="xla"))
 
@@ -2167,11 +2414,9 @@ def main():
         data_b, st_b, _ = sb._bwd_frame(grid, pts, rot, tr)
         ms["bwd_frame", grid] = time_ms(
             lambda: sb._bwd_frame(grid, pts, rot, tr))
-        ms["planes_bwd", grid] = time_ms(
-            lambda: sb._planes_bwd(data_b[:, :2],
-                                   sb.tile_shape_for(grid)).contiguous())
         if grid == MULTI_TILE:
-            buf = sb.bwd_gather(*b4_args[grid])
+            buf = sb.bwd_gather_enc(st_b, data_b[:, :2], ts_mt, g, chunk,
+                                    layout="grid")
             ms["b3", grid] = time_ms(
                 lambda: sb.band_unfold(g, grid, ts_mt))
             ms["b3_plain", grid] = time_ms(
@@ -2203,12 +2448,16 @@ def main():
                 return pullback_b3(sb.raster_fwd_res(grid, *canon,
                                                      pw_uniform=True)[1])
 
-            st_g, lane_g, _, chunk_g = b4_grid_args
+            # B4 on the forward's frame, as the fused pair runs it
+            args_f, _, data_f = frames[grid, False]
+            st_f, coord_f = args_f[0], data_f[:, :2]
             routes_in_turns(smi, ms, {
                 "b4_route": (
-                    lambda: sb.bwd_gather(st_g, lane_g, sb.band_unfold(
-                        g, grid, ts_mt), chunk_g),
-                    lambda: sb.bwd_gather(*b4_grid_args, layout="grid")),
+                    lambda: sb.bwd_gather_enc(st_f, coord_f, ts_mt,
+                                              sb.band_unfold(g, grid, ts_mt),
+                                              chunk),
+                    lambda: sb.bwd_gather_enc(st_f, coord_f, ts_mt, g, chunk,
+                                              layout="grid")),
                 "pullback_res": (lambda: pullback_b3(fwd_res),
                                  lambda: sb.raster_pullback_res(
                                      grid, fwd_res, canon, g,
@@ -2219,13 +2468,13 @@ def main():
             _, res = sb._fwd_impl(grid, *canon, pw_uniform=True,
                                   with_residuals=True,
                                   coords=sb._keys_and_local_plain,
-                                  splat=sb._fwd_splat_plain,
+                                  splat=sb._fwd_splat_enc_plain,
                                   fold=sb._band_fold_plain)
             coord, idx_rows, st = sb._residual_planes(res, True)
             return sb._pullback_from_frame(
                 grid, coord, idx_rows, st, pts, rot, canon[4], canon[5], g,
                 chunk=chunk, pw_uniform=True, unfold=sb._unfold,
-                gather=sb._bwd_gather_plain)
+                gather=sb._bwd_gather_enc_plain)
 
         pts_req = pts.clone().requires_grad_()
 
@@ -2273,8 +2522,7 @@ def main():
         print(f"[times] {smi} | {grid} x {N_POSES} poses x {N_POINTS} "
               f"points, uniform weights, median ms: keys (B6) "
               f"{ms['keys', grid]:.4f} (twin {ms['keys_plain', grid]:.4f}), "
-              f"frame {ms['frame', grid]:.4f}, B1 {ms['b1', grid]:.4f} (twin "
-              f"{ms['b1_plain', grid]:.4f}), forward {ms['fwd', grid]:.4f} "
+              f"frame {ms['frame', grid]:.4f}, forward {ms['fwd', grid]:.4f} "
               f"(with twins {ms['fwd_plain', grid]:.4f}, xla backend "
               f"{ms['fwd_xla', grid]:.4f}); the forward keeps the card busy "
               f"{ms['fwd_busy_us', grid]:.1f} us in "
@@ -2283,9 +2531,7 @@ def main():
               f", unsort {ms['unsort', grid]:.4f}" if grid == MULTI_TILE
               else "")
         print(f"[times] {smi} | {grid} backward, median ms: frame "
-              f"{ms['bwd_frame', grid]:.4f}, planes "
-              f"{ms['planes_bwd', grid]:.4f}{b3}, B4 {ms['b4', grid]:.4f} "
-              f"(twin {ms['b4_plain', grid]:.4f}), standalone pullback "
+              f"{ms['bwd_frame', grid]:.4f}{b3}, standalone pullback "
               f"{ms['pullback', grid]:.4f}, pullback from the forward's "
               f"frame {ms['pullback_res', grid]:.4f}")
         rate = N_POINTS * N_POSES * 4 / (ms["step", grid] * 1e-3)
@@ -2308,14 +2554,11 @@ def main():
           f"{ms['b3_dev_us']:.2f}, "
           f"{b3_bound[0] * 1e3 / max(ms['b3_dev_us'], 1e-9):.1%} of its "
           f"{b3_bound[0] * 1e3:.1f} us bound")
-    print(f"[times] {smi} | kernel device us per launch (torch.profiler): "
-          + "; ".join(f"{grid} B1 {ms['b1_dev_us', grid]:.2f}, B4 natural "
-                      f"{ms['b4_dev_us', grid]:.2f}" for grid in GRIDS))
     ms_3d = times_3d(dprast_torch, sb, core, dev, smi)
 
     # --- 14. the binned_bf16 fast mode ---
-    launches_bf16, errs_bf16, ms_bf16 = phase_bf16(
-        dprast_torch, sb, dev, smi, pts, rot, tr, pw, cots, frames)
+    launches_bf16, ms_bf16 = phase_bf16(dprast_torch, sb, dev, smi, pts, rot,
+                                        tr, pw, cots)
 
     # --- 15. the stage profiler: B1 and B4 launched alone ---
     prof = phase_profile(sb, dev, smi)
@@ -2354,44 +2597,49 @@ def main():
         return entry
 
     flag = "128x128, 64 poses, 1e5 points, uniform"
+    mt = "1024x1024, 64 poses, 1e5 points, uniform"
     vol = "128x128x128, 1 pose, 1e6 points, uniform"
     n_vol = VOLUME_TIMED[0]
+    b7_shape = {grid: f"{'x'.join(map(str, grid))}, {n_poses} poses, "
+                      f"{n_points:.0e} points, uniform".replace("e+0", "e")
+                for grid, n_poses, n_points in B7_CASES}
 
-    def b1_cluster(n_poses, grid):
+    def b7_kernel(grid, name, source, replaces, counted, *, variant,
+                  err=None):
+        """An entry of a kernel timed in [B7 frame] at `grid`."""
+        t = b7["times"][grid, name]
+        return kernel(name, source, replaces, counted[name],
+                      b7["errs"][name] if err is None else err, t["ms"],
+                      t["plain_ms"], t["bound"], b7_shape[grid],
+                      variant=variant, device_us=t["dev_us"])
+
+    def b1_variant(n_poses, grid, terms):
         size = sb._b1_cluster(dev, n_poses, sb.n_tiles(grid),
-                              sb._window(grid))
-        return f"thread-block cluster of {size}"
+                              sb._window(grid), terms, encoded=True)
+        return (f"terms={terms}, reads the encoded frame; thread-block "
+                f"cluster of {size}")
 
     coords_cu = "dprast_torch/csrc/coords.cu"
+    gather_cu = "dprast_torch/csrc/frame_gather.cu"
+    coords_variant = ("{} unfused operations per (pose, point); bit-equal to "
+                      "its twin on the card and on the CPU ([B6 coords])")
     kernels = [
+        b7_kernel(FLAGSHIP, "coords", coords_cu, f"{src}:189, :391",
+                  train_launches,
+                  err=max(coords_err[FLAGSHIP], b7["errs"]["frame"]),
+                  variant=coords_variant.format(coords_ops(3, 2))
+                  + "; writes the single tile's frame and slot table "
+                    "(direct_frame, bit-equal to _prep_direct)"),
         kernel("coords", coords_cu, f"{src}:189", train_launches["coords"],
-               coords_err[grid], ms["keys", grid], ms["keys_plain", grid],
-               coords_bound(pts, rot, tr), shape,
-               variant=f"{coords_ops(3, 2)} unfused operations per (pose, "
-                       f"point); bit-equal to its twin on the card and on "
-                       f"the CPU ([B6 coords])",
-               device_us=ms["keys_dev_us", grid])
-        for grid, shape in ((FLAGSHIP, flag), (
-            MULTI_TILE, "1024x1024, 64 poses, 1e5 points, uniform"))]
-    kernels += [
+               coords_err[MULTI_TILE], ms["keys", MULTI_TILE],
+               ms["keys_plain", MULTI_TILE], coords_bound(pts, rot, tr), mt,
+               variant=coords_variant.format(coords_ops(3, 2)),
+               device_us=ms["keys_dev_us", MULTI_TILE]),
         kernel("coords", coords_cu, f"{src}:189", launches_3d["coords"],
                coords_err[VOLUME], ms_3d["keys", n_vol],
                ms_3d["keys_plain", n_vol], ms_3d["keys_bound", n_vol], vol,
-               variant=f"{coords_ops(3, 3)} unfused operations per (pose, "
-                       f"point); bit-equal to its twin on the card and on "
-                       f"the CPU ([B6 coords])",
+               variant=coords_variant.format(coords_ops(3, 3)),
                device_us=ms_3d["keys_dev_us", n_vol]),
-        kernel("fwd_splat", fwd_cu, f"{src}:538", train_launches["fwd_splat"],
-               b1_err, ms["b1", FLAGSHIP], ms["b1_plain", FLAGSHIP],
-               b1_bound(*frames[FLAGSHIP, False][0]), flag,
-               variant=b1_cluster(N_POSES, FLAGSHIP),
-               device_us=ms["b1_dev_us", FLAGSHIP]),
-        kernel("fwd_splat", fwd_cu, f"{src}:538", train_launches["fwd_splat"],
-               b1_err, ms["b1", MULTI_TILE], ms["b1_plain", MULTI_TILE],
-               b1_bound(*frames[MULTI_TILE, False][0]),
-               "1024x1024, 64 poses, 1e5 points, uniform",
-               variant=b1_cluster(N_POSES, MULTI_TILE),
-               device_us=ms["b1_dev_us", MULTI_TILE]),
         kernel("band_fold", "dprast_torch/csrc/band_fold.cu", f"{src}:687",
                train_launches["band_fold"], b2_err, ms["b2", MULTI_TILE],
                ms["b2_plain", MULTI_TILE],
@@ -2407,55 +2655,53 @@ def main():
                        "launch in the training step, where B4 reads the "
                        "cotangent",
                device_us=ms["b3_dev_us"], library_ms=ms["b3_library"]),
-        kernel("bwd_gather", bwd_cu, f"{src}:1085",
-               train_launches["bwd_gather"], b4_err, ms["b4", FLAGSHIP],
-               ms["b4_plain", FLAGSHIP], b4_bound(*b4_args[FLAGSHIP]), flag,
-               device_us=ms["b4_dev_us", FLAGSHIP]),
-        kernel("fwd_splat_3d", fwd_cu, f"{src}:584",
-               launches_3d["fwd_splat_3d"], b1_3d_err, ms_3d["b1", n_vol],
-               ms_3d["b1_plain", n_vol], ms_3d["b1_bound", n_vol], vol,
-               variant=b1_cluster(1, VOLUME),
-               device_us=ms_3d["b1_dev_us", n_vol]),
-        kernel("bwd_gather_3d", bwd_cu, f"{src}:1135",
-               launches_3d["bwd_gather_3d"], b4_3d_err, ms_3d["b4", n_vol],
-               ms_3d["b4_plain", n_vol], ms_3d["b4_bound", n_vol], vol,
-               device_us=ms_3d["b4_dev_us", n_vol]),
     ]
-    # B4's grid source: the instances of the training step at 1024^2
-    # (exact and fast mode) and their plain-load staging, which [small]
-    # drives at (999, 777) and (130, 1)
-    grid_launches = {"bwd_gather_grid": train_launches,
-                     "bwd_gather_grid_bf16": launches_bf16,
-                     "bwd_gather_grid_ldg": small_launches,
-                     "bwd_gather_grid_bf16_ldg": small_launches}
-    for name, counted in grid_launches.items():
-        st, lane_b, g, chunk, terms = grid_timed[name]
-
-        def run(twin=False):
-            fn = sb._bwd_gather_plain if twin else sb.bwd_gather
-            return fn(st, lane_b, g, chunk, terms=terms, layout="grid")
-
-        staging = ("plain loads" if name.endswith("_ldg")
-                   else "TMA tiled load")
-        kernels.append(kernel(
-            name, bwd_cu, f"{src}:1085", counted[name], grid_errs[name],
-            time_ms(run), time_ms(lambda: run(twin=True), reps=5, warmup=1),
-            b4_bound(st, lane_b, g, chunk),
-            f"{g.shape[1]}x{g.shape[2]}, {g.shape[0]} poses, "
-            f"{live_rows(st, chunk)} live rows",
-            variant=f"terms={terms}, window cut out of the cotangent "
-                    f"(replaces `_unfold_pl_2d` + `_bwd_kernel`), {staging}",
-            device_us=kernel_device_us(run, "bwd_gather_kernel")))
-    for n_out, grid, shape in ((2, FLAGSHIP, flag), (3, VOLUME, vol)):
-        for stage, name, line, cu in (
-                ("b1", BF16_B1[n_out], 538, fwd_cu),
-                ("b4", BF16_B4[n_out], 1085, bwd_cu)):
-            kernels.append(kernel(
-                name, cu, f"{src}:{line}", launches_bf16[name],
-                errs_bf16[stage, n_out], ms_bf16[grid, stage],
-                ms_bf16[grid, f"{stage}_plain"],
-                ms_bf16[grid, f"{stage}_bound"], shape, variant="terms=1",
-                device_us=ms_bf16[grid, f"{stage}_dev_us"]))
+    # the frame gather after the sort (replaces the per-plane gathers and
+    # the stack of `_prep_binned`, which XLA fuses)
+    for grid, counted in ((MULTI_TILE, train_launches),
+                          (VOLUME, launches_3d)):
+        kernels.append(b7_kernel(
+            grid, "frame_gather", gather_cu, f"{src}:334-346", counted,
+            err=b7["errs"]["frame"],
+            variant="writes the multi-tile frame after torch.sort; "
+                    "bit-equal to _prep_binned"))
+    # B1 and B4 on the frame: the main path's instances (2-D at 128^2 and
+    # 1024^2, 3-D at 128^3; the fast mode's at terms=1), and the grid
+    # source's plain-load staging, which [small] drives
+    grid_variant = ("terms={}, window cut out of the cotangent (replaces "
+                    "`_unfold_pl_2d` + `_bwd_kernel`), {}")
+    for grid, name, counted, line, variant in (
+            (FLAGSHIP, "fwd_splat_enc", train_launches, 538,
+             b1_variant(N_POSES, FLAGSHIP, 0)),
+            (MULTI_TILE, "fwd_splat_enc", train_launches, 538,
+             b1_variant(N_POSES, MULTI_TILE, 0)),
+            (FLAGSHIP, "fwd_splat_bf16_enc", launches_bf16, 538,
+             b1_variant(N_POSES, FLAGSHIP, 1)),
+            (MULTI_TILE, "fwd_splat_bf16_enc", launches_bf16, 538,
+             b1_variant(N_POSES, MULTI_TILE, 1)),
+            (VOLUME, "fwd_splat_3d_enc", launches_3d, 584,
+             b1_variant(1, VOLUME, 0)),
+            (VOLUME, "fwd_splat_3d_bf16_enc", launches_bf16, 584,
+             b1_variant(1, VOLUME, 1)),
+            (FLAGSHIP, "bwd_gather_enc", train_launches, 1085,
+             "terms=0, reads the encoded frame"),
+            (FLAGSHIP, "bwd_gather_bf16_enc", launches_bf16, 1085,
+             "terms=1, reads the encoded frame"),
+            (VOLUME, "bwd_gather_3d_enc", launches_3d, 1135,
+             "terms=0, reads the encoded frame, makes the flat rows"),
+            (VOLUME, "bwd_gather_3d_bf16_enc", launches_bf16, 1135,
+             "terms=1, reads the encoded frame, makes the flat rows"),
+            (MULTI_TILE, "bwd_gather_grid_enc", train_launches, 1085,
+             grid_variant.format(0, "TMA tiled load")),
+            (MULTI_TILE, "bwd_gather_grid_bf16_enc", launches_bf16, 1085,
+             grid_variant.format(1, "TMA tiled load")),
+            ((1023, 1021), "bwd_gather_grid_enc_ldg", small_launches, 1085,
+             grid_variant.format(0, "plain loads")),
+            ((1023, 1021), "bwd_gather_grid_bf16_enc_ldg", small_launches,
+             1085, grid_variant.format(1, "plain loads"))):
+        cu = fwd_cu if name.startswith("fwd") else bwd_cu
+        kernels.append(b7_kernel(grid, name, cu, f"{src}:{line}", counted,
+                                 variant=variant))
     for grid, shape, dims in (
             ((1024, 1024), "1024x1024, 64 poses, 1e5 points, weighted", ""),
             (VOLUME, "128x128x128, 1 pose, 1e6 points, weighted", "_3d")):

@@ -15,6 +15,9 @@ points, uniform weights) on 128^2 and 1024^2:
   the wrapper by CUDA events and the kernel's own device microseconds from
   `torch.profiler` (B1 also at 128^3, one pose x 10^6 points);
 - B4 on the cotangent itself (the grid source), where the checkout has it;
+- B1 and B4 are reached as the checkout's own path reaches them: on the
+  frame's encoded planes where it has `fwd_splat_enc` / `bwd_gather_enc`,
+  else on the lane planes (which that path made before each launch);
 - the pullback from the forward's frame, the forward and the fused
   forward + pullback step, and what the step keeps the card busy with
   (`torch.profiler`: the microseconds in kernels and copies, and their
@@ -59,22 +62,44 @@ def both(key, fn, kernel):
     out[key + " device us"] = cs.kernel_device_us(fn, kernel)
 
 
+# B1 and B4 as the checkout's path runs them: on the frame itself where
+# it has the encoded instances, else on lane planes
+ENC = hasattr(sb, "fwd_splat_enc")
+
+
+def b1_call(args, data):
+    """B1 on the forward's frame (`_fwd_frame` -> args, data)."""
+    if ENC:
+        st, _, nt, win, chunk = args
+        return lambda: sb.fwd_splat_enc(st, data, nt, win, chunk)
+    return lambda: sb.fwd_splat(*args)
+
+
+def b4_call(st, data, ts, win, chunk, **kw):
+    """B4 on the frame `data` and the window source `win`."""
+    n_out = len(ts)
+    if ENC:
+        coord = data[:, :n_out]
+        return lambda: sb.bwd_gather_enc(st, coord, ts, win, chunk, **kw)
+    lane_b = sb._planes_bwd(data[:, :n_out], ts).contiguous()
+    return lambda: sb.bwd_gather(st, lane_b, win, chunk, **kw)
+
+
 for grid in cs.GRIDS:
     tag = "x".join(map(str, grid))
     ts = sb.tile_shape_for(grid)
     args, data = sb._fwd_frame(grid, pts, rot, tr, canon[5], True)
     st, chunk = args[0], args[-1]
-    lane_b = sb._planes_bwd(data[:, :2], ts).contiguous()
     g = torch.randn((cs.N_POSES,) + grid, device=dev)
     out[f"keys {tag} ms"] = cs.time_ms(
         lambda: sb._keys_and_local(grid, ts, pts, rot, tr))
     (out[f"keys {tag} device-busy us"],
      out[f"keys {tag} kernels and copies"]) = cs.device_busy(
         lambda: sb._keys_and_local(grid, ts, pts, rot, tr))
-    both(f"B1 {tag}", lambda: sb.fwd_splat(*args), "fwd_splat_kernel")
+    both(f"B1 {tag}", b1_call(args, data), "fwd_splat_kernel")
     win = g
     if not sb._single_tile(grid):
-        ext = sb.fwd_splat(*args)
+        ext = b1_call(args, data)()
         ow, bg = canon[4], canon[3]
         both(f"B2 {tag}", lambda: sb.band_fold(ext, grid, ts, ow, bg),
              "band_fold_kernel")
@@ -83,9 +108,9 @@ for grid in cs.GRIDS:
         win = sb.band_unfold(g, grid, ts)
         if "grid" in sb._LAYOUTS:
             both(f"B4 grid source {tag}",
-                 lambda: sb.bwd_gather(st, lane_b, g, chunk, layout="grid"),
+                 b4_call(st, data, ts, g, chunk, layout="grid"),
                  "bwd_gather_kernel")
-    both(f"B4 natural {tag}", lambda: sb.bwd_gather(st, lane_b, win, chunk),
+    both(f"B4 natural {tag}", b4_call(st, data, ts, win, chunk),
          "bwd_gather_kernel")
     res = sb.raster_fwd_res(grid, *canon, pw_uniform=True)[1]
     out[f"pullback from the forward's frame {tag} ms"] = cs.time_ms(
@@ -102,9 +127,9 @@ for grid in cs.GRIDS:
      out[f"fused step {tag} kernels and copies"]) = cs.device_busy(step)
 # B1 in 3-D: 128^3, one pose x 10^6 points, uniform weights
 vol = [torch.from_numpy(a).to(dev) for a in cs.volume_inputs(1, 1_000_000)]
-args, _ = sb._fwd_frame(cs.VOLUME, *vol[:3], vol[5], True)
+args, data = sb._fwd_frame(cs.VOLUME, *vol[:3], vol[5], True)
 tag = "x".join(map(str, cs.VOLUME))
-both(f"B1 {tag}", lambda: sb.fwd_splat(*args), "fwd_splat_kernel")
+both(f"B1 {tag}", b1_call(args, data), "fwd_splat_kernel")
 canon = (*vol[:3], torch.zeros(1, device=dev), torch.ones(1, device=dev),
          torch.ones(1_000_000, device=dev))
 g = torch.randn((1,) + cs.VOLUME, device=dev)

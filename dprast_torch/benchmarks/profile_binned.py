@@ -4,17 +4,25 @@ port of `benchmarks/profile_binned.py`).
 Every stage runs alone on inputs built in advance and is timed with CUDA
 events (`dprast_torch.utils.profiling.time_fn`): the events time what was
 launched, so the JAX script's chained fit and its forcing of every sort
-chunk have no counterpart here.  The two kernel stages launch B1
-(`fwd_splat`) and B4 (`bwd_gather`) alone on the forward's frame, the
-counterparts of the JAX script's `fwd_kernel` and `bwd_kernel`.  "keys
-only" is the coordinate stage as the backend runs it (kernel B6,
-`csrc/coords.cu`) and "keys only (eager)" its plain twin, ~170
-elementwise launches.  The fold is what the backend runs: B2 on a
-multi-tile 2-D grid, the plain `_fold` in 3-D.  The unfold is B3 in 2-D and the plain `_unfold` in 3-D, and the
-"bwd kernel" stage reads the windows it wrote; on a multi-tile 2-D grid
-the backend itself skips the unfold and B4 cuts its windows out of the
-cotangent, which is the "bwd kernel grid" stage.  A single tile has no
-unfold and no unsort.
+chunk have no counterpart here.  "fwd kernel" and "bwd kernel" launch B1
+(`fwd_splat`) and B4 (`bwd_gather`) alone on the lane planes of the
+forward's frame, the counterparts of the JAX script's `fwd_kernel` and
+`bwd_kernel`; "fwd kernel enc" and "bwd kernel enc" launch the instances
+the backend runs, which read the frame's encoded planes and decode each
+row themselves (`fwd_splat_enc`, `bwd_gather_enc`).  The lane planes are
+made by no stage of the backend on the card: "fwd planes (twin)" and
+"bwd planes (twin)" time `_planes_fwd` / `_planes_bwd`, the first step of
+the kernels' plain versions.  "prep fwd" and "prep bwd" build the frames
+as the backend does (B6 writes a single tile's frame; the frame gather
+writes a multi-tile frame after the sort).  "keys only" is the
+coordinate stage as the backend runs it (kernel B6, `csrc/coords.cu`) and
+"keys only (eager)" its plain twin, ~170 elementwise launches.  The fold
+is what the backend runs: B2 on a multi-tile 2-D grid, the plain `_fold`
+in 3-D.  The unfold is B3 in 2-D and the plain `_unfold` in 3-D, and the
+two "bwd kernel" stages read the windows it wrote; on a multi-tile 2-D
+grid the backend itself skips the unfold and B4 cuts its windows out of
+the cotangent, which is the "bwd kernel grid" stage (the frame's
+instance).  A single tile has no unfold and no unsort.
 
 The inputs are the JAX script's: a 0.4-sigma Gaussian cloud, identity
 rotations, translations at 0.1 sigma, point weights uniform in (0.5, 2),
@@ -48,8 +56,9 @@ from dprast_torch.ops import splat_binned as sb
 from dprast_torch.utils import profiling
 
 STAGES = ("prep fwd", "prep bwd", "keys only", "keys only (eager)",
-          "fwd planes", "fwd kernel", "fold", "unfold", "bwd planes",
-          "bwd kernel", "bwd kernel grid", "bwd unsort")
+          "fwd planes (twin)", "fwd kernel", "fwd kernel enc", "fold",
+          "unfold", "bwd planes (twin)", "bwd kernel", "bwd kernel enc",
+          "bwd kernel grid", "bwd unsort")
 
 
 def cloud(grid, points, batch, device, seed=0):
@@ -72,9 +81,11 @@ def run(grid, points, batch, chunk=0, device="cuda", *, iters=15,
     """Build every stage's inputs, then time each stage alone.  `chunk` 0
     takes the backend's own.  -> dict with ``ms`` and ``spread`` per
     stage (`time_fn`), the frame's sizes, and the standalone kernels'
-    arguments and outputs: ``fwd_splat_args`` / ``ext`` (B1) and
-    ``bwd_gather_args`` / ``buf`` (B4), ``frame`` (data, slot_tile) and
-    ``inputs``."""
+    arguments and outputs: ``fwd_splat_args`` / ``ext`` (B1 on lanes),
+    ``fwd_splat_enc_args`` (B1 on the frame, which gives ``ext`` on the
+    CPU and within B1's reordering on the card), ``bwd_gather_args`` /
+    ``buf`` (B4 on lanes) and ``bwd_gather_enc_args`` (B4 on the frame,
+    ``buf`` bit for bit), ``frame`` (data, slot_tile) and ``inputs``."""
     device = torch.device(device)
     grid = tuple(grid)
     n_out = len(grid)
@@ -107,6 +118,8 @@ def run(grid, points, batch, chunk=0, device="cuda", *, iters=15,
     lane_b = sb._planes_bwd(coord, ts).contiguous()
     gather_args = (slot_tile, lane_b, g_win, chunk)
     buf = sb.bwd_gather(*gather_args)
+    splat_enc_args = (slot_tile, data, nt, win, chunk)
+    gather_enc_args = (slot_tile, coord, ts, g_win, chunk)
 
     stages = {
         "prep fwd": lambda: sb._fwd_prep(grid, pts, rot, tr, pw, False),
@@ -114,15 +127,17 @@ def run(grid, points, batch, chunk=0, device="cuda", *, iters=15,
         "keys only": lambda: sb._keys_and_local(grid, ts, pts, rot, tr),
         "keys only (eager)": lambda: sb._keys_and_local_plain(grid, ts, pts,
                                                               rot, tr),
-        "fwd planes": lambda: sb._planes_fwd(coord, data[:, n_out])
+        "fwd planes (twin)": lambda: sb._planes_fwd(coord, data[:, n_out])
         .contiguous(),
         "fwd kernel": lambda: sb.fwd_splat(*splat_args),
+        "fwd kernel enc": lambda: sb.fwd_splat_enc(*splat_enc_args),
         "fold": lambda: fold(ext),
         "unfold": lambda: unfold(g),
-        "bwd planes": lambda: sb._planes_bwd(coord, ts).contiguous(),
+        "bwd planes (twin)": lambda: sb._planes_bwd(coord, ts).contiguous(),
         "bwd kernel": lambda: sb.bwd_gather(*gather_args),
-        "bwd kernel grid": lambda: sb.bwd_gather(slot_tile, lane_b, g, chunk,
-                                                 layout="grid"),
+        "bwd kernel enc": lambda: sb.bwd_gather_enc(*gather_enc_args),
+        "bwd kernel grid": lambda: sb.bwd_gather_enc(slot_tile, coord, ts, g,
+                                                     chunk, layout="grid"),
         "bwd unsort": lambda: sb._unsort(buf, idx_rows, points),
     }
     if not halo:
@@ -141,7 +156,9 @@ def run(grid, points, batch, chunk=0, device="cuda", *, iters=15,
             "unfold": ("B3 band_unfold" if n_out == 2 else "plain _unfold")
             if halo else None,
             "ms": ms, "spread": spread, "fwd_splat_args": splat_args,
-            "ext": ext, "bwd_gather_args": gather_args, "buf": buf,
+            "fwd_splat_enc_args": splat_enc_args, "ext": ext,
+            "bwd_gather_args": gather_args,
+            "bwd_gather_enc_args": gather_enc_args, "buf": buf,
             "frame": (data, slot_tile), "inputs": (pts, rot, tr, pw, g)}
 
 

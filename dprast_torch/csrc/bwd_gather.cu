@@ -16,8 +16,8 @@
 // one-hot matmuls on the MXU, combines them with the y (and z) weights,
 // and reduces over x with masked row sums; dead slots write zeros.
 //
-// What bounds it here.  Per frame row the kernel reads 16 bytes (2-D) or
-// 32 bytes (3-D) of lane planes, makes four or eight window reads and
+// What bounds it here.  Per frame row the kernel reads 8 bytes (2-D) or
+// 12 bytes (3-D) of encoded planes, makes four or eight window reads and
 // writes 12 or 16 bytes of gradient rows; per (pose, tile) it loads one
 // window of up to 128x128 fp32 (64 KB).  So it is bound by device-memory
 // traffic: the lane and gradient rows, and the windows.  On a multi-tile
@@ -52,7 +52,7 @@
 //   of 16 bytes, a window whose size is not) and for the presplit bf16
 //   pair, the block stages with plain loads and the same mask.
 // - Each thread handles four consecutive frame rows: one 128-bit load per
-//   lane plane and one 128-bit store per output plane (a slot's rows are
+//   plane it reads and one 128-bit store per output plane (a slot's rows are
 //   contiguous and the chunk is a multiple of 4, so these are aligned).
 //   512 threads and 64 KB a block let three blocks share an SM in 2-D
 //   (two in 3-D, whose eight lane planes need more registers).
@@ -80,6 +80,15 @@
 // - 3-D reads the flat rows the lane planes carry; a row outside the
 //   window on z or y arrives as -9 and reads 0, so no row aliases into
 //   another z plane.
+// - The main path's instances (kEnc) read the frame's encoded planes in
+//   place of lane planes: n_out of them (8 or 12 bytes a row, not 16 or
+//   32), straight out of the frame (B, n_planes, s_pad) at its pose stride,
+//   with no copy.  Each row is decoded in registers as `_decode_coord`
+//   does, and in 3-D its four flat rows are made as `_flat_rows_3d` makes
+//   them (-9 where z or y leaves the window), so the values that reach the
+//   arithmetic are the lane planes' and the output is their bits.  The
+//   TPU decodes outside its kernel only because a per-row op on a (C, 1)
+//   value idles 127 of its 128 lanes.  The harness instances keep lanes.
 // - Every product and sum is rounded on its own (__fmul_rn, __fadd_rn,
 //   __fsub_rn) in the plain twin's order, so nvcc contracts nothing into
 //   an FMA and the card gives the twin's bits.
@@ -150,19 +159,62 @@ __device__ __forceinline__ void mbarrier_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
-// the lane planes of kRows consecutive frame rows, one float4 per plane
-template <int kLane>
-struct LaneRows {
-  float4 v[kLane];
+// kRows consecutive frame rows, one float4 per plane: the lane planes
+// [iy0, dly, ix0, dlx] (2-D) or [r00, r01, r10, r11, dlz, dly, ix0, dlx]
+// (3-D), or the encoded planes (kEnc) [enc_z,] enc_y, enc_x
+template <int kNOut, bool kEnc>
+struct Rows {
+  static constexpr int kPlanes = kEnc ? kNOut : (kNOut == 3 ? 8 : 4);
+  float4 v[kPlanes];
   __device__ __forceinline__ void load(const float* __restrict__ lb,
                                        long long s_pad, long long row) {
 #pragma unroll
-    for (int i = 0; i < kLane; ++i)
+    for (int i = 0; i < kPlanes; ++i)
       v[i] = *reinterpret_cast<const float4*>(lb + i * s_pad + row);
   }
   __device__ __forceinline__ float at(int plane, int j) const {
     const float4& q = v[plane];
     return j == 0 ? q.x : j == 1 ? q.y : j == 2 ? q.z : q.w;
+  }
+  // the x axis of row j
+  __device__ __forceinline__ Axis x(int j) const {
+    if constexpr (kEnc)
+      return decode(at(kNOut - 1, j));
+    else
+      return {(int)at(kPlanes - 2, j), at(kPlanes - 1, j)};
+  }
+  // 2-D: the y axis of row j
+  __device__ __forceinline__ Axis y(int j) const {
+    if constexpr (kEnc)
+      return decode(at(0, j));
+    else
+      return {(int)at(0, j), at(1, j)};
+  }
+  // 3-D: the flat window rows r00, r01, r10, r11 of row j (-9 where z or y
+  // leaves the window of nz x ny rows) and its deltas dlz, dly
+  __device__ __forceinline__ void flat(int j, int ny, int nz, int (&r)[4],
+                                       float& dlz, float& dly) const {
+    if constexpr (kEnc) {
+      const Axis az = decode(at(0, j));
+      const Axis ay = decode(at(1, j));
+#pragma unroll
+      for (int sz = 0; sz < 2; ++sz) {
+#pragma unroll
+        for (int sy = 0; sy < 2; ++sy) {
+          const int z = az.r0 + sz;
+          const int y = ay.r0 + sy;
+          const bool ok = z >= 0 && z < nz && y >= 0 && y < ny;
+          r[2 * sz + sy] = ok ? z * ny + y : -9;
+        }
+      }
+      dlz = az.dl;
+      dly = ay.dl;
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) r[i] = (int)at(i, j);
+      dlz = at(4, j);
+      dly = at(5, j);
+    }
   }
 };
 
@@ -173,9 +225,9 @@ __device__ __forceinline__ void put(float4& q, int j, float x) {
   else q.w = x;
 }
 
-template <int kNOut, int kTerms, int kLayout>
+template <int kNOut, int kTerms, int kLayout, bool kEnc>
 __global__ void __launch_bounds__(kThreads, kNOut == 3 ? 2 : 3)
-bwd_gather_kernel(const float* __restrict__ lane,     // (B, 4 | 8, s_pad)
+bwd_gather_kernel(const float* __restrict__ lane,  // see `Rows`
                   const int* __restrict__ slot_tile,  // (B, n_slots + 1)
                   const void* __restrict__ win,  // (B, nt, rows_e, cols_e),
                                                  // (.., cols_e, rows_e), or
@@ -183,10 +235,10 @@ bwd_gather_kernel(const float* __restrict__ lane,     // (B, 4 | 8, s_pad)
                   const void* __restrict__ win_lo,  // presplit: the lo part
                   float* __restrict__ buf,          // (B, n_out + 1, s_pad)
                   __grid_constant__ const CUtensorMap g_map,  // kTensor: g
-                  int nt, int n_slots, long long s_pad, int chunk,
-                  int rows_e, int cols_e, int nsplit, int gy, int gx, int t0,
-                  int t1, int n1, int staging, int bar_offset) {
-  constexpr int kLane = kNOut == 3 ? 8 : 4;
+                  int nt, int n_slots, long long s_pad,
+                  long long pose_stride, int chunk, int rows_e, int cols_e,
+                  int ny, int nsplit, int gy, int gx, int t0, int t1, int n1,
+                  int staging, int bar_offset) {
   // the window, then the mbarrier (8 bytes) and the slot range (2 ints)
   extern __shared__ __align__(128) float w[];
   unsigned long long* bar_p =
@@ -247,8 +299,9 @@ bwd_gather_kernel(const float* __restrict__ lane,     // (B, 4 | 8, s_pad)
     pitch = kBoxCols;
     shift = ((t % n1) * t1) & 3;
   }
-  const float* lb = lane + (long long)b * kLane * s_pad;
-  LaneRows<kLane> rows;
+  const float* lb = lane + (long long)b * pose_stride;
+  const int nz = rows_e / ny;
+  Rows<kNOut, kEnc> rows;
   int q = threadIdx.x;
 
   if (staging == kLoads) {
@@ -326,8 +379,9 @@ bwd_gather_kernel(const float* __restrict__ lane,     // (B, 4 | 8, s_pad)
     float4 o[kNOut + 1];
 #pragma unroll
     for (int j = 0; j < kRows; ++j) {
-      const int ix0 = (int)rows.at(kLane - 2, j);
-      const float dlx = rows.at(kLane - 1, j);
+      const Axis ax = rows.x(j);
+      const int ix0 = ax.r0;
+      const float dlx = ax.dl;
       const bool x0 = ix0 >= 0 && ix0 < cols_e;
       const bool x1 = ix0 + 1 >= 0 && ix0 + 1 < cols_e;
       const float omx = __fsub_rn(1.0f, dlx);
@@ -336,16 +390,17 @@ bwd_gather_kernel(const float* __restrict__ lane,     // (B, 4 | 8, s_pad)
       float a, c;
       if constexpr (kNOut == 3) {
         // flat rows r00, r01, r10, r11 (-9 where z or y leaves the window)
+        int fr[4];
+        float dlz, dly;
+        rows.flat(j, ny, nz, fr, dlz, dly);
         float plo[4], phi[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          const int r = (int)rows.at(i, j);
+          const int r = fr[i];
           const bool rok = r >= 0 && r < rows_e;
           plo[i] = (rok && x0) ? w[at(r, ix0)] : 0.0f;
           phi[i] = (rok && x1) ? w[at(r, ix0 + 1)] : 0.0f;
         }
-        const float dlz = rows.at(4, j);
-        const float dly = rows.at(5, j);
         const float omy = __fsub_rn(1.0f, dly);
         const float omz = __fsub_rn(1.0f, dlz);
         float dz[2], dy[2], v[2];
@@ -364,8 +419,9 @@ bwd_gather_kernel(const float* __restrict__ lane,     // (B, 4 | 8, s_pad)
         put(o[0], j, lerp2(dz[0], omx, dz[1], dlx));
         put(o[1], j, lerp2(dy[0], omx, dy[1], dlx));
       } else {
-        const int iy0 = (int)rows.at(0, j);
-        const float dly = rows.at(1, j);
+        const Axis ay = rows.y(j);
+        const int iy0 = ay.r0;
+        const float dly = ay.dl;
         const bool y0 = iy0 >= 0 && iy0 < rows_e;
         const bool y1 = iy0 + 1 >= 0 && iy0 + 1 < rows_e;
         const float p00 = (y0 && x0) ? w[at(iy0, ix0)] : 0.0f;
@@ -434,16 +490,18 @@ int encode_grid(CUtensorMap* map, const void* g, int bsz, int gy, int gx) {
   return rc == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-template <int kNOut, int kTerms, int kLayout>
+template <int kNOut, int kTerms, int kLayout, bool kEnc>
 int launch(const void* lane, const void* slot_tile, const void* win,
            const void* win_lo, void* buf, int bsz, int nt, int n_slots,
-           long long s_pad, int chunk, int rows_e, int cols_e, int nsplit,
-           int gy, int gx, int t0, int t1, int staging, void* stream) {
+           long long s_pad, long long pose_stride, int chunk, int rows_e,
+           int cols_e, int ny, int nsplit, int gy, int gx, int t0, int t1,
+           int staging, void* stream) {
   // the copy each layout can take: a grid no bulk copy, a window no
   // tiled load, a bf16 pair neither
   if (staging != kLoads &&
       (kLayout == kPresplit || (kLayout == kGrid) != (staging == kTensor)))
     return (int)cudaErrorInvalidValue;
+  if (ny < 1 || rows_e % ny != 0) return (int)cudaErrorInvalidValue;
   CUtensorMap g_map = {};
   if (staging == kTensor) {
     const int rc = encode_grid(&g_map, win, bsz, gy, gx);
@@ -454,51 +512,64 @@ int launch(const void* lane, const void* slot_tile, const void* win,
   const int staged = staging == kTensor ? kTile * kBoxCols : rows_e * cols_e;
   const int bar_offset = (staged + 3) / 4 * 4;
   const int smem = bar_offset * (int)sizeof(float) + 16;
+  auto* kernel = bwd_gather_kernel<kNOut, kTerms, kLayout, kEnc>;
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_gather_kernel<kNOut, kTerms, kLayout>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const int n1 = kLayout == kGrid ? (gx + t1 - 1) / t1 : 1;
   const dim3 grid(nsplit, nt + 1, bsz);
-  bwd_gather_kernel<kNOut, kTerms, kLayout>
-      <<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const float*)lane, (const int*)slot_tile, win, win_lo, (float*)buf,
-      g_map, nt, n_slots, s_pad, chunk, rows_e, cols_e, nsplit, gy, gx, t0,
-      t1, n1, staging, bar_offset);
+      g_map, nt, n_slots, s_pad, pose_stride, chunk, rows_e, cols_e, ny,
+      nsplit, gy, gx, t0, t1, n1, staging, bar_offset);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// `rows_e` and `cols_e` are the window's natural extents whatever its
-// layout; `terms` is 0 (fp32), 1 (the bf16 fast mode) or 2 (the harness's
-// two-part split); `layout` a `Layout`, `staging` a `Staging` (the caller
-// picks one the window's alignment allows).  `win_lo` is read only by the
-// presplit layout; `gy`, `gx` and the body tile `t0`, `t1` only by the
-// grid layout, whose `win` is the cotangent (B, gy, gx).  `chunk` is a
-// multiple of 4 and `lane` and `buf` are 16-byte aligned.  Only the
-// instances the package uses exist.
+// `lane` holds, per pose at `pose_stride` floats from the last, the lane
+// planes (4 in 2-D, 8 in 3-D) or with `encoded` the frame's n_out encoded
+// planes, `s_pad` floats apart.  `rows_e` and `cols_e` are the window's
+// natural extents whatever its layout, `ny` its rows per z plane in 3-D
+// (the encoded instances make the flat rows of an (rows_e / ny) x ny
+// window; 2-D passes rows_e); `terms` is 0 (fp32), 1 (the bf16 fast mode)
+// or 2 (the harness's two-part split); `layout` a `Layout`, `staging` a
+// `Staging` (the caller picks one the window's alignment allows).
+// `win_lo` is read only by the presplit layout; `gy`, `gx` and the body
+// tile `t0`, `t1` only by the grid layout, whose `win` is the cotangent
+// (B, gy, gx).  `chunk` is a multiple of 4, `pose_stride` too, and `lane`
+// and `buf` are 16-byte aligned.  Only the instances the package uses
+// exist.
 extern "C" int dprast_bwd_gather(const void* lane, const void* slot_tile,
                                  const void* win, const void* win_lo,
                                  void* buf, int bsz, int nt, int n_out,
-                                 int n_slots, long long s_pad, int chunk,
-                                 int rows_e, int cols_e, int nsplit,
+                                 int n_slots, long long s_pad,
+                                 long long pose_stride, int chunk,
+                                 int rows_e, int cols_e, int ny, int nsplit,
                                  int terms, int layout, int gy, int gx,
-                                 int t0, int t1, int staging, void* stream) {
-#define DPRAST_LAUNCH(N, T, L)                                              \
-  if (n_out == N && terms == T && layout == L)                              \
-    return launch<N, T, L>(lane, slot_tile, win, win_lo, buf, bsz, nt,      \
-                           n_slots, s_pad, chunk, rows_e, cols_e, nsplit,   \
-                           gy, gx, t0, t1, staging, stream);
-  DPRAST_LAUNCH(2, 0, kNatural)
-  DPRAST_LAUNCH(3, 0, kNatural)
-  DPRAST_LAUNCH(2, 1, kNatural)
-  DPRAST_LAUNCH(3, 1, kNatural)
-  DPRAST_LAUNCH(2, 2, kNatural)
-  DPRAST_LAUNCH(2, 2, kTransposed)
-  DPRAST_LAUNCH(2, 2, kPresplit)
-  DPRAST_LAUNCH(2, 0, kGrid)
-  DPRAST_LAUNCH(2, 1, kGrid)
+                                 int t0, int t1, int staging, int encoded,
+                                 void* stream) {
+#define DPRAST_LAUNCH(N, T, L, E)                                           \
+  if (n_out == N && terms == T && layout == L && (encoded != 0) == E)       \
+    return launch<N, T, L, E>(lane, slot_tile, win, win_lo, buf, bsz, nt,   \
+                              n_slots, s_pad, pose_stride, chunk, rows_e,   \
+                              cols_e, ny, nsplit, gy, gx, t0, t1, staging,  \
+                              stream);
+  DPRAST_LAUNCH(2, 0, kNatural, false)
+  DPRAST_LAUNCH(3, 0, kNatural, false)
+  DPRAST_LAUNCH(2, 1, kNatural, false)
+  DPRAST_LAUNCH(3, 1, kNatural, false)
+  DPRAST_LAUNCH(2, 2, kNatural, false)
+  DPRAST_LAUNCH(2, 2, kTransposed, false)
+  DPRAST_LAUNCH(2, 2, kPresplit, false)
+  DPRAST_LAUNCH(2, 0, kGrid, false)
+  DPRAST_LAUNCH(2, 1, kGrid, false)
+  DPRAST_LAUNCH(2, 0, kNatural, true)
+  DPRAST_LAUNCH(3, 0, kNatural, true)
+  DPRAST_LAUNCH(2, 1, kNatural, true)
+  DPRAST_LAUNCH(3, 1, kNatural, true)
+  DPRAST_LAUNCH(2, 0, kGrid, true)
+  DPRAST_LAUNCH(2, 1, kGrid, true)
 #undef DPRAST_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

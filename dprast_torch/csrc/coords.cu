@@ -48,6 +48,16 @@
 //   10^5 points, 3 -> 2, on an H100, and takes 74 without them.
 // - The planes are written as (n_out, B, P), one coalesced store per plane;
 //   the key store is left out for a caller that does not bin (one tile).
+// - A single tile bins nothing, so its frame is the planes in point order
+//   (`_prep_direct` of dprast/ops/splat_binned.py, there a pad and a stack
+//   per plane).  In that mode the kernel writes the padded frame (B,
+//   n_planes, p_pad) itself: the encoded planes, the point weight where
+//   the frame has a weight plane, the point id as f32, and the filler rows
+//   p .. p_pad - 1 (encoded 0, weight 0, id p).  Both layouts are one
+//   store per plane at `pose_stride * b + plane_stride * i + p`; the
+//   filler rows are threads past the last point.  Its first threads also
+//   write the slot table (every slot live, all of tile 0), so the frame
+//   costs no launch beyond this one.
 // - Instances for n_in = 2, 3 unroll the input loop; n_in = 0 is the same
 //   code with the count read at run time, for any other width (it splits
 //   the rotation entries per thread).
@@ -66,6 +76,19 @@ struct Axes {
   int nts[3];       // tiles per output axis, ceil(g / t)
   unsigned inv[3];  // floor(2^32 / t) + 1, or 0 where t == 1
   float s[3];       // g / 2 as fp32
+};
+
+// Where the planes go: plane i of pose b at `pose_stride * b + plane_stride
+// * i`, rows 0 .. n_rows - 1.  The (n_out, B, P) planes: strides P and B P,
+// n_rows = P, no id plane (-1).  The single tile's frame (B, n_planes,
+// p_pad): strides n_planes p_pad and p_pad, n_rows = p_pad, the id plane
+// last (and the weight plane at n_out where `weight` is given).
+struct Layout {
+  long long pose_stride;
+  long long plane_stride;
+  int n_rows;
+  int id_plane;
+  int n_slots;  // the frame's slots, whose table the kernel writes too
 };
 
 // floor(n / t) for 0 <= n < 2^32 / t, by the multiplier of `Axes::inv`.
@@ -101,14 +124,21 @@ __device__ __forceinline__ void two_prod(float a, float ah, float al, float b,
       __fmul_rn(al, bl));
 }
 
-template <int N_OUT, int N_IN>
+// kFrame: the single tile's frame (`Layout`), else the (n_out, B, P) planes;
+// an instance apiece, so that the planes' instance carries no frame code
+// (one instance for both took 34 registers in place of 31 at 3 -> 2, so
+// six blocks of 256 threads per SM in place of eight, and 81 us in place
+// of 74 at 64 x 10^5 points on an H100)
+template <int N_OUT, int N_IN, bool kFrame>
 __global__ void __launch_bounds__(kThreads)
 coords_kernel(const float* __restrict__ points,  // (P, n_in)
               const float* __restrict__ rot,     // (B, N_OUT, n_in)
               const float* __restrict__ tr,      // (B, N_OUT)
               int* __restrict__ key,             // (B, P) or null
-              int* __restrict__ planes,          // (N_OUT, B, P)
-              int bsz, int n_points, int n_in_rt, Axes ax) {
+              int* __restrict__ planes,          // see `Layout`
+              const float* __restrict__ weight,  // (P,) or null
+              int* __restrict__ slots,  // (B, n_slots + 1) or null
+              int n_points, Layout lay, int n_in_rt, Axes ax) {
   const int n_in = N_IN > 0 ? N_IN : n_in_rt;
   const int pt = blockIdx.x * kThreads + threadIdx.x;
   const int b = blockIdx.y;
@@ -132,7 +162,22 @@ coords_kernel(const float* __restrict__ points,  // (P, n_in)
     }
   }
   __syncthreads();
-  if (pt >= n_points) return;
+  if constexpr (kFrame) {
+    // the single tile's slot table: every slot holds tile 0 and is live
+    if (pt <= lay.n_slots)
+      slots[(long long)b * (lay.n_slots + 1) + pt] =
+          pt == lay.n_slots ? lay.n_slots : 0;
+  }
+  if (pt >= lay.n_rows) return;
+  int* out = planes + (long long)b * lay.pose_stride + pt;
+  if (kFrame && pt >= n_points) {
+    // a filler row of the single tile's frame: inert everywhere
+#pragma unroll
+    for (int i = 0; i < N_OUT; ++i) out[i * lay.plane_stride] = 0;
+    if (weight != nullptr) out[N_OUT * lay.plane_stride] = 0;
+    out[lay.id_plane * lay.plane_stride] = __float_as_int((float)n_points);
+    return;
+  }
   const float* x = points + (long long)pt * n_in;
 
   // 1. q = R p + t as (hi, lo)
@@ -167,8 +212,6 @@ coords_kernel(const float* __restrict__ points,  // (P, n_in)
   unsigned tile_key = 0u;
   int nt = 1;
   bool overlap = true;
-  const long long at = (long long)b * n_points + pt;
-  const long long plane = (long long)bsz * n_points;
 #pragma unroll
   for (int i = 0; i < N_OUT; ++i) {
     // u = (q + 1) * scale - 1/2, renormalised
@@ -204,26 +247,37 @@ coords_kernel(const float* __restrict__ points,  // (P, n_in)
     const unsigned r_loc = (unsigned)r0 - (unsigned)(ti * t);
     const int frac = __float2int_rz(rintf(__fmul_rn(dl, (float)(1 << kFix))));
     const unsigned enc = ((r_loc + 2u) << kFix) + (unsigned)frac;
-    planes[i * plane + at] = overlap ? (int)enc : 0;
+    out[i * lay.plane_stride] = overlap ? (int)enc : 0;
   }
   // 4. the sentinel key of a point that overlaps no voxel of the grid
-  if (key != nullptr) key[at] = overlap ? (int)tile_key : nt;
+  if (key != nullptr)
+    key[(long long)b * n_points + pt] = overlap ? (int)tile_key : nt;
+  if constexpr (kFrame) {
+    // the frame's weight (its bits) and point-id planes
+    if (weight != nullptr)
+      out[N_OUT * lay.plane_stride] = __float_as_int(weight[pt]);
+    out[lay.id_plane * lay.plane_stride] = __float_as_int((float)pt);
+  }
 }
 
 template <int N_OUT>
 cudaError_t launch(const float* points, const float* rot, const float* tr,
-                   int* key, int* planes, int bsz, int n_points, int n_in,
-                   const Axes& ax, cudaStream_t stream) {
-  const dim3 grid((n_points + kThreads - 1) / kThreads, bsz);
-#define DPRAST_LAUNCH(N_IN)                                                  \
-  coords_kernel<N_OUT, N_IN><<<grid, kThreads, 0, stream>>>(                 \
-      points, rot, tr, key, planes, bsz, n_points, n_in, ax)
+                   int* key, int* planes, const float* weight,
+                   int* slots, int bsz, int n_points, const Layout& lay,
+                   int n_in, const Axes& ax, cudaStream_t stream) {
+  const bool frame = lay.id_plane >= 0;
+  const int n_table = frame ? lay.n_slots + 1 : 0;
+  const int n_threads = lay.n_rows > n_table ? lay.n_rows : n_table;
+  const dim3 grid((n_threads + kThreads - 1) / kThreads, bsz);
+#define DPRAST_LAUNCH(N_IN, FRAME)                                           \
+  coords_kernel<N_OUT, N_IN, FRAME><<<grid, kThreads, 0, stream>>>(          \
+      points, rot, tr, key, planes, weight, slots, n_points, lay, n_in, ax)
   if (n_in == 2) {
-    DPRAST_LAUNCH(2);
+    if (frame) DPRAST_LAUNCH(2, true); else DPRAST_LAUNCH(2, false);
   } else if (n_in == 3) {
-    DPRAST_LAUNCH(3);
+    if (frame) DPRAST_LAUNCH(3, true); else DPRAST_LAUNCH(3, false);
   } else {
-    DPRAST_LAUNCH(0);
+    if (frame) DPRAST_LAUNCH(0, true); else DPRAST_LAUNCH(0, false);
   }
 #undef DPRAST_LAUNCH
   return cudaGetLastError();
@@ -231,17 +285,35 @@ cudaError_t launch(const float* points, const float* rot, const float* tr,
 
 }  // namespace
 
-// `key` may be null: the store of the keys is then left out.  `planes` is
-// (n_out, B, P).  n_out is 2 or 3, n_in >= 1, 1 <= B <= 65535, P >= 1, and
-// on every axis g >= 1, t >= 1 and g t < 2^32.
+// `key` may be null: the store of the keys is then left out.  With
+// `id_plane` < 0 `planes` is (n_out, B, P), and `weight` and `slots` are
+// null.  With `id_plane` >= 0 `planes` is the single tile's frame (B,
+// id_plane + 1, n_rows), n_rows >= P, whose plane n_out holds `weight`
+// where that is not null, and `slots` its slot table (B, n_slots + 1),
+// n_slots <= n_rows.  n_out is 2 or 3, n_in >= 1, 1 <= B <= 65535, P >= 1,
+// and on every axis g >= 1, t >= 1 and g t < 2^32.
 extern "C" int dprast_coords(const void* points, const void* rot,
-                             const void* tr, void* key, void* planes, int bsz,
-                             int n_points, int n_in, int n_out, int g0, int g1,
+                             const void* tr, void* key, void* planes,
+                             const void* weight, void* slots, int bsz,
+                             int n_points, int n_rows, int id_plane,
+                             int n_slots, int n_in, int n_out, int g0, int g1,
                              int g2, int t0, int t1, int t2, float s0,
                              float s1, float s2, void* stream) {
   if ((n_out != 2 && n_out != 3) || n_in < 1 || bsz < 1 || bsz > 65535 ||
       n_points < 1)
     return (int)cudaErrorInvalidValue;
+  const bool frame = id_plane >= 0;
+  if (frame ? (n_rows < n_points || slots == nullptr || n_slots < 1 ||
+               n_slots > n_rows ||
+               id_plane != n_out + (weight != nullptr ? 1 : 0))
+            : (n_rows != n_points || weight != nullptr || slots != nullptr))
+    return (int)cudaErrorInvalidValue;
+  Layout lay;
+  lay.pose_stride = frame ? (long long)(id_plane + 1) * n_rows : n_points;
+  lay.plane_stride = frame ? n_rows : (long long)bsz * n_points;
+  lay.n_rows = n_rows;
+  lay.id_plane = id_plane;
+  lay.n_slots = n_slots;
   Axes ax = {{g0, g1, g2}, {t0, t1, t2}, {1, 1, 1}, {0u, 0u, 0u},
              {s0, s1, s2}};
   for (int i = 0; i < n_out; ++i) {
@@ -255,10 +327,12 @@ extern "C" int dprast_coords(const void* points, const void* rot,
   const cudaError_t err =
       n_out == 2
           ? launch<2>((const float*)points, (const float*)rot,
-                      (const float*)tr, (int*)key, (int*)planes, bsz, n_points,
+                      (const float*)tr, (int*)key, (int*)planes,
+                      (const float*)weight, (int*)slots, bsz, n_points, lay,
                       n_in, ax, s)
           : launch<3>((const float*)points, (const float*)rot,
-                      (const float*)tr, (int*)key, (int*)planes, bsz, n_points,
+                      (const float*)tr, (int*)key, (int*)planes,
+                      (const float*)weight, (int*)slots, bsz, n_points, lay,
                       n_in, ax, s);
   return (int)err;
 }

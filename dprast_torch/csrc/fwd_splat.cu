@@ -12,13 +12,13 @@
 // product on the MXU into the tile's window, which stays resident in VMEM
 // across consecutive slots of one tile.
 //
-// What bounds it here.  Per frame row the kernel reads 16-20 bytes (2-D)
-// or 24-28 bytes (3-D) of lane planes and adds four (2-D) or eight (3-D)
-// floats into a window in shared memory; per (pose, tile) it writes one
-// window of up to 128x128 fp32 (64 KB).  Counted in bytes that is 14 us
-// at 128^3 x 10^6 points, 32 us at 128^2 x 64 x 10^5 and 135 us at
-// 1024^2 (where the 340 MB of windows are most of it), but only at 1024^2
-// do the bytes decide.  The kernel is a scatter, and Hopper has no float
+// What bounds it here.  Per frame row the kernel reads 8-12 bytes (2-D)
+// or 12-16 bytes (3-D) of the encoded frame and adds four (2-D) or eight
+// (3-D) floats into a window in shared memory; per (pose, tile) it writes
+// one window of up to 128x128 fp32 (64 KB).  Counted in bytes that is
+// about 10 us at 128^3 x 10^6 points, 17 us at 128^2 x 64 x 10^5 and 118
+// us at 1024^2 (where the 340 MB of windows are most of it; from the lane
+// planes 14, 32 and 135 us), but only at 1024^2 do the bytes decide.  The kernel is a scatter, and Hopper has no float
 // add on shared memory: `atomicAdd(float*)` on a shared address compiles
 // to a loop of LDS, FADD and ATOMS.CAST.SPIN (a compare-and-swap, retried
 // where another lane got in between; read from the SASS with `cuobjdump`),
@@ -72,7 +72,7 @@
 //   but cost a second launch, left the merge's order to chance, and was no
 //   faster as a call, so it is not kept.
 // - Each thread takes four consecutive rows of a slot: one 128-bit load
-//   per lane plane, all issued before the first atomic, so the loads of a
+//   per plane it reads, all issued before the first atomic, so the loads of a
 //   step are in flight together instead of each waiting behind the
 //   atomics of the row before.  A slot's rows are contiguous and the
 //   chunk is a multiple of 4, so the loads are aligned.  The 16 (2-D) or
@@ -97,6 +97,15 @@
 //   matrix product whose work it halves.
 // - Filler rows decode to -3 on every axis and every target outside the
 //   window is dropped, as the TPU's one-hots never match them.
+// - The frame's rows carry one encoded coordinate per axis (31-bit fixed
+//   point, `_keys_and_local`), the weight where the frame has one, and the
+//   point id.  The TPU kernel reads lane planes decoded outside it
+//   (`_planes_fwd`), because a per-row decode on a (C, 1) value wastes 127
+//   of 128 VPU lanes; a CUDA thread pays two shifts, a subtract, a compare
+//   and an exact multiply by 2^-23 for it.  So the main path's instances
+//   (kEnc) read the frame itself, 8-12 bytes a row in place of 16-28, and
+//   decode in registers, to the bits `_decode_coord` gives.  The lane-plane
+//   instances stay for the standalone launch of the harness.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -125,13 +134,14 @@ __device__ __forceinline__ float weight(float hw, float cx) {
     return v;
 }
 
-// The lane planes of kRows consecutive frame rows, one float4 per plane,
-// at fixed places whatever the frame: [iz0, dlz,] iy0, dly, w, dlx, ix0.
-// A frame without a weight plane leaves `w` unloaded.
-template <int kNOut>
-struct LaneRows {
-  static constexpr int kW = 2 * kNOut - 2;
-  float4 v[kW + 3];
+// kRows consecutive frame rows, one float4 per plane.  The lane planes sit
+// at fixed places whatever the frame: [iz0, dlz,] iy0, dly, w, dlx, ix0;
+// the encoded frame (kEnc) is [enc_z,] enc_y, enc_x, w.  A frame without a
+// weight plane leaves `w` unloaded.
+template <int kNOut, bool kEnc>
+struct Rows {
+  static constexpr int kW = kEnc ? kNOut : 2 * kNOut - 2;
+  float4 v[kEnc ? kNOut + 1 : kW + 3];
   __device__ __forceinline__ void load(const float* __restrict__ lb,
                                        long long s_pad, long long row,
                                        bool with_w) {
@@ -144,13 +154,25 @@ struct LaneRows {
       v[kW] = *reinterpret_cast<const float4*>(p);
       p += s_pad;
     }
-    v[kW + 1] = *reinterpret_cast<const float4*>(p);
-    v[kW + 2] = *reinterpret_cast<const float4*>(p + s_pad);
+    if constexpr (!kEnc) {
+      v[kW + 1] = *reinterpret_cast<const float4*>(p);
+      v[kW + 2] = *reinterpret_cast<const float4*>(p + s_pad);
+    }
   }
   __device__ __forceinline__ float at(int plane, int j) const {
     const float4& q = v[plane];
     return j == 0 ? q.x : j == 1 ? q.y : j == 2 ? q.z : q.w;
   }
+  // axis i (0 .. kNOut - 1, x last) of row j
+  __device__ __forceinline__ Axis axis(int i, int j) const {
+    if constexpr (kEnc)
+      return decode(at(i, j));
+    else if (i == kNOut - 1)
+      return {(int)at(kW + 2, j), at(kW + 1, j)};
+    else
+      return {(int)at(2 * i, j), at(2 * i + 1, j)};
+  }
+  __device__ __forceinline__ float w(int j) const { return at(kW, j); }
 };
 
 __device__ __forceinline__ void add(float& a, const float& b) {
@@ -194,13 +216,14 @@ __device__ __forceinline__ void merge_units(const cg::cluster_group& cluster,
   }
 }
 
-template <int kNOut, int kTerms>
+template <int kNOut, int kTerms, bool kEnc>
 __global__ void __launch_bounds__(kThreads, 3)
-fwd_splat_kernel(const float* __restrict__ lane,     // (B, L, s_pad)
+fwd_splat_kernel(const float* __restrict__ lane,  // (B, L, s_pad) planes
                  const int* __restrict__ slot_tile,  // (B, n_slots + 1)
                  float* __restrict__ ext,  // (B, nt, rows_e, cols_e)
-                 int nt, int n_slots, int n_lane, long long s_pad, int chunk,
-                 int ny, int rows_e, int cols_e, int n_ranks) {
+                 int nt, int n_slots, long long pose_stride, bool with_w,
+                 long long s_pad, int chunk, int ny, int rows_e, int cols_e,
+                 int n_ranks) {
   extern __shared__ __align__(16) float win[];
   __shared__ int range[2];
   // the cluster is (n_ranks, 1, 1) and so is the grid's x
@@ -241,8 +264,7 @@ fwd_splat_kernel(const float* __restrict__ lane,     // (B, L, s_pad)
     return ((long long)s0 + (long long)slot * n_ranks) * chunk +
            (q - slot * per_slot) * kRows;
   };
-  const float* lb = lane + (long long)b * n_lane * s_pad;
-  const bool with_w = n_lane == 2 * kNOut + 1;
+  const float* lb = lane + (long long)b * pose_stride;
   const int nz = rows_e / ny;
 
   float* out = ext + ((long long)b * nt + t) * n_win;
@@ -261,18 +283,19 @@ fwd_splat_kernel(const float* __restrict__ lane,     // (B, L, s_pad)
   // exited.
   if (rank >= n_active) return;
 
-  LaneRows<kNOut> rows;
-  constexpr int kW = LaneRows<kNOut>::kW;
+  Rows<kNOut, kEnc> rows;
   int q = threadIdx.x;
   if (q < n_groups) rows.load(lb, s_pad, row_of(q), with_w);
 
   while (q < n_groups) {
 #pragma unroll
     for (int j = 0; j < kRows; ++j) {
-      const int iy0 = (int)rows.at(kW - 2, j);
-      const float dly = rows.at(kW - 1, j);
-      const float dlx = rows.at(kW + 1, j);
-      const int ix0 = (int)rows.at(kW + 2, j);
+      const Axis ay = rows.axis(kNOut - 2, j);
+      const Axis ax = rows.axis(kNOut - 1, j);
+      const int iy0 = ay.r0;
+      const float dly = ay.dl;
+      const float dlx = ax.dl;
+      const int ix0 = ax.r0;
       const float cx0 = 1.0f - dlx;
       const float cx1 = dlx;
       const bool x0 = ix0 >= 0 && ix0 < cols_e;
@@ -284,8 +307,9 @@ fwd_splat_kernel(const float* __restrict__ lane,     // (B, L, s_pad)
       int r[kStencil];
       bool ok[kStencil];
       if constexpr (kNOut == 3) {
-        const int iz0 = (int)rows.at(0, j);
-        const float dlz = rows.at(1, j);
+        const Axis az = rows.axis(0, j);
+        const int iz0 = az.r0;
+        const float dlz = az.dl;
         const float hz[2] = {1.0f - dlz, dlz};
         const float hy[2] = {1.0f - dly, dly};
 #pragma unroll
@@ -308,7 +332,7 @@ fwd_splat_kernel(const float* __restrict__ lane,     // (B, L, s_pad)
           ok[sy] = iy0 + sy >= 0 && iy0 + sy < rows_e;
         }
       }
-      const float w = with_w ? rows.at(kW, j) : 1.0f;
+      const float w = with_w ? rows.w(j) : 1.0f;
 #pragma unroll
       for (int i = 0; i < kStencil; ++i) {
         if (!ok[i]) continue;
@@ -344,14 +368,14 @@ fwd_splat_kernel(const float* __restrict__ lane,     // (B, L, s_pad)
   cluster.sync();
 }
 
-template <int kNOut, int kTerms>
+template <int kNOut, int kTerms, bool kEnc>
 int launch(const void* lane, const void* slot_tile, void* ext, int bsz,
-           int nt, int n_slots, int n_lane, long long s_pad, int chunk,
-           int ny, int rows_e, int cols_e, int n_ranks, int* clusters_out,
-           void* stream) {
+           int nt, int n_slots, long long pose_stride, bool with_w,
+           long long s_pad, int chunk, int ny, int rows_e, int cols_e,
+           int n_ranks, int* clusters_out, void* stream) {
   if (n_ranks < 1 || n_ranks > kMaxCluster) return (int)cudaErrorInvalidValue;
   const int smem = rows_e * cols_e * (int)sizeof(float);
-  auto* kernel = fwd_splat_kernel<kNOut, kTerms>;
+  auto* kernel = fwd_splat_kernel<kNOut, kTerms, kEnc>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -374,35 +398,50 @@ int launch(const void* lane, const void* slot_tile, void* ext, int bsz,
     return (int)cudaOccupancyMaxActiveClusters(clusters_out, kernel, &config);
   err = cudaLaunchKernelEx(&config, kernel, (const float*)lane,
                            (const int*)slot_tile, (float*)ext, nt, n_slots,
-                           n_lane, s_pad, chunk, ny, rows_e, cols_e, n_ranks);
+                           pose_stride, with_w, s_pad, chunk, ny, rows_e,
+                           cols_e, n_ranks);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// `slot_tile` is the frame's slot table (B, n_slots + 1), whose last
-// entry per pose counts the live slots.  `ny` is the window's y extent:
-// the number of its rows in 2-D, the rows of one z plane in 3-D (rows_e /
-// ny z planes).  `n_ranks` is the cluster size, the blocks that share one
-// (pose, tile), 1 to 8.  `terms` is 0 (fp32) or 1 (the bf16 fast mode).  `chunk` is a multiple of 4 and `lane` is 16-byte
-// aligned.  With `clusters_out` not null nothing is launched: the entry
-// writes there how many clusters of this launch the card holds at once.
+// `lane` holds `n_planes` planes of `s_pad` rows per pose: the lane planes
+// [iz0, dlz,] iy0, dly, (w,) dlx, ix0 (2 n_out or 2 n_out + 1 of them), or
+// with `encoded` the frame [enc..., (w,) id] (n_out + 1 or n_out + 2), of
+// which the kernel reads the encoded planes and the weight.  `slot_tile`
+// is the frame's slot table (B, n_slots + 1), whose last entry per pose
+// counts the live slots.  `ny` is the window's y extent: the number of its
+// rows in 2-D, the rows of one z plane in 3-D (rows_e / ny z planes).
+// `n_ranks` is the cluster size, the blocks that share one (pose, tile), 1
+// to 8.  `terms` is 0 (fp32) or 1 (the bf16 fast mode).  `chunk` is a
+// multiple of 4 and `lane` is 16-byte aligned.  With `clusters_out` not
+// null nothing is launched: the entry writes there how many clusters of
+// this launch the card holds at once.
 extern "C" int dprast_fwd_splat(const void* lane, const void* slot_tile,
                                 void* ext, int bsz, int nt, int n_out,
-                                int n_slots, int n_lane, long long s_pad,
+                                int n_slots, int n_planes, long long s_pad,
                                 int chunk, int ny, int rows_e, int cols_e,
-                                int n_ranks, int terms, int* clusters_out,
-                                void* stream) {
-#define DPRAST_LAUNCH(N, T)                                                 \
-  if (n_out == N && terms == T)                                             \
-    return launch<N, T>(lane, slot_tile, ext, bsz, nt, n_slots, n_lane,     \
-                        s_pad, chunk, ny, rows_e, cols_e, n_ranks,          \
-                        clusters_out, stream);
-  DPRAST_LAUNCH(2, 0)
-  DPRAST_LAUNCH(3, 0)
-  DPRAST_LAUNCH(2, 1)
-  DPRAST_LAUNCH(3, 1)
+                                int n_ranks, int terms, int encoded,
+                                int* clusters_out, void* stream) {
+  const int bare = encoded ? n_out + 1 : 2 * n_out;
+  if (n_planes != bare && n_planes != bare + 1)
+    return (int)cudaErrorInvalidValue;
+  const bool with_w = n_planes == bare + 1;
+  const long long pose_stride = (long long)n_planes * s_pad;
+#define DPRAST_LAUNCH(N, T, E)                                              \
+  if (n_out == N && terms == T && (encoded != 0) == E)                      \
+    return launch<N, T, E>(lane, slot_tile, ext, bsz, nt, n_slots,          \
+                           pose_stride, with_w, s_pad, chunk, ny, rows_e,   \
+                           cols_e, n_ranks, clusters_out, stream);
+  DPRAST_LAUNCH(2, 0, false)
+  DPRAST_LAUNCH(3, 0, false)
+  DPRAST_LAUNCH(2, 1, false)
+  DPRAST_LAUNCH(3, 1, false)
+  DPRAST_LAUNCH(2, 0, true)
+  DPRAST_LAUNCH(3, 0, true)
+  DPRAST_LAUNCH(2, 1, true)
+  DPRAST_LAUNCH(3, 1, true)
 #undef DPRAST_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

@@ -1,8 +1,14 @@
-// The slot table of a frame, as B1 and B4 read it inside their kernels.
+// The slot table and the encoded rows of a frame, as B1 and B4 read them
+// inside their kernels.
 //
 // A pose's table holds the tile of each of its `n_slots` slots in
 // non-decreasing order and, as entry `n_slots`, the count of live slots;
 // the slots at or past that count are dead and belong to no tile.
+//
+// A frame row holds one encoded coordinate per axis: the int32
+// ``(r0_local + 2) << 23 | round(dl 2^23)`` stored as the bits of an f32
+// (`_keys_and_local` of dprast_torch/ops/splat_binned.py), 0 where the
+// point overlaps no voxel.
 
 #pragma once
 
@@ -39,4 +45,27 @@ __device__ __forceinline__ int warp_lower_bound(const int* __restrict__ a,
 __device__ __forceinline__ int warp_lower_bound(const int* __restrict__ a,
                                                 int n, int x) {
   return warp_lower_bound(a, n, x, n);
+}
+
+// fraction bits of an encoded coordinate
+constexpr int kFix = 23;
+
+// one axis of one frame row: the first stencil index and the delta in
+// (0, 1] towards the next
+struct Axis {
+  int r0;
+  float dl;
+};
+
+// An encoded coordinate (a frame entry) -> its axis, as `_decode_coord`
+// gives it: ``dl = frac 2^-23``, exact since frac < 2^23; a zero fraction
+// is ``dl = 1`` with the stencil one voxel down (the carry of a rounded
+// dl = 1).  0 decodes to r0 = -3, outside every window.
+__device__ __forceinline__ Axis decode(float bits) {
+  const int enc = __float_as_int(bits);
+  const int i_part = enc >> kFix;
+  const int frac = enc - (i_part << kFix);
+  const bool zero = frac == 0;
+  return {i_part - 2 - (zero ? 1 : 0),
+          zero ? 1.0f : __fmul_rn(__int2float_rn(frac), 0x1p-23f)};
 }

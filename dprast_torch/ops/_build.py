@@ -28,7 +28,7 @@ from pathlib import Path
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dprast_torch"
 _SOURCES = ("fwd_splat.cu", "band_fold.cu", "band_unfold.cu",
-            "bwd_gather.cu", "coords.cu")
+            "bwd_gather.cu", "coords.cu", "frame_gather.cu")
 # headers the sources include: not compiled on their own, but part of the
 # library's name, so that an edited header rebuilds it
 _HEADERS = ("slots.cuh",)
@@ -105,7 +105,7 @@ def load():
         f32 = ctypes.c_float
         lib.dprast_fwd_splat.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32,
                                          i64, i32, i32, i32, i32, i32, i32,
-                                         vp, vp]
+                                         i32, vp, vp]
         lib.dprast_fwd_splat.restype = i32
         lib.dprast_band_fold.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32,
                                          i32, vp]
@@ -114,13 +114,17 @@ def load():
                                            vp]
         lib.dprast_band_unfold.restype = i32
         lib.dprast_bwd_gather.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32,
-                                          i32, i64, i32, i32, i32, i32, i32,
-                                          i32, i32, i32, i32, i32, i32, vp]
+                                          i32, i64, i64, i32, i32, i32, i32,
+                                          i32, i32, i32, i32, i32, i32, i32,
+                                          i32, i32, vp]
         lib.dprast_bwd_gather.restype = i32
-        lib.dprast_coords.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32,
-                                      i32, i32, i32, i32, i32, i32, f32, f32,
-                                      f32, vp]
+        lib.dprast_coords.argtypes = [vp, vp, vp, vp, vp, vp, vp, i32, i32,
+                                      i32, i32, i32, i32, i32, i32, i32, i32,
+                                      i32, i32, i32, f32, f32, f32, vp]
         lib.dprast_coords.restype = i32
+        lib.dprast_frame_gather.argtypes = [vp, i64, vp, vp, vp, i32, vp, vp,
+                                            i32, i32, i32, i64, vp]
+        lib.dprast_frame_gather.restype = i32
         lib.dprast_error_string.argtypes = [i32]
         lib.dprast_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -10,16 +10,23 @@ The forward, for a batch of B poses:
    rounded on its own as in the eager twin `_keys_and_local_plain`
    (`geometry.grid_coords_2f`, ~170 elementwise launches), to the same
    bits.
-2. **Frame.** A single-tile 2-D grid (both axes <= 128) keeps the point
-   order (`_prep_direct`).  A multi-tile grid sorts the points by tile
-   into a padded *slot frame* (`_prep_binned`): slot ``s`` covers rows
-   ``[s*chunk, (s+1)*chunk)`` of one tile, every tile owns at least one
-   slot, and ``slot_tile[b, -1]`` counts the live slots.  A 3-D grid is
-   always multi-tile: (7, 15, 127)-voxel bodies.
-3. **Planes.** `_planes_fwd` decodes the frame into the lane planes the
-   splat reads: ``[iy0, dly, (w,) dlx, ix0]`` per row in 2-D,
-   ``[iz0, dlz, iy0, dly, (w,) dlx, ix0]`` in 3-D.
-4. **Splat** (`fwd_splat`, kernel B1): every row adds its four (2-D) or
+2. **Frame** (`_frame`): ``data`` (B, n_planes, s_pad) holds per row
+   ``[enc..., (w,) point id]``.  A single-tile 2-D grid (both axes <= 128)
+   keeps the point order: on the card B6 writes the padded frame and its
+   slot table in the same launch (`direct_frame`; plain: `_prep_direct`).
+   A multi-tile grid sorts the points by tile into a padded *slot frame*:
+   slot ``s`` covers rows ``[s*chunk, (s+1)*chunk)`` of one tile, every
+   tile owns at least one slot, and ``slot_tile[b, -1]`` counts the live
+   slots; on the card one kernel writes the frame after the sort
+   (`frame_gather`; plain: `_prep_binned`).  A 3-D grid is always
+   multi-tile: (7, 15, 127)-voxel bodies.
+3. **Planes.** The JAX package decodes the frame outside its kernels into
+   lane planes (``[iy0, dly, (w,) dlx, ix0]`` per row in 2-D,
+   ``[iz0, dlz, iy0, dly, (w,) dlx, ix0]`` in 3-D, `_planes_fwd`).  Here
+   the main path's B1 and B4 read the encoded frame and decode each row
+   themselves (their ``_enc`` instances); `_planes_fwd` / `_planes_bwd`
+   remain their plain versions' first step and the lane instances' input.
+4. **Splat** (`fwd_splat_enc`, kernel B1): every row adds its four (2-D) or
    eight (3-D) multilinear weights into its tile's window
    ``ext[b, tile]`` -- 128x128 fp32: a 127-voxel body plus a 1-voxel
    halo per axis in 2-D, the flattened (8 z x 16 y) rows by 128 x
@@ -39,7 +46,7 @@ autograd pair) or builds its own (`raster_pullback`):
    cotangent; 3-D unfolds with plain torch (`_unfold`).  Kernel B3
    (`band_unfold`) writes the 2-D windows out for the harness, and for a
    pullback that is handed it as its ``unfold`` stage.
-7. **Gather** (`bwd_gather`, kernel B4): every frame row reads its four
+7. **Gather** (`bwd_gather_enc`, kernel B4): every frame row reads its four
    (2-D) or eight (3-D) window values and writes ``[du_y, du_x, gw]`` or
    ``[du_z, du_y, du_x, gw]``; rows of dead slots write zeros.
 8. **Unsort**: a scatter by the point-id plane puts the rows back in
@@ -103,14 +110,26 @@ _STAGINGS = ("loads", "bulk", "tensor")
 # no multiple of 16 bytes) stages with plain loads and counts under the
 # instance's name with this suffix
 _GRID_LOADS = "_ldg"
+# the instances of the main path read the encoded frame (`fwd_splat_enc`,
+# `bwd_gather_enc`) and count under the lane instance's name with this
+# suffix: every B1 instance, and B4's natural and grid sources at terms 0
+# and 1; the harness's B4 variants read lane planes only
+_ENC = "_enc"
+_B4_ENC = tuple(k for k in _B4_INSTANCES
+                if k[1] in (0, 1) and k[2] in ("natural", "grid"))
 
 # kernel launches per CUDA instance: a run reads these to show that its
-# path went through the kernels (CPU twin calls do not count)
+# path went through the kernels (CPU twin calls do not count); "coords"
+# counts B6 whether it writes planes or a single tile's frame
 LAUNCHES = dict.fromkeys(
-    ["coords", "band_fold", "band_unfold", *_B1_INSTANCES.values(),
-     *_B4_INSTANCES.values(),
+    ["coords", "frame_gather", "band_fold", "band_unfold",
+     *_B1_INSTANCES.values(), *_B4_INSTANCES.values(),
      *(name + _GRID_LOADS for (_, _, layout), name in _B4_INSTANCES.items()
-       if layout == "grid")], 0)
+       if layout == "grid"),
+     *(name + _ENC for name in _B1_INSTANCES.values()),
+     *(_B4_INSTANCES[k] + _ENC for k in _B4_ENC),
+     *(_B4_INSTANCES[k] + _ENC + _GRID_LOADS for k in _B4_ENC
+       if k[2] == "grid")], 0)
 
 
 def tile_shape_for(grid_size):
@@ -224,10 +243,26 @@ def _keys_and_local(grid_size, ts, points, rotation, translation,
     tensors the kernel in `csrc/coords.cu`, which gives the twin's bits in
     one launch; inputs of another type are cast to contiguous fp32 first,
     as the twin casts them.  With ``want_key=False`` `key` is None (the
-    kernel leaves the keys unwritten): a single tile bins nothing."""
+    kernel leaves the keys unwritten)."""
     if points.device.type == "cpu":
         return _keys_and_local_plain(grid_size, ts, points, rotation,
                                      translation, want_key)
+    pts, rot, tr = _coords_inputs(grid_size, ts, points, rotation,
+                                  translation)
+    bsz, n_out = rot.shape[:2]
+    p = pts.shape[0]
+    key = torch.empty((bsz, p), dtype=torch.int32, device=pts.device) \
+        if want_key else None
+    planes = torch.empty((n_out, bsz, p), dtype=torch.float32,
+                         device=pts.device)
+    _coords_launch(grid_size, ts, pts, rot, tr, key, planes, None, None, p,
+                   -1, 0)
+    return key, list(planes.unbind(0)), n_tiles(grid_size, ts)
+
+
+def _coords_inputs(grid_size, ts, points, rotation, translation):
+    """B6's inputs as contiguous fp32 on one card, checked against the
+    grid and the kernel's launch bounds."""
     f32 = torch.float32
     pts, rot, tr = (x.to(f32).contiguous()
                     for x in (points, rotation, translation))
@@ -245,20 +280,72 @@ def _keys_and_local(grid_size, ts, points, rotation, translation,
     if not (1 <= bsz <= 65535 and 1 <= p < 2 ** 31 and n_in >= 1):
         raise ValueError(f"coords: B={bsz}, P={p}, n_in={n_in} exceed the "
                          f"kernel's launch bounds")
-    nt = n_tiles(grid_size, ts)
-    dev = pts.device
-    key = torch.empty((bsz, p), dtype=torch.int32, device=dev) \
-        if want_key else None
-    planes = torch.empty((n_out, bsz, p), dtype=f32, device=dev)
+    return pts, rot, tr
+
+
+def _coords_launch(grid_size, ts, pts, rot, tr, key, planes, weight, slots,
+                   n_rows, id_plane, n_slots):
+    """One launch of B6 on checked inputs (`_coords_inputs`), into
+    `planes` (n_out, B, P) with ``id_plane=-1``, or into a single tile's
+    frame (B, id_plane + 1, n_rows) and its slot table `slots`."""
+    n_out = len(grid_size)
+    bsz, _, n_in = rot.shape
     # g / 2, which the call rounds to fp32: the twin's halved fp32 grid
     # size (halving commutes with the rounding)
     scale = [g / 2 for g in grid_size]
     pad = (0,) * (3 - n_out)
-    _launch("coords", dev, _build.load().dprast_coords, _ptr(pts), _ptr(rot),
-            _ptr(tr), None if key is None else _ptr(key), _ptr(planes), bsz,
-            p, n_in, n_out, *grid_size, *pad, *ts, *pad, *scale, *pad)
+    _launch("coords", pts.device, _build.load().dprast_coords, _ptr(pts),
+            _ptr(rot), _ptr(tr), None if key is None else _ptr(key),
+            _ptr(planes), None if weight is None else _ptr(weight),
+            None if slots is None else _ptr(slots), bsz, pts.shape[0],
+            n_rows, id_plane, n_slots, n_in, n_out, *grid_size, *pad, *ts,
+            *pad, *scale, *pad)
     LAUNCHES["coords"] += 1
-    return key, list(planes.unbind(0)), nt
+
+
+def _direct_frame_plain(grid_size, ts, points, rotation, translation,
+                        weight, chunk):
+    """Plain twin of `direct_frame`: the twin's planes without keys, then
+    `_prep_direct`."""
+    _, locs, _ = _keys_and_local_plain(grid_size, ts, points, rotation,
+                                       translation, want_key=False)
+    return _prep_direct(*_frame_planes(locs, weight), chunk)
+
+
+def direct_frame(grid_size, ts, points, rotation, translation, weight,
+                 chunk):
+    """B6 writing a single tile's frame -> ``(data (B, n_planes, p_pad),
+    slot_tile (B, n_slots + 1))``: `_prep_direct` of the encoded planes,
+    the point weight `weight` (P,) where it is given (``None`` on the
+    uniform path) and the point ids, with every slot live.  CPU tensors
+    take the plain twin, CUDA tensors one launch of `csrc/coords.cu`, which
+    writes the frame and its slot table itself (counted under
+    ``"coords"``)."""
+    if points.device.type == "cpu":
+        return _direct_frame_plain(grid_size, ts, points, rotation,
+                                   translation, weight, chunk)
+    pts, rot, tr = _coords_inputs(grid_size, ts, points, rotation,
+                                  translation)
+    bsz, n_out = rot.shape[:2]
+    p = pts.shape[0]
+    dev = pts.device
+    w = None
+    if weight is not None:
+        w = weight.to(torch.float32).contiguous()
+        _check_cuda("coords", pts, torch.float32, w, torch.float32)
+        if w.shape != (p,):
+            raise ValueError(f"coords: weight {tuple(w.shape)} is not one "
+                             f"per point of {p}")
+    n_planes = n_out + (1 if w is None else 2)
+    p_pad = -(-p // chunk) * chunk
+    n_slots = p_pad // chunk
+    data = torch.empty((bsz, n_planes, p_pad), dtype=torch.float32,
+                       device=dev)
+    slot_tile = torch.empty((bsz, n_slots + 1), dtype=torch.int32,
+                            device=dev)
+    _coords_launch(grid_size, ts, pts, rot, tr, None, data, w, slot_tile,
+                   p_pad, n_planes - 1, n_slots)
+    return data, slot_tile
 
 
 def _decode_coord(col):
@@ -285,27 +372,55 @@ def _prep_binned(key, planes, fills, nt, chunk, min_chunk_per_tile,
     int32); the trailing entry is ``n_live``, the count of slots that carry
     frame rows.  Filler rows get the per-plane `fills` values.
 
-    ONE sort builds the frame: per-tile counts come from the unsorted keys,
-    so filler rows can be emitted up front with interleaving keys -- reals
-    of tile t sort as ``2t``, exactly the right number of fillers as
-    ``2t+1``, everything else (no-overlap points at key ``nt``, excess
-    fillers) past the frame at ``>= 2*nt``.
+    ONE sort builds the frame (`_slot_order`).  With ``pack_idx=True`` the
+    last plane must be the point-id plane (values ``0..p-1``, fill ``p``);
+    when the combined bits fit an int32 it rides inside the sort key
+    (``key * P2 + id``), the keys are unique and the sort needs no
+    stability.  Otherwise it rides as a payload and the sort is stable.
+    This is the plain version of what `frame_gather` writes on the card."""
+    bsz, p = key.shape
+    perm, sorted_keys, slot_tile = _slot_order(key, nt, chunk,
+                                               min_chunk_per_tile, pack_idx)
+    s_pad = perm.shape[1]
+    n_fill = max(s_pad - p, nt * chunk)
+    if sorted_keys is not None:
+        planes = planes[:-1]
+    data = [torch.gather(
+        torch.cat([pl_.expand(bsz, p),
+                   torch.full((bsz, n_fill), fills[i], dtype=torch.float32,
+                              device=key.device)], dim=1), 1, perm)
+            for i, pl_ in enumerate(planes)]
+    if sorted_keys is not None:
+        data.append((sorted_keys % _id_span(p)).to(torch.float32))
+    return torch.stack(data, dim=1), slot_tile
 
-    With ``pack_idx=True`` the last plane must be the point-id plane
-    (values ``0..p-1``, fill ``p``); when the combined bits fit an int32
-    it rides inside the sort key (``key * P2 + id``), the keys are unique
-    and the sort needs no stability.  Otherwise it rides as a payload and
-    the sort is stable."""
+
+def _id_span(p):
+    """The power of two above every point id and the filler id `p`."""
+    return 1 << max(int(p).bit_length(), 1)
+
+
+def _slot_order(key, nt, chunk, min_chunk_per_tile, pack_idx):
+    """The binning sort of the keys `key` (B, P) -> ``(perm (B, s_pad)
+    int64, sorted_keys, slot_tile)``: frame row ``r`` of pose ``b`` takes
+    point ``perm[b, r]`` where that is below P, else it is a filler row.
+    `sorted_keys` (B, s_pad) carries the packed point ids (``key * P2 +
+    id``) where ``pack_idx`` and the bits fit an int32, else it is None
+    (a stable sort; the id is the payload ``perm``).
+
+    Per-tile counts come from the unsorted keys, so filler rows can be
+    emitted up front with interleaving keys -- reals of tile t sort as
+    ``2t``, exactly the right number of fillers as ``2t+1``, everything
+    else (no-overlap points at key ``nt``, excess fillers) past the frame
+    at ``>= 2*nt``."""
     bsz, p = key.shape
     dev = key.device
     i32 = torch.int32
     s_pad = _slot_frame_size(p, nt, chunk)
     n_slots = s_pad // chunk
 
-    p2 = 1 << max(int(p).bit_length(), 1)
+    p2 = _id_span(p)
     packed = pack_idx and (2 * nt + 1) * p2 + p < 2 ** 31
-    if packed:
-        planes = planes[:-1]
 
     # per-tile counts of every pose in one bincount; the no-overlap
     # sentinel nt gets its own bin and is dropped
@@ -337,22 +452,96 @@ def _prep_binned(key, planes, fills, nt, chunk, min_chunk_per_tile,
                          torch.full((n_fill,), p, dtype=i32, device=dev)])
         keys2 = keys2 * p2 + sub
     sorted_keys, perm = torch.sort(keys2, dim=1, stable=not packed)
-    perm = perm[:, :s_pad]
-    data = [torch.gather(
-        torch.cat([pl_.expand(bsz, p),
-                   torch.full((bsz, n_fill), fills[i], dtype=torch.float32,
-                              device=dev)], dim=1), 1, perm)
-            for i, pl_ in enumerate(planes)]
-    if packed:
-        data.append((sorted_keys[:, :s_pad] % p2).to(torch.float32))
-    data = torch.stack(data, dim=1)
     # slot s belongs to tile #(count of poffs[t+1] <= s*chunk)
     starts = (torch.arange(n_slots, device=dev) * chunk).expand(bsz, n_slots)
     tile_of = torch.searchsorted(poffs[:, 1:].long().contiguous(),
                                  starts.contiguous(), right=True)
     slot_tile = torch.clamp(tile_of, max=nt - 1).to(i32)
     n_live = poffs[:, nt:] // chunk
-    return data, torch.cat([slot_tile, n_live], dim=1)
+    return (perm[:, :s_pad], sorted_keys[:, :s_pad] if packed else None,
+            torch.cat([slot_tile, n_live], dim=1))
+
+
+def _frame_planes(locs, weight):
+    """The frame's source planes (B, P) and their filler values: the
+    encoded coordinates `locs` (fill 0, which decodes outside every
+    window), the point weight `weight` (P,) where it is given (fill 0),
+    and the point ids (fill P)."""
+    bsz, p = locs[0].shape
+    planes = list(locs)
+    fills = [0.0] * len(locs)
+    if weight is not None:
+        # the per-row weight plane carries the POINT weight only; the
+        # per-pose out_weight is applied after the fold (the splat is
+        # linear in it)
+        planes.append(weight.to(torch.float32)[None, :].expand(bsz, p))
+        fills.append(0.0)
+    # the point-id plane rides the sort (packed into the key when the bits
+    # fit): unique keys let the sort drop stability, and the pullback
+    # unsorts by it
+    planes.append(torch.arange(p, dtype=torch.float32, device=locs[0].device)
+                  [None, :].expand(bsz, p))
+    fills.append(float(p))
+    return planes, fills
+
+
+def _frame_gather_plain(perm, locs, weight):
+    """Plain twin of `frame_gather`: `_prep_binned`'s gather, with the id
+    of each row read off `perm` (on both of its paths the point's own id,
+    or P for a filler row)."""
+    bsz, p = locs[0].shape
+    real = perm < p
+    at = torch.where(real, perm, 0)
+    sources = list(locs) + ([] if weight is None else [
+        weight.to(torch.float32)[None, :].expand(bsz, p)])
+    data = [torch.where(real, torch.gather(pl_.expand(bsz, p), 1, at), 0.0)
+            for pl_ in sources]
+    data.append(torch.where(real, perm, p).to(torch.float32))
+    return torch.stack(data, dim=1)
+
+
+def frame_gather(perm, locs, weight):
+    """The multi-tile frame after the sort -> data (B, n_planes, s_pad):
+    row ``r`` of pose ``b`` holds point ``j = perm[b, r]``'s encoded planes
+    `locs` (each (B, P)), its weight `weight` (P,) where that is given, and
+    its id, or, for ``j >= P``, a filler row (0, 0, P) -- what
+    `_prep_binned` writes.  `perm` (B, s_pad) int64 is `_slot_order`'s and
+    may be a view with a row stride.  CPU tensors take the plain twin, CUDA
+    tensors the kernel in `csrc/frame_gather.cu`: one launch in place of a
+    `cat` and a `gather` per plane and a `stack`."""
+    if perm.device.type == "cpu":
+        return _frame_gather_plain(perm, locs, weight)
+    f32 = torch.float32
+    bsz, s_pad = perm.shape
+    p = locs[0].shape[1]
+    _check_cuda("frame_gather", *itertools.chain.from_iterable(
+        (pl_, f32) for pl_ in locs))
+    if perm.dtype != torch.int64 or perm.device != locs[0].device or \
+            perm.stride(1) != 1 or not 1 <= len(locs) <= 3 or \
+            any(pl_.shape != (bsz, p) for pl_ in locs):
+        raise ValueError(f"frame_gather: perm {tuple(perm.shape)} "
+                         f"{perm.dtype} and planes "
+                         f"{[tuple(pl_.shape) for pl_ in locs]} do not form "
+                         f"a frame")
+    w = None
+    if weight is not None:
+        w = weight.to(f32).contiguous()
+        _check_cuda("frame_gather", locs[0], f32, w, f32)
+        if w.shape != (p,):
+            raise ValueError(f"frame_gather: weight {tuple(w.shape)} is not "
+                             f"one per point of {p}")
+    if not (1 <= bsz <= 65535 and 1 <= p < 2 ** 24):
+        raise ValueError(f"frame_gather: B={bsz}, P={p} exceed the kernel's "
+                         f"launch bounds")
+    n_planes = len(locs) + (1 if w is None else 2)
+    data = torch.empty((bsz, n_planes, s_pad), dtype=f32, device=perm.device)
+    srcs = [_ptr(pl_) for pl_ in locs] + [None] * (3 - len(locs))
+    _launch("frame_gather", perm.device, _build.load().dprast_frame_gather,
+            _ptr(perm), perm.stride(0), *srcs, len(locs),
+            None if w is None else _ptr(w), _ptr(data), bsz, p, n_planes,
+            s_pad)
+    LAUNCHES["frame_gather"] += 1
+    return data
 
 
 def _prep_direct(planes, fills, chunk):
@@ -529,58 +718,98 @@ def _cluster_size(bsz, nt, n_sm, held):
 _HELD = {}
 
 
-def _clusters_held(device, win, terms=0):
+def _clusters_held(device, win, terms=0, encoded=False):
     """How many of B1's clusters of 1 .. `_MAX_CLUSTER` blocks, for windows
     of shape `win`, the card `device` holds at once
     (`cudaOccupancyMaxActiveClusters`, asked once per card, window and
-    instance) -> tuple.  A size the card cannot schedule counts 0."""
+    instance: the lane and the encoded instances use registers apart) ->
+    tuple.  A size the card cannot schedule counts 0."""
     n_out = len(win)
-    key = (torch.device(device), tuple(win), terms)
+    key = (torch.device(device), tuple(win), terms, encoded)
     if key not in _HELD:
         _b1_instance(n_out, terms)
         entry = _build.load().dprast_fwd_splat
+        n_planes = n_out + 1 if encoded else 2 * n_out
         held = []
         for cluster in range(1, _MAX_CLUSTER + 1):
             n = ctypes.c_int(0)
             _launch("fwd_splat", device, entry, None, None, None, 1, 1,
-                    n_out, 0, 2 * n_out, 0, 4, win[-2], math.prod(win[:-1]),
-                    win[-1], cluster, terms, ctypes.byref(n))
+                    n_out, 0, n_planes, 0, 4, win[-2], math.prod(win[:-1]),
+                    win[-1], cluster, terms, int(encoded), ctypes.byref(n))
             held.append(n.value)
         _HELD[key] = tuple(held)
     return _HELD[key]
 
 
-def _b1_cluster(device, bsz, nt, win, terms=0):
-    """The cluster size `fwd_splat` runs (B, nt) windows of shape `win`
-    with on the card `device`."""
+def _b1_cluster(device, bsz, nt, win, terms=0, encoded=False):
+    """The cluster size `fwd_splat` (or, with `encoded`, `fwd_splat_enc`)
+    runs (B, nt) windows of shape `win` with on the card `device`."""
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-    return _cluster_size(bsz, nt, n_sm, _clusters_held(device, win, terms))
+    return _cluster_size(bsz, nt, n_sm,
+                         _clusters_held(device, win, terms, encoded))
 
 
 def fwd_splat(slot_tile, lane, nt, win, chunk, terms=0, *, cluster=None):
-    """B1: splat the lane planes of a slot frame into the per-tile windows
-    of shape `win` -> ext (B, nt, rows_e, cols_e) f32, with `terms` 0
-    (fp32) or 1 (bf16 products; see `_fwd_splat_plain`).  CPU tensors
-    take the plain twin, CUDA tensors the kernel in `csrc/fwd_splat.cu`,
-    which finds each tile's slots itself and writes every window once:
-    nothing is launched before it.  `cluster` forces the size of the
-    thread-block cluster that shares one (pose, tile), 1 to `_MAX_CLUSTER`
-    (the default is `_b1_cluster`'s); only measurements and tests pass
-    it.  A size the card cannot schedule raises."""
-    n_out = len(win)
-    instance = _b1_instance(n_out, terms)
+    """B1 on lane planes: splat the lane planes of a slot frame into the
+    per-tile windows of shape `win` -> ext (B, nt, rows_e, cols_e) f32,
+    with `terms` 0 (fp32) or 1 (bf16 products; see `_fwd_splat_plain`).
+    CPU tensors take the plain twin, CUDA tensors the kernel in
+    `csrc/fwd_splat.cu`, which finds each tile's slots itself and writes
+    every window once: nothing is launched before it.  `cluster` forces
+    the size of the thread-block cluster that shares one (pose, tile), 1
+    to `_MAX_CLUSTER` (the default is `_b1_cluster`'s); only measurements
+    and tests pass it.  A size the card cannot schedule raises.  The main
+    path runs `fwd_splat_enc` on the frame itself; this is the harness's
+    standalone B1."""
+    instance = _b1_instance(len(win), terms)
     if lane.device.type == "cpu":
         return _fwd_splat_plain(slot_tile, lane, nt, win, chunk, terms)
-    _check_cuda("fwd_splat", slot_tile, torch.int32, lane, torch.float32)
-    bsz, n_lane, s_pad = lane.shape
+    return _splat(instance, slot_tile, lane, nt, win, chunk, terms, cluster,
+                  encoded=False)
+
+
+def _fwd_splat_enc_plain(slot_tile, data, nt, win, chunk, terms=0):
+    """Plain version of `fwd_splat_enc`: the frame's lane planes
+    (`_planes_fwd`), then B1's twin."""
+    n_out = len(win)
+    w = data[:, n_out] if data.shape[1] == n_out + 2 else None
+    lane = _planes_fwd(data[:, :n_out], w).contiguous()
+    return _fwd_splat_plain(slot_tile, lane, nt, win, chunk, terms)
+
+
+def fwd_splat_enc(slot_tile, data, nt, win, chunk, terms=0, *,
+                  cluster=None):
+    """B1 on the frame: `data` (B, n_planes, s_pad) is the frame
+    ``[enc..., (w,) id]`` of `_fwd_prep` (it has a weight plane where
+    ``n_planes = n_out + 2``), whose encoded planes the kernel decodes row
+    by row -> ext as `fwd_splat` gives it.  CPU tensors take the plain
+    version `_fwd_splat_enc_plain`, CUDA tensors the ``_enc`` instance of
+    `csrc/fwd_splat.cu`; `cluster` as in `fwd_splat`."""
+    instance = _b1_instance(len(win), terms) + _ENC
+    if data.device.type == "cpu":
+        return _fwd_splat_enc_plain(slot_tile, data, nt, win, chunk, terms)
+    return _splat(instance, slot_tile, data, nt, win, chunk, terms, cluster,
+                  encoded=True)
+
+
+def _splat(instance, slot_tile, planes, nt, win, chunk, terms, cluster,
+           encoded):
+    """One launch of B1 on CUDA tensors, the lane planes or (`encoded`)
+    the frame in `planes` (B, n_planes, s_pad), counted under
+    `instance`."""
+    _check_cuda("fwd_splat", slot_tile, torch.int32, planes, torch.float32)
+    n_out = len(win)
+    bsz, n_planes, s_pad = planes.shape
     n_slots = s_pad // chunk
-    if n_out not in (2, 3) or n_lane not in (2 * n_out, 2 * n_out + 1) \
+    bare = n_out + 1 if encoded else 2 * n_out
+    if n_out not in (2, 3) or n_planes not in (bare, bare + 1) \
             or s_pad != n_slots * chunk or \
             slot_tile.shape != (bsz, n_slots + 1):
-        raise ValueError(f"fwd_splat: lane {tuple(lane.shape)}, slot table "
-                         f"{tuple(slot_tile.shape)} and window {win} do not "
-                         f"form a frame of chunk {chunk}")
-    _check_four_rows("fwd_splat", chunk, lane)
+        what = "frame" if encoded else "lane"
+        raise ValueError(f"fwd_splat: {what} {tuple(planes.shape)}, slot "
+                         f"table {tuple(slot_tile.shape)} and window {win} "
+                         f"do not form a frame of chunk {chunk}")
+    _check_four_rows("fwd_splat", chunk, planes)
     rows_e, cols_e = math.prod(win[:-1]), win[-1]
     if rows_e * cols_e * 4 > _build.MAX_WINDOW_BYTES or bsz > 65535 \
             or nt > 65535:
@@ -589,19 +818,20 @@ def fwd_splat(slot_tile, lane, nt, win, chunk, terms=0, *, cluster=None):
     if cluster is not None and not 1 <= cluster <= _MAX_CLUSTER:
         raise ValueError(f"fwd_splat: cluster {cluster} is not in 1.."
                          f"{_MAX_CLUSTER}")
-    dev = lane.device
-    held = _clusters_held(dev, win, terms)
+    dev = planes.device
+    held = _clusters_held(dev, win, terms, encoded)
     if cluster is None:
-        cluster = _b1_cluster(dev, bsz, nt, win, terms)
+        cluster = _b1_cluster(dev, bsz, nt, win, terms, encoded)
     if cluster == 0 or held[cluster - 1] < 1:
         raise RuntimeError(f"fwd_splat: {dev} holds no thread-block cluster "
                            f"of {cluster or 1} blocks with a {win} window "
                            f"(cudaOccupancyMaxActiveClusters: {held})")
     ext = torch.empty((bsz, nt, rows_e, cols_e), dtype=torch.float32,
                       device=dev)
-    _launch("fwd_splat", dev, _build.load().dprast_fwd_splat, _ptr(lane),
-            _ptr(slot_tile), _ptr(ext), bsz, nt, n_out, n_slots, n_lane,
-            s_pad, chunk, win[-2], rows_e, cols_e, cluster, terms, None)
+    _launch("fwd_splat", dev, _build.load().dprast_fwd_splat, _ptr(planes),
+            _ptr(slot_tile), _ptr(ext), bsz, nt, n_out, n_slots, n_planes,
+            s_pad, chunk, win[-2], rows_e, cols_e, cluster, terms,
+            int(encoded), None)
     LAUNCHES[instance] += 1
     return ext
 
@@ -883,32 +1113,91 @@ def _combine_3d(p, dlz, dly):
 
 
 def bwd_gather(slot_tile, lane_b, win, chunk, terms=0, layout="natural"):
-    """B4: gather the cotangent windows at every frame row -> buf
-    (B, n_out + 1, s_pad) ``[du_y, du_x, gw]`` in 2-D, ``[du_z, du_y,
-    du_x, gw]`` in 3-D (see `_bwd_gather_plain`).  `terms` and `layout`
-    pick one of `_B4_INSTANCES`; a presplit `win` is the pair ``(hi,
-    lo)``, a grid-source `win` the 2-D cotangent (B, gy, gx).  CPU tensors
-    take the plain twin, CUDA tensors the kernel in `csrc/bwd_gather.cu`,
-    which finds each tile's slots itself: nothing is launched before it.
-    The copy engines stage its windows where their alignment rules hold
-    (`_b4_staging`); a grid source that cannot take the tiled load counts
-    under ``instance + "_ldg"``."""
+    """B4 on lane planes: gather the cotangent windows at every frame row
+    -> buf (B, n_out + 1, s_pad) ``[du_y, du_x, gw]`` in 2-D, ``[du_z,
+    du_y, du_x, gw]`` in 3-D (see `_bwd_gather_plain`).  `terms` and
+    `layout` pick one of `_B4_INSTANCES`; a presplit `win` is the pair
+    ``(hi, lo)``, a grid-source `win` the 2-D cotangent (B, gy, gx).  CPU
+    tensors take the plain twin, CUDA tensors the kernel in
+    `csrc/bwd_gather.cu`, which finds each tile's slots itself: nothing is
+    launched before it.  The copy engines stage its windows where their
+    alignment rules hold (`_b4_staging`); a grid source that cannot take
+    the tiled load counts under ``instance + "_ldg"``.  The main path runs
+    `bwd_gather_enc` on the frame itself; this is the harness's B4."""
     bsz, n_lane, s_pad = lane_b.shape
     n_out = {4: 2, 8: 3}.get(n_lane)
     instance = _b4_instance(n_out, terms, layout)
     if lane_b.device.type == "cpu":
         return _bwd_gather_plain(slot_tile, lane_b, win, chunk, terms,
                                  layout)
+    _check_cuda("bwd_gather", lane_b, torch.float32)
+    return _gather(instance, slot_tile, lane_b, n_out, win, chunk, terms,
+                   layout, None, encoded=False)
+
+
+def _bwd_gather_enc_plain(slot_tile, coord, ts, win, chunk, terms=0,
+                          layout="natural"):
+    """Plain version of `bwd_gather_enc`: the frame's lane planes
+    (`_planes_bwd`), then B4's twin."""
+    return _bwd_gather_plain(slot_tile, _planes_bwd(coord, ts).contiguous(),
+                             win, chunk, terms, layout)
+
+
+def bwd_gather_enc(slot_tile, coord, ts, win, chunk, terms=0,
+                   layout="natural"):
+    """B4 on the frame: `coord` (B, n_out, s_pad) are the frame's encoded
+    planes, read in place where they are a view of the frame (``data[:,
+    :n_out]``, at its pose stride); `ts` is the grid's body tile, from
+    which a 3-D row's flat window rows are made -> buf as `bwd_gather`
+    gives it, bit for bit.  CPU tensors take the plain version
+    `_bwd_gather_enc_plain`, CUDA tensors the ``_enc`` instance of
+    `csrc/bwd_gather.cu`."""
+    bsz, n_out, s_pad = coord.shape
+    instance = _b4_instance(n_out, terms, layout)
+    if (n_out, terms, layout) not in _B4_ENC:
+        raise ValueError(f"bwd_gather: no instance on the frame for "
+                         f"n_out={n_out}, terms={terms}, layout={layout!r}")
+    if coord.device.type == "cpu":
+        return _bwd_gather_enc_plain(slot_tile, coord, ts, win, chunk, terms,
+                                     layout)
+    if coord.device.type != "cuda" or coord.dtype != torch.float32 or \
+            coord.stride(2) != 1 or coord.stride(1) != s_pad or \
+            coord.stride(0) % 4:
+        raise ValueError(f"bwd_gather: expected the encoded planes of a "
+                         f"frame, f32 on a CUDA device, rows contiguous and "
+                         f"planes {s_pad} apart; got {coord.dtype} on "
+                         f"{coord.device}, strides {coord.stride()}")
+    ny = None
+    if n_out == 3:
+        # the flat rows of `_flat_rows_3d`: z in [0, tz], y in [0, ty]
+        ny = ts[1] + 1
+        if win.shape[-2] != (ts[0] + 1) * ny:
+            raise ValueError(f"bwd_gather: a window of {win.shape[-2]} rows "
+                             f"is not the (z, y) rows of tiles {ts}")
+    return _gather(instance + _ENC, slot_tile, coord, n_out, win, chunk,
+                   terms, layout, ny, encoded=True)
+
+
+def _gather(instance, slot_tile, rows, n_out, win, chunk, terms, layout,
+            ny, *, encoded):
+    """One launch of B4 on CUDA tensors, counted under `instance` (plus
+    ``"_ldg"`` where a grid source stages with plain loads).  `rows` holds
+    the lane planes, or (`encoded`) the frame's encoded planes at its pose
+    stride; `ny` is a 3-D window's rows per z plane, which the encoded
+    instance makes its flat rows with."""
+    bsz, _, s_pad = rows.shape
     hi, lo = win if layout == "presplit" else (win, win)
     w_type = torch.bfloat16 if layout == "presplit" else torch.float32
-    _check_cuda("bwd_gather", slot_tile, torch.int32, lane_b, torch.float32,
-                hi, w_type, lo, w_type)
+    _check_cuda("bwd_gather", slot_tile, torch.int32, hi, w_type, lo, w_type)
+    if rows.device != slot_tile.device:
+        raise ValueError(f"bwd_gather: tensors must share one CUDA device; "
+                         f"got {rows.device} beside {slot_tile.device}")
     n_slots = s_pad // chunk
     if s_pad != n_slots * chunk or slot_tile.shape != (bsz, n_slots + 1):
-        raise ValueError(f"bwd_gather: lane {tuple(lane_b.shape)} and slot "
+        raise ValueError(f"bwd_gather: rows {tuple(rows.shape)} and slot "
                          f"table {tuple(slot_tile.shape)} do not form a "
                          f"frame of chunk {chunk}")
-    _check_four_rows("bwd_gather", chunk, lane_b)
+    _check_four_rows("bwd_gather", chunk, rows)
     if hi.dim() not in (3, 4) or hi.shape[0] != bsz or \
             lo.shape != hi.shape:
         raise ValueError(f"bwd_gather: window {tuple(hi.shape)} is neither "
@@ -928,20 +1217,25 @@ def bwd_gather(slot_tile, lane_b, win, chunk, terms=0, layout="natural"):
         rows_e, cols_e = hi.shape[-2:]
         if layout != "natural":
             rows_e, cols_e = cols_e, rows_e
+    if ny is None:
+        ny = rows_e
+    elif rows_e % ny:
+        raise ValueError(f"bwd_gather: a window of {rows_e} rows holds no "
+                         f"whole z planes of {ny} rows")
     if rows_e * cols_e * 4 > _build.MAX_WINDOW_BYTES or bsz > 65535 \
             or nt >= 65535:
         raise ValueError(f"bwd_gather: window {rows_e}x{cols_e}, B={bsz}, "
                          f"nt={nt} exceed the kernel's launch bounds")
-    dev = lane_b.device
+    dev = rows.device
     staging = _b4_staging(layout, hi, rows_e * cols_e)
     nsplit = _split_count(dev, bsz * nt)
     buf = torch.empty((bsz, n_out + 1, s_pad), dtype=torch.float32,
                       device=dev)
     _launch("bwd_gather", dev, _build.load().dprast_bwd_gather,
-            _ptr(lane_b), _ptr(slot_tile), _ptr(hi), _ptr(lo), _ptr(buf),
-            bsz, nt, n_out, n_slots, s_pad, chunk, rows_e, cols_e, nsplit,
-            terms, _LAYOUTS.index(layout), gy, gx, t0, t1,
-            _STAGINGS.index(staging))
+            _ptr(rows), _ptr(slot_tile), _ptr(hi), _ptr(lo), _ptr(buf),
+            bsz, nt, n_out, n_slots, s_pad, rows.stride(0), chunk, rows_e,
+            cols_e, ny, nsplit, terms, _LAYOUTS.index(layout), gy, gx, t0,
+            t1, _STAGINGS.index(staging), int(encoded))
     if layout == "grid" and staging == "loads":
         instance += _GRID_LOADS
     LAUNCHES[instance] += 1
@@ -1039,10 +1333,12 @@ def _window(grid_size):
 
 def _fwd_frame(grid_size, points, rotation, translation, point_weight,
                pw_uniform, coords=_keys_and_local):
-    """Coordinates -> frame -> lane planes.  Returns the arguments of
+    """The forward's frame and its lane planes, for B1's lane instance
+    (the harness's standalone B1) and its twin.  Returns the arguments of
     `fwd_splat`, ``(slot_tile, lane, nt, win, chunk)``, and the frame's
-    planes ``data`` (B, n_out + 1 | n_out + 2, s_pad): ``[coords...,
-    (w,) point id]``.  `coords` is the coordinate stage."""
+    planes ``data`` (B, n_out + 1 | n_out + 2, s_pad): ``[coords..., (w,)
+    point id]``.  `coords` is the coordinate stage.  The main path hands
+    the frame to `fwd_splat_enc` and makes no lane planes."""
     n_out = len(grid_size)
     data, slot_tile, nt, chunk = _fwd_prep(grid_size, points, rotation,
                                            translation, point_weight,
@@ -1055,35 +1351,55 @@ def _fwd_frame(grid_size, points, rotation, translation, point_weight,
 
 def _fwd_prep(grid_size, points, rotation, translation, point_weight,
               pw_uniform, coords=_keys_and_local):
-    """The forward's coordinates and sorted frame, before the planes ->
-    ``(data, slot_tile, nt, chunk)``.  `coords` is the coordinate stage
-    (B6 or its twin); a single tile asks it for no keys."""
-    n_out = len(grid_size)
+    """The forward's coordinates and sorted frame -> ``(data, slot_tile,
+    nt, chunk)``; `data` carries the point weight as a plane unless
+    `pw_uniform`.  `coords` is the coordinate stage (B6 or its twin), see
+    `_frame`; an empty tile keeps a slot."""
+    weight = None if pw_uniform else point_weight
+    return _frame(grid_size, points, rotation, translation, weight, True,
+                  coords)
+
+
+def _frame(grid_size, points, rotation, translation, weight,
+           min_chunk_per_tile, coords):
+    """The slot frame -> ``(data (B, n_planes, s_pad), slot_tile (B,
+    n_slots + 1), nt, chunk)``.  ``data[b, :, r]`` is ``[enc..., (w,) point
+    id]``: the encoded coordinates, the point weight where `weight` (P,)
+    is given, and the point id.  ``min_chunk_per_tile`` gives every tile a
+    slot (the forward's frame; the standalone pullback's gives an empty
+    tile none).
+
+    On the card, with B6 as the coordinate stage, kernels write the frame:
+    B6 itself on a single tile (`direct_frame`: frame and slot table in
+    its one launch), `frame_gather` after the binning sort on several.
+    With another coordinate stage (`_keys_and_local_plain`), or on the
+    CPU, the plain `_prep_direct` / `_prep_binned` write it from the
+    stage's planes, to the same bits.
+
+    Every frame carries the point-id plane, a single tile's too, though
+    its pullback keeps the point order and never reads the ids: one
+    layout for every frame, so `_residual_planes` and the standalone
+    pullback read the same places, and the single tile's frame is
+    `_prep_direct`'s bit for bit.  It costs B6 one 4-byte store a row."""
     ts = tile_shape_for(grid_size)
-    halo = not _single_tile(grid_size)
     p = points.shape[0]
-    bsz = rotation.shape[0]
     chunk = _default_chunk(grid_size, p)
+    halo = not _single_tile(grid_size)
+    kernels = coords is _keys_and_local and points.device.type != "cpu"
+    if kernels and not halo:
+        data, slot_tile = direct_frame(grid_size, ts, points, rotation,
+                                       translation, weight, chunk)
+        return data, slot_tile, n_tiles(grid_size, ts), chunk
     key, locs, nt = coords(grid_size, ts, points, rotation, translation,
                            want_key=halo)
-    planes = list(locs)
-    fills = [0.0] * n_out                           # enc 0 = inert
-    if not pw_uniform:
-        # the per-row weight plane carries the POINT weight only; the
-        # per-pose out_weight is applied after the fold (the splat is
-        # linear in it)
-        planes.append(point_weight.to(torch.float32)[None, :]
-                      .expand(bsz, p))
-        fills.append(0.0)                           # filler weight = 0
-    # the point-id plane rides the sort (packed into the key when the bits
-    # fit): unique keys let the sort drop stability, and the pullback
-    # unsorts by it
-    planes.append(torch.arange(p, dtype=torch.float32, device=points.device)
-                  [None, :].expand(bsz, p))
-    fills.append(float(p))
+    if kernels:
+        perm, _, slot_tile = _slot_order(key, nt, chunk, min_chunk_per_tile,
+                                         True)
+        return frame_gather(perm, locs, weight), slot_tile, nt, chunk
+    planes, fills = _frame_planes(locs, weight)
     if halo:
-        data, slot_tile = _prep_binned(key, planes, fills, nt, chunk, True,
-                                       pack_idx=True)
+        data, slot_tile = _prep_binned(key, planes, fills, nt, chunk,
+                                       min_chunk_per_tile, pack_idx=True)
     else:
         data, slot_tile = _prep_direct(planes, fills, chunk)
     return data, slot_tile, nt, chunk
@@ -1118,16 +1434,20 @@ def raster_fwd_res(grid_size, points, rotation, translation, background,
 def _fwd_impl(grid_size, points, rotation, translation, background,
               out_weight, point_weight, *, pw_uniform=False,
               with_residuals=False, terms=0, coords=_keys_and_local,
-              splat=fwd_splat, fold=band_fold):
+              splat=fwd_splat_enc, fold=band_fold):
     """`raster_fwd_res` with its three kernel stages as arguments, so a
-    measurement can run the same forward through the plain twins.  The
-    `fold` stage serves multi-tile 2-D grids; a single tile and every
-    3-D grid take the plain `_fold` and epilogue, as in the JAX package.
-    Returns ``(out, residuals or None)``."""
+    measurement can run the same forward through the plain versions
+    (``coords=_keys_and_local_plain``, which also builds the frame the
+    plain way, ``splat=_fwd_splat_enc_plain``, ``fold=_band_fold_plain``).
+    `splat` takes ``(slot_tile, data, nt, win, chunk, terms=)`` as
+    `fwd_splat_enc` does.  The `fold` stage serves multi-tile 2-D grids; a
+    single tile and every 3-D grid take the plain `_fold` and epilogue, as
+    in the JAX package.  Returns ``(out, residuals or None)``."""
     _check_args(grid_size, points.shape[0])
-    splat_args, data = _fwd_frame(grid_size, points, rotation, translation,
-                                  point_weight, pw_uniform, coords)
-    ext = splat(*splat_args, terms=terms)
+    data, slot_tile, nt, chunk = _fwd_prep(grid_size, points, rotation,
+                                           translation, point_weight,
+                                           pw_uniform, coords)
+    ext = splat(slot_tile, data, nt, _window(grid_size), chunk, terms=terms)
 
     f32 = torch.float32
     ow_eff = out_weight.to(f32)
@@ -1145,7 +1465,7 @@ def _fwd_impl(grid_size, points, rotation, translation, background,
                * ow_eff.reshape(bcast) + bg_f.reshape(bcast))
     dtype = torch.promote_types(points.dtype, torch.promote_types(
         rotation.dtype, translation.dtype))
-    res = (data, splat_args[0]) if with_residuals else None
+    res = (data, slot_tile) if with_residuals else None
     return out.to(dtype), res
 
 
@@ -1158,26 +1478,13 @@ def _bwd_frame(grid_size, points, rotation, translation,
                coords=_keys_and_local):
     """The standalone pullback's frame: ``(data (B, n_out + 1, s_pad)
     [coords..., point id], slot_tile, chunk)``.  Unlike the forward's, it
-    gives an empty tile no slot (``min_chunk_per_tile=False``).  `coords`
-    is the coordinate stage (B6 or its twin)."""
-    ts = tile_shape_for(grid_size)
-    p = points.shape[0]
-    bsz = rotation.shape[0]
-    chunk = _default_chunk(grid_size, p)
-    key, locs, nt = coords(grid_size, ts, points, rotation, translation,
-                           want_key=not _single_tile(grid_size))
-    # the frame carries only the encoded coordinates (kernel input) and
-    # the point id (for the unsort); weights, points and rotations enter
-    # after the unsort, in point order
-    ptidx = torch.arange(p, dtype=torch.float32, device=points.device)
-    planes = list(locs) + [ptidx[None, :].expand(bsz, p)]
-    fills = [0.0] * len(grid_size) + [float(p)]
-    if _single_tile(grid_size):
-        data, slot_tile = _prep_direct(planes, fills, chunk)
-    else:
-        data, slot_tile = _prep_binned(key, planes, fills, nt, chunk, False,
-                                       pack_idx=True)
-    return data, slot_tile.contiguous(), chunk
+    gives an empty tile no slot.  It carries only the encoded coordinates
+    (kernel input) and the point id (for the unsort); weights, points and
+    rotations enter after the unsort, in point order.  `coords` is the
+    coordinate stage (B6 or its twin), see `_frame`."""
+    data, slot_tile, _, chunk = _frame(grid_size, points, rotation,
+                                       translation, None, False, coords)
+    return data, slot_tile, chunk
 
 
 def raster_pullback(grid_size, points, rotation, translation, background,
@@ -1227,10 +1534,13 @@ def raster_pullback_res(grid_size, residuals, args, ds_dout, *,
 def _pullback_from_frame(grid_size, coord, idx_rows, slot_tile, points,
                          rotation, out_weight, point_weight, ds_dout, *,
                          chunk, pw_uniform=False, terms=0,
-                         unfold=None, gather=bwd_gather):
+                         unfold=None, gather=bwd_gather_enc):
     """The pullback from a frame, with its two kernel stages as arguments
-    (as in `_fwd_impl`).  On a multi-tile 2-D grid the gather reads the
-    cotangent itself (``layout="grid"``) and nothing is unfolded; an
+    (as in `_fwd_impl`).  `coord` are the frame's encoded planes, which
+    the `gather` stage reads as `bwd_gather_enc` does, ``(slot_tile,
+    coord, ts, win, chunk, terms=, layout=)`` (its plain version:
+    `_bwd_gather_enc_plain`).  On a multi-tile 2-D grid the gather reads
+    the cotangent itself (``layout="grid"``) and nothing is unfolded; an
     `unfold` stage (`band_unfold`, or its twin `_unfold`) writes the
     windows out first and the gather reads them in the natural layout, as
     a measurement may ask.  3-D grids take the plain `_unfold`, as in the
@@ -1252,8 +1562,8 @@ def _pullback_from_frame(grid_size, coord, idx_rows, slot_tile, points,
         g_in, layout = g_cot, "grid"
     else:
         g_in = unfold(g_cot, grid_size, ts)
-    buf = gather(slot_tile, _planes_bwd(coord, ts).contiguous(), g_in,
-                 chunk, terms=terms, layout=layout)
+    buf = gather(slot_tile, coord, ts, g_in, chunk, terms=terms,
+                 layout=layout)
 
     # back to point order; on the uniform-weight path the weight-gradient
     # plane skips the unsort (its sums are order-free, and every

@@ -525,6 +525,19 @@ def test_wrappers_run_the_twin_only_on_cpu():
     with pytest.raises(ValueError, match="CUDA"):
         tbin.bwd_gather(st, lane, torch.zeros((1, 200, 200), device="meta"),
                         128, layout="grid")
+    # the main path's instances, which read the frame, and its writers
+    frame = torch.zeros((1, 3, 128), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        tbin.fwd_splat_enc(st, frame, 1, (8, 8), 128)
+    with pytest.raises(ValueError, match="CUDA"):
+        tbin.bwd_gather_enc(st, frame[:, :2], (8, 8), ext, 128)
+    with pytest.raises(ValueError, match="CUDA"):
+        tbin.frame_gather(torch.zeros((1, 128), dtype=torch.int64,
+                                      device="meta"), [frame[0]] * 2, None)
+    with pytest.raises(ValueError, match="CUDA"):
+        tbin.direct_frame((8, 8), (8, 8), *(
+            torch.zeros(shape, device="meta")
+            for shape in ((10, 3), (1, 2, 3), (1, 2))), None, 128)
     # every CUDA instance has a counter, and none counted here
     assert tbin.LAUNCHES == {
         "coords": 0, "fwd_splat": 0, "band_fold": 0, "band_unfold": 0, "bwd_gather": 0,
@@ -533,7 +546,13 @@ def test_wrappers_run_the_twin_only_on_cpu():
         "bwd_gather_3d_bf16": 0, "bwd_gather_split": 0,
         "bwd_gather_split_t": 0, "bwd_gather_presplit": 0,
         "bwd_gather_grid": 0, "bwd_gather_grid_bf16": 0,
-        "bwd_gather_grid_ldg": 0, "bwd_gather_grid_bf16_ldg": 0}
+        "bwd_gather_grid_ldg": 0, "bwd_gather_grid_bf16_ldg": 0,
+        "frame_gather": 0, "fwd_splat_enc": 0, "fwd_splat_3d_enc": 0,
+        "fwd_splat_bf16_enc": 0, "fwd_splat_3d_bf16_enc": 0,
+        "bwd_gather_enc": 0, "bwd_gather_3d_enc": 0,
+        "bwd_gather_bf16_enc": 0, "bwd_gather_3d_bf16_enc": 0,
+        "bwd_gather_grid_enc": 0, "bwd_gather_grid_bf16_enc": 0,
+        "bwd_gather_grid_enc_ldg": 0, "bwd_gather_grid_bf16_enc_ldg": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -778,10 +797,10 @@ def test_pullback_reads_the_cotangent_without_unfold(grid, terms, weighted):
     kw = dict(chunk=chunk, pw_uniform=not weighted, terms=terms)
     seen = []
 
-    def gather(slot_tile, lane_b, win, chunk, terms, layout):
+    def gather(slot_tile, coord, ts, win, chunk, terms, layout):
         seen.append((layout, tuple(win.shape)))
-        return tbin.bwd_gather(slot_tile, lane_b, win, chunk, terms=terms,
-                               layout=layout)
+        return tbin.bwd_gather_enc(slot_tile, coord, ts, win, chunk,
+                                   terms=terms, layout=layout)
 
     def unfold(*args):
         seen.append(("unfold",))
@@ -795,7 +814,7 @@ def test_pullback_reads_the_cotangent_without_unfold(grid, terms, weighted):
     nt = tbin.n_tiles(grid)
     assert seen == [("unfold",), ("natural", (3, nt, 128, 128))]
     plain = tbin._pullback_from_frame(*frame, unfold=tbin._unfold,
-                                      gather=tbin._bwd_gather_plain, **kw)
+                                      gather=tbin._bwd_gather_enc_plain, **kw)
     for name in direct._fields:
         assert torch.equal(getattr(direct, name), getattr(plain, name)), name
         assert torch.equal(getattr(old, name), getattr(plain, name)), name

@@ -66,17 +66,21 @@ def test_profile_stages_match_the_backend(case):
     seen = {}
 
     def splat(*args, terms):
-        seen["ext"] = tbin.fwd_splat(*args, terms=terms)
+        seen["splat_args"] = args
+        seen["ext"] = tbin.fwd_splat_enc(*args, terms=terms)
         return seen["ext"]
 
     def gather(*args, terms, layout):
         seen["gather_args"], seen["layout"] = args, layout
-        seen["buf"] = tbin.bwd_gather(*args, terms=terms, layout=layout)
+        seen["buf"] = tbin.bwd_gather_enc(*args, terms=terms, layout=layout)
         return seen["buf"]
 
     out, (data, slot_tile) = tbin._fwd_impl(
         grid, pts, rot, tr, bg, ow, pw, with_residuals=True, splat=splat)
     assert torch.equal(seen["ext"], res["ext"])
+    for a, b in zip(seen["splat_args"], res["fwd_splat_enc_args"],
+                    strict=True):
+        assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
     assert torch.equal(data, res["frame"][0])
     frame = (grid, data[:, :n_out], data[:, -1], slot_tile, pts, rot, ow, pw,
              g)
@@ -84,7 +88,8 @@ def test_profile_stages_match_the_backend(case):
                               unfold=tbin.band_unfold)
     assert seen["layout"] == "natural"
     assert torch.equal(seen["buf"], res["buf"])
-    for a, b in zip(seen["gather_args"], res["bwd_gather_args"]):
+    for a, b in zip(seen["gather_args"], res["bwd_gather_enc_args"],
+                    strict=True):
         assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
     tbin._pullback_from_frame(*frame, chunk=res["chunk"], gather=gather)
     assert seen["layout"] == ("grid" if n_out == 2 else "natural")
@@ -317,6 +322,60 @@ def test_chip_smoke_b1_helpers():
     assert not torch.equal(clean, sparse[1])
     assert torch.equal(tbin._fwd_splat_plain(*sparse),
                        tbin._fwd_splat_plain(st_b, clean, *sparse[2:]))
+
+
+@pytest.mark.parametrize("grid", [(128, 128), (300, 200), (8, 16, 200)])
+def test_chip_smoke_b7_bounds(grid):
+    """`chip_smoke.py`'s bounds of what the main path runs since B7, on the
+    CPU: B1 and B4 on the frame read its encoded planes (and B1 the
+    weight) once for each live row, the frame gather the sort's index, the
+    sources and the frame once, B6 writing a single tile's frame the cloud,
+    the poses, the frame and its slot table once."""
+    import chip_smoke as cs
+    n_out = len(grid)
+    pts, rot, tr, pw = (torch.from_numpy(a) for a in cs.flagship_inputs(
+        3, 900, 2))
+    if n_out == 3:
+        rot = torch.from_numpy(_rotations(2))
+        tr = torch.zeros((2, 3))
+    ts, win = tbin.tile_shape_for(grid), tbin._window(grid)
+    data, st, nt, chunk = tbin._fwd_prep(grid, pts, rot, tr, pw, False)
+    assert data.shape[1] == n_out + 2
+    rows = cs.live_rows(st, chunk)
+    wins = 2 * nt * int(np.prod(win))
+    b1 = cs.b1_enc_bound(st, data, nt, win, chunk)
+    assert b1 == cs.bound((rows * (n_out + 1) + st.numel() + wins) * 4,
+                          rows * ((14 if n_out == 2 else 34)
+                                  + cs.DECODE_OPS * n_out))
+    g = torch.zeros((2,) + grid)
+    src = tbin._unfold(g, grid, ts) if n_out == 3 else g
+    s_pad = data.shape[2]
+    b4 = cs.b4_enc_bound(st, data[:, :n_out], src, chunk)
+    assert b4[0] == ((rows * n_out + 2 * (n_out + 1) * s_pad + st.numel())
+                     * 4 + src.numel() * 4) / cs.HBM_BYTES_PER_S * 1e3
+    if tbin._single_tile(grid):
+        frame, table = tbin.direct_frame(grid, ts, pts, rot, tr, None, chunk)
+        assert cs.direct_frame_bound(pts, rot, tr, frame, table) == cs.bound(
+            (pts.numel() + rot.numel() + tr.numel() + frame.numel()
+             + table.numel()) * 4,
+            2 * 2 * pts.shape[0] * cs.coords_ops(3, n_out))
+    else:
+        key, locs, _ = tbin._keys_and_local(grid, ts, pts, rot, tr)
+        perm = tbin._slot_order(key, nt, chunk, True, True)[0]
+        frame = tbin.frame_gather(perm, locs, pw)
+        assert torch.equal(frame.view(torch.int32), data.view(torch.int32))
+        assert cs.frame_gather_bound(frame, n_out, pts.shape[0]) == cs.bound(
+            (2 * s_pad * 8 + (2 * n_out + 1) * pts.shape[0] * 4
+             + frame.numel() * 4), 0)
+
+
+def _rotations(n_poses):
+    """`n_poses` proper 3 x 3 rotations, float32, from a seed."""
+    q, r = np.linalg.qr(np.random.default_rng(5).standard_normal(
+        (n_poses, 3, 3)))
+    q = q * np.sign(np.diagonal(r, axis1=1, axis2=2))[:, None, :]
+    q[np.linalg.det(q) < 0, :, 0] *= -1
+    return q.astype(np.float32)
 
 
 def test_library_name_follows_the_shared_header(tmp_path, monkeypatch):
