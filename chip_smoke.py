@@ -66,6 +66,15 @@ four worker processes that share the one card and talk over Gloo; every
 rank checks its launches, its shard, its image and gradients against the
 `xla` backend, and that all ranks hold the same bits.
 
+Then four phases: [no sync] runs every entry point (the forward, the
+fused pair, `raster_pullback`, the autograd step; `raster_sharded` on the
+1 x 1 mesh) at 128^2, 1024^2 and 128^3 under
+``torch.cuda.set_sync_debug_mode("error")``, so that a call that makes the
+host wait for the card fails the run; [bench] runs `bench_torch.py`;
+[run] two rows of `dprast_torch.benchmarks.run` (128^2 and 1024^3, with
+the autograd step); [tests_gpu] the on-card parity suite `tests_gpu/`,
+every test of which must pass.
+
 Run from the root of the repository:
 
     python3 chip_smoke.py
@@ -89,6 +98,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from dprast_torch.utils.profiling import device_busy, kernel_device_us
 
 ROOT = Path(__file__).resolve().parent
 
@@ -1297,49 +1308,6 @@ BF16_B1 = {2: "fwd_splat_bf16_enc", 3: "fwd_splat_3d_bf16_enc"}
 BF16_B4_GRID = "bwd_gather_grid_bf16_enc"
 
 
-def kernel_device_us(fn, kernel, calls=10):
-    """Device time in microseconds that one call of `fn` spends in the
-    kernels whose name holds `kernel` (or one of a tuple of names), the
-    mean over `calls` calls, from `torch.profiler`; 0 when three traces in
-    a row hold none of them."""
-    import tempfile
-
-    from dprast_torch.utils import profiling
-    names = (kernel,) if isinstance(kernel, str) else kernel
-    fn()
-    # now and then a trace comes back without its kernel rows: ask again
-    for _ in range(3):
-        with tempfile.TemporaryDirectory() as tmp:
-            with profiling.trace(tmp) as prof:
-                for _ in range(calls):
-                    fn()
-        total = sum(e.device_time_total for e in prof.key_averages()
-                    if any(name in e.key for name in names))
-        if total:
-            break
-    return total / calls
-
-
-def device_busy(fn, calls=5):
-    """What one call of `fn` keeps the card busy with, the mean over
-    `calls` calls from `torch.profiler`: (microseconds in kernels and
-    copies, their number)."""
-    import tempfile
-
-    from torch.autograd import DeviceType
-
-    from dprast_torch.utils import profiling
-    fn()
-    with tempfile.TemporaryDirectory() as tmp:
-        with profiling.trace(tmp) as prof:
-            for _ in range(calls):
-                fn()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    return (sum(e.device_time_total for e in rows) / calls,
-            sum(e.count for e in rows) / calls)
-
-
 def phase_bf16(dprast_torch, sb, dev, smi, pts, rot, tr, pw, cots):
     """[bf16]: the `binned_bf16` fast mode (its B1 and B4 instances are
     held to the lane instances and their plain versions in [B7 frame]).
@@ -2213,7 +2181,230 @@ def phase_sharded(dprast_torch, sb, smi, pts, rot, tr, pw, cots):
     return totals, workers
 
 
+# [no sync]: the shapes of the main path through `auto`, and the backends
+# asked for by name at the flagship
+NO_SYNC_SHAPES = ((FLAGSHIP, N_POSES, N_POINTS),
+                  (MULTI_TILE, N_POSES, N_POINTS), (VOLUME, 1, 1_000_000))
+NO_SYNC_BACKENDS = ("xla", "matmul", "binned_bf16")
+
+
+def held_without_sync(fn):
+    """One warm-up call of `fn` (the build, the card's occupancy queries:
+    once per process), then one under
+    ``torch.cuda.set_sync_debug_mode("error")``, where anything in the call
+    that makes the host wait for the card raises and fails the run."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def no_sync_paths(dprast_torch, dispatch, grid, canon, g, weighted,
+                  backend):
+    """The calls a user makes -> {path: fn}: the forward, the standalone
+    `raster_pullback`, the training step through autograd (gradients of
+    ``sum(out * g)`` with respect to points and translation) and, where
+    the backend has one, the fused pair, with default weights or the
+    per-point weight ``canon[5]``."""
+    pts, rot, tr = canon[:3]
+    pw = canon[5] if weighted else None
+    pts_req, tr_req = (t.clone().requires_grad_() for t in (pts, tr))
+
+    def grad_step():
+        out = dprast_torch.raster(grid, pts_req, rot, tr_req,
+                                  point_weight=pw, backend=backend)
+        return torch.autograd.grad((out * g).sum(), (pts_req, tr_req))
+
+    paths = {
+        "forward": lambda: dprast_torch.raster(grid, pts, rot, tr,
+                                               point_weight=pw,
+                                               backend=backend),
+        "raster_pullback": lambda: dprast_torch.raster_pullback(
+            g, pts, rot, tr, point_weight=pw, backend=backend),
+        "autograd step": grad_step,
+    }
+    pair = dispatch.vjp_pair(dispatch.resolve(
+        backend, len(grid), grid, pts.shape[0], accelerator=True))
+    if pair is not None:
+        args = canon if weighted else canon[:5] + (torch.ones_like(
+            canon[5]),)
+
+        def fused():
+            _, res = pair[0](grid, *args, pw_uniform=not weighted)
+            return pair[1](grid, res, args, g, pw_uniform=not weighted)
+
+        paths["fused pair"] = fused
+    return paths
+
+
+def phase_no_sync(dprast_torch, dev):
+    """[no sync]: no call of the card's path waits for the card.  Every
+    path of `no_sync_paths` through `auto` at 128^2 and 1024^2 x 64 x 10^5
+    and at 128^3 x 1 x 10^6, with default weights and a per-point weight;
+    the same on `xla`, `matmul` and `binned_bf16` by name at 128^2; and
+    `raster_sharded` (forward and autograd step) on the 1 x 1 mesh with no
+    process group at the three shapes.  Each is held by
+    `held_without_sync`.  -> the number of calls held."""
+    from dprast_torch.ops import dispatch
+    from dprast_torch.parallel import make_mesh, raster_sharded
+    mesh = make_mesh()
+    cases = [(grid, n_poses, n_points, "auto")
+             for grid, n_poses, n_points in NO_SYNC_SHAPES]
+    cases += [(FLAGSHIP, N_POSES, N_POINTS, name)
+              for name in NO_SYNC_BACKENDS]
+    held = 0
+    for grid, n_poses, n_points, backend in cases:
+        if len(grid) == 2:
+            pts, rot, tr, pw = flagship_inputs(0, n_points, n_poses)
+            arrays = (pts, rot, tr, np.zeros(n_poses, np.float32),
+                      np.ones(n_poses, np.float32), pw)
+        else:
+            arrays = volume_inputs(n_poses, n_points)
+        canon = tuple(torch.from_numpy(a).to(dev) for a in arrays)
+        g = torch.randn((n_poses,) + grid, device=dev)
+        for weighted in (False, True):
+            paths = no_sync_paths(dprast_torch, dispatch, grid, canon, g,
+                                  weighted, backend)
+            for fn in paths.values():
+                held_without_sync(fn)
+            held += len(paths)
+            print(f"[no sync] {backend} {grid} x {n_poses} poses x "
+                  f"{n_points} points, "
+                  f"{'per-point' if weighted else 'default'} weights: "
+                  f"{', '.join(paths)} held")
+        if backend != "auto":
+            continue
+        leaves = [t.clone().requires_grad_() for t in canon[:3]]
+
+        def sharded_step():
+            out = raster_sharded(grid, *leaves, mesh=mesh)
+            return torch.autograd.grad((out * g).sum(), leaves)
+
+        for fn in (lambda: raster_sharded(grid, *canon[:3], mesh=mesh),
+                   sharded_step):
+            held_without_sync(fn)
+        held += 2
+        print(f"[no sync] raster_sharded on the 1 x 1 mesh {grid} x "
+              f"{n_poses} poses x {n_points} points, default weights: "
+              f"forward, autograd step held")
+    # the check has teeth: what the repaired sites ran raises under it
+    probe = torch.ones(3, device=dev)
+    syncing = {
+        "a constant copied from the host": lambda: torch.tensor(
+            (128, 128), dtype=torch.float32, device=dev),
+        "bincount": lambda: torch.bincount(probe.long()),
+        ".item()": lambda: probe.sum().item()}
+    for what, fn in syncing.items():
+        try:
+            held_without_sync(fn)
+        except RuntimeError:
+            continue
+        check(False, f"[no sync] {what} raises under the sync debug mode")
+    print(f"[no sync] {held} calls held under "
+          f"torch.cuda.set_sync_debug_mode('error'), each after a warm-up "
+          f"call; a constant copied from the host, bincount and .item() "
+          f"raise there")
+    return held
+
+
+BENCH_DETAIL = ("backend", "platform", "t_fwd_ms", "t_bwd_ms", "t_fwd_ms_pm",
+                "t_bwd_ms_pm", "n_points", "batch", "grid", "name",
+                "power_limit", "t_step_ms", "t_grad_ms", "busy_ms",
+                "launches")
+
+
+def phase_bench():
+    """[bench]: `python3 bench_torch.py` as the benchmark runs it, in a
+    process of its own; its one JSON line must carry `bench.py`'s keys and
+    the port's, a positive value, the card as platform and `binned` as
+    backend.  -> the record."""
+    import subprocess
+    proc = subprocess.run([sys.executable, str(ROOT / "bench_torch.py")],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=300)
+    lines = proc.stdout.strip().splitlines()
+    check(proc.returncode == 0 and len(lines) == 1,
+          f"[bench] bench_torch.py printed one line and exited 0 (rc "
+          f"{proc.returncode}):\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    rec = json.loads(lines[0])
+    detail = rec.get("detail", {})
+    missing = [k for k in ("metric", "value", "unit", "vs_baseline")
+               if k not in rec] + [k for k in BENCH_DETAIL
+                                   if k not in detail]
+    check(not missing, f"[bench] keys missing: {missing}")
+    check(rec["value"] > 0 and detail["platform"] == "cuda"
+          and detail["backend"] == "binned",
+          f"[bench] a positive value on the card through binned: {rec}")
+    print(f"[bench] {json.dumps(rec)}")
+    return rec
+
+
+RUN_ROWS = ("128sq_1e5", "1024cube_1e5")
+RUN_BACKENDS = {"128sq_1e5": "binned", "1024cube_1e5": "xla"}
+RUN_KEYS = ("config", "backend", "inputs", "card", "power_limit",
+            "t_fwd_ms", "t_fwd_ms_pm", "t_bwd_ms", "t_bwd_ms_pm", "t_step_ms",
+            "t_grad_ms", "t_grad_ms_pm", "busy_ms", "launches", "splats_per_s",
+            "vs_a100", "peak_mem_gb")
+
+
+def phase_run():
+    """[run]: rows of `dprast_torch.benchmarks.run` with the training step
+    (`--grad`), in this process: the flagship and 1024^3, whose 4.3 GB
+    volume goes to `xla` (91,287 tiles, above `binned`'s 4,096).  Every
+    timing must be there and no error, the backend `auto`'s, and the peak
+    memory at 1024^3 under 40 GB (it also counts what this process still
+    holds from earlier phases).  -> the records."""
+    from dprast_torch.benchmarks import run as bench_run
+    rows = {cfg[0]: cfg for cfg in bench_run.CONFIGS}
+    recs = []
+    for name in RUN_ROWS:
+        rec = bench_run.run_config(*rows[name], with_grad=True)
+        missing = [k for k in RUN_KEYS if k not in rec]
+        errors = [k for k in rec if k.endswith("error")]
+        check(not missing and not errors,
+              f"[run] {name}: keys missing {missing}, errors {errors}")
+        check(rec["backend"] == RUN_BACKENDS[name],
+              f"[run] {name} runs on {RUN_BACKENDS[name]}, got "
+              f"{rec['backend']}")
+        recs.append(rec)
+    check(recs[-1]["peak_mem_gb"] < 40,
+          f"[run] 1024cube_1e5 peaks at {recs[-1]['peak_mem_gb']:.2f} GB")
+    return recs
+
+
+def phase_tests_gpu():
+    """[tests_gpu]: the on-card parity suite, ``python -m pytest
+    tests_gpu``, in a process of its own; every test it collects must pass
+    (a suite that skips on the card fails).  -> (passed, collected)."""
+    import subprocess
+    import tempfile
+    import xml.etree.ElementTree as ET
+    with tempfile.TemporaryDirectory() as tmp:
+        xml = Path(tmp) / "tests_gpu.xml"
+        proc = subprocess.run(
+            [sys.executable, "-m", "pytest", "tests_gpu", "-q",
+             "-p", "no:cacheprovider", f"--junitxml={xml}"],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        suite = ET.parse(xml).getroot()
+    suite = suite if suite.tag == "testsuite" else suite.find("testsuite")
+    collected = int(suite.get("tests"))
+    passed = collected - sum(int(suite.get(k)) for k in
+                             ("errors", "failures", "skipped"))
+    summary = proc.stdout.strip().splitlines()[-1:]
+    print(f"[tests_gpu] {passed} of {collected} passed (rc "
+          f"{proc.returncode}): {' '.join(summary)}")
+    check(proc.returncode == 0 and passed == collected and collected >= 13,
+          f"[tests_gpu] every collected test passes:\n"
+          f"{proc.stdout[-4000:]}\n{proc.stderr[-2000:]}")
+    return passed, collected
+
+
 def main():
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False")
     if sys.argv[1:2] == ["--sharded-worker"]:
@@ -2577,6 +2768,15 @@ def main():
     sharded_launches, worker_launches = phase_sharded(
         dprast_torch, sb, smi, pts, rot, tr, pw, cots)
 
+    # --- 20. no host sync on the card's path; the benchmark entry points;
+    # the on-card parity suite ---
+    for tag, phase in (("[no sync]", lambda: phase_no_sync(dprast_torch, dev)),
+                       ("[bench]", phase_bench), ("[run]", phase_run),
+                       ("[tests_gpu]", phase_tests_gpu)):
+        t0 = time.perf_counter()
+        phase()
+        print(f"{tag} took {time.perf_counter() - t0:.1f} s")
+
     src = "dprast/ops/splat_binned.py"
     fwd_cu = "dprast_torch/csrc/fwd_splat.cu"
     bwd_cu = "dprast_torch/csrc/bwd_gather.cu"
@@ -2741,6 +2941,7 @@ def main():
     for entry in kernels:
         check(entry["launches"] >= 1,
               f"{entry['name']} ({entry['shape']}) was launched on its path")
+    print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -64,9 +64,21 @@ def _device_of(values, device):
     return devices.pop()
 
 
+# the dtype numpy gives a Python scalar (`np.asarray(1.0)` is float64)
+_SCALAR_DTYPES = ((bool, torch.bool), (int, torch.int64),
+                  (float, torch.float64))
+
+
 def _as_tensor(value, device):
+    """`value` as a tensor on `device`.  A Python scalar (and a defaulted
+    weight) is made there by a fill, with numpy's dtype for it: a copy from
+    the host would wait for the card on every call.  Arrays and lists are
+    the caller's data and are copied."""
     if isinstance(value, torch.Tensor):
         return value
+    for kind, dtype in _SCALAR_DTYPES:
+        if isinstance(value, kind):
+            return torch.full((), value, dtype=dtype, device=device)
     return torch.as_tensor(np.asarray(value), device=device)
 
 

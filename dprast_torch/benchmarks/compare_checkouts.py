@@ -21,7 +21,12 @@ points, uniform weights) on 128^2 and 1024^2:
 - the pullback from the forward's frame, the forward and the fused
   forward + pullback step, and what the step keeps the card busy with
   (`torch.profiler`: the microseconds in kernels and copies, and their
-  number); the forward and the step also at 128^3, one pose x 10^6 points.
+  number); the forward and the step also at 128^3, one pose x 10^6 points;
+- the two entry points a user calls with default weights: the training
+  step through autograd (`dprast_torch.raster`, then `torch.autograd.grad`
+  of ``sum(out * g)`` with respect to the points and the translation) and
+  the API's `raster_pullback`, at all three shapes, with what the
+  autograd step keeps the card busy with.
 
 It prints one line per quantity with the readings of the four runs and
 the means of each checkout.  Usage, from the root of the newer checkout,
@@ -30,8 +35,9 @@ with the older one unpacked by `git archive` into a directory that
 
     python3 -m dprast_torch.benchmarks.compare_checkouts build/parent .
 
-A worker uses only what both checkouts have: the wrappers of
-`dprast_torch.ops.splat_binned` and the helpers of `chip_smoke.py`.
+A worker uses only what both checkouts have: the public entry points, the
+wrappers of `dprast_torch.ops.splat_binned` and the helpers of
+`chip_smoke.py`.
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ import json, sys
 sys.path.insert(0, ".")
 import torch
 import chip_smoke as cs
+import dprast_torch
 from dprast_torch.ops import splat_binned as sb
 
 dev = torch.device("cuda", 0)
@@ -60,6 +67,23 @@ out = {}
 def both(key, fn, kernel):
     out[key + " ms"] = cs.time_ms(fn)
     out[key + " device us"] = cs.kernel_device_us(fn, kernel)
+
+
+def entry_points(tag, grid, pts, rot, tr, g):
+    """The autograd step and the API's pullback, default weights."""
+    pts_req = pts.clone().requires_grad_()
+    tr_req = tr.clone().requires_grad_()
+
+    def grad_step():
+        loss = (dprast_torch.raster(grid, pts_req, rot, tr_req) * g).sum()
+        return torch.autograd.grad(loss, (pts_req, tr_req))
+
+    out[f"autograd step {tag} ms"] = cs.time_ms(grad_step)
+    (out[f"autograd step {tag} device-busy us"],
+     out[f"autograd step {tag} kernels and copies"]) = cs.device_busy(
+        grad_step)
+    out[f"raster_pullback (API) {tag} ms"] = cs.time_ms(
+        lambda: dprast_torch.raster_pullback(g, pts, rot, tr))
 
 
 # B1 and B4 as the checkout's path runs them: on the frame itself where
@@ -125,6 +149,7 @@ for grid in cs.GRIDS:
     out[f"fused step {tag} ms"] = cs.time_ms(step)
     (out[f"fused step {tag} device-busy us"],
      out[f"fused step {tag} kernels and copies"]) = cs.device_busy(step)
+    entry_points(tag, grid, pts, rot, tr, g)
 # B1 in 3-D: 128^3, one pose x 10^6 points, uniform weights
 vol = [torch.from_numpy(a).to(dev) for a in cs.volume_inputs(1, 1_000_000)]
 args, data = sb._fwd_frame(cs.VOLUME, *vol[:3], vol[5], True)
@@ -149,6 +174,7 @@ def step_3d():
 out[f"fused step {tag} ms"] = cs.time_ms(step_3d)
 (out[f"fused step {tag} device-busy us"],
  out[f"fused step {tag} kernels and copies"]) = cs.device_busy(step_3d)
+entry_points(tag, cs.VOLUME, *vol[:3], g)
 print("RESULT " + json.dumps(out))
 '''
 

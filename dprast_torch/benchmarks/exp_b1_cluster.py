@@ -87,7 +87,7 @@ def run(cs, dev):
                 return sb.fwd_splat(*args, cluster=c)
             err[c] = cs.scaled_err(fn(), ext_p)
             worst = max(worst, err[c])
-            us[c].append(cs.kernel_device_us(fn, ("fwd_splat_kernel",)))
+            us[c].append(profiling.kernel_device_us(fn, "fwd_splat_kernel"))
             ms[c].append(cs.time_ms(fn))
         bound_ms, _ = cs.b1_bound(*args)
         lines.append(f"{card} | {label}: {nt} tiles, busiest tile {busiest} "

@@ -42,15 +42,17 @@ def _neighbour_data(points, rotation, translation, grid_size):
     ``total``, wsplat (B, P, S), dl (B, P, N_out), shifts (S, N_out))."""
     dev = points.device
     n_out = len(grid_size)
-    shifts = torch.from_numpy(geometry.voxel_shifts(n_out)).to(dev)
+    shifts = geometry.shift_table(n_out, dev)
     r0, dl = geometry.pose_voxel_and_deltas(points, rotation, translation,
                                             grid_size)
     idx = r0[..., None, :] + shifts                          # (B, P, S, N)
-    sizes = torch.tensor(grid_size, dtype=torch.int32, device=dev)
+    sizes = geometry.axis_values(grid_size, torch.int32, dev)
     inb = torch.all((idx >= 0) & (idx < sizes), dim=-1)     # (B, P, S)
-    strides = torch.from_numpy(geometry.flat_strides(grid_size)).to(dev)
+    strides = geometry.axis_values(
+        [math.prod(grid_size[i + 1:]) for i in range(n_out)], torch.int64,
+        dev)
     total = int(math.prod(grid_size))
-    idx_flat = torch.sum(idx.long() * strides.long(), dim=-1)
+    idx_flat = torch.sum(idx.long() * strides, dim=-1)
     # out-of-grid -> one past the end: the scatter buffer's last slot
     # absorbs it, and the gather reads the zero appended there (the
     # reference's silent per-neighbour drop)
@@ -129,8 +131,7 @@ def raster_pullback(grid_size, points, rotation, translation, background,
 
 def _pullback_impl(grid_size, points, rotation, out_weight, point_weight,
                    ds_dout, idx_flat, wsplat, dl) -> PullbackResult:
-    shifts = torch.from_numpy(
-        geometry.voxel_shifts(len(grid_size))).to(points.device)
+    shifts = geometry.shift_table(len(grid_size), points.device)
     b = rotation.shape[0]
     g_flat = ds_dout.reshape(b, -1)
     # a zero appended to each pose's cotangent: out-of-grid neighbours
@@ -146,8 +147,8 @@ def _pullback_impl(grid_size, points, rotation, out_weight, point_weight,
     factor = g * (out_weight[:, None] * point_weight[None, :])[..., None]
     dw_ddl = geometry.splat_weight_grads(dl, shifts)        # (B, P, S, N)
     ds_du = torch.einsum("bps,bpsn->bpn", factor, dw_ddl)
-    scale = torch.tensor(grid_size, dtype=ds_du.dtype,
-                         device=ds_du.device) / 2
+    scale = geometry.axis_values([g / 2 for g in grid_size], ds_du.dtype,
+                                 ds_du.device)
     scaled = ds_du * scale                                   # (B, P, N)
 
     return PullbackResult(

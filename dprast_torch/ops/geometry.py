@@ -43,6 +43,28 @@ def voxel_shifts(n_out: int) -> np.ndarray:
     return ((k[:, None] >> i[None, :]) & 1).astype(np.int32)
 
 
+def shift_table(n_out: int, device) -> torch.Tensor:
+    """`voxel_shifts` made on `device` itself (int32), so that a call on
+    the card copies nothing from the host."""
+    k = torch.arange(2**n_out, dtype=torch.int32, device=device)
+    i = torch.arange(n_out, dtype=torch.int32, device=device)
+    return (k[:, None] >> i[None, :]) & 1
+
+
+def axis_values(values, dtype, device) -> torch.Tensor:
+    """A (len(values),) tensor of Python numbers (one per grid axis) made
+    on `device` by fills, one per run of equal values: a constant that
+    ``torch.tensor(values, device=...)`` would copy from pageable host
+    memory, which waits for the card."""
+    out = torch.empty(len(values), dtype=dtype, device=device)
+    start = 0
+    for end in range(1, len(values) + 1):
+        if end == len(values) or values[end] != values[start]:
+            out[start:end].fill_(values[start])
+            start = end
+    return out
+
+
 def transform_points(points: torch.Tensor, rotation: torch.Tensor,
                      translation: torch.Tensor) -> torch.Tensor:
     """``q = R @ p + t``: points (P, N_in), rotation (B, N_out, N_in),
@@ -58,7 +80,7 @@ def transform_points(points: torch.Tensor, rotation: torch.Tensor,
 
 def grid_coords(q: torch.Tensor, grid_size: tuple[int, ...]) -> torch.Tensor:
     """Fractional 0-based grid coordinates ``u = (q + 1) * n/2 - 1/2``."""
-    scale = torch.tensor(grid_size, dtype=q.dtype, device=q.device) / 2
+    scale = axis_values([g / 2 for g in grid_size], q.dtype, q.device)
     return (q + 1) * scale - 0.5
 
 
@@ -148,7 +170,7 @@ def grid_coords_2f(points: torch.Tensor, rotation: torch.Tensor,
     # u = (q + 1) * scale - 1/2   (scale = n/2 is exact in f32)
     hi, e = _two_sum(hi, 1.0)
     lo = lo + e
-    scale = torch.tensor(grid_size, dtype=f32, device=pts.device) / 2
+    scale = axis_values([g / 2 for g in grid_size], f32, pts.device)
     hi, e = _two_prod(hi, scale)
     lo = lo * scale + e
     hi, e = _two_sum(hi, -0.5)

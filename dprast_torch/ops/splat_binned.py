@@ -422,12 +422,15 @@ def _slot_order(key, nt, chunk, min_chunk_per_tile, pack_idx):
     p2 = _id_span(p)
     packed = pack_idx and (2 * nt + 1) * p2 + p < 2 ** 31
 
-    # per-tile counts of every pose in one bincount; the no-overlap
-    # sentinel nt gets its own bin and is dropped
+    # per-tile counts of every pose in one histogram of (pose, tile) bins;
+    # the no-overlap sentinel nt gets its own bin and is dropped.  Its
+    # range is given, so nothing is read back to the host (`bincount`
+    # reads its input's), and float64 holds every bin and count exactly
     offs = torch.arange(bsz, device=dev)[:, None] * (nt + 1)
-    counts = torch.bincount((key.long() + offs).reshape(-1),
-                            minlength=bsz * (nt + 1))
-    counts = counts.reshape(bsz, nt + 1)[:, :nt].to(i32)
+    n_bins = bsz * (nt + 1)
+    counts = torch.histc((key.double() + offs).reshape(-1), bins=n_bins,
+                         min=-0.5, max=n_bins - 0.5)
+    counts = counts.to(i32).reshape(bsz, nt + 1)[:, :nt]
     padded = -(-counts // chunk) * chunk
     if min_chunk_per_tile:
         padded = torch.clamp(padded, min=chunk)
@@ -437,8 +440,9 @@ def _slot_order(key, nt, chunk, min_chunk_per_tile, pack_idx):
     # after tile t's real rows; the rest past every real key
     iota_t = torch.arange(nt, dtype=i32, device=dev)
     f_k = torch.arange(chunk, dtype=i32, device=dev).repeat(nt)
-    f_needed = torch.repeat_interleave(padded - counts, chunk, dim=1)
-    f_tile = torch.repeat_interleave(iota_t, chunk)
+    f_needed = (padded - counts)[:, :, None].expand(bsz, nt, chunk).reshape(
+        bsz, nt * chunk)
+    f_tile = iota_t[:, None].expand(nt, chunk).reshape(-1)
     f_key = torch.where(f_k < f_needed, 2 * f_tile + 1, 2 * nt + 1)
     # top the input up to >= s_pad rows (p + nt*chunk falls short when p
     # is not a chunk multiple)
@@ -1575,7 +1579,8 @@ def _pullback_from_frame(grid_size, coord, idx_rows, slot_tile, points,
         per = buf[:, :, :p]
     du_pt = per[:, :n_out]                                # (B, n_out, P)
 
-    scale = torch.tensor(grid_size, dtype=f32, device=buf.device) / 2
+    scale = geometry.axis_values([g / 2 for g in grid_size], f32,
+                                 buf.device)
     ow = out_weight.to(f32)
     pw = point_weight.to(f32)
     # scaled_i = du_i * (g_i/2) * ow * pw   (B, n_out, P)

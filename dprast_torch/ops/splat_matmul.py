@@ -290,7 +290,7 @@ def raster_pullback(grid_size, points, rotation, translation, background,
 
     ow = out_weight.to(cdt)
     rot = rotation.to(cdt)
-    scale = torch.tensor(grid_size, dtype=cdt, device=dev) / 2
+    scale = geometry.axis_values([g / 2 for g in grid_size], cdt, dev)
     d_t = torch.zeros((b, n_out), dtype=cdt, device=dev)
     d_r = torch.zeros((b, n_out, n_in), dtype=cdt, device=dev)
     d_ow = torch.zeros((b,), dtype=cdt, device=dev)

@@ -13,6 +13,9 @@ Usage:
     ms, spread = profiling.time_fn(lambda: dprast_torch.raster(
         grid, pts, rot, tr), "cuda")
 
+    busy_us, launches = profiling.device_busy(step)   # what a call runs
+    us = profiling.kernel_device_us(step, "fwd_splat_kernel")
+
 `time_fn` reads the clock of the device its caller names, which is the
 device of the caller's tensors: CUDA events on a CUDA device, the host's
 `time.perf_counter` on the CPU.  A CUDA device that is missing raises;
@@ -27,6 +30,7 @@ from __future__ import annotations
 import contextlib
 import statistics
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -95,6 +99,43 @@ def time_fn(fn, device="cuda", iters: int = 15,
     return statistics.median(times), (max(times) - min(times)) / 2
 
 
+def kernel_device_us(fn, kernel, calls: int = 10) -> float:
+    """Device time in microseconds that one call of `fn` spends in the
+    kernels whose name holds `kernel` (or one of a tuple of names), the
+    mean over `calls` calls, from `torch.profiler` on the card; 0 when
+    three traces in a row hold none of them."""
+    names = (kernel,) if isinstance(kernel, str) else kernel
+    fn()
+    # now and then a trace comes back without its kernel rows: ask again
+    for _ in range(3):
+        with tempfile.TemporaryDirectory() as tmp:
+            with trace(tmp) as prof:
+                for _ in range(calls):
+                    fn()
+        total = sum(e.device_time_total for e in prof.key_averages()
+                    if any(name in e.key for name in names))
+        if total:
+            break
+    return total / calls
+
+
+def device_busy(fn, calls: int = 5) -> tuple[float, float]:
+    """What one call of `fn` keeps the card busy with, the mean over
+    `calls` calls from `torch.profiler`: (microseconds in kernels and
+    copies, their number)."""
+    from torch.autograd import DeviceType
+
+    fn()
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp) as prof:
+            for _ in range(calls):
+                fn()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    return (sum(e.device_time_total for e in rows) / calls,
+            sum(e.count for e in rows) / calls)
+
+
 def card(index: int = 0) -> str:
     """The card's name and power limit as `nvidia-smi` gives them, e.g.
     ``NVIDIA H100 80GB HBM3, 700.00 W``."""
@@ -102,3 +143,15 @@ def card(index: int = 0) -> str:
         ["nvidia-smi", "-i", str(index), "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
+
+
+def card_fields(device) -> tuple[str | None, str | None]:
+    """`card` of a CUDA `device` split into (name, power limit), for a
+    record; (None, None) on the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None, None
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    name, limit = card(index).rsplit(", ", 1)
+    return name, limit

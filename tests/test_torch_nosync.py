@@ -1,0 +1,143 @@
+"""No host round trip inside a call of dprast_torch (the CPU-side witness).
+
+On the card, a host value made into a device tensor (`torch.tensor`,
+`torch.as_tensor` of numpy or Python values, `torch.from_numpy(...).to`),
+a read of a device value on the host (`.item()`, `.tolist()`, `.cpu()`)
+and an op that reads a size back (`torch.bincount`) each wait for the
+card.  The code that makes the constants, the defaults and the per-tile
+counts is the same on both devices, so spies on those functions show here
+that a call runs none of them: `raster`, the fused pair
+(`raster_fwd_res` + `raster_pullback_res`), `raster_pullback` and an
+autograd step, with tensor inputs and default weights, on every backend.
+`chip_smoke.py` [no sync] makes the real check on the card, under
+``torch.cuda.set_sync_debug_mode("error")``.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import dprast_torch  # noqa: E402
+from dprast_torch import api  # noqa: E402
+from dprast_torch.ops import dispatch, geometry  # noqa: E402
+from dprast_torch.utils.testing import fixtures  # noqa: E402
+
+torch.set_num_threads(2)
+
+SPIED = (("torch", torch, ("tensor", "as_tensor", "from_numpy", "bincount")),
+         ("Tensor", torch.Tensor, ("item", "tolist", "cpu")))
+
+# (backend, grid, poses, points): one tile, several tiles, a volume
+CASES = {
+    "binned-one-tile": ("binned", (64, 64), 2, 500),
+    "binned-multi-tile": ("binned", (300, 200), 2, 500),
+    "binned-3d": ("binned", (8, 16, 200), 2, 300),
+    "binned_bf16": ("binned_bf16", (300, 200), 2, 500),
+    "xla": ("xla", (40, 56), 2, 500),
+    "matmul": ("matmul", (40, 56), 2, 500),
+}
+
+
+@pytest.fixture
+def spies(monkeypatch):
+    """Every spied function records its name when called; returns the
+    list of names."""
+    fired = []
+    for _, owner, names in SPIED:
+        for name in names:
+            real = getattr(owner, name)
+
+            def spy(*a, _real=real, _name=name, **kw):
+                fired.append(_name)
+                return _real(*a, **kw)
+
+            monkeypatch.setattr(owner, name, spy)
+    return fired
+
+
+def _inputs(grid, n_poses, n_points):
+    fx = fixtures(seed=3, n_points=n_points, batch_size=n_poses, n_in=3,
+                  n_out=len(grid))
+    pts, rot, tr = (torch.from_numpy(np.asarray(fx[k], np.float32))
+                    for k in ("points", "rotation", "translation"))
+    g = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (n_poses,) + grid).astype(np.float32))
+    return pts, rot, tr, g
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_no_host_round_trip(case, spies):
+    backend, grid, n_poses, n_points = CASES[case]
+    pts, rot, tr, g = _inputs(grid, n_poses, n_points)
+    canon = (pts, rot, tr, torch.zeros(n_poses), torch.ones(n_poses),
+             torch.ones(n_points))
+    pts_req = pts.clone().requires_grad_()
+    tr_req = tr.clone().requires_grad_()
+    spies.clear()          # what made the inputs does not count
+    out = dprast_torch.raster(grid, pts, rot, tr, backend=backend)
+    grads = dprast_torch.raster_pullback(g, pts, rot, tr, backend=backend)
+    loss = (dprast_torch.raster(grid, pts_req, rot, tr_req,
+                                backend=backend) * g).sum()
+    d_pts, d_tr = torch.autograd.grad(loss, (pts_req, tr_req))
+    pair = dispatch.vjp_pair(backend)
+    if pair is not None:
+        out_f, res = pair[0](grid, *canon, pw_uniform=True)
+        pair[1](grid, res, canon, g, pw_uniform=True)
+    assert spies == [], f"host round trips inside the calls: {spies}"
+    assert out.shape == (n_poses,) + grid
+    assert grads.points.shape == pts.shape
+    assert d_pts.shape == pts.shape and d_tr.shape == tr.shape
+    if pair is not None:
+        assert torch.equal(out_f, out)
+
+
+def test_spies_see_the_old_forms(spies):
+    """The spies fire on what the repaired sites used to run."""
+    torch.tensor((128, 128), dtype=torch.float32)
+    torch.bincount(torch.arange(3))
+    torch.ones(2).sum().item()
+    assert spies == ["tensor", "bincount", "item"]
+
+
+def test_python_scalars_keep_numpy_dtypes():
+    """A Python scalar becomes a 0-d tensor of the dtype numpy gives it,
+    made by a fill; arrays are copied as before."""
+    for value, dtype in ((1.0, torch.float64), (2, torch.int64),
+                         (True, torch.bool), (np.float64(0.5), torch.float64)):
+        t = api._as_tensor(value, "cpu")
+        assert t.dtype == dtype and t.ndim == 0
+        assert t.item() == value
+    assert api._as_tensor(np.float32(1.5), "cpu").dtype == torch.float32
+    assert api._as_tensor([1.0, 2.0], "cpu").dtype == torch.float64
+
+
+@pytest.mark.parametrize("point_weight", [None, 1.7])
+def test_defaults_keep_dtype_and_uniform_flag(point_weight):
+    """Defaulted and scalar weights are weakly typed (the call stays
+    float32) and still mark the point weight as uniform."""
+    pts, rot, tr, _ = _inputs((16, 16), 2, 20)
+    _, args, batched, uniform = api._normalise(
+        (16, 16), pts, rot, tr, None, 0.5, point_weight, None, "cpu")
+    assert batched and uniform
+    assert all(a.dtype == torch.float32 for a in args)
+    assert args[3].tolist() == [0.0, 0.0] and args[4].tolist() == [0.5, 0.5]
+    want = 1.0 if point_weight is None else 1.7
+    assert torch.equal(args[5], torch.full((20,), want, dtype=torch.float32))
+    _, args, _, uniform = api._normalise(
+        (16, 16), pts, rot, tr, None, None, torch.ones(20), None, "cpu")
+    assert not uniform
+
+
+@pytest.mark.parametrize("n_out", [1, 2, 3])
+def test_device_constants_equal_the_numpy_tables(n_out):
+    np.testing.assert_array_equal(geometry.shift_table(n_out, "cpu").numpy(),
+                                  geometry.voxel_shifts(n_out))
+    grid = (7, 7, 5)[:n_out]
+    for dtype in (torch.float32, torch.float64):
+        got = geometry.axis_values([g / 2 for g in grid], dtype, "cpu")
+        assert torch.equal(got, torch.tensor(grid, dtype=dtype) / 2)
+    strides = geometry.axis_values(
+        [int(s) for s in geometry.flat_strides(grid)], torch.int64, "cpu")
+    np.testing.assert_array_equal(strides.numpy(),
+                                  geometry.flat_strides(grid))
