@@ -394,8 +394,8 @@ def phase_train(dprast_torch, sb, pts, rot, tr, pw, cots, totals):
     """[train]: autograd through `auto` vs the oracle backend on the card,
     each run between a reset and a read of the launch counts."""
     want = {FLAGSHIP: ("coords", "fwd_splat_enc", "bwd_gather_enc"),
-            MULTI_TILE: ("coords", "frame_gather", "fwd_splat_enc",
-                         "band_fold", "bwd_gather_grid_enc")}
+            MULTI_TILE: ("coords", "tile_count", "frame_gather",
+                         "fwd_splat_enc", "band_fold", "bwd_gather_grid_enc")}
     for grid in GRIDS:
         for weighted in (False, True):
             inputs = train_inputs(pts, rot, tr, pw, weighted)
@@ -407,8 +407,9 @@ def phase_train(dprast_torch, sb, pts, rot, tr, pw, cots, totals):
                 totals[name] += launched[name]
             for name, count in launched.items():
                 # one launch of each kernel of the path and no other: B1
-                # and B4 read the frame; at 1024^2 the frame gather writes
-                # it, B4 reads the cotangent and B3 does not run
+                # and B4 read the frame; at 1024^2 the tile count and the
+                # frame gather make it, B4 reads the cotangent and B3 does
+                # not run
                 check(count == (name in want[grid]),
                       f"{name} ran {count} times in the training step at "
                       f"{grid}")
@@ -427,10 +428,10 @@ def phase_train(dprast_torch, sb, pts, rot, tr, pw, cots, totals):
 
 
 def phase_small(dprast_torch, oracle, dev, tag, cases, backend="binned",
-                tol=1e-5):
-    """[small] / [3d small]: the forward and `raster_pullback` on the
-    `backend` vs the f64 oracles within `tol`; `cases` are (grid, seed,
-    points, poses) of the fixtures."""
+                tol=1e-5, pullback=True):
+    """[small] / [3d small]: the forward and (with `pullback`)
+    `raster_pullback` on the `backend` vs the f64 oracles within `tol`;
+    `cases` are (grid, seed, points, poses) of the fixtures."""
     rng = np.random.default_rng(7)
     for grid, seed, n_points, n_poses in cases:
         fx = oracle.fixtures(seed=seed, n_points=n_points,
@@ -448,6 +449,8 @@ def phase_small(dprast_torch, oracle, dev, tag, cases, backend="binned",
                   f"points {'weighted' if weighted else 'uniform'}: forward "
                   f"scaled max-abs err vs f64 oracle {err:.3e} (tol {tol:g})")
             check(err <= tol, f"{backend} forward vs f64 oracle at {grid}")
+        if not pullback:
+            continue
         g = rng.standard_normal((n_poses,) + grid)
         g_dev = torch.from_numpy(g.astype(np.float32)).to(dev)
         # a per-point weight, the defaulted one (exact per-point d_pw) and
@@ -503,26 +506,59 @@ def sparse_frame(sb, grid, pts, rot, tr):
     return st, lane, nt, tuple(t + 1 for t in ts), chunk
 
 
-def b1_clusters(sb, tag, args, tol=1e-5):
-    """B1 on the frame `args` at every cluster size against its twin
-    within `tol`, and two runs of one launch compared bit for bit at the
-    least and the largest size -> worst scaled error."""
-    ext_p = sb._fwd_splat_plain(*args)
-    errs, same = {}, {}
+def b1_clusters(sb, tag, args, *, encoded=False, terms=0):
+    """B1 on the frame `args` (lane planes, or with `encoded` the frame
+    itself, the main path's instance) at every cluster size, two launches
+    each: every launch bit-equal to the first, so to every other run and
+    cluster size, and to `_fwd_splat_fixed_plain`, the kernel's function
+    (a NaN matches any NaN); the finite entries within `B1_TWIN_TOL` of
+    the fp32 twin, and every NaN and infinity where the twin has it ->
+    the error against the fp32 twin."""
+    kernel, fixed, plain = (
+        (sb.fwd_splat_enc, sb._fwd_splat_enc_fixed_plain,
+         sb._fwd_splat_enc_plain) if encoded else
+        (sb.fwd_splat, sb._fwd_splat_fixed_plain, sb._fwd_splat_plain))
+    name = sb._b1_instance(len(args[3]), terms) + ("_enc" if encoded else "")
+    first = None
     for c in range(1, sb._MAX_CLUSTER + 1):
-        ext_k = sb.fwd_splat(*args, cluster=c)
-        torch.cuda.synchronize()
-        errs[c] = scaled_err(ext_k, ext_p)
-        if c in (1, sb._MAX_CLUSTER):
-            same[c] = torch.equal(ext_k, sb.fwd_splat(*args, cluster=c))
-    print(f"[B1 clusters] {tag}: ext {tuple(ext_p.shape)}, scaled max-abs "
-          f"err vs twin (tol {tol:g}) by cluster size: "
-          + ", ".join(f"{c}: {e:.3e}" for c, e in errs.items())
-          + "; two runs bit-equal: "
-          + ", ".join(f"{c}: {v}" for c, v in same.items()))
-    worst = max(errs.values())
-    check(worst <= tol, f"B1 vs twin at every cluster size, {tag}")
-    return worst
+        for _ in range(2):
+            ext = kernel(*args, terms=terms, cluster=c)
+            first = ext if first is None else first
+            check(same_values(ext, first),
+                  f"[B1 clusters] {tag} {name}: cluster size {c} gives the "
+                  f"bits of the first run")
+    ext_f = fixed(*args, terms=terms)
+    ext_p = plain(*args, terms=terms)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(ext_p)
+    err = scaled_err(first[fin], ext_p[fin])
+    n_bad = int((~fin).sum())
+    print(f"[B1 clusters] {tag} {name}: ext {tuple(first.shape)}, two runs "
+          f"at each cluster size 1-{sb._MAX_CLUSTER} bit-equal to each other "
+          f"and to _fwd_splat_fixed_plain; scaled max-abs err vs the fp32 "
+          f"twin {err:.3e} (tol {B1_TWIN_TOL:g}); {n_bad} non-finite "
+          f"entries where the twin has them")
+    check(same_values(first, ext_f),
+          f"[B1 clusters] {tag} {name} bit-equal to _fwd_splat_fixed_plain")
+    check(same_values(torch.where(fin, 0.0, first),
+                      torch.where(fin, 0.0, ext_p)),
+          f"[B1 clusters] {tag} {name}: NaN and infinities where the fp32 "
+          f"twin has them")
+    check(err <= B1_TWIN_TOL, f"[B1 clusters] {tag} {name} vs the fp32 twin")
+    return err
+
+
+def same_values(a, b):
+    """Two float32 tensors hold the same bits, any NaN matching any NaN
+    (tensors of another type: the same values)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype != torch.float32:
+        return torch.equal(a, b)
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(
+        torch.where(na, 0.0, a).view(torch.int32),
+        torch.where(nb, 0.0, b).view(torch.int32))
 
 
 def same_bits(a, b):
@@ -650,29 +686,52 @@ def coords_in_turns(sb, smi, tag, grid, on_dev, phase="[times]"):
     return k_ms, t_ms, dev_us, twin_us, twin_launches
 
 
-def phase_b1(sb, dev, pts, rot, tr, pw):
-    """[B1]: the forward splat against its twin on the card.  At the main
-    shapes through the cluster size the wrapper picks; then at every
-    cluster size there, at `ODD_GRIDS`, at the single tile with a point
-    count that is no multiple of the chunk, and on a frame with an empty
-    tile and dead slots.  -> {(grid, weighted): (args, ext, data)}; the
-    main path's instance on the frame is held to this one in [B7 frame]."""
+def b1_weights(pw, kind):
+    """The point weights of a [B1 clusters] frame: `pw` itself
+    ("positive"), its signs flipped at random ("signed"), or with one NaN
+    and one infinite weight ("NaN and inf")."""
+    if kind == "signed":
+        signs = np.random.default_rng(5).choice([-1.0, 1.0], pw.shape[0])
+        return pw * torch.from_numpy(signs.astype(np.float32)).to(pw.device)
+    if kind == "NaN and inf":
+        out = pw.clone()
+        out[0], out[1] = float("nan"), float("inf")
+        return out
+    return pw
+
+
+def phase_b1(sb, dev, pts, rot, tr, pw, oracle, dprast_torch):
+    """[B1 clusters]: the forward splat, every instance at every cluster
+    size (`b1_clusters`): the lane and the frame's (`_enc`) instances at
+    the main shapes (128^2 and 1024^2 x 64 x 10^5, 128^3 x 1 x 10^6), terms
+    0 and 1, uniform, positive, signed weights and weights with a NaN and
+    an infinity; the lane instance at `ODD_GRIDS`, at the single tile with
+    a point count that is no multiple of the chunk, at a 5x5 window and on
+    a frame with an empty tile and dead slots.  Then the forward of small
+    clouds against the f64 oracle.  -> {(grid, weighted): (args, ext,
+    data)} at the 2-D main shapes; the main path's instance on the frame
+    is held to the lane instance in [B7 frame]."""
     frames = {}
-    for grid in GRIDS:
-        for weighted in (False, True):
-            args, data = sb._fwd_frame(grid, pts, rot, tr, pw, not weighted)
-            ext_k = sb.fwd_splat(*args)
-            ext_p = sb._fwd_splat_plain(*args)
-            torch.cuda.synchronize()
-            err = scaled_err(ext_k, ext_p)
-            print(f"[B1 fwd_splat] {grid} {'weighted' if weighted else 'uniform'}"
-                  f": ext {tuple(ext_k.shape)}, cluster "
-                  f"{sb._b1_cluster(dev, N_POSES, args[2], args[3])}, scaled "
-                  f"max-abs err vs twin {err:.3e} (tol 1e-5)")
-            check(err <= 1e-5, f"B1 vs twin at {grid}")
-            frames[grid, weighted] = (args, ext_k, data)
-        b1_clusters(sb, f"{grid} x {N_POSES} x {N_POINTS} uniform",
-                    frames[grid, False][0])
+    host = volume_inputs(1, 1_000_000)
+    vol = [torch.from_numpy(a).to(dev) for a in host]
+    for grid, (p_, r_, t_, w_) in ((FLAGSHIP, (pts, rot, tr, pw)),
+                                   (MULTI_TILE, (pts, rot, tr, pw)),
+                                   (VOLUME, (vol[0], vol[1], vol[2],
+                                             vol[5]))):
+        kinds = ["uniform", "positive", "signed"]
+        if grid != MULTI_TILE:
+            kinds.append("NaN and inf")
+        for kind in kinds:
+            weighted = kind != "uniform"
+            args, data = sb._fwd_frame(grid, p_, r_, t_, b1_weights(w_, kind),
+                                       not weighted)
+            if grid in GRIDS and kind in ("uniform", "positive"):
+                frames[grid, weighted] = (args, sb.fwd_splat(*args), data)
+            enc = (args[0], data) + args[2:]
+            tag = f"{grid} x {r_.shape[0]} x {p_.shape[0]} {kind}"
+            for terms in (0, 1):
+                b1_clusters(sb, tag, args, terms=terms)
+                b1_clusters(sb, tag, enc, encoded=True, terms=terms)
     cases = [(grid, n_poses, n_points, "weighted")
              for grid, n_poses, n_points in ODD_GRIDS]
     cases.append((FLAGSHIP, 3, 4321, "weighted"))
@@ -686,6 +745,9 @@ def phase_b1(sb, dev, pts, rot, tr, pw):
                   flagship_inputs(3, 3000, 3)[:3])
     b1_clusters(sb, "(1023, 1021) x 3 x 3000, empty tiles and dead slots",
                 sparse_frame(sb, (1023, 1021), p_ * 0.3, r_, t_))
+    phase_small(dprast_torch, oracle, dev, "[B1 clusters]",
+                [((256, 256), 3, 1500, 4), ((8, 16, 200), 21, 900, 2)],
+                pullback=False)
     return frames
 
 
@@ -762,10 +824,9 @@ def phase_b4_grid(sb, dev, b4_cases):
 # stages with plain loads (the `_ldg` counters)
 B7_CASES = ((FLAGSHIP, N_POSES, N_POINTS), (MULTI_TILE, N_POSES, N_POINTS),
             ((1023, 1021), 3, 20_000), (VOLUME, 1, 1_000_000))
-# B1's shared atomics add a window's floats in no fixed order: an `_enc`
-# instance against the lane instance and against its plain version
-# (scaled max-abs)
-B1_REORDER_TOL = 7.3e-7
+# B1 sums each window exactly in fixed point; its fp32 twin, the CPU's
+# path, adds the same terms in fp32 in frame order (scaled max-abs)
+B1_TWIN_TOL = 1e-6
 
 
 def b7_inputs(grid, n_poses, n_points, dev):
@@ -796,7 +857,8 @@ def b7_writers(sb, tag, grid, pts, rot, tr, pw):
         return sb._keys_and_local(*args, **kw)
 
     halo = not sb._single_tile(grid)
-    want = {"coords": 1, "frame_gather": 1} if halo else {"coords": 1}
+    want = ({"coords": 1, "tile_count": 1, "frame_gather": 1} if halo
+            else {"coords": 1})
     plain_name = "_prep_binned" if halo else "_prep_direct"
     apart = 0
     for label, build in (
@@ -887,7 +949,9 @@ def b7_kernels(sb, tag, grid, pts, rot, tr, pw, g):
     """The `_enc` instances of B1 and B4 on the forward's frame, uniform
     and weighted, terms 0 and 1, each against the same kernel on the
     frame's lane planes and against its plain version (`b7_calls`): B1
-    within `B1_REORDER_TOL`, B4 bit-equal to both.  B4 reads what the main
+    bit-equal to the lane instance and to `_fwd_splat_enc_fixed_plain`
+    and within `B1_TWIN_TOL` of the fp32 plain version, B4 bit-equal to
+    both.  B4 reads what the main
     path hands it: the cotangent on a single tile, the cotangent as its
     grid source on several 2-D tiles, the unfolded windows in 3-D.  ->
     ({counter: worst error}, {(stage, terms): (counter, enc call, plain
@@ -912,15 +976,23 @@ def b7_kernels(sb, tag, grid, pts, rot, tr, pw, g):
                 out_e = enc()
                 (counter,) = (k for k in before if sb.LAUNCHES[k] != before[k])
                 out_l, out_p = lane(), plain()
+                fixed = functools.partial(
+                    sb._fwd_splat_enc_fixed_plain, frame[1], frame[0],
+                    frame[2], win, frame[3], terms=terms)
                 torch.cuda.synchronize()
                 e_l, e_p = scaled_err(out_e, out_l), scaled_err(out_e, out_p)
                 errs[counter] = max(errs.get(counter, 0.0), e_l, e_p)
                 if stage == "b1":
-                    line.append(f"{counter} vs lanes {e_l:.3e}, vs plain "
-                                f"{e_p:.3e} (tol {B1_REORDER_TOL:g})")
-                    check(max(e_l, e_p) <= B1_REORDER_TOL,
-                          f"{tag} {counter} within B1's reordering of the "
-                          f"lane instance and the plain version")
+                    same_l = same_values(out_e, out_l)
+                    same_f = same_values(out_e, fixed())
+                    line.append(f"{counter} bit-equal to lanes {same_l}, to "
+                                f"_fwd_splat_enc_fixed_plain {same_f}; vs "
+                                f"the fp32 plain version {e_p:.3e} (tol "
+                                f"{B1_TWIN_TOL:g})")
+                    check(same_l and same_f and e_p <= B1_TWIN_TOL,
+                          f"{tag} {counter} bit-equal to the lane instance "
+                          f"and the fixed-point plain version, and within "
+                          f"{B1_TWIN_TOL:g} of the fp32 one")
                 else:
                     same_l = torch.equal(out_e, out_l)
                     same_p = torch.equal(out_e, out_p)
@@ -1165,9 +1237,10 @@ def phase_3d(dprast_torch, sb, dev):
             torch.cuda.synchronize()
             launched = dict(sb.LAUNCHES)
             check(launched["fwd_splat_3d_enc"] >= 1
-                  and launched["coords"] == launched["frame_gather"] == 1,
-                  f"{tag}: B6, the frame gather and B1-3D ran in the "
-                  f"forward")
+                  and launched["coords"] == launched["tile_count"]
+                  == launched["frame_gather"] == 1,
+                  f"{tag}: B6, the tile count, the frame gather and B1-3D "
+                  f"ran in the forward")
             check(img.shape == (n_poses,) + grid and
                   bool(torch.isfinite(img).all()), f"{tag}: finite image")
             ref = dprast_torch.raster(grid, pts, rot, tr, bg, ow, w,
@@ -1191,9 +1264,10 @@ def phase_3d(dprast_torch, sb, dev):
                 check(launched[name] >= 1,
                       f"{tag}: {name} ran in the training step")
             # the fused pair reuses the forward's frame
-            check(launched["coords"] == launched["frame_gather"] == 1,
-                  f"{tag}: B6 and the frame gather ran once in the training "
-                  f"step")
+            check(launched["coords"] == launched["tile_count"]
+                  == launched["frame_gather"] == 1,
+                  f"{tag}: B6, the tile count and the frame gather ran once "
+                  f"in the training step")
             if n_poses == 1:
                 for name in launched:
                     train_launches[name] += launched[name]
@@ -1933,9 +2007,9 @@ SHARDED_MESH = (2, 2)
 # the kernels of one training step per process, by grid
 SHARDED_WANT = {FLAGSHIP: {"coords": 1, "fwd_splat_enc": 1,
                            "bwd_gather_enc": 1},
-                MULTI_TILE: {"coords": 1, "frame_gather": 1,
-                             "fwd_splat_enc": 1, "band_fold": 1,
-                             "bwd_gather_grid_enc": 1}}
+                MULTI_TILE: {"coords": 1, "tile_count": 1,
+                             "frame_gather": 1, "fwd_splat_enc": 1,
+                             "band_fold": 1, "bwd_gather_grid_enc": 1}}
 # seconds the four workers may take, CUDA start-up included, before the
 # parent kills them and fails
 SHARDED_TIMEOUT = 120
@@ -2258,13 +2332,7 @@ def phase_no_sync(dprast_torch, dev):
               for name in NO_SYNC_BACKENDS]
     held = 0
     for grid, n_poses, n_points, backend in cases:
-        if len(grid) == 2:
-            pts, rot, tr, pw = flagship_inputs(0, n_points, n_poses)
-            arrays = (pts, rot, tr, np.zeros(n_poses, np.float32),
-                      np.ones(n_poses, np.float32), pw)
-        else:
-            arrays = volume_inputs(n_poses, n_points)
-        canon = tuple(torch.from_numpy(a).to(dev) for a in arrays)
+        canon = main_inputs(grid, n_poses, n_points, dev)
         g = torch.randn((n_poses,) + grid, device=dev)
         for weighted in (False, True):
             paths = no_sync_paths(dprast_torch, dispatch, grid, canon, g,
@@ -2309,6 +2377,228 @@ def phase_no_sync(dprast_torch, dev):
           f"call; a constant copied from the host, bincount and .item() "
           f"raise there")
     return held
+
+
+# [tile count]: the main path's multi-tile shapes
+TILE_COUNT_CASES = ((MULTI_TILE, N_POSES, N_POINTS), (VOLUME, 1, 1_000_000))
+
+
+def main_inputs(grid, n_poses, n_points, dev):
+    """The main path's cloud at `grid` on the card: `flagship_inputs` in
+    2-D, `volume_inputs` in 3-D -> (points, rotation, translation,
+    background, out_weight, point_weight)."""
+    if len(grid) == 3:
+        arrays = volume_inputs(n_poses, n_points)
+    else:
+        pts, rot, tr, pw = flagship_inputs(0, n_points, n_poses)
+        arrays = (pts, rot, tr, np.zeros(n_poses, np.float32),
+                  np.ones(n_poses, np.float32), pw)
+    return tuple(torch.from_numpy(a).to(dev) for a in arrays)
+
+
+def phase_tile_count(sb, dev, smi):
+    """[tile count]: the tile count kernel against its plain version (the
+    ranged `histc` it replaces) bit for bit at `TILE_COUNT_CASES`, on the
+    keys B6 writes there and on random keys that fill every bin of [0, nt];
+    timed in turns (kernel, histc,
+    histc, kernel) by CUDA events and by device busy time, the kernel's
+    own device time against its bound, and the one `torch.histc` call on
+    the prepared bins as the library's.  -> {grid: entry}."""
+    out = {}
+    for grid, n_poses, n_points in TILE_COUNT_CASES:
+        pts, rot, tr = main_inputs(grid, n_poses, n_points, dev)[:3]
+        key, _, nt = sb._keys_and_local(grid, sb.tile_shape_for(grid), pts,
+                                        rot, tr)
+        got = sb.tile_count(key, nt)
+        ref = sb._tile_count_plain(key, nt)
+        wild = torch.randint(0, nt + 1, key.shape, dtype=torch.int32,
+                             device=dev)
+        same_wild = torch.equal(sb.tile_count(wild, nt),
+                                sb._tile_count_plain(wild, nt))
+        torch.cuda.synchronize()
+        same = torch.equal(got, ref) and int(got.sum()) == key.numel()
+        tag = f"{grid} x {n_poses} x {n_points}"
+        print(f"[tile count] {tag}: counts {tuple(got.shape)} bit-equal to "
+              f"the ranged histc on B6's keys {same}, on random keys in "
+              f"[0, nt] {same_wild}")
+        check(same and same_wild, f"[tile count] {tag} bit-equal to its "
+                                  f"plain version")
+        offs = torch.arange(n_poses, device=dev)[:, None] * (nt + 1)
+        bins = (key.double() + offs).reshape(-1)
+        n_bins = n_poses * (nt + 1)
+        fns = (lambda: sb.tile_count(key, nt),
+               lambda: sb._tile_count_plain(key, nt))
+        ms, busy = {0: [], 1: []}, {0: [], 1: []}
+        for i in (0, 1, 1, 0):
+            ms[i].append(time_ms(fns[i]))
+            busy[i].append(device_busy(fns[i])[0])
+        entry = {
+            "ms": sum(ms[0]) / 2, "plain_ms": sum(ms[1]) / 2,
+            "busy_us": sum(busy[0]) / 2, "plain_busy_us": sum(busy[1]) / 2,
+            "dev_us": kernel_device_us(fns[0], "tile_count_kernel"),
+            "library_ms": time_ms(lambda: torch.histc(
+                bins, bins=n_bins, min=-0.5, max=n_bins - 0.5)),
+            "bound": bound(key.numel() * 4 + got.numel() * 4, 0)}
+        out[grid] = entry
+        share = entry["bound"][0] * 1e3 / max(entry["dev_us"], 1e-9)
+        print(f"[tile count] {smi} | {tag} in turns (kernel, histc, histc, "
+              f"kernel): {ms[0][0]:.4f}, {ms[1][0]:.4f}, {ms[1][1]:.4f}, "
+              f"{ms[0][1]:.4f} ms; device busy {entry['busy_us']:.2f} us "
+              f"(the zero-fill and the kernel) against the plain version's "
+              f"{entry['plain_busy_us']:.2f}; the kernel {entry['dev_us']:.2f}"
+              f" us, {share:.1%} of its {entry['bound'][0] * 1e3:.2f} us "
+              f"bound; one histc "
+              f"call on the prepared bins {entry['library_ms']:.4f} ms")
+    return out
+
+
+def flat_outputs(result):
+    """The tensors of a call's result (a tensor or nested tuples of them),
+    in order."""
+    if isinstance(result, torch.Tensor):
+        return [result.detach()]
+    return [t for r in result for t in flat_outputs(r)]
+
+
+def repeats(fn):
+    """`fn` run twice gives the same bits in every output -> (bool, the
+    number of output tensors)."""
+    a, b = flat_outputs(fn()), flat_outputs(fn())
+    torch.cuda.synchronize()
+    return (len(a) == len(b) and all(same_values(x, y) for x, y in
+                                     zip(a, b))), len(a)
+
+
+def six_grad_step(dprast_torch, grid, canon, g, weighted, backend):
+    """The autograd step of all six inputs: `raster`, then the gradients of
+    ``sum(out * g)``."""
+    leaves = [t.clone().requires_grad_() for t in canon[:5]]
+    leaves.append(canon[5].clone().requires_grad_() if weighted else None)
+
+    def step():
+        out = dprast_torch.raster(grid, *leaves[:5], point_weight=leaves[5],
+                                  backend=backend)
+        wrt = [t for t in leaves if t is not None]
+        return (out, *torch.autograd.grad((out * g).sum(), wrt))
+    return step
+
+
+def phase_repeat(dprast_torch, dev):
+    """[repeat]: with torch's deterministic mode off, the `binned` forward
+    (`raster`) and fused step (the backend's pair) run twice at the main
+    path's three shapes, default and per-point weights, give the same bits.
+    -> the calls compared."""
+    from dprast_torch.ops import dispatch
+    pair = dispatch.vjp_pair("binned")
+    n = 0
+    for grid, n_poses, n_points in NO_SYNC_SHAPES:
+        canon = main_inputs(grid, n_poses, n_points, dev)
+        g = torch.randn((n_poses,) + grid, device=dev)
+        for weighted in (False, True):
+            args = canon if weighted else canon[:5] + (
+                torch.ones_like(canon[5]),)
+
+            def fused():
+                out, res = pair[0](grid, *args, pw_uniform=not weighted)
+                return out, pair[1](grid, res, args, g,
+                                    pw_uniform=not weighted)
+
+            fwd = functools.partial(dprast_torch.raster, grid, *canon[:5],
+                                    point_weight=canon[5] if weighted
+                                    else None, backend="binned")
+            same_f, _ = repeats(fwd)
+            same_s, k = repeats(fused)
+            n += 2
+            label = "per-point" if weighted else "default"
+            print(f"[repeat] binned {grid} x {n_poses} x {n_points}, {label} "
+                  f"weights: forward bit-equal on two runs {same_f}; fused "
+                  f"step ({k} tensors) {same_s}")
+            check(same_f and same_s, f"[repeat] binned {grid} {label} "
+                                     f"repeats bit for bit")
+    return n
+
+
+# [deterministic]: every entry point through `auto` at the main shapes,
+# and the backends asked for by name at the flagship
+DETERMINISTIC_BACKENDS = ("binned_bf16", "xla", "matmul")
+
+
+def deterministic_worker():
+    """The body of [deterministic], in a process started with
+    ``CUBLAS_WORKSPACE_CONFIG=:4096:8``: under
+    ``torch.use_deterministic_algorithms(True)`` every entry point (the
+    forward, `raster_pullback`, the autograd step of all six inputs, the
+    fused pair where the backend has one, and `raster_sharded` forward and
+    step on the 1 x 1 mesh) through `auto` at `NO_SYNC_SHAPES` and on
+    `DETERMINISTIC_BACKENDS` by name at the flagship, default and per-point
+    weights, runs without an error and twice to the same bits."""
+    torch.use_deterministic_algorithms(True)
+    import dprast_torch
+    from dprast_torch.ops import dispatch, splat_binned as sb
+    from dprast_torch.parallel import make_mesh, raster_sharded
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    mesh = make_mesh()
+    cases = [(grid, n_poses, n_points, "auto")
+             for grid, n_poses, n_points in NO_SYNC_SHAPES]
+    cases += [(FLAGSHIP, N_POSES, N_POINTS, name)
+              for name in DETERMINISTIC_BACKENDS]
+    n = 0
+    reset_launches(sb)
+    for grid, n_poses, n_points, backend in cases:
+        canon = main_inputs(grid, n_poses, n_points, dev)
+        g = torch.randn((n_poses,) + grid, device=dev)
+        for weighted in (False, True):
+            paths = no_sync_paths(dprast_torch, dispatch, grid, canon, g,
+                                  weighted, backend)
+            paths["autograd step"] = six_grad_step(
+                dprast_torch, grid, canon, g, weighted, backend)
+            if backend == "auto" and not weighted:
+                leaves = [t.clone().requires_grad_() for t in canon[:3]]
+
+                def sharded_step():
+                    out = raster_sharded(grid, *leaves, mesh=mesh)
+                    return (out, *torch.autograd.grad((out * g).sum(),
+                                                      leaves))
+
+                paths["raster_sharded"] = lambda: raster_sharded(
+                    grid, *canon[:3], mesh=mesh)
+                paths["raster_sharded step"] = sharded_step
+            got = {name: repeats(fn) for name, fn in paths.items()}
+            n += len(got)
+            print(f"[deterministic] {backend} {grid} x {n_poses} x "
+                  f"{n_points}, {'per-point' if weighted else 'default'} "
+                  f"weights, bit-equal on two runs: "
+                  + ", ".join(f"{k} ({m} tensors) {v}"
+                              for k, (v, m) in got.items()))
+            check(all(v for v, _ in got.values()),
+                  f"[deterministic] {backend} {grid} repeats bit for bit")
+    launched = ran(sb.LAUNCHES)
+    print(f"[deterministic] {n} calls ran twice each under "
+          f"torch.use_deterministic_algorithms(True), all bit-equal; "
+          f"launches {launched}")
+    check(launched.get("tile_count", 0) >= 1 and
+          launched.get("fwd_splat_enc", 0) >= 1,
+          "[deterministic] the tile count and B1 ran under the mode")
+
+
+def phase_deterministic():
+    """[deterministic]: `deterministic_worker` in a process of its own,
+    started with ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` as torch asks for its
+    deterministic mode; it must exit 0.  -> its output lines."""
+    import os
+    import subprocess
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--deterministic"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    for ln in lines:
+        print(ln)
+    check(proc.returncode == 0,
+          f"[deterministic] the worker exited {proc.returncode}:\n"
+          f"{proc.stderr[-4000:]}")
+    return lines
 
 
 BENCH_DETAIL = ("backend", "platform", "t_fwd_ms", "t_bwd_ms", "t_fwd_ms_pm",
@@ -2410,6 +2700,9 @@ def main():
     if sys.argv[1:2] == ["--sharded-worker"]:
         # one process of [sharded]'s 2 x 2 mesh, started by the run itself
         return sharded_worker(int(sys.argv[2]), *sys.argv[3:5])
+    if sys.argv[1:2] == ["--deterministic"]:
+        # [deterministic]'s process, started by the run itself
+        return deterministic_worker()
 
     import dprast_torch
     from dprast_torch.ops import _build, core, splat_binned as sb
@@ -2438,8 +2731,14 @@ def main():
              .splitlines() if "registers" in ln or "Compiling entry" in ln
              or "spill" in ln]
     print(f"[build] {build_s:.1f} s -> {so.relative_to(ROOT)}")
-    for ln in ptxas + sass_atomics(so, _build._nvcc()):
+    b1_sass = sass_atomics(so, _build._nvcc())
+    for ln in ptxas + b1_sass:
         print(f"[build] {ln}")
+    # B1's fixed-point window adds with native 32-bit integer atomics: no
+    # compare-and-swap loop is left in any of its instances
+    check(len(b1_sass) == 8 and all("ATOMS.ADD" in ln and "CAS" not in ln
+                                    for ln in b1_sass),
+          "every B1 instance adds with ATOMS.ADD and no compare-and-swap")
 
     pts_np, rot_np, tr_np, pw_np = flagship_inputs()
     pts, rot, tr, pw = (torch.from_numpy(a).to(dev)
@@ -2449,7 +2748,7 @@ def main():
     coords_err = phase_coords(sb, dev, testing, (pts_np, rot_np, tr_np))
 
     # --- 4. B1 against its twin on the card ---
-    frames = phase_b1(sb, dev, pts, rot, tr, pw)
+    frames = phase_b1(sb, dev, pts, rot, tr, pw, testing, dprast_torch)
 
     # --- 5. B2 against its twin on the card ---
     rng = np.random.default_rng(1)
@@ -2522,6 +2821,9 @@ def main():
 
     # --- 7c. B7: the frame writers, and B1 and B4 on the frame ---
     b7 = phase_b7(dprast_torch, sb, dev, smi)
+
+    # --- 7d. the tile count of the binning sort ---
+    counts = phase_tile_count(sb, dev, smi)
 
     # --- 8. the forward path: raster through auto ---
     reset_launches(sb)
@@ -2771,6 +3073,8 @@ def main():
     # --- 20. no host sync on the card's path; the benchmark entry points;
     # the on-card parity suite ---
     for tag, phase in (("[no sync]", lambda: phase_no_sync(dprast_torch, dev)),
+                       ("[repeat]", lambda: phase_repeat(dprast_torch, dev)),
+                       ("[deterministic]", phase_deterministic),
                        ("[bench]", phase_bench), ("[run]", phase_run),
                        ("[tests_gpu]", phase_tests_gpu)):
         t0 = time.perf_counter()
@@ -2865,6 +3169,18 @@ def main():
             err=b7["errs"]["frame"],
             variant="writes the multi-tile frame after torch.sort; "
                     "bit-equal to _prep_binned"))
+    # the tile count of the binning sort (replaces `_prep_binned`'s count,
+    # which XLA fuses)
+    for grid, counted, shape in ((MULTI_TILE, train_launches, mt),
+                                 (VOLUME, launches_3d, vol)):
+        t = counts[grid]
+        kernels.append(kernel(
+            "tile_count", "dprast_torch/csrc/tile_count.cu",
+            f"{src}:279-311", counted["tile_count"], 0.0, t["ms"],
+            t["plain_ms"], t["bound"], shape,
+            variant="integer atomics into a shared histogram; bit-equal to "
+                    "the ranged histc it replaces",
+            device_us=t["dev_us"], library_ms=t["library_ms"]))
     # B1 and B4 on the frame: the main path's instances (2-D at 128^2 and
     # 1024^2, 3-D at 128^3; the fast mode's at terms=1), and the grid
     # source's plain-load staging, which [small] drives

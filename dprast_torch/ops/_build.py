@@ -28,13 +28,17 @@ from pathlib import Path
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dprast_torch"
 _SOURCES = ("fwd_splat.cu", "band_fold.cu", "band_unfold.cu",
-            "bwd_gather.cu", "coords.cu", "frame_gather.cu")
+            "bwd_gather.cu", "coords.cu", "frame_gather.cu",
+            "tile_count.cu")
 # headers the sources include: not compiled on their own, but part of the
 # library's name, so that an edited header rebuilds it
 _HEADERS = ("slots.cuh",)
 
-# B1 and B4 keep one tile window in dynamic shared memory: 128 x 128 fp32
+# B1 and B4 keep one tile window of at most 128 x 128 entries in dynamic
+# shared memory: B4's holds fp32 (64 KB), B1's 64-bit fixed point as two
+# 32-bit planes (128 KB)
 MAX_WINDOW_BYTES = 128 * 128 * 4
+MAX_FIXED_WINDOW_BYTES = 2 * MAX_WINDOW_BYTES
 
 _lib = None
 
@@ -125,6 +129,8 @@ def load():
         lib.dprast_frame_gather.argtypes = [vp, i64, vp, vp, vp, i32, vp, vp,
                                             i32, i32, i32, i64, vp]
         lib.dprast_frame_gather.restype = i32
+        lib.dprast_tile_count.argtypes = [vp, vp, i32, i32, i32, vp]
+        lib.dprast_tile_count.restype = i32
         lib.dprast_error_string.argtypes = [i32]
         lib.dprast_error_string.restype = ctypes.c_char_p
         _lib = lib

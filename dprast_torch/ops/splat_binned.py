@@ -122,7 +122,7 @@ _B4_ENC = tuple(k for k in _B4_INSTANCES
 # path went through the kernels (CPU twin calls do not count); "coords"
 # counts B6 whether it writes planes or a single tile's frame
 LAUNCHES = dict.fromkeys(
-    ["coords", "frame_gather", "band_fold", "band_unfold",
+    ["coords", "tile_count", "frame_gather", "band_fold", "band_unfold",
      *_B1_INSTANCES.values(), *_B4_INSTANCES.values(),
      *(name + _GRID_LOADS for (_, _, layout), name in _B4_INSTANCES.items()
        if layout == "grid"),
@@ -422,15 +422,8 @@ def _slot_order(key, nt, chunk, min_chunk_per_tile, pack_idx):
     p2 = _id_span(p)
     packed = pack_idx and (2 * nt + 1) * p2 + p < 2 ** 31
 
-    # per-tile counts of every pose in one histogram of (pose, tile) bins;
-    # the no-overlap sentinel nt gets its own bin and is dropped.  Its
-    # range is given, so nothing is read back to the host (`bincount`
-    # reads its input's), and float64 holds every bin and count exactly
-    offs = torch.arange(bsz, device=dev)[:, None] * (nt + 1)
-    n_bins = bsz * (nt + 1)
-    counts = torch.histc((key.double() + offs).reshape(-1), bins=n_bins,
-                         min=-0.5, max=n_bins - 0.5)
-    counts = counts.to(i32).reshape(bsz, nt + 1)[:, :nt]
+    # per-tile counts; the no-overlap sentinel nt has its own bin, dropped
+    counts = tile_count(key, nt)[:, :nt]
     padded = -(-counts // chunk) * chunk
     if min_chunk_per_tile:
         padded = torch.clamp(padded, min=chunk)
@@ -464,6 +457,40 @@ def _slot_order(key, nt, chunk, min_chunk_per_tile, pack_idx):
     n_live = poffs[:, nt:] // chunk
     return (perm[:, :s_pad], sorted_keys[:, :s_pad] if packed else None,
             torch.cat([slot_tile, n_live], dim=1))
+
+
+def _tile_count_plain(key, nt):
+    """Plain version of `tile_count`: one histogram of (pose, tile) bins.
+    Its range is given, so nothing is read back to the host (`bincount`
+    reads its input's), and float64 holds every bin and count exactly."""
+    bsz = key.shape[0]
+    offs = torch.arange(bsz, device=key.device)[:, None] * (nt + 1)
+    n_bins = bsz * (nt + 1)
+    counts = torch.histc((key.double() + offs).reshape(-1), bins=n_bins,
+                         min=-0.5, max=n_bins - 0.5)
+    return counts.to(torch.int32).reshape(bsz, nt + 1)
+
+
+def tile_count(key, nt):
+    """The points of each pose in each tile: keys (B, P) int32 in [0, nt]
+    (``nt``: no tile) -> counts (B, nt + 1) int32.  CPU tensors take the
+    plain version `_tile_count_plain`, CUDA tensors the kernel in
+    `csrc/tile_count.cu`: integer atomics, so the counts are the same in
+    any order and the kernel runs under
+    ``torch.use_deterministic_algorithms(True)``, where torch's `histc`
+    raises on CUDA."""
+    if key.device.type == "cpu":
+        return _tile_count_plain(key, nt)
+    _check_cuda("tile_count", key, torch.int32)
+    bsz, p = key.shape
+    if not (1 <= bsz <= 65535 and 1 <= p < 2 ** 31 and 1 <= nt < 2 ** 14):
+        raise ValueError(f"tile_count: B={bsz}, P={p}, nt={nt} exceed the "
+                         f"kernel's launch bounds")
+    counts = torch.zeros((bsz, nt + 1), dtype=torch.int32, device=key.device)
+    _launch("tile_count", key.device, _build.load().dprast_tile_count,
+            _ptr(key), _ptr(counts), bsz, p, nt)
+    LAUNCHES["tile_count"] += 1
+    return counts
 
 
 def _frame_planes(locs, weight):
@@ -627,17 +654,18 @@ def _b1_instance(n_out, terms):
     return name
 
 
-def _fwd_splat_plain(slot_tile, lane, nt, win, chunk, terms=0):
-    """Plain twin of B1.  `win` is the window's shape: ``(rows_e,
-    cols_e)`` in 2-D, ``(nz, ny, cols_e)`` in 3-D, whose window rows are
-    the flattened ``z * ny + y``.  Every live frame row adds its 2^n
-    multilinear weights, ``(hy * w) * cx`` in 2-D and ``((hz * hy) * w) *
-    cx`` in 3-D in that order of rounding, into ``ext[b, tile]`` (B, nt,
-    rows_e, cols_e); with ``terms=1`` each weight is first rounded to the
-    nearest bf16 (ties to even, as JAX's ``astype(jnp.bfloat16)``).  A
-    target outside the window on any axis is dropped (in 3-D a row
-    ``iy0 = -1`` must not alias into the z plane below).  Rows of dead
-    slots (past ``slot_tile[b, -1]``) add nothing."""
+def _splat_terms(slot_tile, lane, nt, win, chunk, terms):
+    """The terms of B1's sum on lane planes -> ``(shape, pair, live, w,
+    terms)``: the windows' shape (B, nt, rows_e, cols_e); the (pose, tile)
+    pair ``b * nt + tile`` of each frame row and whether its slot is live
+    (B, s_pad); the weight plane or None; and an iterator over the 2^n
+    stencil targets of every row, each ``(idx, v)`` of (B, s_pad): the flat
+    index into the windows (their size where the target is dropped: a dead
+    row, or outside the window on some axis; in 3-D a row ``iy0 = -1``
+    must not alias into the z plane below) and the term, ``(hy * w) * cx``
+    in 2-D and ``((hz * hy) * w) * cx`` in 3-D in that order of rounding,
+    with ``terms=1`` rounded to the nearest bf16 (ties to even, as JAX's
+    ``astype(jnp.bfloat16)``)."""
     _b1_instance(len(win), terms)
     bsz, n_lane, s_pad = lane.shape
     dev = lane.device
@@ -658,26 +686,121 @@ def _fwd_splat_plain(slot_tile, lane, nt, win, chunk, terms=0):
         dim=1)
     rows_e, cols_e = math.prod(win[:-1]), win[-1]
     total = bsz * nt * rows_e * cols_e
-    base = ((torch.arange(bsz, device=dev)[:, None] * nt + tile) * rows_e
-            * cols_e)
-    ext = torch.zeros(total + 1, dtype=torch.float32, device=dev)
-    for shifts in itertools.product((0, 1), repeat=n_out - 1):
-        ok, r, hw = live, 0, None
-        for (r0, h), s, extent in zip(axes, shifts, win[:-1]):
-            ok = ok & (r0 + s >= 0) & (r0 + s < extent)
-            r = r * extent + r0 + s
-            hw = h[s] if hw is None else hw * h[s]
-        if w is not None:
-            hw = hw * w
-        for sx in (0, 1):
-            c = ix0 + sx
-            ok_c = ok & (c >= 0) & (c < cols_e)
-            idx = torch.where(ok_c, base + r * cols_e + c, total)
-            v = hw * cx[sx]
-            if terms == 1:
-                v = v.to(torch.bfloat16).float()
-            ext.index_add_(0, idx.reshape(-1), v.reshape(-1))
-    return ext[:total].reshape(bsz, nt, rows_e, cols_e)
+    pair = torch.arange(bsz, device=dev)[:, None] * nt + tile
+    base = pair * rows_e * cols_e
+
+    def targets():
+        for shifts in itertools.product((0, 1), repeat=n_out - 1):
+            ok, r, hw = live, 0, None
+            for (r0, h), s, extent in zip(axes, shifts, win[:-1]):
+                ok = ok & (r0 + s >= 0) & (r0 + s < extent)
+                r = r * extent + r0 + s
+                hw = h[s] if hw is None else hw * h[s]
+            if w is not None:
+                hw = hw * w
+            for sx in (0, 1):
+                c = ix0 + sx
+                ok_c = ok & (c >= 0) & (c < cols_e)
+                v = hw * cx[sx]
+                if terms == 1:
+                    v = v.to(torch.bfloat16).float()
+                yield torch.where(ok_c, base + r * cols_e + c, total), v
+
+    return (bsz, nt, rows_e, cols_e), pair, live, w, targets()
+
+
+def _fwd_splat_plain(slot_tile, lane, nt, win, chunk, terms=0):
+    """Plain twin of B1 in fp32, the CPU's path.  `win` is the window's
+    shape: ``(rows_e, cols_e)`` in 2-D, ``(nz, ny, cols_e)`` in 3-D, whose
+    window rows are the flattened ``z * ny + y``.  Every live frame row
+    adds its 2^n multilinear weights (`_splat_terms`) into ``ext[b,
+    tile]`` (B, nt, rows_e, cols_e) in fp32, in frame order.  Rows of dead
+    slots (past ``slot_tile[b, -1]``) add nothing.  The kernel sums the
+    same terms exactly (`_fwd_splat_fixed_plain`)."""
+    shape, _, _, _, terms_ = _splat_terms(slot_tile, lane, nt, win, chunk,
+                                          terms)
+    total = math.prod(shape)
+    ext = torch.zeros(total + 1, dtype=torch.float32, device=lane.device)
+    for idx, v in terms_:
+        ext.index_add_(0, idx.reshape(-1), v.reshape(-1))
+    return ext[:total].reshape(shape)
+
+
+# B1's fixed point: a window entry's bound, ``rows 2^k max|w| <= 2^62``,
+# a factor 2 inside int64 (the bf16 rounding may lift a term 2^-8 above
+# max|w|); and the largest |k|, for which 2^k and 2^-k are normal floats
+_FIXED_BITS = 62
+_MAX_SHIFT = 126
+
+
+def _fixed_shift(rows, wmax):
+    """B1's shift k of a (pose, tile) (the kernel's `fixed_shift`): the
+    largest with ``rows * wmax * 2^k < 2^62``, where `rows` (int tensor,
+    >= 1) counts the rows of the tile's live slots and `wmax` (float32
+    tensor) is their largest finite |w|, so that no sum of the tile's
+    terms q = round(v 2^k) leaves int64 (a pixel's value is at most the sum
+    of |w| over its tile's rows).  ``rows < 2^rb`` and ``wmax <= 2^e``
+    give ``k = 62 - rb - e``; e is 0 where `wmax` is 0 or not finite, and
+    k is clamped to [-126, 126]."""
+    _, rb = torch.frexp(rows.to(torch.float64))
+    m, e = torch.frexp(wmax.to(torch.float32))
+    e = torch.where(torch.isfinite(wmax) & (wmax > 0),
+                    e - (m == 0.5).to(e.dtype), 0)
+    return torch.clamp(_FIXED_BITS - rb - e, -_MAX_SHIFT, _MAX_SHIFT)
+
+
+def _pow2(k):
+    """2^k as float32 for integer |k| <= 126, built from its bits."""
+    return ((k.to(torch.int32) + 127) << 23).view(torch.float32)
+
+
+def _fixed_sums(slot_tile, lane, nt, win, chunk, terms=0):
+    """B1's sums in fixed point, as the kernel forms them -> ``(sums (B,
+    nt, rows_e, cols_e) int64, k (B, nt), bad)``: each finite term `v`
+    of `_splat_terms` becomes ``q = round(v 2^k)`` (an exact product, one
+    rounding, ties to even) with the shift k of its (pose, tile)
+    (`_fixed_shift`; `wmax` is 1 without a weight plane), and the q add up
+    exactly, so in any order.  `bad` (same shape, fp32) holds the sum of
+    the non-finite terms of each entry, which the kernel adds in fp32 after
+    the store: NaN or an infinity where there are any, whatever their
+    order."""
+    shape, pair, live, w, terms_ = _splat_terms(slot_tile, lane, nt, win,
+                                                chunk, terms)
+    dev = lane.device
+    n_pairs = shape[0] * nt
+    at = torch.where(live, pair, n_pairs).reshape(-1)
+    rows = torch.zeros(n_pairs + 1, dtype=torch.int64, device=dev) \
+        .index_add_(0, at, torch.ones_like(at))[:n_pairs]
+    if w is None:
+        wmax = torch.ones(n_pairs, dtype=torch.float32, device=dev)
+    else:
+        a = torch.where(torch.isfinite(w), w.abs(), 0.0).reshape(-1)
+        wmax = torch.zeros(n_pairs + 1, dtype=torch.float32, device=dev) \
+            .scatter_reduce_(0, at, a, "amax")[:n_pairs]
+    k = _fixed_shift(torch.clamp(rows, min=1), wmax)
+    scale = _pow2(k)[torch.clamp(pair, max=n_pairs - 1)]
+    total = math.prod(shape)
+    sums = torch.zeros(total + 1, dtype=torch.int64, device=dev)
+    bad = torch.zeros(total + 1, dtype=torch.float32, device=dev)
+    for idx, v in terms_:
+        fin = torch.isfinite(v)
+        q = torch.round(torch.where(fin, v, 0.0) * scale).to(torch.int64)
+        sums.index_add_(0, torch.where(fin, idx, total).reshape(-1),
+                        q.reshape(-1))
+        bad.index_add_(0, torch.where(fin, total, idx).reshape(-1),
+                       v.reshape(-1))
+    return (sums[:total].reshape(shape), k.reshape(shape[:2]),
+            bad[:total].reshape(shape))
+
+
+def _fwd_splat_fixed_plain(slot_tile, lane, nt, win, chunk, terms=0):
+    """B1's function bit for bit, the plain version the kernel is held to
+    on the card (and never the card's path): the exact fixed-point sums of
+    `_fixed_sums`, each stored as ``float(sum) * 2^-k`` (one rounding),
+    plus the entry's non-finite terms."""
+    sums, k, bad = _fixed_sums(slot_tile, lane, nt, win, chunk, terms)
+    inv = _pow2(-k)[:, :, None, None]
+    return sums.to(torch.float32) * inv + bad
 
 
 def _split_count(device, blocks):
@@ -691,11 +814,13 @@ def _split_count(device, blocks):
 # the largest every Hopper card schedules
 _MAX_CLUSTER = 8
 # B1's blocks per SM that `_cluster_size` aims at where a pose has several
-# tiles: more than the three an SM holds, because tiles are uneven (a
-# 0.4-sigma cloud at 128^3 puts 96 of a pose's 3,977 slots into the busiest
-# of 342 tiles), so a card that is merely full waits for its busiest block
-# (read on an H100 by `dprast_torch.benchmarks.exp_b1_cluster`)
-_B1_BLOCKS_PER_SM = 8
+# tiles: more than the one an SM holds (a block's 128 KB window fills it),
+# because tiles are uneven (a 0.4-sigma cloud at 128^3 puts 96 of a pose's
+# 3,977 slots into the busiest of 342 tiles), but no more than two: each
+# rank with slots zeroes, merges and stores a whole window.  On an H100 at
+# 128^3 x 10^6 one block per (pose, tile) read 43.5 us, two 49.2, four 92.7
+# (`dprast_torch.benchmarks.exp_b1_cluster`)
+_B1_BLOCKS_PER_SM = 2
 
 
 def _cluster_size(bsz, nt, n_sm, held):
@@ -756,13 +881,17 @@ def _b1_cluster(device, bsz, nt, win, terms=0, encoded=False):
 def fwd_splat(slot_tile, lane, nt, win, chunk, terms=0, *, cluster=None):
     """B1 on lane planes: splat the lane planes of a slot frame into the
     per-tile windows of shape `win` -> ext (B, nt, rows_e, cols_e) f32,
-    with `terms` 0 (fp32) or 1 (bf16 products; see `_fwd_splat_plain`).
-    CPU tensors take the plain twin, CUDA tensors the kernel in
-    `csrc/fwd_splat.cu`, which finds each tile's slots itself and writes
-    every window once: nothing is launched before it.  `cluster` forces
+    with `terms` 0 (fp32) or 1 (bf16 products; see `_splat_terms`).
+    CPU tensors take the fp32 twin `_fwd_splat_plain`, CUDA tensors the
+    kernel in `csrc/fwd_splat.cu`, which finds each tile's slots itself,
+    sums each window exactly in 64-bit fixed point (the same bits on every
+    run and at every cluster size: `_fwd_splat_fixed_plain` is its function
+    bit for bit) and writes every window once: nothing is launched before
+    it.  `cluster` forces
     the size of the thread-block cluster that shares one (pose, tile), 1
     to `_MAX_CLUSTER` (the default is `_b1_cluster`'s); only measurements
-    and tests pass it.  A size the card cannot schedule raises.  The main
+    and tests pass it, and it changes no bit of the result.  A size the
+    card cannot schedule raises.  The main
     path runs `fwd_splat_enc` on the frame itself; this is the harness's
     standalone B1."""
     instance = _b1_instance(len(win), terms)
@@ -772,13 +901,24 @@ def fwd_splat(slot_tile, lane, nt, win, chunk, terms=0, *, cluster=None):
                   encoded=False)
 
 
-def _fwd_splat_enc_plain(slot_tile, data, nt, win, chunk, terms=0):
-    """Plain version of `fwd_splat_enc`: the frame's lane planes
-    (`_planes_fwd`), then B1's twin."""
-    n_out = len(win)
+def _frame_lanes(data, n_out):
+    """The lane planes (`_planes_fwd`) of the frame `data`."""
     w = data[:, n_out] if data.shape[1] == n_out + 2 else None
-    lane = _planes_fwd(data[:, :n_out], w).contiguous()
-    return _fwd_splat_plain(slot_tile, lane, nt, win, chunk, terms)
+    return _planes_fwd(data[:, :n_out], w).contiguous()
+
+
+def _fwd_splat_enc_plain(slot_tile, data, nt, win, chunk, terms=0):
+    """Plain version of `fwd_splat_enc`, the CPU's path: the frame's lane
+    planes, then B1's fp32 twin."""
+    return _fwd_splat_plain(slot_tile, _frame_lanes(data, len(win)), nt,
+                            win, chunk, terms)
+
+
+def _fwd_splat_enc_fixed_plain(slot_tile, data, nt, win, chunk, terms=0):
+    """The function of `fwd_splat_enc` on the card bit for bit: the frame's
+    lane planes, then `_fwd_splat_fixed_plain`."""
+    return _fwd_splat_fixed_plain(slot_tile, _frame_lanes(data, len(win)),
+                                  nt, win, chunk, terms)
 
 
 def fwd_splat_enc(slot_tile, data, nt, win, chunk, terms=0, *,
@@ -787,8 +927,9 @@ def fwd_splat_enc(slot_tile, data, nt, win, chunk, terms=0, *,
     ``[enc..., (w,) id]`` of `_fwd_prep` (it has a weight plane where
     ``n_planes = n_out + 2``), whose encoded planes the kernel decodes row
     by row -> ext as `fwd_splat` gives it.  CPU tensors take the plain
-    version `_fwd_splat_enc_plain`, CUDA tensors the ``_enc`` instance of
-    `csrc/fwd_splat.cu`; `cluster` as in `fwd_splat`."""
+    version `_fwd_splat_enc_plain` (fp32), CUDA tensors the ``_enc``
+    instance of `csrc/fwd_splat.cu`, whose function bit for bit is
+    `_fwd_splat_enc_fixed_plain`; `cluster` as in `fwd_splat`."""
     instance = _b1_instance(len(win), terms) + _ENC
     if data.device.type == "cpu":
         return _fwd_splat_enc_plain(slot_tile, data, nt, win, chunk, terms)
@@ -815,7 +956,7 @@ def _splat(instance, slot_tile, planes, nt, win, chunk, terms, cluster,
                          f"do not form a frame of chunk {chunk}")
     _check_four_rows("fwd_splat", chunk, planes)
     rows_e, cols_e = math.prod(win[:-1]), win[-1]
-    if rows_e * cols_e * 4 > _build.MAX_WINDOW_BYTES or bsz > 65535 \
+    if rows_e * cols_e * 8 > _build.MAX_FIXED_WINDOW_BYTES or bsz > 65535 \
             or nt > 65535:
         raise ValueError(f"fwd_splat: window {win}, B={bsz}, nt={nt} exceed "
                          f"the kernel's launch bounds")

@@ -538,9 +538,13 @@ def test_wrappers_run_the_twin_only_on_cpu():
         tbin.direct_frame((8, 8), (8, 8), *(
             torch.zeros(shape, device="meta")
             for shape in ((10, 3), (1, 2, 3), (1, 2))), None, 128)
+    with pytest.raises(ValueError, match="CUDA"):
+        tbin.tile_count(torch.zeros((1, 128), dtype=torch.int32,
+                                    device="meta"), 4)
     # every CUDA instance has a counter, and none counted here
     assert tbin.LAUNCHES == {
-        "coords": 0, "fwd_splat": 0, "band_fold": 0, "band_unfold": 0, "bwd_gather": 0,
+        "coords": 0, "tile_count": 0, "fwd_splat": 0, "band_fold": 0,
+        "band_unfold": 0, "bwd_gather": 0,
         "fwd_splat_3d": 0, "bwd_gather_3d": 0, "fwd_splat_bf16": 0,
         "fwd_splat_3d_bf16": 0, "bwd_gather_bf16": 0,
         "bwd_gather_3d_bf16": 0, "bwd_gather_split": 0,
@@ -830,23 +834,24 @@ def test_pullback_reads_the_cotangent_without_unfold(grid, terms, weighted):
 # ---------------------------------------------------------------------------
 
 
-# clusters of 1 .. 8 blocks of 512 threads and a 64 KB window that an H100
-# (132 SMs, three such blocks each) holds at once, as
-# `cudaOccupancyMaxActiveClusters` answers `_clusters_held` there
-_H100_HELD = (396, 198, 124, 92, 69, 62, 47, 45)
+# clusters of 1 .. 8 blocks of 1,024 threads and a 128 KB window (B1's
+# fixed-point window) that an H100 (132 SMs, one such block each) holds at
+# once, as `cudaOccupancyMaxActiveClusters` answers `_clusters_held` there
+_H100_HELD = (132, 66, 39, 30, 22, 17, 15, 15)
 
 
 @pytest.mark.parametrize("bsz,nt,want", [
-    (64, 1, 5),       # 128^2, 64 poses: 69 clusters of 5 fit, 62 of 6
+    (64, 1, 2),       # 128^2, 64 poses: 66 clusters of 2 fit, 39 of 3
     (64, 81, 1),      # 1024^2, 64 poses: 5,184 tiles fill the card alone
-    (1, 342, 4),      # 128^3, one pose: uneven slabs, 8 blocks an SM
+    (1, 342, 1),      # 128^3, one pose: 342 slabs, 2 blocks an SM
     (4, 342, 1),      # 128^3, four poses
+    (16, 9, 2),       # 256^2, 16 poses: 144 tiles, 2 blocks an SM
     (1, 1, 8),        # a single tile, a single pose
 ])
 def test_cluster_size_rule(bsz, nt, want):
     """B1's cluster size is a pure function of (poses, tiles, SMs, the
     clusters of each size the card holds): at one tile the largest size
-    whose clusters all run at once, at several tiles 8 blocks per SM
+    whose clusters all run at once, at several tiles 2 blocks per SM
     spread over the (pose, tile) pairs."""
     assert tbin._cluster_size(bsz, nt, 132, _H100_HELD) == want
     for tiles in (1, 9):
@@ -854,16 +859,16 @@ def test_cluster_size_rule(bsz, nt, want):
                  for n in range(1, 500, 3)]
         assert all(1 <= c <= tbin._MAX_CLUSTER for c in sizes)
         assert sizes == sorted(sizes, reverse=True) and sizes[-1] == 1
-    # one wave at a single tile: 124 clusters of 3 fit, 92 of 4; past the
-    # 396 single blocks the card holds, one block per pose
+    # one wave at a single tile: 39 clusters of 3 fit, 66 of 2; past the
+    # 132 single blocks the card holds, one block per pose
     assert [tbin._cluster_size(n, 1, 132, _H100_HELD)
-            for n in (45, 46, 92, 93, 124, 125, 198, 199, 397)] == \
-        [8, 7, 4, 3, 3, 2, 2, 1, 1]
+            for n in (15, 16, 22, 23, 39, 40, 66, 67, 133)] == \
+        [8, 6, 5, 4, 3, 2, 2, 1, 1]
     # a size the card cannot hold is never picked; none at all gives 0
-    few = (396, 198, 124, 0, 0, 0, 0, 0)
-    assert tbin._cluster_size(64, 1, 132, few) == 3
-    assert tbin._cluster_size(1, 342, 132, few) == 3
-    assert tbin._cluster_size(1, 342, 132, (0, 198) + (0,) * 6) == 2
+    few = (132, 66, 39, 0, 0, 0, 0, 0)
+    assert tbin._cluster_size(16, 1, 132, few) == 3
+    assert tbin._cluster_size(1, 100, 132, few) == 3
+    assert tbin._cluster_size(1, 100, 132, (0, 66) + (0,) * 6) == 2
     assert tbin._cluster_size(64, 1, 132, (0,) * 8) == 0
 
 

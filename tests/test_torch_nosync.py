@@ -4,8 +4,10 @@ On the card, a host value made into a device tensor (`torch.tensor`,
 `torch.as_tensor` of numpy or Python values, `torch.from_numpy(...).to`),
 a read of a device value on the host (`.item()`, `.tolist()`, `.cpu()`)
 and an op that reads a size back (`torch.bincount`) each wait for the
-card.  The code that makes the constants, the defaults and the per-tile
-counts is the same on both devices, so spies on those functions show here
+card.  The code that makes the constants and the defaults is the same on
+both devices (the per-tile counts are an integer kernel on the card and
+its plain version here, and the fixed-point splat's shift is made in the
+kernel and by `_fixed_shift` here), so spies on those functions show here
 that a call runs none of them: `raster`, the fused pair
 (`raster_fwd_res` + `raster_pullback_res`), `raster_pullback` and an
 autograd step, with tensor inputs and default weights, on every backend.
@@ -141,3 +143,27 @@ def test_device_constants_equal_the_numpy_tables(n_out):
         [int(s) for s in geometry.flat_strides(grid)], torch.int64, "cpu")
     np.testing.assert_array_equal(strides.numpy(),
                                   geometry.flat_strides(grid))
+
+
+@pytest.mark.parametrize("grid", [(300, 200), (8, 16, 200)])
+def test_tile_count_and_scale_make_no_host_round_trip(grid, spies):
+    """The tile count (`tile_count`: the ranged `histc` on the CPU, an
+    integer kernel on the card) and the fixed-point splat's shift and sums
+    (`_fixed_shift`, `_fixed_sums`: the kernel's function) read nothing
+    back to the host."""
+    from dprast_torch.ops import splat_binned as tbin
+    pts, rot, tr, _ = _inputs(grid, 2, 500)
+    pw = torch.from_numpy(np.random.default_rng(6).uniform(
+        -2.0, 2.0, 500).astype(np.float32))
+    key, _, nt = tbin._keys_and_local(grid, tbin.tile_shape_for(grid), pts,
+                                      rot, tr)
+    splat_args, _ = tbin._fwd_frame(grid, pts, rot, tr, pw, False)
+    wmax = torch.tensor([0.0, 1.0, float("inf")])
+    spies.clear()          # what made the inputs does not count
+    counts = tbin.tile_count(key, nt)
+    k = tbin._fixed_shift(torch.full((3,), 1000, dtype=torch.int64), wmax)
+    sums, shifts, bad = tbin._fixed_sums(*splat_args)
+    assert spies == [], f"host round trips: {spies}"
+    assert counts.shape == (2, nt + 1) and int(counts.sum()) == 2 * 500
+    assert k.tolist() == [52, 52, 52]
+    assert sums.dtype == torch.int64 and shifts.shape == (2, nt)
