@@ -126,6 +126,9 @@ ODD_GRIDS = (((300, 200), 3, 5000), ((130, 1000), 3, 5000),
 # fp32 operations/s outside the tensor cores (NVIDIA H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# B8's two kernels, which every binned and binned_bf16 pullback launches
+# once each
+EPILOGUE = ("epilogue_rows", "epilogue_points")
 
 # the 3-D path: BASELINE config 4 (10^6 points into 128^3, one pose), and
 # a pose batch at a tenth of the points
@@ -393,9 +396,11 @@ def train_grads(dprast_torch, grid, inputs, g, backend="auto"):
 def phase_train(dprast_torch, sb, pts, rot, tr, pw, cots, totals):
     """[train]: autograd through `auto` vs the oracle backend on the card,
     each run between a reset and a read of the launch counts."""
-    want = {FLAGSHIP: ("coords", "fwd_splat_enc", "bwd_gather_enc"),
+    want = {FLAGSHIP: ("coords", "fwd_splat_enc", "bwd_gather_enc",
+                       *EPILOGUE),
             MULTI_TILE: ("coords", "tile_count", "frame_gather",
-                         "fwd_splat_enc", "band_fold", "bwd_gather_grid_enc")}
+                         "fwd_splat_enc", "band_fold", "bwd_gather_grid_enc",
+                         *EPILOGUE)}
     for grid in GRIDS:
         for weighted in (False, True):
             inputs = train_inputs(pts, rot, tr, pw, weighted)
@@ -409,7 +414,7 @@ def phase_train(dprast_torch, sb, pts, rot, tr, pw, cots, totals):
                 # one launch of each kernel of the path and no other: B1
                 # and B4 read the frame; at 1024^2 the tile count and the
                 # frame gather make it, B4 reads the cotangent and B3 does
-                # not run
+                # not run; B8's two kernels finish the gradients
                 check(count == (name in want[grid]),
                       f"{name} ran {count} times in the training step at "
                       f"{grid}")
@@ -1260,7 +1265,8 @@ def phase_3d(dprast_torch, sb, dev):
             grads = train_grads(dprast_torch, grid, leaves, g)
             torch.cuda.synchronize()
             launched = dict(sb.LAUNCHES)
-            for name in ("fwd_splat_3d_enc", "bwd_gather_3d_enc"):
+            for name in ("fwd_splat_3d_enc", "bwd_gather_3d_enc",
+                         *EPILOGUE):
                 check(launched[name] >= 1,
                       f"{tag}: {name} ran in the training step")
             # the fused pair reuses the forward's frame
@@ -1319,7 +1325,7 @@ def times_3d(dprast_torch, sb, core, dev, smi):
             return sb._pullback_from_frame(
                 grid, coord, idx_rows, st_r, pts, rot, canon[4], canon[5], g,
                 chunk=chunk, pw_uniform=True,
-                gather=sb._bwd_gather_enc_plain)
+                gather=sb._bwd_gather_enc_plain, epilogue=sb._epilogue_plain)
 
         pts_req = pts.clone().requires_grad_()
 
@@ -1335,7 +1341,9 @@ def times_3d(dprast_torch, sb, core, dev, smi):
             "fwd_xla": lambda: dprast_torch.raster(grid, pts, rot, tr,
                                                    backend="xla"),
             "unfold": lambda: sb._unfold(g, grid, ts),
-            "unsort": lambda: sb._unsort(buf[:, :3], data[:, -1], n_points),
+            "epilogue": lambda: sb.pullback_epilogue(
+                grid, buf, data[:, -1], pts, rot, canon[4], canon[5],
+                pw_uniform=True),
             "step": step,
             "step_autograd": step_autograd,
             "step_plain": step_twins,
@@ -1358,7 +1366,8 @@ def times_3d(dprast_torch, sb, core, dev, smi):
               f"{t['fold']:.4f}, forward {t['fwd']:.4f} (xla backend "
               f"{t['fwd_xla']:.4f})")
         print(f"[3d times] {smi} | {grid} x {n_points} backward, median ms: "
-              f"plain unfold {t['unfold']:.4f}, unsort {t['unsort']:.4f}")
+              f"plain unfold {t['unfold']:.4f}, epilogue (B8) "
+              f"{t['epilogue']:.4f}")
         print(f"[3d times] {smi} | {grid} x {n_points} training step, median "
               f"ms: fused forward + pullback {t['step']:.4f}, through "
               f"autograd {t['step_autograd']:.4f}, with twins "
@@ -1441,7 +1450,7 @@ def phase_bf16(dprast_torch, sb, dev, smi, pts, rot, tr, pw, cots):
             for name in launched:
                 launches[name] += launched[name] + fwd_launched[name]
             b4 = BF16_B4_GRID if grid == MULTI_TILE else BF16_B4[n_out]
-            for name in (BF16_B1[n_out], b4):
+            for name in (BF16_B1[n_out], b4, *EPILOGUE):
                 check(launched[name] >= 1,
                       f"[bf16] {name} ran in the training step at {grid}")
             check(fwd_launched[BF16_B1[n_out]] >= 1,
@@ -1933,8 +1942,10 @@ def example_vs_xla(dprast_torch, sb, tag, grid, inputs):
           f"scaled max-abs err vs the xla backend (tol 2e-5): "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
     check(ran(launched) == {"coords": 1, "fwd_splat_enc": 1,
-                            "bwd_gather_enc": 1},
-          f"{tag}: the step ran B6, B1 and B4 once each and no other kernel")
+                            "bwd_gather_enc": 1, "epilogue_rows": 1,
+                            "epilogue_points": 1},
+          f"{tag}: the step ran B6, B1, B4 and B8's two kernels once each "
+          f"and no other kernel")
     check(max(errs.values()) <= 2e-5, f"{tag}: auto vs xla")
 
 
@@ -1962,9 +1973,10 @@ def phase_examples(dprast_torch, sb, dev, steps=20):
     check(hist[-1][1] < hist[0][1], "[examples] the Langevin fit's loss fell")
     # the target's render and one forward per step; one backward per step
     check(ran(launched) == {"coords": steps + 1, "fwd_splat_enc": steps + 1,
-                            "bwd_gather_enc": steps},
+                            "bwd_gather_enc": steps, "epilogue_rows": steps,
+                            "epilogue_points": steps},
           "[examples] the fit ran B6 and B1 once per step and for the "
-          "target, B4 once per step, and no other kernel")
+          "target, B4 and B8 once per step, and no other kernel")
     example_vs_xla(dprast_torch, sb, f"[examples] fit_langevin_torch "
                    f"{fit.GRID}, the fitted points, one pose", fit.GRID,
                    (points, torch.eye(2, device=dev),
@@ -1983,10 +1995,11 @@ def phase_examples(dprast_torch, sb, dev, steps=20):
     check(final < first, "[examples] the reconstruction's loss fell")
     # the target's render, one forward per step and the two final losses
     check(ran(launched) == {"coords": steps + 3, "fwd_splat_enc": steps + 3,
-                            "bwd_gather_enc": steps},
+                            "bwd_gather_enc": steps, "epilogue_rows": steps,
+                            "epilogue_points": steps},
           "[examples] the reconstruction ran B6 and B1 once per step, for "
-          "the target and for the two final losses, B4 once per step, and "
-          "no other kernel")
+          "the target and for the two final losses, B4 and B8 once per "
+          "step, and no other kernel")
     example_vs_xla(dprast_torch, sb, f"[examples] tomography_torch "
                    f"{tomo.GRID}, the truth, {tomo.N_VIEWS} views", tomo.GRID,
                    (tomo.make_truth(torch.Generator().manual_seed(1), dev),
@@ -2006,10 +2019,12 @@ SHARDED_CASES = ((FLAGSHIP, N_POSES, N_POINTS + 1, False),
 SHARDED_MESH = (2, 2)
 # the kernels of one training step per process, by grid
 SHARDED_WANT = {FLAGSHIP: {"coords": 1, "fwd_splat_enc": 1,
-                           "bwd_gather_enc": 1},
+                           "bwd_gather_enc": 1, "epilogue_rows": 1,
+                           "epilogue_points": 1},
                 MULTI_TILE: {"coords": 1, "tile_count": 1,
                              "frame_gather": 1, "fwd_splat_enc": 1,
-                             "band_fold": 1, "bwd_gather_grid_enc": 1}}
+                             "band_fold": 1, "bwd_gather_grid_enc": 1,
+                             "epilogue_rows": 1, "epilogue_points": 1}}
 # seconds the four workers may take, CUDA start-up included, before the
 # parent kills them and fails
 SHARDED_TIMEOUT = 120
@@ -2452,6 +2467,250 @@ def phase_tile_count(sb, dev, smi):
     return out
 
 
+# [B8 epilogue]: the main path's three shapes
+B8_CASES = ((FLAGSHIP, N_POSES, N_POINTS), (MULTI_TILE, N_POSES, N_POINTS),
+            (VOLUME, 1, 1_000_000))
+# B8 against its torch form `_epilogue_plain` (scaled max-abs), beyond
+# the torch form's own distance from the exact sums of its fp32 terms
+# (its sums run in fp32: 1.4e-6 from them at 128^3 x 10^6), and against
+# those exact sums (B8 sums in fp64 and rounds once)
+B8_TOL = 1e-6
+B8_EXACT_TOL = 1e-7
+B8_KERNELS = {"epilogue_rows": "epilogue_rows_kernel",
+              "epilogue_points": "epilogue_points_kernel"}
+
+
+def epilogue_bounds(sb, args, kw):
+    """E1's and E2's bounds, and the epilogue's as a function, on the
+    arguments of `pullback_epilogue` -> {"epilogue_rows": bound,
+    "epilogue_points": bound, "function": bound}.  Only the bytes the
+    function needs, each once: B4's rows and their ids for the P point
+    rows of each pose (not the fillers, nor the padding of a single
+    tile's frame), the cloud, the weights and the rotations, the
+    gradients, and the intermediates each kernel writes or reads (the
+    fp64 partials; the point-order copy at the n_out floats a (pose,
+    point) of the uniform path or the n_out + 1 of the per-point path);
+    a broadcast weight counts one float.  Operations on the same rows: E1
+    per row 2 + 2 n_out + n_out n_in products and a sum of K terms, E2 per
+    (pose, point) 3 + 2 n_out + n_in 2 n_out."""
+    grid, buf, _, pts, rot, _, pw = args
+    single = sb._single_tile(grid)
+    uniform = kw.get("pw_uniform", False) and not single
+    bsz, n_rows_b, s_pad = buf.shape
+    n_out = n_rows_b - 1
+    p, n_in = pts.shape
+    rows = bsz * p
+    k = n_out * (1 + n_in) + 1
+    partials = bsz * -(-(p if single else s_pad) // 1024) * k * 8
+    pw_n = 1 if pw.stride(0) == 0 else p
+    inputs = p * n_in + pw_n + bsz
+    grads = p * n_in + p + bsz * (n_out + n_out * n_in + 1)
+    ids = 0 if single else rows
+    copy = 0 if single else rows * (n_out + (not uniform))
+    e1 = (rows * (n_out + 1) + ids + inputs + copy) * 4 + partials
+    e2 = (((rows * (n_out + 1) if single else copy) + bsz * n_out * n_in
+           + inputs - p * n_in + grads) * 4 + partials)
+    ops1 = rows * (2 + 2 * n_out + n_out * n_in + k)
+    ops2 = rows * (3 + 2 * n_out + n_in * 2 * n_out)
+    function = (rows * (n_out + 1) + ids + inputs + bsz * n_out * n_in
+                + grads) * 4
+    return {"epilogue_rows": bound(e1, ops1),
+            "epilogue_points": bound(e2, ops2),
+            "function": bound(function, ops1 + ops2)}
+
+
+def b8_args(sb, grid, n_poses, n_points, dev, *, weighted, terms,
+            standalone=False, nan=False, inf_weight=False, n_in=3):
+    """The arguments the main path hands `pullback_epilogue` at `grid`,
+    caught from `_pullback_from_frame` on the forward's frame (or the
+    standalone pullback's): B4's rows, the id plane, the cloud, the
+    rotations and the weights (a broadcast scalar on the uniform path,
+    as the API passes it) -> (args, kw).  `n_in` other than the main
+    path's 3 drops input axes of the cloud or adds random ones."""
+    pts, rot, tr, bg, ow, pw = main_inputs(grid, n_poses, n_points, dev)
+    if n_in < 3:
+        pts, rot = pts[:, :n_in].contiguous(), rot[..., :n_in].contiguous()
+    elif n_in > 3:
+        rng = np.random.default_rng(3)
+        more = [rng.standard_normal(shape) * sd for shape, sd in (
+            ((n_points, n_in - 3), 0.4), (rot.shape[:2] + (n_in - 3,), 0.2))]
+        pts, rot = (torch.cat([x, torch.from_numpy(m.astype(np.float32)).to(
+            dev)], -1) for x, m in zip((pts, rot), more))
+    g = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (n_poses,) + grid).astype(np.float32)).to(dev)
+    if nan:
+        # on the brightest pixel of the middle pose, which points touch
+        img = sb.raster_fwd(grid, pts, rot, tr, bg, ow, pw)[n_poses // 2]
+        g[n_poses // 2].view(-1)[int(img.argmax())] = float("nan")
+    if not weighted:
+        pw = torch.full((), 1.5, device=dev).expand(n_points)
+    elif inf_weight:
+        pw = pw.clone()
+        pw[n_points // 3] = float("inf")
+    caught = []
+
+    def catch(*args, **kw):
+        caught.append((args, kw))
+        return sb.pullback_epilogue(*args, **kw)
+
+    if standalone:
+        data, st, chunk = sb._bwd_frame(grid, pts, rot, tr)
+        coord, idx_rows = data[:, :-1], data[:, -1]
+    else:
+        res = sb.raster_fwd_res(grid, pts, rot, tr, bg, ow, pw,
+                                pw_uniform=not weighted, terms=terms)[1]
+        coord, idx_rows, st = sb._residual_planes(res, not weighted)
+        chunk = sb._default_chunk(grid, n_points)
+    sb._pullback_from_frame(grid, coord, idx_rows, st, pts, rot, ow, pw, g,
+                            chunk=chunk, pw_uniform=not weighted,
+                            terms=terms, epilogue=catch)
+    return caught[0]
+
+
+def epilogue_f64(sb, grid, buf, idx_rows, pts, rot, ow, pw, pw_uniform):
+    """The epilogue's gradients as the exact sums (in float64) of the
+    torch form's fp32 terms ``scaled``: the reference both orders of
+    summation are read against."""
+    n_out = len(grid)
+    p = pts.shape[0]
+    halo = not sb._single_tile(grid)
+    per = sb._unsort(buf, idx_rows, p) if halo else buf[:, :, :p]
+    scale = torch.full((n_out,), 1.0, device=buf.device)
+    for i, g in enumerate(grid):
+        scale[i] = g / 2
+    s = ((per[:, :n_out] * scale[None, :, None])
+         * (ow[:, None, None] * pw[None, None, :])).double()
+    gw = per[:, n_out].double()
+    if pw_uniform and halo:
+        sums = buf[:, n_out].double().sum(-1)
+        d_ow, d_pw = sums * pw[0].double(), (sums @ ow.double() / p).repeat(p)
+    else:
+        d_ow, d_pw = gw @ pw.double(), ow.double() @ gw
+    return (torch.einsum("bns,bni->si", s, rot.double()),
+            torch.einsum("bns,si->bni", s, pts.double()), s.sum(-1), d_ow,
+            d_pw)
+
+
+def b8_check(sb, tag, args, kw):
+    """B8 on `args` twice against `_epilogue_fixed_plain` (every output the
+    same bits, any NaN matching any NaN), against the exact sums of the
+    torch form's fp32 terms (`epilogue_f64`, within `B8_EXACT_TOL`) and
+    against the torch form `_epilogue_plain` on the card (NaN and
+    infinities where it has them, the finite entries within `B8_TOL` of
+    it beyond its own distance from the exact sums) -> the scaled max-abs
+    error against the torch form."""
+    names = ("d_points", "d_r", "d_t", "d_ow", "d_pw")
+    first = sb.pullback_epilogue(*args, **kw)
+    second = sb.pullback_epilogue(*args, **kw)
+    fixed = sb._epilogue_fixed_plain(*args, **kw)
+    plain = sb._epilogue_plain(*args, **kw)
+    exact = epilogue_f64(sb, *args, **kw)
+    torch.cuda.synchronize()
+    err = {"plain": 0.0, "exact": 0.0, "plain_exact": 0.0}
+    for name, a, a2, f, r, x in zip(names, first, second, fixed, plain,
+                                    exact):
+        check(same_values(a, f) and same_values(a2, f),
+              f"[B8 epilogue] {tag}: {name} bit-equal to "
+              f"_epilogue_fixed_plain, twice")
+        check(torch.equal(torch.isnan(a), torch.isnan(r))
+              and torch.equal(torch.isinf(a), torch.isinf(r)),
+              f"[B8 epilogue] {tag}: {name} non-finite where the torch form "
+              f"is")
+        fin = torch.isfinite(r) & torch.isfinite(x)
+        if bool(fin.any()):
+            err["plain"] = max(err["plain"], scaled_err(a[fin], r[fin]))
+            err["exact"] = max(err["exact"], scaled_err(a[fin], x[fin]))
+            err["plain_exact"] = max(err["plain_exact"],
+                                     scaled_err(r[fin], x[fin]))
+    n_bad = sum(int((~torch.isfinite(a)).sum()) for a in first)
+    print(f"[B8 epilogue] {tag}: bit-equal to _epilogue_fixed_plain twice; "
+          f"scaled max-abs err vs the exact sums {err['exact']:.3e} (tol "
+          f"{B8_EXACT_TOL:g}), vs the torch form {err['plain']:.3e} (tol "
+          f"{B8_TOL:g} beyond the torch form's own {err['plain_exact']:.3e} "
+          f"from the exact sums); non-finite entries {n_bad}, where the "
+          f"torch form has them")
+    check(err["exact"] <= B8_EXACT_TOL
+          and err["plain"] <= B8_TOL + err["plain_exact"],
+          f"[B8 epilogue] {tag}: vs the exact sums and the torch form")
+    return err["plain"]
+
+
+def phase_b8(sb, dev, smi):
+    """[B8 epilogue]: the epilogue's two kernels on what the main path
+    hands them at `B8_CASES`, uniform and per-point weights, terms 0 and
+    1 (`b8_check`); also on the standalone pullback's frame, with a NaN
+    in the cotangent, with an infinite weight, and with clouds of 2 and 5
+    input axes.  At terms 0
+    it times them: each kernel's device us against its bound, the
+    epilogue's ms, busy us and launches in turns against the torch form
+    (torch form, kernels, kernels, torch form).  -> {"err": worst error,
+    "times": {(grid, weighted): entry}}."""
+    worst, times = 0.0, {}
+    for grid, n_poses, n_points in B8_CASES:
+        shape = f"{grid} x {n_poses} x {n_points}"
+        for weighted in (False, True):
+            for terms in (0, 1):
+                args, kw = b8_args(sb, grid, n_poses, n_points, dev,
+                                   weighted=weighted, terms=terms)
+                label = (f"{shape} {'weighted' if weighted else 'uniform'} "
+                         f"terms={terms}")
+                worst = max(worst, b8_check(sb, label, args, kw))
+                if terms:
+                    continue
+                fns = (lambda: sb._epilogue_plain(*args, **kw),
+                       lambda: sb.pullback_epilogue(*args, **kw))
+                ms, busy = {0: [], 1: []}, {0: [], 1: []}
+                for i in (0, 1, 1, 0):
+                    ms[i].append(time_ms(fns[i]))
+                    busy[i].append(device_busy(fns[i]))
+                bounds = epilogue_bounds(sb, args, kw)
+                entry = {"ms": sum(ms[1]) / 2, "plain_ms": sum(ms[0]) / 2,
+                         "bounds": bounds,
+                         "dev_us": {name: kernel_device_us(fns[1], kname,
+                                                           calls=5)
+                                    for name, kname in B8_KERNELS.items()}}
+                times[grid, weighted] = entry
+                order = ((0, 0), (1, 0), (1, 1), (0, 1))
+                shares = []
+                for name in B8_KERNELS:
+                    us, (b_ms, by) = entry["dev_us"][name], bounds[name]
+                    shares.append(f"{name} {us:.2f} us, "
+                                  f"{b_ms * 1e3 / max(us, 1e-9):.1%} of its "
+                                  f"{b_ms * 1e3:.2f} us bound (by {by})")
+                print(f"[B8 epilogue] {smi} | {label} in turns (torch form, "
+                      f"kernels, kernels, torch form): ms "
+                      + ", ".join(f"{ms[i][j]:.4f}" for i, j in order)
+                      + "; busy us in launches "
+                      + ", ".join(f"{busy[i][j][0]:.2f} in "
+                                  f"{busy[i][j][1]:.0f}" for i, j in order)
+                      + "; " + ", ".join(shares)
+                      + f"; the function's bound "
+                        f"{bounds['function'][0] * 1e3:.2f} us")
+    for label, kw in (("standalone frame", {"standalone": True}),
+                      ("NaN in the cotangent", {"nan": True}),
+                      ("an infinite weight", {"inf_weight": True})):
+        for grid in GRIDS:
+            args, ekw = b8_args(sb, grid, N_POSES, N_POINTS, dev,
+                                weighted=True, terms=0, **kw)
+            worst = max(worst, b8_check(
+                sb, f"{grid} x {N_POSES} x {N_POINTS} weighted, {label}",
+                args, ekw))
+    # the instances that take n_in at run time (5 in 2-D, 2 in 3-D) and the
+    # unrolled n_in = 2 in 2-D
+    for (grid, n_poses, n_points), n_in in ((B8_CASES[0], 5),
+                                            (B8_CASES[1], 5),
+                                            (B8_CASES[1], 2),
+                                            (B8_CASES[2], 2)):
+        for weighted in (False, True):
+            args, ekw = b8_args(sb, grid, n_poses, n_points, dev,
+                                weighted=weighted, terms=0, n_in=n_in)
+            worst = max(worst, b8_check(
+                sb, f"{grid} x {n_poses} x {n_points} "
+                    f"{'weighted' if weighted else 'uniform'}, {n_in} input "
+                    f"axes", args, ekw))
+    return {"err": worst, "times": times}
+
+
 def flat_outputs(result):
     """The tensors of a call's result (a tensor or nested tuples of them),
     in order."""
@@ -2825,6 +3084,11 @@ def main():
     # --- 7d. the tile count of the binning sort ---
     counts = phase_tile_count(sb, dev, smi)
 
+    # --- 7e. B8: the pullback's epilogue ---
+    t0 = time.perf_counter()
+    b8 = phase_b8(sb, dev, smi)
+    print(f"[B8 epilogue] took {time.perf_counter() - t0:.1f} s")
+
     # --- 8. the forward path: raster through auto ---
     reset_launches(sb)
     img_flag = dprast_torch.raster(FLAGSHIP, pts, rot, tr)
@@ -2867,7 +3131,7 @@ def main():
     small_launches = dict(sb.LAUNCHES)
     print(f"[small] launches: {ran(small_launches)}")
     for name in ("bwd_gather_grid_enc", "bwd_gather_grid_enc_ldg",
-                 "bwd_gather_grid_bf16_enc_ldg"):
+                 "bwd_gather_grid_bf16_enc_ldg", *EPILOGUE):
         check(small_launches[name] >= 1, f"{name} ran in [small]")
     check(small_launches["band_unfold"] == 0, "B3 did not run in [small]")
 
@@ -2914,8 +3178,9 @@ def main():
                 lambda: sb.band_unfold(g, grid, ts_mt))
             ms["b3_plain", grid] = time_ms(
                 lambda: sb._unfold(g, grid, ts_mt))
-            ms["unsort", grid] = time_ms(
-                lambda: sb._unsort(buf, data_b[:, 2], N_POINTS))
+            ms["epilogue", grid] = time_ms(lambda: sb.pullback_epilogue(
+                grid, buf, data_b[:, 2], *canon[:2], *canon[4:],
+                pw_uniform=True))
         ms["pullback", grid] = time_ms(
             lambda: sb.raster_pullback(grid, *canon, g, pw_uniform=True))
         fwd_res = sb.raster_fwd_res(grid, *canon, pw_uniform=True)[1]
@@ -2967,7 +3232,7 @@ def main():
             return sb._pullback_from_frame(
                 grid, coord, idx_rows, st, pts, rot, canon[4], canon[5], g,
                 chunk=chunk, pw_uniform=True, unfold=sb._unfold,
-                gather=sb._bwd_gather_enc_plain)
+                gather=sb._bwd_gather_enc_plain, epilogue=sb._epilogue_plain)
 
         pts_req = pts.clone().requires_grad_()
 
@@ -3021,7 +3286,8 @@ def main():
               f"{ms['fwd_busy_us', grid]:.1f} us in "
               f"{ms['fwd_kernels', grid]:.0f} kernels and copies")
         b3 = (f", B3 {ms['b3', grid]:.4f} (twin {ms['b3_plain', grid]:.4f})"
-              f", unsort {ms['unsort', grid]:.4f}" if grid == MULTI_TILE
+              f", epilogue (B8) {ms['epilogue', grid]:.4f}"
+              if grid == MULTI_TILE
               else "")
         print(f"[times] {smi} | {grid} backward, median ms: frame "
               f"{ms['bwd_frame', grid]:.4f}{b3}, standalone pullback "
@@ -3181,6 +3447,26 @@ def main():
             variant="integer atomics into a shared histogram; bit-equal to "
                     "the ranged histc it replaces",
             device_us=t["dev_us"], library_ms=t["library_ms"]))
+    # B8, the pullback's epilogue (replaces the XLA code after B4's
+    # `pallas_call`, which XLA fuses), at the main path's three shapes
+    for grid, counted, shape in ((FLAGSHIP, train_launches, flag),
+                                 (MULTI_TILE, train_launches, mt),
+                                 (VOLUME, launches_3d, vol)):
+        t = b8["times"][grid, False]
+        for name in EPILOGUE:
+            entry = kernel(
+                name, "dprast_torch/csrc/epilogue.cu", f"{src}:1355-1423",
+                counted[name], b8["err"], t["dev_us"][name] / 1e3,
+                t["plain_ms"], t["bounds"][name], shape,
+                variant="bit-equal to _epilogue_fixed_plain; max_abs_err "
+                        "against the torch form _epilogue_plain; ms is "
+                        "this kernel's device time, plain_ms the whole "
+                        "torch form's, epilogue_ms both launches' and "
+                        "function_bound_ms the bound of both together",
+                device_us=t["dev_us"][name])
+            entry["epilogue_ms"] = t["ms"]
+            entry["function_bound_ms"] = t["bounds"]["function"][0]
+            kernels.append(entry)
     # B1 and B4 on the frame: the main path's instances (2-D at 128^2 and
     # 1024^2, 3-D at 128^3; the fast mode's at terms=1), and the grid
     # source's plain-load staging, which [small] drives

@@ -26,7 +26,12 @@ points, uniform weights) on 128^2 and 1024^2:
   step through autograd (`dprast_torch.raster`, then `torch.autograd.grad`
   of ``sum(out * g)`` with respect to the points and the translation) and
   the API's `raster_pullback`, at all three shapes, with what the
-  autograd step keeps the card busy with.
+  autograd step keeps the card busy with;
+- where the checkout has the pullback's epilogue as a stage (B8,
+  `pullback_epilogue`), the "bwd epilogue" alone on the rows B4 gave the
+  fused pair, beside its torch form (`_epilogue_plain`), and the fused
+  step with the torch form in its place (``epilogue=_epilogue_plain``),
+  each with what it keeps the card busy with, at all three shapes.
 
 It prints one line per quantity with the readings of the four runs and
 the means of each checkout.  Usage, from the root of the newer checkout,
@@ -109,6 +114,47 @@ def b4_call(st, data, ts, win, chunk, **kw):
     return lambda: sb.bwd_gather(st, lane_b, win, chunk, **kw)
 
 
+# the pullback's epilogue as a stage of its own (B8), where the checkout
+# has it: the kernels and their torch form on the rows B4 gives the fused
+# pair, and the fused step with either
+EPILOGUE = hasattr(sb, "pullback_epilogue")
+
+
+def epilogue_stage(tag, grid, canon, g):
+    res = sb.raster_fwd_res(grid, *canon, pw_uniform=True)[1]
+    coord, idx_rows, st = sb._residual_planes(res, True)
+    chunk = sb._default_chunk(grid, canon[0].shape[0])
+    caught = []
+
+    def catch(*a, **kw):
+        caught.append((a, kw))
+        return sb.pullback_epilogue(*a, **kw)
+
+    sb._pullback_from_frame(grid, coord, idx_rows, st, canon[0], canon[1],
+                            canon[4], canon[5], g, chunk=chunk,
+                            pw_uniform=True, epilogue=catch)
+    a, kw = caught[0]
+    for name, fn in (("bwd epilogue", sb.pullback_epilogue),
+                     ("bwd epilogue (torch form)", sb._epilogue_plain)):
+        out[f"{name} {tag} ms"] = cs.time_ms(lambda: fn(*a, **kw))
+        (out[f"{name} {tag} device-busy us"],
+         out[f"{name} {tag} kernels and copies"]) = cs.device_busy(
+            lambda: fn(*a, **kw))
+
+    def step_torch_form():
+        res = sb.raster_fwd_res(grid, *canon, pw_uniform=True)[1]
+        coord, idx_rows, st = sb._residual_planes(res, True)
+        return sb._pullback_from_frame(
+            grid, coord, idx_rows, st, canon[0], canon[1], canon[4],
+            canon[5], g, chunk=chunk, pw_uniform=True,
+            epilogue=sb._epilogue_plain)
+
+    key = f"fused step with the torch-form epilogue {tag}"
+    out[key + " ms"] = cs.time_ms(step_torch_form)
+    out[key + " device-busy us"], out[key + " kernels and copies"] = \
+        cs.device_busy(step_torch_form)
+
+
 for grid in cs.GRIDS:
     tag = "x".join(map(str, grid))
     ts = sb.tile_shape_for(grid)
@@ -149,6 +195,8 @@ for grid in cs.GRIDS:
     out[f"fused step {tag} ms"] = cs.time_ms(step)
     (out[f"fused step {tag} device-busy us"],
      out[f"fused step {tag} kernels and copies"]) = cs.device_busy(step)
+    if EPILOGUE:
+        epilogue_stage(tag, grid, canon, g)
     entry_points(tag, grid, pts, rot, tr, g)
 # B1 in 3-D: 128^3, one pose x 10^6 points, uniform weights
 vol = [torch.from_numpy(a).to(dev) for a in cs.volume_inputs(1, 1_000_000)]
@@ -174,6 +222,8 @@ def step_3d():
 out[f"fused step {tag} ms"] = cs.time_ms(step_3d)
 (out[f"fused step {tag} device-busy us"],
  out[f"fused step {tag} kernels and copies"]) = cs.device_busy(step_3d)
+if EPILOGUE:
+    epilogue_stage(tag, cs.VOLUME, canon, g)
 entry_points(tag, cs.VOLUME, *vol[:3], g)
 print("RESULT " + json.dumps(out))
 '''

@@ -22,7 +22,12 @@ in 3-D.  The unfold is B3 in 2-D and the plain `_unfold` in 3-D, and the
 two "bwd kernel" stages read the windows it wrote; on a multi-tile 2-D
 grid the backend itself skips the unfold and B4 cuts its windows out of
 the cotangent, which is the "bwd kernel grid" stage (the frame's
-instance).  A single tile has no unfold and no unsort.
+instance).  A single tile has no unfold.  "bwd epilogue" is the
+pullback's epilogue on B4's rows (kernel B8, `pullback_epilogue`: the
+unsort by the point-id plane and the gradients' products and sums, two
+launches of `csrc/epilogue.cu`), "bwd epilogue (torch form)" its eager
+form `_epilogue_plain`; both also run on a single tile, which keeps the
+point order.
 
 The inputs are the JAX script's: a 0.4-sigma Gaussian cloud, identity
 rotations, translations at 0.1 sigma, point weights uniform in (0.5, 2),
@@ -58,7 +63,7 @@ from dprast_torch.utils import profiling
 STAGES = ("prep fwd", "prep bwd", "keys only", "keys only (eager)",
           "fwd planes (twin)", "fwd kernel", "fwd kernel enc", "fold",
           "unfold", "bwd planes (twin)", "bwd kernel", "bwd kernel enc",
-          "bwd kernel grid", "bwd unsort")
+          "bwd kernel grid", "bwd epilogue", "bwd epilogue (torch form)")
 
 
 def cloud(grid, points, batch, device, seed=0):
@@ -120,6 +125,7 @@ def run(grid, points, batch, chunk=0, device="cuda", *, iters=15,
     buf = sb.bwd_gather(*gather_args)
     splat_enc_args = (slot_tile, data, nt, win, chunk)
     gather_enc_args = (slot_tile, coord, ts, g_win, chunk)
+    epilogue_args = (grid, buf, idx_rows, pts, rot, ow, pw)
 
     stages = {
         "prep fwd": lambda: sb._fwd_prep(grid, pts, rot, tr, pw, False),
@@ -138,12 +144,13 @@ def run(grid, points, batch, chunk=0, device="cuda", *, iters=15,
         "bwd kernel enc": lambda: sb.bwd_gather_enc(*gather_enc_args),
         "bwd kernel grid": lambda: sb.bwd_gather_enc(slot_tile, coord, ts, g,
                                                      chunk, layout="grid"),
-        "bwd unsort": lambda: sb._unsort(buf, idx_rows, points),
+        "bwd epilogue": lambda: sb.pullback_epilogue(*epilogue_args),
+        "bwd epilogue (torch form)": lambda: sb._epilogue_plain(
+            *epilogue_args),
     }
     if not halo:
-        # one tile: the window is the cotangent and the rows keep the
-        # point order
-        del stages["unfold"], stages["bwd unsort"]
+        # one tile: the window is the cotangent
+        del stages["unfold"]
     if n_out == 3 or not halo:
         # only a multi-tile 2-D grid has the grid-source instance of B4
         del stages["bwd kernel grid"]

@@ -49,9 +49,12 @@ autograd pair) or builds its own (`raster_pullback`):
 7. **Gather** (`bwd_gather_enc`, kernel B4): every frame row reads its four
    (2-D) or eight (3-D) window values and writes ``[du_y, du_x, gw]`` or
    ``[du_z, du_y, du_x, gw]``; rows of dead slots write zeros.
-8. **Unsort**: a scatter by the point-id plane puts the rows back in
-   point order (a single tile keeps the order), and torch reductions
-   finish the six gradients.
+8. **Epilogue** (`pullback_epilogue`, kernel B8): the unsort of B4's rows
+   by the point-id plane (a single tile keeps the order) and the products
+   and sums that finish five of the six gradients -- two launches of
+   `csrc/epilogue.cu` on the card, the eager scatter, products, sums and
+   einsums (`_epilogue_plain`) on the CPU.  The background's gradient is
+   one sum of the cotangent.
 
 ``terms`` is the depth of the JAX kernels' bf16 split of their value
 operands, which B1 and B4 apply here: 0 keeps fp32 (``"binned"``), 1 is
@@ -123,6 +126,7 @@ _B4_ENC = tuple(k for k in _B4_INSTANCES
 # counts B6 whether it writes planes or a single tile's frame
 LAUNCHES = dict.fromkeys(
     ["coords", "tile_count", "frame_gather", "band_fold", "band_unfold",
+     "epilogue_rows", "epilogue_points",
      *_B1_INSTANCES.values(), *_B4_INSTANCES.values(),
      *(name + _GRID_LOADS for (_, _, layout), name in _B4_INSTANCES.items()
        if layout == "grid"),
@@ -1413,6 +1417,270 @@ def _unsort(rows, idx_rows, p):
     return out[:, :, :p]
 
 
+# ---------------------------------------------------------------------------
+# B8: the pullback's epilogue
+# ---------------------------------------------------------------------------
+
+
+# B8's blocks: 256 threads (eight warps of 32); E1 sums four frame rows a
+# thread, E2 takes one point a thread
+_EPI_THREADS = 256
+_EPI_ROWS = 4
+
+
+def _epilogue_plain(grid_size, buf, idx_rows, points, rotation, out_weight,
+                    point_weight, *, pw_uniform=False):
+    """Plain version of `pullback_epilogue`, the CPU's path: the unsort
+    (`_unsort`; a single tile keeps the order) and torch products, sums
+    and einsums -> ``(d_points, d_r, d_t, d_ow, d_pw)`` in fp32."""
+    n_out = len(grid_size)
+    halo = not _single_tile(grid_size)
+    p = points.shape[0]
+    f32 = torch.float32
+    # back to point order; on the uniform-weight path the weight-gradient
+    # plane skips the unsort (its sums are order-free, and every
+    # non-point row of the frame is exactly zero)
+    if halo:
+        n_uns = n_out if pw_uniform else n_out + 1
+        per = _unsort(buf[:, :n_uns], idx_rows, p)
+    else:
+        per = buf[:, :, :p]
+    du_pt = per[:, :n_out]                                # (B, n_out, P)
+
+    scale = geometry.axis_values([g / 2 for g in grid_size], f32,
+                                 buf.device)
+    ow = out_weight.to(f32)
+    pw = point_weight.to(f32)
+    # scaled_i = du_i * (g_i/2) * ow * pw   (B, n_out, P)
+    scaled = (du_pt * scale[None, :, None]
+              * (ow[:, None, None] * pw[None, None, :]))
+
+    d_t = torch.sum(scaled, dim=-1)                       # (B, n_out)
+    d_r = torch.einsum("bns,si->bni", scaled, points.to(f32))
+    d_points = torch.einsum("bns,bni->si", scaled, rotation.to(f32))
+    if pw_uniform and halo:
+        gw_sums = torch.sum(buf[:, n_out], dim=-1)        # (B,)
+        d_ow = gw_sums * pw[0]
+        d_pw = (torch.dot(gw_sums, ow) / p).repeat(p)
+    else:
+        gw_pt = per[:, n_out]                             # (B, P)
+        d_ow = torch.einsum("bs,s->b", gw_pt, pw)
+        d_pw = torch.einsum("bs,b->s", gw_pt, ow)
+    return d_points, d_r, d_t, d_ow, d_pw
+
+
+def _tree(x):
+    """The kernels' sum of the threads of a block, over the last axis of
+    `x` (..., 256): within each warp of 32 lane l adds lane l + 16, then
+    + 8, + 4, + 2, + 1; then the eight warp sums the same way, + 4, + 2,
+    + 1 (`block_sum` in csrc/epilogue.cu) -> (...)."""
+    x = x.reshape(x.shape[:-1] + (_EPI_THREADS // 32, 32))
+    for h in (16, 8, 4, 2, 1):
+        x = x[..., :h] + x[..., h:2 * h]
+    x = x[..., 0]
+    for h in (4, 2, 1):
+        x = x[..., :h] + x[..., h:2 * h]
+    return x[..., 0]
+
+
+def _block_sums(x, per_thread):
+    """The kernels' blocked sum over the last axis of `x` (..., n) ->
+    (..., ceil(n / (256 per_thread))): block q holds elements ``q * 256 *
+    per_thread + m * 256 + t``; thread t adds its elements in order of m
+    (+0 past n), then `_tree` adds the threads."""
+    n = x.shape[-1]
+    span = _EPI_THREADS * per_thread
+    n_blk = -(-n // span)
+    x = F.pad(x, (0, n_blk * span - n))
+    x = x.reshape(x.shape[:-1] + (n_blk, per_thread, _EPI_THREADS))
+    acc = x[..., 0, :]
+    for m in range(1, per_thread):
+        acc = acc + x[..., m, :]
+    return _tree(acc)
+
+
+def _pose_order_sum(x):
+    """``x[0] + x[1] + ...`` over the first axis, in that order, as E2
+    sums a point's terms over the poses."""
+    acc = x[0]
+    for b in range(1, x.shape[0]):
+        acc = acc + x[b]
+    return acc
+
+
+def _epilogue_fixed_plain(grid_size, buf, idx_rows, points, rotation,
+                          out_weight, point_weight, *, pw_uniform=False):
+    """The function of `pullback_epilogue` on the card bit for bit: the
+    kernels' products and their order of every sum, in torch (and never
+    the card's path).
+
+    E1 reads the frame rows (rows ``[0, P)`` on a single tile, each row's
+    id on several) and forms per row ``s_i = (du_i * (g_i / 2)) * (ow_b *
+    pw_j)`` in fp32, as the torch form does, and the terms ``[s_i...,
+    s_i * points[j, k] (i-major), gw term]`` (``gw * pw_j``, or ``gw``
+    itself on the uniform path of a multi-tile grid) in fp64, where each
+    product of two fp32 values is exact; a filler row (id P) adds +0.
+    Runs of 1,024 rows make one fp64 partial per (pose, run)
+    (`_block_sums` with four rows a thread).  E2 sums each pose's partials
+    (`_block_sums` over the runs) into d_t, d_r and d_ow, and each point's
+    ``sum_i s_i * R[b, i, k]`` and ``gw * ow_b`` over the poses in pose
+    order (`_pose_order_sum`), from the rows in point order (`_unsort` of
+    them on several tiles, which the kernel writes with plain stores: every
+    point id is in each pose's frame once).  The uniform d_pw is the flat
+    `_block_sums` of the gw partials times their pose's ow, over P.  Every
+    sum runs in fp64 and is rounded to fp32 once."""
+    n_out = len(grid_size)
+    single = _single_tile(grid_size)
+    uniform = pw_uniform and not single
+    bsz = buf.shape[0]
+    p, n_in = points.shape
+    f32 = torch.float32
+    dev = buf.device
+    scale = geometry.axis_values([g / 2 for g in grid_size], f32, dev)
+    ow = out_weight.to(f32)
+    pw = point_weight.to(f32)
+    pts = points.to(f32)
+    rot = rotation.to(f32)
+
+    # E1, in frame order
+    if single:
+        rows = buf[:, :, :p]
+        ids = torch.arange(p, device=dev).expand(bsz, p)
+        real = torch.ones((bsz, p), dtype=torch.bool, device=dev)
+    else:
+        rows = buf
+        ids = idx_rows.long()
+        real = ids < p
+        ids = torch.where(real, ids, 0)
+    pw_j = pw[ids]
+    opw = ow[:, None] * pw_j
+    s = [((rows[:, i] * scale[i]) * opw).double() for i in range(n_out)]
+    gw = rows[:, n_out].double()
+    pts, pw_j = pts.double(), pw_j.double()
+    terms = s + [s[i] * pts[ids, k] for i in range(n_out)
+                 for k in range(n_in)]
+    terms.append(gw if uniform else gw * pw_j)
+    terms = torch.where(real[:, None], torch.stack(terms, dim=1), 0.0)
+    partials = _block_sums(terms, _EPI_ROWS)              # (B, K, n_blk)
+
+    # E2: each pose's partials, and each point's terms over the poses
+    n_blk = partials.shape[-1]
+    sums = _block_sums(partials, -(-n_blk // _EPI_THREADS))[..., 0]
+    d_t = sums[:, :n_out].float()
+    d_r = sums[:, n_out:n_out + n_out * n_in].reshape(
+        bsz, n_out, n_in).float()
+    per = rows if single else _unsort(
+        buf[:, :n_out if uniform else n_out + 1], idx_rows, p)
+    opw = ow[:, None] * pw[None, :]
+    s = [((per[:, i] * scale[i]) * opw).double() for i in range(n_out)]
+    rot, ow64 = rot.double(), ow.double()
+    t = []
+    for k in range(n_in):
+        tk = s[0] * rot[:, 0, k, None]
+        for i in range(1, n_out):
+            tk = tk + s[i] * rot[:, i, k, None]
+        t.append(tk)
+    d_points = _pose_order_sum(torch.stack(t, dim=1)).T.float().contiguous()
+    if uniform:
+        d_ow = (sums[:, -1] * pw[0].double()).float()
+        flat = (partials[:, -1] * ow64[:, None]).reshape(-1)
+        total = _block_sums(flat, -(-flat.shape[0] // _EPI_THREADS))
+        d_pw = (total / torch.full_like(total, float(p))).float().repeat(p)
+    else:
+        d_ow = sums[:, -1].float()
+        d_pw = _pose_order_sum(per[:, n_out].double()
+                               * ow64[:, None]).float()
+    return d_points, d_r, d_t, d_ow, d_pw
+
+
+def pullback_epilogue(grid_size, buf, idx_rows, points, rotation,
+                      out_weight, point_weight, *, pw_uniform=False):
+    """B8: the pullback's epilogue from B4's rows `buf` (B, n_out + 1,
+    s_pad) in frame order and the frame's float32 point-id plane
+    `idx_rows` (B, s_pad), which may be a view at the frame's pose stride
+    (on a single tile rows ``[0, P)`` are the points in order and it is
+    not read) -> ``(d_points (P, n_in), d_r (B, n_out, n_in), d_t (B,
+    n_out), d_ow (B,), d_pw (P,))`` in fp32.  `pw_uniform` is the
+    pullback's: on a multi-tile grid d_ow and the sum of d_pw then come
+    from the frame's gw sums.
+
+    CPU tensors take the torch form `_epilogue_plain`, CUDA tensors two
+    launches of `csrc/epilogue.cu` (E1 in frame order, E2 in point order,
+    counted under ``"epilogue_rows"`` and ``"epilogue_points"``), whose
+    function bit for bit is `_epilogue_fixed_plain`: every sum in a fixed
+    order, so the result repeats, with no float atomic and nothing read
+    back to the host.  On several tiles each pose's ids must name every
+    point once (fillers carry P), as `_slot_order`'s frames do."""
+    if buf.device.type == "cpu":
+        return _epilogue_plain(grid_size, buf, idx_rows, points, rotation,
+                               out_weight, point_weight,
+                               pw_uniform=pw_uniform)
+    f32 = torch.float32
+    n_out = len(grid_size)
+    single = _single_tile(grid_size)
+    uniform = pw_uniform and not single
+    pts, rot, ow = (x.to(f32).contiguous()
+                    for x in (points, rotation, out_weight))
+    # a broadcast weight (the uniform path's expanded scalar) is read at
+    # stride 0, not copied
+    pw = point_weight.to(f32)
+    if pw.dim() != 1 or pw.stride(0) != 0:
+        pw = pw.contiguous()
+    _check_cuda("epilogue", buf, f32, pts, f32, rot, f32, ow, f32)
+    bsz, n_rows_b, s_pad = buf.shape
+    p = pts.shape[0]
+    n_in = pts.shape[1] if pts.dim() == 2 else 0
+    if n_out not in (2, 3) or n_rows_b != n_out + 1 or \
+            n_in < 1 or s_pad < p or \
+            rot.shape != (bsz, n_out, n_in) or ow.shape != (bsz,) or \
+            pw.shape != (p,) or pw.device != buf.device or \
+            idx_rows.shape != (bsz, s_pad) or idx_rows.dtype != f32 or \
+            idx_rows.device != buf.device or idx_rows.stride(1) != 1:
+        raise ValueError(
+            f"epilogue: rows {tuple(buf.shape)}, ids "
+            f"{tuple(idx_rows.shape)} {idx_rows.dtype}, points "
+            f"{tuple(pts.shape)}, rotation {tuple(rot.shape)}, weights "
+            f"{tuple(ow.shape)}, {tuple(pw.shape)} do not form a pullback "
+            f"onto {tuple(grid_size)}")
+    if not (1 <= bsz <= 65535 and 1 <= p < 2 ** 24):
+        raise ValueError(f"epilogue: B={bsz}, P={p} exceed the kernels' "
+                         f"launch bounds")
+    dev = buf.device
+    n_rows = p if single else s_pad
+    n_blk = -(-n_rows // (_EPI_THREADS * _EPI_ROWS))
+    scale = [g / 2 for g in grid_size] + [0.0] * (3 - n_out)
+    partials = torch.empty((bsz, n_blk, n_out * (1 + n_in) + 1),
+                           dtype=torch.float64, device=dev)
+    # the point-order copy of the rows on several tiles: each point's
+    # [du..., gw] (no gw on the uniform path) in one store of 2 floats or 4
+    width = 2 if uniform and n_out == 2 else 4
+    rows_out = None if single else torch.empty((bsz, p, width), dtype=f32,
+                                               device=dev)
+    lib = _build.load()
+    _launch("epilogue_rows", dev, lib.dprast_epilogue_rows, _ptr(buf),
+            None if single else _ptr(idx_rows), idx_rows.stride(0),
+            _ptr(pts), _ptr(ow), _ptr(pw), pw.stride(0), *scale,
+            _ptr(partials), None if single else _ptr(rows_out), width, bsz,
+            n_out, n_in, p, s_pad, n_rows, int(uniform))
+    LAUNCHES["epilogue_rows"] += 1
+    d_points = torch.empty((p, n_in), dtype=f32, device=dev)
+    d_pw = torch.empty(p, dtype=f32, device=dev)
+    d_t = torch.empty((bsz, n_out), dtype=f32, device=dev)
+    d_r = torch.empty((bsz, n_out, n_in), dtype=f32, device=dev)
+    d_ow = torch.empty(bsz, dtype=f32, device=dev)
+    # E2 reads the rows in point order: B4's own on a single tile, E1's
+    # copy on several -> (pose, plane, point) strides
+    rows, strides = (buf, (buf.stride(0), s_pad, 1)) if single else \
+        (rows_out, (width * p, 1, width))
+    _launch("epilogue_points", dev, lib.dprast_epilogue_points, _ptr(rows),
+            *strides, _ptr(rot), _ptr(ow), _ptr(pw),
+            pw.stride(0), *scale, _ptr(partials), n_blk, _ptr(d_points),
+            _ptr(d_pw), _ptr(d_t), _ptr(d_r), _ptr(d_ow), bsz, n_out, n_in,
+            p, int(uniform))
+    LAUNCHES["epilogue_points"] += 1
+    return d_points, d_r, d_t, d_ow, d_pw
+
+
 def _check_cuda(name, *pairs):
     """Every tensor on one CUDA device, of its dtype, contiguous."""
     tensors = pairs[0::2]
@@ -1679,22 +1947,24 @@ def raster_pullback_res(grid_size, residuals, args, ds_dout, *,
 def _pullback_from_frame(grid_size, coord, idx_rows, slot_tile, points,
                          rotation, out_weight, point_weight, ds_dout, *,
                          chunk, pw_uniform=False, terms=0,
-                         unfold=None, gather=bwd_gather_enc):
-    """The pullback from a frame, with its two kernel stages as arguments
-    (as in `_fwd_impl`).  `coord` are the frame's encoded planes, which
-    the `gather` stage reads as `bwd_gather_enc` does, ``(slot_tile,
-    coord, ts, win, chunk, terms=, layout=)`` (its plain version:
+                         unfold=None, gather=bwd_gather_enc,
+                         epilogue=pullback_epilogue):
+    """The pullback from a frame, with its kernel stages as arguments (as
+    in `_fwd_impl`).  `coord` are the frame's encoded planes, which the
+    `gather` stage reads as `bwd_gather_enc` does, ``(slot_tile, coord,
+    ts, win, chunk, terms=, layout=)`` (its plain version:
     `_bwd_gather_enc_plain`).  On a multi-tile 2-D grid the gather reads
     the cotangent itself (``layout="grid"``) and nothing is unfolded; an
     `unfold` stage (`band_unfold`, or its twin `_unfold`) writes the
     windows out first and the gather reads them in the natural layout, as
     a measurement may ask.  3-D grids take the plain `_unfold`, as in the
-    JAX package."""
+    JAX package.  The `epilogue` stage takes B4's rows and the id plane
+    to five of the six gradients as `pullback_epilogue` does (its torch
+    form: `_epilogue_plain`)."""
     n_out = len(grid_size)
     ts = tile_shape_for(grid_size)
     halo = not _single_tile(grid_size)
     bsz = rotation.shape[0]
-    p = points.shape[0]
     f32 = torch.float32
     g_cot = ds_dout.to(f32).contiguous()
     # the single tile's window is the cotangent itself
@@ -1710,36 +1980,10 @@ def _pullback_from_frame(grid_size, coord, idx_rows, slot_tile, points,
     buf = gather(slot_tile, coord, ts, g_in, chunk, terms=terms,
                  layout=layout)
 
-    # back to point order; on the uniform-weight path the weight-gradient
-    # plane skips the unsort (its sums are order-free, and every
-    # non-point row of the frame is exactly zero)
-    if halo:
-        n_uns = n_out if pw_uniform else n_out + 1
-        per = _unsort(buf[:, :n_uns], idx_rows, p)
-    else:
-        per = buf[:, :, :p]
-    du_pt = per[:, :n_out]                                # (B, n_out, P)
-
-    scale = geometry.axis_values([g / 2 for g in grid_size], f32,
-                                 buf.device)
-    ow = out_weight.to(f32)
-    pw = point_weight.to(f32)
-    # scaled_i = du_i * (g_i/2) * ow * pw   (B, n_out, P)
-    scaled = (du_pt * scale[None, :, None]
-              * (ow[:, None, None] * pw[None, None, :]))
-
-    d_t = torch.sum(scaled, dim=-1)                       # (B, n_out)
-    d_r = torch.einsum("bns,si->bni", scaled, points.to(f32))
+    d_points, d_r, d_t, d_ow, d_pw = epilogue(
+        grid_size, buf, idx_rows, points, rotation, out_weight, point_weight,
+        pw_uniform=pw_uniform)
     d_bg = torch.sum(g_cot.reshape(bsz, -1), dim=-1)
-    d_points = torch.einsum("bns,bni->si", scaled, rotation.to(f32))
-    if pw_uniform and halo:
-        gw_sums = torch.sum(buf[:, n_out], dim=-1)        # (B,)
-        d_ow = gw_sums * pw[0]
-        d_pw = (torch.dot(gw_sums, ow) / p).repeat(p)
-    else:
-        gw_pt = per[:, n_out]                             # (B, P)
-        d_ow = torch.einsum("bs,s->b", gw_pt, pw)
-        d_pw = torch.einsum("bs,b->s", gw_pt, ow)
 
     dtype = torch.promote_types(torch.promote_types(points.dtype,
                                                     rotation.dtype),

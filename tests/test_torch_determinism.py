@@ -292,6 +292,47 @@ def test_tile_count_plain_matches_bincount(grid, n_poses, n_points):
         tbin._tile_count_plain(key_t, nt_t).numpy(), want)
 
 
+@pytest.mark.parametrize("grid", GRIDS, ids=IDS)
+@pytest.mark.parametrize("weights", ("uniform", "signed"))
+def test_epilogue_fixed_order_repeats(grid, weights):
+    """The pullback epilogue's kernel function (`_epilogue_fixed_plain`,
+    every sum in a fixed order: `csrc/epilogue.cu` on the card) gives the
+    same bits twice, under ``torch.use_deterministic_algorithms(True)``
+    too, and stays within 1e-6 scaled of the torch form."""
+    fx = fixtures(seed=5, n_points=401, batch_size=3, n_in=3,
+                  n_out=len(grid))
+    pts, rot, tr, _, ow, pw = (torch.from_numpy(np.asarray(v, np.float32))
+                               for v in fx.values())
+    uniform = weights == "uniform"
+    if uniform:
+        pw = torch.full_like(pw, 1.5)
+    else:
+        pw = pw - 1.2
+    g = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (3,) + grid).astype(np.float32))
+    caught = []
+
+    def catch(*args, **kw):
+        caught.append((args, kw))
+        return tbin._epilogue_plain(*args, **kw)
+
+    data, slot_tile, chunk = tbin._bwd_frame(grid, pts, rot, tr)
+    tbin._pullback_from_frame(grid, data[:, :-1], data[:, -1], slot_tile,
+                              pts, rot, ow, pw, g, chunk=chunk,
+                              pw_uniform=uniform, epilogue=catch)
+    args, kw = caught[0]
+    first = tbin._epilogue_fixed_plain(*args, **kw)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        second = tbin._epilogue_fixed_plain(*args, **kw)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    for a, b, c in zip(first, second, tbin._epilogue_plain(*args, **kw)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        assert _scaled_err(a, c) <= FP32_TOL
+
+
 @pytest.fixture
 def deterministic():
     """torch's deterministic mode on for the test, then as it was."""

@@ -104,7 +104,9 @@ def test_profile_stages_match_the_backend(case):
 def test_profile_single_tile_has_no_unfold_or_unsort():
     res = profile_binned.run((64, 64), 500, 2, device="cpu", iters=1,
                              warmup=0)
+    # the epilogue, which unsorts on several tiles, runs on one too
     assert "unfold" not in res["ms"] and "bwd unsort" not in res["ms"]
+    assert "bwd epilogue" in res["ms"]
     assert res["unfold"] is None and res["nt"] == 1
     with pytest.raises(ValueError, match="chunk"):
         profile_binned.run((64, 64), 500, 2, chunk=128, device="cpu")

@@ -167,3 +167,31 @@ def test_tile_count_and_scale_make_no_host_round_trip(grid, spies):
     assert counts.shape == (2, nt + 1) and int(counts.sum()) == 2 * 500
     assert k.tolist() == [52, 52, 52]
     assert sums.dtype == torch.int64 and shifts.shape == (2, nt)
+
+
+@pytest.mark.parametrize("grid", [(64, 64), (300, 200), (8, 16, 200)])
+@pytest.mark.parametrize("uniform", [False, True])
+def test_epilogue_makes_no_host_round_trip(grid, uniform, spies):
+    """The pullback's epilogue (`pullback_epilogue`: its torch form on the
+    CPU, two kernels on the card) and the kernels' function in torch
+    (`_epilogue_fixed_plain`) read nothing back to the host."""
+    from dprast_torch.ops import splat_binned as tbin
+    pts, rot, tr, g = _inputs(grid, 2, 500)
+    ow = torch.ones(2)
+    pw = torch.full((500,), 1.5) if uniform else torch.from_numpy(
+        np.random.default_rng(6).uniform(0.5, 2.0, 500).astype(np.float32))
+    caught = []
+
+    def catch(*args, **kw):
+        caught.append((args, kw))
+        return tbin.pullback_epilogue(*args, **kw)
+
+    data, slot_tile, chunk = tbin._bwd_frame(grid, pts, rot, tr)
+    spies.clear()          # what made the inputs does not count
+    tbin._pullback_from_frame(grid, data[:, :-1], data[:, -1], slot_tile,
+                              pts, rot, ow, pw, g, chunk=chunk,
+                              pw_uniform=uniform, epilogue=catch)
+    args, kw = caught[0]
+    fixed = tbin._epilogue_fixed_plain(*args, **kw)
+    assert spies == [], f"host round trips: {spies}"
+    assert fixed[0].shape == pts.shape and fixed[4].shape == (500,)
