@@ -127,8 +127,11 @@ ODD_GRIDS = (((300, 200), 3, 5000), ((130, 1000), 3, 5000),
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 # B8's two kernels, which every binned and binned_bf16 pullback launches
-# once each
-EPILOGUE = ("epilogue_rows", "epilogue_points")
+# once each: on a single tile E2 on B4's rows and the final sums, on
+# several E1 (the unsort and each pose's partials) and E2 on its
+# point-order copy with the final sums
+EPILOGUE_TILE = ("epilogue_tile", "epilogue_poses")
+EPILOGUE_TILES = ("epilogue_rows", "epilogue_points")
 
 # the 3-D path: BASELINE config 4 (10^6 points into 128^3, one pose), and
 # a pose batch at a tenth of the points
@@ -397,10 +400,10 @@ def phase_train(dprast_torch, sb, pts, rot, tr, pw, cots, totals):
     """[train]: autograd through `auto` vs the oracle backend on the card,
     each run between a reset and a read of the launch counts."""
     want = {FLAGSHIP: ("coords", "fwd_splat_enc", "bwd_gather_enc",
-                       *EPILOGUE),
+                       *EPILOGUE_TILE),
             MULTI_TILE: ("coords", "tile_count", "frame_gather",
                          "fwd_splat_enc", "band_fold", "bwd_gather_grid_enc",
-                         *EPILOGUE)}
+                         *EPILOGUE_TILES)}
     for grid in GRIDS:
         for weighted in (False, True):
             inputs = train_inputs(pts, rot, tr, pw, weighted)
@@ -414,7 +417,7 @@ def phase_train(dprast_torch, sb, pts, rot, tr, pw, cots, totals):
                 # one launch of each kernel of the path and no other: B1
                 # and B4 read the frame; at 1024^2 the tile count and the
                 # frame gather make it, B4 reads the cotangent and B3 does
-                # not run; B8's two kernels finish the gradients
+                # not run; B8's kernels finish the gradients
                 check(count == (name in want[grid]),
                       f"{name} ran {count} times in the training step at "
                       f"{grid}")
@@ -1266,7 +1269,7 @@ def phase_3d(dprast_torch, sb, dev):
             torch.cuda.synchronize()
             launched = dict(sb.LAUNCHES)
             for name in ("fwd_splat_3d_enc", "bwd_gather_3d_enc",
-                         *EPILOGUE):
+                         *EPILOGUE_TILES):
                 check(launched[name] >= 1,
                       f"{tag}: {name} ran in the training step")
             # the fused pair reuses the forward's frame
@@ -1450,7 +1453,8 @@ def phase_bf16(dprast_torch, sb, dev, smi, pts, rot, tr, pw, cots):
             for name in launched:
                 launches[name] += launched[name] + fwd_launched[name]
             b4 = BF16_B4_GRID if grid == MULTI_TILE else BF16_B4[n_out]
-            for name in (BF16_B1[n_out], b4, *EPILOGUE):
+            b8 = EPILOGUE_TILE if grid == FLAGSHIP else EPILOGUE_TILES
+            for name in (BF16_B1[n_out], b4, *b8):
                 check(launched[name] >= 1,
                       f"[bf16] {name} ran in the training step at {grid}")
             check(fwd_launched[BF16_B1[n_out]] >= 1,
@@ -1942,10 +1946,10 @@ def example_vs_xla(dprast_torch, sb, tag, grid, inputs):
           f"scaled max-abs err vs the xla backend (tol 2e-5): "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
     check(ran(launched) == {"coords": 1, "fwd_splat_enc": 1,
-                            "bwd_gather_enc": 1, "epilogue_rows": 1,
-                            "epilogue_points": 1},
-          f"{tag}: the step ran B6, B1, B4 and B8's two kernels once each "
-          f"and no other kernel")
+                            "bwd_gather_enc": 1, "epilogue_tile": 1,
+                            "epilogue_poses": 1},
+          f"{tag}: the step ran B6, B1, B4 and B8's two single-tile kernels "
+          f"once each and no other kernel")
     check(max(errs.values()) <= 2e-5, f"{tag}: auto vs xla")
 
 
@@ -1973,8 +1977,8 @@ def phase_examples(dprast_torch, sb, dev, steps=20):
     check(hist[-1][1] < hist[0][1], "[examples] the Langevin fit's loss fell")
     # the target's render and one forward per step; one backward per step
     check(ran(launched) == {"coords": steps + 1, "fwd_splat_enc": steps + 1,
-                            "bwd_gather_enc": steps, "epilogue_rows": steps,
-                            "epilogue_points": steps},
+                            "bwd_gather_enc": steps, "epilogue_tile": steps,
+                            "epilogue_poses": steps},
           "[examples] the fit ran B6 and B1 once per step and for the "
           "target, B4 and B8 once per step, and no other kernel")
     example_vs_xla(dprast_torch, sb, f"[examples] fit_langevin_torch "
@@ -1995,8 +1999,8 @@ def phase_examples(dprast_torch, sb, dev, steps=20):
     check(final < first, "[examples] the reconstruction's loss fell")
     # the target's render, one forward per step and the two final losses
     check(ran(launched) == {"coords": steps + 3, "fwd_splat_enc": steps + 3,
-                            "bwd_gather_enc": steps, "epilogue_rows": steps,
-                            "epilogue_points": steps},
+                            "bwd_gather_enc": steps, "epilogue_tile": steps,
+                            "epilogue_poses": steps},
           "[examples] the reconstruction ran B6 and B1 once per step, for "
           "the target and for the two final losses, B4 and B8 once per "
           "step, and no other kernel")
@@ -2019,8 +2023,8 @@ SHARDED_CASES = ((FLAGSHIP, N_POSES, N_POINTS + 1, False),
 SHARDED_MESH = (2, 2)
 # the kernels of one training step per process, by grid
 SHARDED_WANT = {FLAGSHIP: {"coords": 1, "fwd_splat_enc": 1,
-                           "bwd_gather_enc": 1, "epilogue_rows": 1,
-                           "epilogue_points": 1},
+                           "bwd_gather_enc": 1, "epilogue_tile": 1,
+                           "epilogue_poses": 1},
                 MULTI_TILE: {"coords": 1, "tile_count": 1,
                              "frame_gather": 1, "fwd_splat_enc": 1,
                              "band_fold": 1, "bwd_gather_grid_enc": 1,
@@ -2476,23 +2480,25 @@ B8_CASES = ((FLAGSHIP, N_POSES, N_POINTS), (MULTI_TILE, N_POSES, N_POINTS),
 # those exact sums (B8 sums in fp64 and rounds once)
 B8_TOL = 1e-6
 B8_EXACT_TOL = 1e-7
-B8_KERNELS = {"epilogue_rows": "epilogue_rows_kernel",
-              "epilogue_points": "epilogue_points_kernel"}
+B8_KERNELS = {"epilogue_tile": "epilogue_tile_kernel",
+              "epilogue_rows": "epilogue_rows_kernel",
+              "epilogue_points": "epilogue_points_kernel",
+              "epilogue_poses": "epilogue_poses_kernel"}
 
 
 def epilogue_bounds(sb, args, kw):
-    """E1's and E2's bounds, and the epilogue's as a function, on the
-    arguments of `pullback_epilogue` -> {"epilogue_rows": bound,
-    "epilogue_points": bound, "function": bound}.  Only the bytes the
-    function needs, each once: B4's rows and their ids for the P point
-    rows of each pose (not the fillers, nor the padding of a single
-    tile's frame), the cloud, the weights and the rotations, the
-    gradients, and the intermediates each kernel writes or reads (the
-    fp64 partials; the point-order copy at the n_out floats a (pose,
-    point) of the uniform path or the n_out + 1 of the per-point path);
-    a broadcast weight counts one float.  Operations on the same rows: E1
-    per row 2 + 2 n_out + n_out n_in products and a sum of K terms, E2 per
-    (pose, point) 3 + 2 n_out + n_in 2 n_out."""
+    """The bounds of B8's two kernels that run on the arguments of
+    `pullback_epilogue`, and of the epilogue as a function -> {kernel
+    name: bound, ..., "function": bound}.  Only the bytes the function
+    needs, each once: B4's rows and their ids for the P point rows of each
+    pose (not the fillers, nor the padding of a single tile's frame), the
+    cloud, the weights and the rotations, the gradients, and the
+    intermediates each kernel writes or reads (the point-order copy at the
+    n_out floats a (pose, point) of the uniform path or the n_out + 1 of
+    the per-point path; the fp64 partials); a broadcast weight counts one
+    float.  E2 on several tiles reads the weights but not the cloud.  Operations per (pose, point): 1 + 2 n_out fp32 products, n_out
+    n_in + 1 fp64 multiply-adds for the point's sums and n_out (n_in + 1)
+    + 1 for the pose's, one add a partial in the final sums."""
     grid, buf, _, pts, rot, _, pw = args
     single = sb._single_tile(grid)
     uniform = kw.get("pw_uniform", False) and not single
@@ -2500,23 +2506,36 @@ def epilogue_bounds(sb, args, kw):
     n_out = n_rows_b - 1
     p, n_in = pts.shape
     rows = bsz * p
-    k = n_out * (1 + n_in) + 1
-    partials = bsz * -(-(p if single else s_pad) // 1024) * k * 8
+    kp = n_out * (1 + n_in) + 1
+    n_part = bsz * kp * (-(-p // (8 // sb._pose_groups(bsz) * 128))
+                         if single else -(-s_pad // 1024))
     pw_n = 1 if pw.stride(0) == 0 else p
-    inputs = p * n_in + pw_n + bsz
-    grads = p * n_in + p + bsz * (n_out + n_out * n_in + 1)
-    ids = 0 if single else rows
-    copy = 0 if single else rows * (n_out + (not uniform))
-    e1 = (rows * (n_out + 1) + ids + inputs + copy) * 4 + partials
-    e2 = (((rows * (n_out + 1) if single else copy) + bsz * n_out * n_in
-           + inputs - p * n_in + grads) * 4 + partials)
-    ops1 = rows * (2 + 2 * n_out + n_out * n_in + k)
-    ops2 = rows * (3 + 2 * n_out + n_in * 2 * n_out)
-    function = (rows * (n_out + 1) + ids + inputs + bsz * n_out * n_in
-                + grads) * 4
-    return {"epilogue_rows": bound(e1, ops1),
-            "epilogue_points": bound(e2, ops2),
-            "function": bound(function, ops1 + ops2)}
+    weights = (pw_n + bsz) * 4
+    cloud = p * n_in * 4 + weights
+    rotations = bsz * n_out * n_in * 4
+    grads_pt = p * (n_in + 1) * 4
+    grads_pose = bsz * (n_out + n_out * n_in + 1) * 4
+    b4_rows = rows * (n_out + 1) * 4
+    ids = 0 if single else rows * 4
+    copy = 0 if single else rows * (n_out + (not uniform)) * 4
+    ops_pt = rows * (1 + 2 * n_out + n_out * n_in + 1)
+    ops_pose = rows * (1 + 2 * n_out + kp)
+    finals = bound(n_part * 8 + grads_pose, n_part)
+    if single:
+        bounds = {"epilogue_tile": bound(b4_rows + cloud + rotations
+                                         + grads_pt + n_part * 8,
+                                         ops_pt + ops_pose - rows * (
+                                             1 + 2 * n_out)),
+                  "epilogue_poses": finals}
+    else:
+        bounds = {"epilogue_rows": bound(b4_rows + ids + cloud + copy
+                                         + n_part * 8, ops_pose),
+                  "epilogue_points": bound(
+                      copy + weights + rotations + grads_pt + n_part * 8
+                      + grads_pose, ops_pt + n_part)}
+    bounds["function"] = bound(b4_rows + ids + cloud + rotations + grads_pt
+                               + grads_pose, ops_pt + ops_pose)
+    return bounds
 
 
 def b8_args(sb, grid, n_poses, n_points, dev, *, weighted, terms,
@@ -2637,10 +2656,11 @@ def b8_check(sb, tag, args, kw):
 
 def phase_b8(sb, dev, smi):
     """[B8 epilogue]: the epilogue's two kernels on what the main path
-    hands them at `B8_CASES`, uniform and per-point weights, terms 0 and
-    1 (`b8_check`); also on the standalone pullback's frame, with a NaN
-    in the cotangent, with an infinite weight, and with clouds of 2 and 5
-    input axes.  At terms 0
+    hands them at `B8_CASES` (one tile: `epilogue_tile` and
+    `epilogue_poses`; several: `epilogue_rows` and `epilogue_points`),
+    uniform and per-point weights, terms 0 and 1 (`b8_check`); also on
+    the standalone pullback's frame, with a NaN in the cotangent, with an
+    infinite weight, and with clouds of 2 and 5 input axes.  At terms 0
     it times them: each kernel's device us against its bound, the
     epilogue's ms, busy us and launches in turns against the torch form
     (torch form, kernels, kernels, torch form).  -> {"err": worst error,
@@ -2666,14 +2686,14 @@ def phase_b8(sb, dev, smi):
                 bounds = epilogue_bounds(sb, args, kw)
                 entry = {"ms": sum(ms[1]) / 2, "plain_ms": sum(ms[0]) / 2,
                          "bounds": bounds,
-                         "dev_us": {name: kernel_device_us(fns[1], kname,
-                                                           calls=5)
-                                    for name, kname in B8_KERNELS.items()}}
+                         "dev_us": {name: kernel_device_us(
+                             fns[1], B8_KERNELS[name], calls=5)
+                             for name in bounds if name != "function"}}
                 times[grid, weighted] = entry
                 order = ((0, 0), (1, 0), (1, 1), (0, 1))
                 shares = []
-                for name in B8_KERNELS:
-                    us, (b_ms, by) = entry["dev_us"][name], bounds[name]
+                for name, us in entry["dev_us"].items():
+                    b_ms, by = bounds[name]
                     shares.append(f"{name} {us:.2f} us, "
                                   f"{b_ms * 1e3 / max(us, 1e-9):.1%} of its "
                                   f"{b_ms * 1e3:.2f} us bound (by {by})")
@@ -3131,7 +3151,8 @@ def main():
     small_launches = dict(sb.LAUNCHES)
     print(f"[small] launches: {ran(small_launches)}")
     for name in ("bwd_gather_grid_enc", "bwd_gather_grid_enc_ldg",
-                 "bwd_gather_grid_bf16_enc_ldg", *EPILOGUE):
+                 "bwd_gather_grid_bf16_enc_ldg", *EPILOGUE_TILE,
+                 *EPILOGUE_TILES):
         check(small_launches[name] >= 1, f"{name} ran in [small]")
     check(small_launches["band_unfold"] == 0, "B3 did not run in [small]")
 
@@ -3448,22 +3469,24 @@ def main():
                     "the ranged histc it replaces",
             device_us=t["dev_us"], library_ms=t["library_ms"]))
     # B8, the pullback's epilogue (replaces the XLA code after B4's
-    # `pallas_call`, which XLA fuses), at the main path's three shapes
+    # `pallas_call`, which XLA fuses), at the main path's three shapes:
+    # each kernel that runs there
     for grid, counted, shape in ((FLAGSHIP, train_launches, flag),
                                  (MULTI_TILE, train_launches, mt),
                                  (VOLUME, launches_3d, vol)):
         t = b8["times"][grid, False]
-        for name in EPILOGUE:
+        for name, us in t["dev_us"].items():
             entry = kernel(
                 name, "dprast_torch/csrc/epilogue.cu", f"{src}:1355-1423",
-                counted[name], b8["err"], t["dev_us"][name] / 1e3,
-                t["plain_ms"], t["bounds"][name], shape,
+                counted[name], b8["err"], us / 1e3, t["plain_ms"],
+                t["bounds"][name], shape,
                 variant="bit-equal to _epilogue_fixed_plain; max_abs_err "
                         "against the torch form _epilogue_plain; ms is "
                         "this kernel's device time, plain_ms the whole "
-                        "torch form's, epilogue_ms both launches' and "
-                        "function_bound_ms the bound of both together",
-                device_us=t["dev_us"][name])
+                        "torch form's, epilogue_ms all the epilogue's "
+                        "launches' and function_bound_ms the bound of the "
+                        "epilogue as a whole",
+                device_us=us)
             entry["epilogue_ms"] = t["ms"]
             entry["function_bound_ms"] = t["bounds"]["function"][0]
             kernels.append(entry)

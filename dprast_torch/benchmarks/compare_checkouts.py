@@ -29,7 +29,8 @@ points, uniform weights) on 128^2 and 1024^2:
   autograd step keeps the card busy with;
 - where the checkout has the pullback's epilogue as a stage (B8,
   `pullback_epilogue`), the "bwd epilogue" alone on the rows B4 gave the
-  fused pair, beside its torch form (`_epilogue_plain`), and the fused
+  fused pair, beside its torch form (`_epilogue_plain`), with uniform
+  weights and again ("weighted") with per-point weights, and the fused
   step with the torch form in its place (``epilogue=_epilogue_plain``),
   each with what it keeps the card busy with, at all three shapes.
 
@@ -121,25 +122,31 @@ EPILOGUE = hasattr(sb, "pullback_epilogue")
 
 
 def epilogue_stage(tag, grid, canon, g):
-    res = sb.raster_fwd_res(grid, *canon, pw_uniform=True)[1]
-    coord, idx_rows, st = sb._residual_planes(res, True)
     chunk = sb._default_chunk(grid, canon[0].shape[0])
-    caught = []
+    gen = torch.Generator(device=dev).manual_seed(5)
+    weights = torch.rand(canon[0].shape[0], generator=gen, device=dev) + 0.5
+    for form, uniform in (("", True), (" weighted", False)):
+        inputs = canon if uniform else (*canon[:5], weights)
+        res = sb.raster_fwd_res(grid, *inputs, pw_uniform=uniform)[1]
+        coord, idx_rows, st = sb._residual_planes(res, uniform)
+        caught = []
 
-    def catch(*a, **kw):
-        caught.append((a, kw))
-        return sb.pullback_epilogue(*a, **kw)
+        def catch(*a, **kw):
+            caught.append((a, kw))
+            return sb.pullback_epilogue(*a, **kw)
 
-    sb._pullback_from_frame(grid, coord, idx_rows, st, canon[0], canon[1],
-                            canon[4], canon[5], g, chunk=chunk,
-                            pw_uniform=True, epilogue=catch)
-    a, kw = caught[0]
-    for name, fn in (("bwd epilogue", sb.pullback_epilogue),
-                     ("bwd epilogue (torch form)", sb._epilogue_plain)):
-        out[f"{name} {tag} ms"] = cs.time_ms(lambda: fn(*a, **kw))
-        (out[f"{name} {tag} device-busy us"],
-         out[f"{name} {tag} kernels and copies"]) = cs.device_busy(
-            lambda: fn(*a, **kw))
+        sb._pullback_from_frame(grid, coord, idx_rows, st, inputs[0],
+                                inputs[1], inputs[4], inputs[5], g,
+                                chunk=chunk, pw_uniform=uniform,
+                                epilogue=catch)
+        a, kw = caught[0]
+        for name, fn in (("bwd epilogue" + form, sb.pullback_epilogue),
+                         ("bwd epilogue (torch form)" + form,
+                          sb._epilogue_plain)):
+            out[f"{name} {tag} ms"] = cs.time_ms(lambda: fn(*a, **kw))
+            (out[f"{name} {tag} device-busy us"],
+             out[f"{name} {tag} kernels and copies"]) = cs.device_busy(
+                lambda: fn(*a, **kw))
 
     def step_torch_form():
         res = sb.raster_fwd_res(grid, *canon, pw_uniform=True)[1]

@@ -25,7 +25,9 @@ the cotangent, which is the "bwd kernel grid" stage (the frame's
 instance).  A single tile has no unfold.  "bwd epilogue" is the
 pullback's epilogue on B4's rows (kernel B8, `pullback_epilogue`: the
 unsort by the point-id plane and the gradients' products and sums, two
-launches of `csrc/epilogue.cu`), "bwd epilogue (torch form)" its eager
+launches of `csrc/epilogue.cu`: `epilogue_tile` and `epilogue_poses` on a
+single tile, `epilogue_rows` and `epilogue_points` on several, counted
+together), "bwd epilogue (torch form)" its eager
 form `_epilogue_plain`; both also run on a single tile, which keeps the
 point order.
 

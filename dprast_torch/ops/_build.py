@@ -132,14 +132,22 @@ def load():
         lib.dprast_tile_count.argtypes = [vp, vp, i32, i32, i32, vp]
         lib.dprast_tile_count.restype = i32
         lib.dprast_epilogue_rows.argtypes = [vp, vp, i64, vp, vp, vp, i64,
-                                             f32, f32, f32, vp, vp, i32, i32,
-                                             i32, i32, i32, i64, i64, i32, vp]
+                                             f32, f32, f32, vp, i32, vp, i32,
+                                             i32, i32, i32, i32, i64, i32, vp]
         lib.dprast_epilogue_rows.restype = i32
-        lib.dprast_epilogue_points.argtypes = [vp, i64, i64, i32, vp, vp, vp,
-                                               i64, f32, f32, f32, vp, i32, vp,
-                                               vp, vp, vp, vp, i32, i32, i32,
-                                               i32, i32, vp]
+        lib.dprast_epilogue_tile.argtypes = [vp, i64, i64, vp, vp, vp, vp,
+                                             i64, f32, f32, f32, vp, i32, i32,
+                                             vp, vp, i32, i32, i32, i32, i32,
+                                             vp]
+        lib.dprast_epilogue_tile.restype = i32
+        lib.dprast_epilogue_points.argtypes = [vp, i32, vp, vp, vp, i64, f32,
+                                               f32, f32, vp, i32, i32, vp, vp,
+                                               vp, vp, vp, i32, i32, i32, i32,
+                                               i32, vp]
         lib.dprast_epilogue_points.restype = i32
+        lib.dprast_epilogue_poses.argtypes = [vp, i32, i32, vp, vp, vp, vp, vp,
+                                              i32, i32, i32, i32, vp]
+        lib.dprast_epilogue_poses.restype = i32
         lib.dprast_error_string.argtypes = [i32]
         lib.dprast_error_string.restype = ctypes.c_char_p
         _lib = lib

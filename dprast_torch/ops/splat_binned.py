@@ -126,7 +126,7 @@ _B4_ENC = tuple(k for k in _B4_INSTANCES
 # counts B6 whether it writes planes or a single tile's frame
 LAUNCHES = dict.fromkeys(
     ["coords", "tile_count", "frame_gather", "band_fold", "band_unfold",
-     "epilogue_rows", "epilogue_points",
+     "epilogue_tile", "epilogue_poses", "epilogue_rows", "epilogue_points",
      *_B1_INSTANCES.values(), *_B4_INSTANCES.values(),
      *(name + _GRID_LOADS for (_, _, layout), name in _B4_INSTANCES.items()
        if layout == "grid"),
@@ -1422,10 +1422,15 @@ def _unsort(rows, idx_rows, p):
 # ---------------------------------------------------------------------------
 
 
-# B8's blocks: 256 threads (eight warps of 32); E1 sums four frame rows a
-# thread, E2 takes one point a thread
+# B8's blocks: 256 threads (eight warps of 32).  E1 takes 1,024 frame rows
+# a block, rows t + 256 m of them a thread; the single tile's E2 takes
+# chunks of 128 points, four consecutive points a lane; E2 on several
+# tiles one point a thread
 _EPI_THREADS = 256
+_EPI_WARPS = _EPI_THREADS // 32
 _EPI_ROWS = 4
+_EPI_LANE_POINTS = 4
+_EPI_CHUNK = 32 * _EPI_LANE_POINTS
 
 
 def _epilogue_plain(grid_size, buf, idx_rows, points, rotation, out_weight,
@@ -1469,43 +1474,97 @@ def _epilogue_plain(grid_size, buf, idx_rows, points, rotation, out_weight,
     return d_points, d_r, d_t, d_ow, d_pw
 
 
-def _tree(x):
-    """The kernels' sum of the threads of a block, over the last axis of
-    `x` (..., 256): within each warp of 32 lane l adds lane l + 16, then
-    + 8, + 4, + 2, + 1; then the eight warp sums the same way, + 4, + 2,
-    + 1 (`block_sum` in csrc/epilogue.cu) -> (...)."""
-    x = x.reshape(x.shape[:-1] + (_EPI_THREADS // 32, 32))
+
+def _warp_tree(x):
+    """The kernels' sum of the 32 lanes of a warp, over the last axis of
+    `x` (..., 32): lane l adds lane l + 16, then + 8, + 4, + 2, + 1 (the
+    pairs of `block_sum`'s shuffles and of `warp_scatter`'s halving in
+    csrc/epilogue.cu) -> (...)."""
     for h in (16, 8, 4, 2, 1):
         x = x[..., :h] + x[..., h:2 * h]
-    x = x[..., 0]
+    return x[..., 0]
+
+
+def _tree(x):
+    """The kernels' sum of the threads of a block, over the last axis of
+    `x` (..., 256): `_warp_tree` within each warp of 32, then the eight
+    warp sums the same way, + 4, + 2, + 1 (`block_sum` in
+    csrc/epilogue.cu) -> (...)."""
+    x = _warp_tree(x.reshape(x.shape[:-1] + (_EPI_WARPS, 32)))
     for h in (4, 2, 1):
         x = x[..., :h] + x[..., h:2 * h]
     return x[..., 0]
+
+
+def _in_order(x):
+    """``x[..., 0] + x[..., 1] + ...`` over the last axis, in that order."""
+    acc = x[..., 0]
+    for m in range(1, x.shape[-1]):
+        acc = acc + x[..., m]
+    return acc
 
 
 def _block_sums(x, per_thread):
     """The kernels' blocked sum over the last axis of `x` (..., n) ->
     (..., ceil(n / (256 per_thread))): block q holds elements ``q * 256 *
     per_thread + m * 256 + t``; thread t adds its elements in order of m
-    (+0 past n), then `_tree` adds the threads."""
+    (+0 past n), then `_tree` adds the threads.  The final sums take each
+    pose's partials so (one block), and the uniform d_pw's flat
+    partials."""
     n = x.shape[-1]
     span = _EPI_THREADS * per_thread
     n_blk = -(-n // span)
     x = F.pad(x, (0, n_blk * span - n))
     x = x.reshape(x.shape[:-1] + (n_blk, per_thread, _EPI_THREADS))
-    acc = x[..., 0, :]
-    for m in range(1, per_thread):
-        acc = acc + x[..., m, :]
-    return _tree(acc)
+    return _tree(_in_order(x.transpose(-1, -2)))
 
 
-def _pose_order_sum(x):
-    """``x[0] + x[1] + ...`` over the first axis, in that order, as E2
-    sums a point's terms over the poses."""
-    acc = x[0]
-    for b in range(1, x.shape[0]):
-        acc = acc + x[b]
-    return acc
+def _row_sums(x):
+    """E1's sums over frame rows, over the last axis of `x` (..., s_pad) ->
+    (..., ceil(s_pad / 1024)): block q holds rows ``q * 1024 + m * 256 +
+    t``; thread t adds its rows in order of m (+0 past s_pad), each warp
+    adds its lanes (`_warp_tree`) and the eight warp sums add in warp
+    order."""
+    n = x.shape[-1]
+    span = _EPI_THREADS * _EPI_ROWS
+    n_blk = -(-n // span)
+    x = F.pad(x, (0, n_blk * span - n))
+    x = x.reshape(x.shape[:-1] + (n_blk, _EPI_ROWS, _EPI_WARPS, 32))
+    return _in_order(_warp_tree(_in_order(torch.movedim(x, -3, -1))))
+
+
+def _pose_groups(bsz):
+    """The single tile's pose groups: the largest power of two at most
+    min(B, 8)."""
+    return min(_EPI_WARPS, 1 << (bsz.bit_length() - 1))
+
+
+def _chunk_sums(x, groups):
+    """The single tile's sums over points of each pose's terms, over the last axis of
+    `x` (..., P) -> (..., ceil(P / (128 * 8 / groups))): a chunk of 128
+    points is a warp's, lane l adds its points ``4 l .. 4 l + 3`` in order
+    (+0 past P) and `_warp_tree` adds the lanes; a block's ``8 / groups``
+    chunks add in chunk order."""
+    n = x.shape[-1]
+    cpb = _EPI_WARPS // groups
+    span = cpb * _EPI_CHUNK
+    n_blk = -(-n // span)
+    x = F.pad(x, (0, n_blk * span - n))
+    x = x.reshape(x.shape[:-1] + (n_blk, cpb, 32, _EPI_LANE_POINTS))
+    return _in_order(_warp_tree(_in_order(x)))
+
+
+def _pose_group_sums(t, groups):
+    """E2's sums over poses of a point's terms: `t` (B, m, ...) in order
+    of (pose, m) -> (...); on several tiles E2 takes one group.  Pose group g takes poses ``[g B / groups, (g +
+    1) B / groups)`` and adds its terms in that order; the groups' sums
+    add in group order."""
+    bsz = t.shape[0]
+    sums = []
+    for g in range(groups):
+        lo, hi = g * bsz // groups, (g + 1) * bsz // groups
+        sums.append(_in_order(torch.movedim(t[lo:hi].flatten(0, 1), 0, -1)))
+    return _in_order(torch.stack(sums, dim=-1))
 
 
 def _epilogue_fixed_plain(grid_size, buf, idx_rows, points, rotation,
@@ -1514,21 +1573,22 @@ def _epilogue_fixed_plain(grid_size, buf, idx_rows, points, rotation,
     kernels' products and their order of every sum, in torch (and never
     the card's path).
 
-    E1 reads the frame rows (rows ``[0, P)`` on a single tile, each row's
-    id on several) and forms per row ``s_i = (du_i * (g_i / 2)) * (ow_b *
-    pw_j)`` in fp32, as the torch form does, and the terms ``[s_i...,
-    s_i * points[j, k] (i-major), gw term]`` (``gw * pw_j``, or ``gw``
-    itself on the uniform path of a multi-tile grid) in fp64, where each
-    product of two fp32 values is exact; a filler row (id P) adds +0.
-    Runs of 1,024 rows make one fp64 partial per (pose, run)
-    (`_block_sums` with four rows a thread).  E2 sums each pose's partials
-    (`_block_sums` over the runs) into d_t, d_r and d_ow, and each point's
-    ``sum_i s_i * R[b, i, k]`` and ``gw * ow_b`` over the poses in pose
-    order (`_pose_order_sum`), from the rows in point order (`_unsort` of
-    them on several tiles, which the kernel writes with plain stores: every
-    point id is in each pose's frame once).  The uniform d_pw is the flat
-    `_block_sums` of the gw partials times their pose's ow, over P.  Every
-    sum runs in fp64 and is rounded to fp32 once."""
+    Per (pose b, point j) ``s_i = (du_i * (g_i / 2)) * (ow_b * pw_j)`` in
+    fp32, as the torch form forms it; every later term is an fp64 product
+    of fp32 values, which is exact, and every sum runs in fp64 and is
+    rounded to fp32 once.  Each point's ``sum_i s_i * R[b, i, k]`` and
+    ``gw * ow_b`` over the poses come from the rows in point order (B4's
+    own on a single tile, rows ``[0, P)``; E1's copy on several, `_unsort`
+    of them, which the kernel writes with plain stores: every point id is
+    in each pose's frame once), in order of (pose, i): in pose groups on a
+    single tile (`_pose_group_sums`), all poses as one on several.  Each pose's terms ``[s_i..., s_i * points[j, k]
+    (i-major), gw term]`` over the points: on a single tile E2's
+    (`_chunk_sums`, gw term ``gw * pw_j``), on several E1's in frame order
+    (`_row_sums`, fillers +0; the gw term ``gw`` itself on the uniform
+    path); the final sums (`_block_sums`) of their partials give d_t, d_r
+    and d_ow (times pw_0 on the uniform path), and the uniform d_pw is the
+    flat `_block_sums` of the gw partials times their pose's ow, over
+    P."""
     n_out = len(grid_size)
     single = _single_tile(grid_size)
     uniform = pw_uniform and not single
@@ -1539,57 +1599,54 @@ def _epilogue_fixed_plain(grid_size, buf, idx_rows, points, rotation,
     scale = geometry.axis_values([g / 2 for g in grid_size], f32, dev)
     ow = out_weight.to(f32)
     pw = point_weight.to(f32)
-    pts = points.to(f32)
-    rot = rotation.to(f32)
+    rot, ow64, pw64 = rotation.to(f32).double(), ow.double(), pw.double()
+    pts = points.to(f32).double()
+    groups = _pose_groups(bsz) if single else 1
 
-    # E1, in frame order
+    def scaled(rows, opw):
+        return torch.stack([(rows[:, i] * scale[i]) * opw
+                            for i in range(n_out)], dim=1).double()
+
+    # E2: each point's sums over the poses, from the rows in point order
+    per = buf[:, :, :p] if single else _unsort(
+        buf[:, :n_out if uniform else n_out + 1], idx_rows, p)
+    s = scaled(per, ow[:, None] * pw[None, :])            # (B, n_out, P)
+    d_points = _pose_group_sums(s[:, :, None, :] * rot[..., None], groups)
+    d_points = d_points.T.float().contiguous()            # (P, n_in)
+    if not uniform:
+        d_pw = _pose_group_sums((per[:, n_out].double()
+                                 * ow64[:, None])[:, None], groups).float()
+
+    # each pose's sums over the points: the partials, then the final sums
     if single:
-        rows = buf[:, :, :p]
-        ids = torch.arange(p, device=dev).expand(bsz, p)
+        ids, gw_term = slice(None), per[:, n_out].double() * pw64
         real = torch.ones((bsz, p), dtype=torch.bool, device=dev)
+        rows, xs = per, pts.T
     else:
-        rows = buf
         ids = idx_rows.long()
         real = ids < p
         ids = torch.where(real, ids, 0)
-    pw_j = pw[ids]
-    opw = ow[:, None] * pw_j
-    s = [((rows[:, i] * scale[i]) * opw).double() for i in range(n_out)]
-    gw = rows[:, n_out].double()
-    pts, pw_j = pts.double(), pw_j.double()
-    terms = s + [s[i] * pts[ids, k] for i in range(n_out)
-                 for k in range(n_in)]
-    terms.append(gw if uniform else gw * pw_j)
-    terms = torch.where(real[:, None], torch.stack(terms, dim=1), 0.0)
-    partials = _block_sums(terms, _EPI_ROWS)              # (B, K, n_blk)
-
-    # E2: each pose's partials, and each point's terms over the poses
-    n_blk = partials.shape[-1]
-    sums = _block_sums(partials, -(-n_blk // _EPI_THREADS))[..., 0]
+        rows, xs = buf, pts[ids].movedim(-1, 0)           # (n_in, B, s_pad)
+        s = scaled(rows, ow[:, None] * pw[ids])
+        gw_term = rows[:, n_out].double()
+        if not uniform:
+            gw_term = gw_term * pw64[ids]
+    terms = [s[:, i] for i in range(n_out)] + [
+        s[:, i] * xs[k] for i in range(n_out) for k in range(n_in)]
+    terms = torch.where(real[:, None], torch.stack(terms + [gw_term], 1),
+                        0.0)
+    partials = (_chunk_sums(terms, groups) if single
+                else _row_sums(terms))                    # (B, kp, n_blk)
+    sums = _block_sums(partials, -(-partials.shape[-1] // _EPI_THREADS))
+    sums = sums[..., 0]                                   # (B, kp)
     d_t = sums[:, :n_out].float()
-    d_r = sums[:, n_out:n_out + n_out * n_in].reshape(
-        bsz, n_out, n_in).float()
-    per = rows if single else _unsort(
-        buf[:, :n_out if uniform else n_out + 1], idx_rows, p)
-    opw = ow[:, None] * pw[None, :]
-    s = [((per[:, i] * scale[i]) * opw).double() for i in range(n_out)]
-    rot, ow64 = rot.double(), ow.double()
-    t = []
-    for k in range(n_in):
-        tk = s[0] * rot[:, 0, k, None]
-        for i in range(1, n_out):
-            tk = tk + s[i] * rot[:, i, k, None]
-        t.append(tk)
-    d_points = _pose_order_sum(torch.stack(t, dim=1)).T.float().contiguous()
-    if uniform:
-        d_ow = (sums[:, -1] * pw[0].double()).float()
-        flat = (partials[:, -1] * ow64[:, None]).reshape(-1)
-        total = _block_sums(flat, -(-flat.shape[0] // _EPI_THREADS))
-        d_pw = (total / torch.full_like(total, float(p))).float().repeat(p)
-    else:
-        d_ow = sums[:, -1].float()
-        d_pw = _pose_order_sum(per[:, n_out].double()
-                               * ow64[:, None]).float()
+    d_r = sums[:, n_out:-1].reshape(bsz, n_out, n_in).float()
+    if not uniform:
+        return d_points, d_r, d_t, sums[:, -1].float(), d_pw
+    d_ow = (sums[:, -1] * pw64[0]).float()
+    flat = (partials[:, -1] * ow64[:, None]).reshape(-1)
+    total = _block_sums(flat, -(-flat.shape[0] // _EPI_THREADS))
+    d_pw = (total / torch.full_like(total, float(p))).float().repeat(p)
     return d_points, d_r, d_t, d_ow, d_pw
 
 
@@ -1605,8 +1662,11 @@ def pullback_epilogue(grid_size, buf, idx_rows, points, rotation,
     from the frame's gw sums.
 
     CPU tensors take the torch form `_epilogue_plain`, CUDA tensors two
-    launches of `csrc/epilogue.cu` (E1 in frame order, E2 in point order,
-    counted under ``"epilogue_rows"`` and ``"epilogue_points"``), whose
+    launches of `csrc/epilogue.cu`: on a single tile E2 on B4's rows
+    (``"epilogue_tile"``) and the final sums of its partials
+    (``"epilogue_poses"``); on several E1 in frame order, the unsort into a
+    point-order copy and each pose's partials (``"epilogue_rows"``), then
+    E2 on the copy with the final sums (``"epilogue_points"``).  Their
     function bit for bit is `_epilogue_fixed_plain`: every sum in a fixed
     order, so the result repeats, with no float atomic and nothing read
     back to the host.  On several tiles each pose's ids must name every
@@ -1645,38 +1705,49 @@ def pullback_epilogue(grid_size, buf, idx_rows, points, rotation,
     if not (1 <= bsz <= 65535 and 1 <= p < 2 ** 24):
         raise ValueError(f"epilogue: B={bsz}, P={p} exceed the kernels' "
                          f"launch bounds")
+    if single and (s_pad % 4 or buf.data_ptr() % 16):
+        raise ValueError("epilogue: on a single tile the kernel reads four "
+                         "rows at a time: s_pad and the rows must come in "
+                         "16-byte units")
     dev = buf.device
-    n_rows = p if single else s_pad
-    n_blk = -(-n_rows // (_EPI_THREADS * _EPI_ROWS))
+    kp = n_out * (1 + n_in) + 1
     scale = [g / 2 for g in grid_size] + [0.0] * (3 - n_out)
-    partials = torch.empty((bsz, n_blk, n_out * (1 + n_in) + 1),
-                           dtype=torch.float64, device=dev)
-    # the point-order copy of the rows on several tiles: each point's
-    # [du..., gw] (no gw on the uniform path) in one store of 2 floats or 4
-    width = 2 if uniform and n_out == 2 else 4
-    rows_out = None if single else torch.empty((bsz, p, width), dtype=f32,
-                                               device=dev)
     lib = _build.load()
-    _launch("epilogue_rows", dev, lib.dprast_epilogue_rows, _ptr(buf),
-            None if single else _ptr(idx_rows), idx_rows.stride(0),
-            _ptr(pts), _ptr(ow), _ptr(pw), pw.stride(0), *scale,
-            _ptr(partials), None if single else _ptr(rows_out), width, bsz,
-            n_out, n_in, p, s_pad, n_rows, int(uniform))
-    LAUNCHES["epilogue_rows"] += 1
     d_points = torch.empty((p, n_in), dtype=f32, device=dev)
     d_pw = torch.empty(p, dtype=f32, device=dev)
     d_t = torch.empty((bsz, n_out), dtype=f32, device=dev)
     d_r = torch.empty((bsz, n_out, n_in), dtype=f32, device=dev)
     d_ow = torch.empty(bsz, dtype=f32, device=dev)
-    # E2 reads the rows in point order: B4's own on a single tile, E1's
-    # copy on several -> (pose, plane, point) strides
-    rows, strides = (buf, (buf.stride(0), s_pad, 1)) if single else \
-        (rows_out, (width * p, 1, width))
-    _launch("epilogue_points", dev, lib.dprast_epilogue_points, _ptr(rows),
-            *strides, _ptr(rot), _ptr(ow), _ptr(pw),
-            pw.stride(0), *scale, _ptr(partials), n_blk, _ptr(d_points),
-            _ptr(d_pw), _ptr(d_t), _ptr(d_r), _ptr(d_ow), bsz, n_out, n_in,
-            p, int(uniform))
+    if single:
+        groups = _pose_groups(bsz)
+        n_blk = -(-p // (_EPI_WARPS // groups * _EPI_CHUNK))
+        partials = torch.empty((bsz, kp, n_blk), dtype=torch.float64,
+                               device=dev)
+        _launch("epilogue_tile", dev, lib.dprast_epilogue_tile, _ptr(buf),
+                buf.stride(0), s_pad, _ptr(pts), _ptr(rot), _ptr(ow),
+                _ptr(pw), pw.stride(0), *scale, _ptr(partials), n_blk, kp,
+                _ptr(d_points), _ptr(d_pw), bsz, n_out, n_in, p, groups)
+        LAUNCHES["epilogue_tile"] += 1
+        _launch("epilogue_poses", dev, lib.dprast_epilogue_poses,
+                _ptr(partials), n_blk, kp, _ptr(ow), _ptr(pw), _ptr(d_t),
+                _ptr(d_r), _ptr(d_ow), bsz, n_out, n_in, p)
+        LAUNCHES["epilogue_poses"] += 1
+        return d_points, d_r, d_t, d_ow, d_pw
+    # the point-order copy: each point's [du..., gw] (no gw on the uniform
+    # path) in one store of 2 floats or 4
+    width = 2 if uniform and n_out == 2 else 4
+    copy = torch.empty((bsz, p, width), dtype=f32, device=dev)
+    n_blk = -(-s_pad // (_EPI_THREADS * _EPI_ROWS))
+    partials = torch.empty((bsz, kp, n_blk), dtype=torch.float64, device=dev)
+    _launch("epilogue_rows", dev, lib.dprast_epilogue_rows, _ptr(buf),
+            _ptr(idx_rows), idx_rows.stride(0), _ptr(pts), _ptr(ow), _ptr(pw),
+            pw.stride(0), *scale, _ptr(partials), kp, _ptr(copy), width,
+            bsz, n_out, n_in, p, s_pad, int(uniform))
+    LAUNCHES["epilogue_rows"] += 1
+    _launch("epilogue_points", dev, lib.dprast_epilogue_points, _ptr(copy),
+            width, _ptr(rot), _ptr(ow), _ptr(pw), pw.stride(0), *scale,
+            _ptr(partials), n_blk, kp, _ptr(d_points), _ptr(d_pw), _ptr(d_t),
+            _ptr(d_r), _ptr(d_ow), bsz, n_out, n_in, p, int(uniform))
     LAUNCHES["epilogue_points"] += 1
     return d_points, d_r, d_t, d_ow, d_pw
 

@@ -548,8 +548,9 @@ def test_wrappers_run_the_twin_only_on_cpu():
             for shape in ((10, 3), (1, 2, 3), (1,), (10,))))
     # every CUDA instance has a counter, and none counted here
     assert tbin.LAUNCHES == {
-        "coords": 0, "tile_count": 0, "epilogue_rows": 0,
-        "epilogue_points": 0, "fwd_splat": 0, "band_fold": 0,
+        "coords": 0, "tile_count": 0, "epilogue_tile": 0,
+        "epilogue_rows": 0, "epilogue_points": 0, "epilogue_poses": 0,
+        "fwd_splat": 0, "band_fold": 0,
         "band_unfold": 0, "bwd_gather": 0,
         "fwd_splat_3d": 0, "bwd_gather_3d": 0, "fwd_splat_bf16": 0,
         "fwd_splat_3d_bf16": 0, "bwd_gather_bf16": 0,

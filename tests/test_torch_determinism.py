@@ -292,14 +292,10 @@ def test_tile_count_plain_matches_bincount(grid, n_poses, n_points):
         tbin._tile_count_plain(key_t, nt_t).numpy(), want)
 
 
-@pytest.mark.parametrize("grid", GRIDS, ids=IDS)
-@pytest.mark.parametrize("weights", ("uniform", "signed"))
-def test_epilogue_fixed_order_repeats(grid, weights):
-    """The pullback epilogue's kernel function (`_epilogue_fixed_plain`,
-    every sum in a fixed order: `csrc/epilogue.cu` on the card) gives the
-    same bits twice, under ``torch.use_deterministic_algorithms(True)``
-    too, and stays within 1e-6 scaled of the torch form."""
-    fx = fixtures(seed=5, n_points=401, batch_size=3, n_in=3,
+def _epilogue_args(grid, weights, bsz):
+    """What the binned pullback hands its epilogue on the standalone
+    pullback's frame, `bsz` poses of 401 points -> (args, kw)."""
+    fx = fixtures(seed=5, n_points=401, batch_size=bsz, n_in=3,
                   n_out=len(grid))
     pts, rot, tr, _, ow, pw = (torch.from_numpy(np.asarray(v, np.float32))
                                for v in fx.values())
@@ -309,7 +305,7 @@ def test_epilogue_fixed_order_repeats(grid, weights):
     else:
         pw = pw - 1.2
     g = torch.from_numpy(np.random.default_rng(7).standard_normal(
-        (3,) + grid).astype(np.float32))
+        (bsz,) + grid).astype(np.float32))
     caught = []
 
     def catch(*args, **kw):
@@ -320,7 +316,13 @@ def test_epilogue_fixed_order_repeats(grid, weights):
     tbin._pullback_from_frame(grid, data[:, :-1], data[:, -1], slot_tile,
                               pts, rot, ow, pw, g, chunk=chunk,
                               pw_uniform=uniform, epilogue=catch)
-    args, kw = caught[0]
+    return caught[0]
+
+
+def _fixed_order_repeats(args, kw):
+    """`_epilogue_fixed_plain` twice, the second under
+    ``torch.use_deterministic_algorithms(True)``: the same bits, within
+    1e-6 scaled of the torch form."""
     first = tbin._epilogue_fixed_plain(*args, **kw)
     was = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(True)
@@ -331,6 +333,24 @@ def test_epilogue_fixed_order_repeats(grid, weights):
     for a, b, c in zip(first, second, tbin._epilogue_plain(*args, **kw)):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
         assert _scaled_err(a, c) <= FP32_TOL
+
+
+@pytest.mark.parametrize("grid", GRIDS, ids=IDS)
+@pytest.mark.parametrize("weights", ("uniform", "signed"))
+def test_epilogue_fixed_order_repeats(grid, weights):
+    """The pullback epilogue's kernel function (`_epilogue_fixed_plain`,
+    every sum in a fixed order: `csrc/epilogue.cu` on the card) gives the
+    same bits twice, under ``torch.use_deterministic_algorithms(True)``
+    too, and stays within 1e-6 scaled of the torch form."""
+    _fixed_order_repeats(*_epilogue_args(grid, weights, 3))
+
+
+@pytest.mark.parametrize("grid", GRIDS[:2], ids=IDS[:2])
+@pytest.mark.parametrize("bsz", (1, 5, 9))
+def test_epilogue_fixed_order_repeats_in_pose_groups(grid, bsz):
+    """The same at 1, 5 and 9 poses, which a single tile's kernel splits
+    into 1, 4 and 8 pose groups, with signed weights."""
+    _fixed_order_repeats(*_epilogue_args(grid, "signed", bsz))
 
 
 @pytest.fixture

@@ -2,8 +2,9 @@
 by the point-id plane and the products and sums that finish the
 gradients.
 
-On the card `splat_binned.pullback_epilogue` launches the two kernels of
-`dprast_torch/csrc/epilogue.cu`, whose function bit for bit is
+On the card `splat_binned.pullback_epilogue` launches the kernels of
+`dprast_torch/csrc/epilogue.cu` (two on a single tile, three on several),
+whose function bit for bit is
 `_epilogue_fixed_plain` (`chip_smoke.py` [B8 epilogue] holds them to it);
 CPU tensors take the torch form `_epilogue_plain`.  Here, on the same
 float32 numpy inputs:
@@ -14,17 +15,24 @@ float32 numpy inputs:
   and a volume, uniform and per-point weights, terms 0 and 1, B = 1 and 3
   (2 in 3-D), 301 points (no multiple of 4);
 - the fixed order against the exact (f64) sums of the same fp32 terms
-  (1e-7 scaled; measured at most 4.6e-8: it sums in fp64 and rounds once)
+  (1e-7 scaled; measured at most 5.6e-8: it sums in fp64 and rounds once)
   and against the torch form on the same rows (1e-6 scaled beyond the
   torch form's own distance from the exact sums; measured at most
-  1.06e-6, in one case of 64, where the torch form's fp32 dot of d_ow is
-  itself 1.0e-6 from exact -- everywhere else below 1e-6);
-- the fixed order's sums (`_tree`, `_block_sums`) against a numpy loop
-  in the kernels' order, bit for bit;
+  1.06e-6, in one case of 24 (8x16x200, weighted, one pose, on both
+  frames), where the torch form is itself 1.02e-6 from exact --
+  everywhere else below 1e-6);
+- the fixed order's sums (`_tree`, `_block_sums`; E1's `_row_sums`, E2's
+  `_chunk_sums` and `_pose_group_sums`) against numpy loops in the
+  kernels' order, bit for bit, E2's warp sums written as its recursive
+  halving lane by lane;
+- the fixed order at 1, 3 and 64 poses (E2's 1, 2 and 8 pose groups) and
+  point counts that leave a chunk and a block part empty, on one tile and
+  two;
 - filler rows (id P) and the zero rows of dead slots move nothing, and
   every point id sits in each pose's frame exactly once, which the
   kernel's plain stores rely on;
-- a NaN in the cotangent: NaN wherever the torch form has it;
+- a NaN in the cotangent, an infinite point weight: NaN and infinities
+  wherever the torch form has them;
 - `pullback_epilogue` on CPU tensors is `_epilogue_plain` bit for bit.
 """
 
@@ -381,3 +389,218 @@ def test_cpu_wrapper_is_the_torch_form(grid, form):
                     tbin._epilogue_plain(*args, **kw)):
         assert torch.equal(a, b)
     assert tbin.LAUNCHES == before
+
+
+def _warp_scatter_loop(vals, off=16):
+    """The kernels' `warp_scatter` written lane by lane: `vals` (32, N) ->
+    {value index: its warp sum} as the lanes hold them.  At offset `off`
+    each lane keeps half of its values (the lower half where its `off` bit
+    is clear), adds its partner's copy and passes the rest on; a pad of an
+    odd count is 0 and ends in no result."""
+    lanes = [[(i, v) for i, v in enumerate(row)] for row in vals]
+    while off:
+        n = len(lanes[0])
+        h = (n + 1) // 2
+        nxt = []
+        for lane in range(32):
+            mine, theirs = lanes[lane], lanes[lane ^ off]
+            if n == 1:
+                keep = [(mine[0][0], mine[0][1] + theirs[0][1])]
+            else:
+                pad = [(None, vals.dtype.type(0))] * (2 * h - n)
+                mine, theirs = mine + pad, theirs + pad
+                half = slice(h, 2 * h) if lane & off else slice(0, h)
+                keep = [(i, a + b) for (i, a), (_, b) in
+                        zip(mine[half], theirs[half])]
+            nxt.append(keep)
+        lanes, off = nxt, off // 2
+    out = {}
+    for lane in lanes:
+        (i, v), = lane
+        if i is not None:
+            assert out.setdefault(i, v) == v or np.isnan(v)
+    return out
+
+
+def _chunk_order(x, groups):
+    """`_chunk_sums` as E2 runs it: per block of 8 / groups chunks of 128
+    points, lane l adds its points 4 l .. 4 l + 3 of its chunk in order (+0
+    past P), `_warp_scatter_loop` adds the lanes, and the block's chunks
+    add in chunk order.  `x` (K, P) -> (K, n_blk)."""
+    k, n = x.shape
+    cpb = 8 // groups
+    n_blk = -(-n // (cpb * 128))
+    x = np.concatenate([x, np.zeros((k, n_blk * cpb * 128 - n), x.dtype)], 1)
+    out = np.zeros((k, n_blk), x.dtype)
+    for q in range(n_blk):
+        chunks = []
+        for c in range(cpb):
+            base = (q * cpb + c) * 128
+            lanes = []
+            for lane in range(32):
+                acc = x[:, base + 4 * lane].copy()
+                for r in range(1, 4):
+                    acc = acc + x[:, base + 4 * lane + r]
+                lanes.append(acc)
+            sums = _warp_scatter_loop(np.stack(lanes))
+            chunks.append(np.array([sums[i] for i in range(k)], x.dtype))
+        acc = chunks[0]
+        for c in range(1, cpb):
+            acc = acc + chunks[c]
+        out[:, q] = acc
+    return out
+
+
+def _row_order(x):
+    """`_row_sums` as E1 runs it: per block of 1,024 frame rows thread t
+    adds rows t, t + 256, t + 512, t + 768 in order (+0 past the end),
+    each warp adds its lanes (`_warp_scatter_loop`) and the eight warp
+    sums add in warp order.  `x` (K, n) -> (K, n_blk)."""
+    k, n = x.shape
+    n_blk = -(-n // 1024)
+    x = np.concatenate([x, np.zeros((k, n_blk * 1024 - n), x.dtype)], 1)
+    out = np.zeros((k, n_blk), x.dtype)
+    for q in range(n_blk):
+        warps = []
+        for w in range(8):
+            lanes = []
+            for lane in range(32):
+                t = 32 * w + lane
+                acc = x[:, q * 1024 + t].copy()
+                for m in range(1, 4):
+                    acc = acc + x[:, q * 1024 + 256 * m + t]
+                lanes.append(acc)
+            sums = _warp_scatter_loop(np.stack(lanes))
+            warps.append(np.array([sums[i] for i in range(k)], x.dtype))
+        acc = warps[0]
+        for w in range(1, 8):
+            acc = acc + warps[w]
+        out[:, q] = acc
+    return out
+
+
+def _mixed(rng, shape, dtype=np.float64):
+    """Values of mixed sign and size, whose sum depends on the order."""
+    return (rng.standard_normal(shape)
+            * 10.0 ** rng.integers(-6, 7, shape)).astype(dtype)
+
+
+@pytest.mark.parametrize("kind,size", [
+    ("rows", 1), ("rows", 1024), ("rows", 5000),
+    ("chunks-1", 301), ("chunks-1", 2100), ("chunks-2", 1000),
+    ("chunks-4", 1029), ("chunks-8", 128), ("chunks-8", 301),
+    ("chunks-8", 1000), ("pose-groups", 1), ("pose-groups", 3),
+    ("pose-groups", 9), ("pose-groups", 64)])
+def test_e1_e2_sums_are_the_kernels_order(kind, size):
+    """The sums of the redesigned E1 and E2 in `_epilogue_fixed_plain`
+    against numpy loops in the kernels' order, bit for bit, on values of
+    mixed sign and size: E1's sums over the frame rows of a pose
+    (`_row_sums`: nine terms of `size` rows), the single tile's sums over
+    the points of a pose (`_chunk_sums`: nine terms of `size` points, with
+    1, 2, 4 or 8 pose groups, which set the chunks a block adds) and its sums over the poses of a point
+    (`_pose_group_sums`: `size` poses of two terms, in the pose groups
+    `_pose_groups` picks for a single tile)."""
+    rng = np.random.default_rng(size)
+    if kind == "rows":
+        x = _mixed(rng, (9, size))
+        got = tbin._row_sums(torch.from_numpy(x)).numpy()
+        want = _row_order(x)
+    elif kind.startswith("chunks"):
+        groups = int(kind.split("-")[1])
+        x = _mixed(rng, (9, size))
+        got = tbin._chunk_sums(torch.from_numpy(x), groups).numpy()
+        want = _chunk_order(x, groups)
+    else:
+        groups = tbin._pose_groups(size)
+        assert groups == min(8, 2 ** int(np.log2(size)))
+        t = _mixed(rng, (size, 2, 5))
+        got = tbin._pose_group_sums(torch.from_numpy(t), groups).numpy()
+        want = np.zeros(5)
+        for j in range(5):
+            total = None
+            for g in range(groups):
+                lo, hi = g * size // groups, (g + 1) * size // groups
+                terms = [t[b, i, j] for b in range(lo, hi) for i in range(2)]
+                acc = terms[0]
+                for v in terms[1:]:
+                    acc = acc + v
+                total = acc if total is None else total + acc
+            want[j] = total
+    np.testing.assert_array_equal(got, want)
+
+
+# the single tile (8x128: E2 on B4's rows) and two tiles (8x192: E1's
+# copy); 1, 3 and 64 poses take 1, 2 and 8 pose groups; 301 and 1,029
+# points are no multiple of a chunk (128) nor of a one-group block (1,024)
+FUSED_CASES = [(grid, bsz, p) for grid in ("8x128", "8x192")
+               for bsz in (1, 3, 64) for p in (301, 1029)]
+
+
+@pytest.mark.parametrize("grid,bsz,n_points", FUSED_CASES)
+@pytest.mark.parametrize("form", ["uniform", "weighted"])
+def test_pose_groups_and_ragged_chunks(grid, bsz, n_points, form):
+    """The kernels' order at 1, 3 and 64 poses and point counts that leave
+    a chunk and a block part empty: the pullback through the fixed order
+    against the f64 oracle, and the fixed order against the exact sums of
+    its terms and the torch form on the same rows.  The uniform path's
+    d_pw is held to the exact sum of B4's gw rows only: at one pose of
+    8x192 and 301 points its sum is 1.16e-5 scaled from the oracle through
+    the fixed order (7.2e-6 through the torch form), B4's fp32 rows
+    summed under cancellation, which no order of the epilogue's sums
+    removes."""
+    size = GRIDS[grid]
+    uniform = form == "uniform"
+    fx = fixtures(seed=bsz, n_points=n_points, batch_size=bsz, n_in=3,
+                  n_out=2)
+    arrays = [np.asarray(v, np.float32) for v in fx.values()]
+    if uniform:
+        arrays[5] = np.full_like(arrays[5], UNIFORM_PW)
+    arrays.append(np.random.default_rng(bsz + 2).standard_normal(
+        (bsz,) + size).astype(np.float32))
+    pts, rot, tr, _, ow, pw, g = map(torch.from_numpy, arrays)
+    if uniform:
+        pw = torch.tensor(UNIFORM_PW).expand(n_points)
+    caught = []
+
+    def catch(*args, **kw):
+        caught.append((args, kw))
+        return tbin._epilogue_fixed_plain(*args, **kw)
+
+    data, slot_tile, chunk = tbin._bwd_frame(size, pts, rot, tr)
+    res = tbin._pullback_from_frame(
+        size, data[:, :-1], data[:, -1], slot_tile, pts, rot, ow, pw, g,
+        chunk=chunk, pw_uniform=uniform, epilogue=catch)
+    ref = raster_pullback_numpy(size, *arrays)
+    for field in FIELDS:
+        if not (uniform and field == "point_weight"):
+            assert _scaled_err(getattr(res, field).numpy(),
+                               ref[field]) < TOL[0], field
+    args, kw = caught[0]
+    plain = tbin._epilogue_plain(*args, **kw)
+    for a, b, x in zip(tbin._epilogue_fixed_plain(*args, **kw), plain,
+                       _exact(*args, **kw)):
+        assert a.dtype == torch.float32 and a.shape == b.shape
+        assert _scaled_err(a.numpy(), x.numpy()) < EXACT_TOL
+        assert _scaled_err(a.numpy(), b.numpy()) < FIXED_TOL + _scaled_err(
+            b.numpy(), x.numpy())
+
+
+@pytest.mark.parametrize("grid", list(GRIDS))
+def test_infinite_weight_lands_where_the_torch_form_puts_it(grid):
+    """An infinite point weight: the fixed order gives NaN and infinities
+    in exactly the entries where the torch form does, and the finite ones
+    within `FIXED_TOL`."""
+    size = GRIDS[grid]
+    arrays = _arrays(size, False, 3)
+    arrays[5][N_POINTS // 3] = np.inf
+    args, kw = _epilogue_args(size, arrays, False)
+    n_bad = 0
+    for a, b in zip(tbin._epilogue_fixed_plain(*args, **kw),
+                    tbin._epilogue_plain(*args, **kw)):
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+        assert torch.equal(torch.isinf(a), torch.isinf(b))
+        fin = torch.isfinite(b)
+        if bool(fin.any()):
+            assert _scaled_err(a[fin].numpy(), b[fin].numpy()) < FIXED_TOL
+        n_bad += int((~torch.isfinite(a)).sum())
+    assert n_bad > 0

@@ -411,3 +411,40 @@ def test_profiler_lists_a_step_by_kernel():
     lines = profile_binned.report_by_kernel(res, top=5)
     assert len(lines) == 1 + min(5, len(res["rows"]))
     assert "fused step" in lines[0]
+
+
+def test_exp_b8_forms_edit_the_current_source(tmp_path, monkeypatch):
+    """Every form of `exp_b8_forms` edits text that `csrc/epilogue.cu`
+    holds once, its copy carries the edit, and its worker is valid
+    Python."""
+    from dprast_torch.benchmarks import exp_b8_forms
+    source = (exp_b8_forms.ROOT / "dprast_torch" / "csrc"
+              / "epilogue.cu").read_text()
+    compile(exp_b8_forms.WORKER, "worker", "exec")
+    monkeypatch.setattr(exp_b8_forms, "OUT", tmp_path)
+    for name, edits in exp_b8_forms.FORMS.items():
+        for old, new in edits:
+            assert source.count(old) == 1, (name, old)
+        copy = exp_b8_forms.make_form(name, edits)
+        text = (copy / "dprast_torch" / "csrc" / "epilogue.cu").read_text()
+        assert all(new in text for _, new in edits), name
+        assert (copy / "chip_smoke.py").exists()
+
+
+@pytest.mark.parametrize("grid", [(128, 128), (300, 200), (8, 16, 200)])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_chip_smoke_b8_bounds(grid, weighted):
+    """`chip_smoke.epilogue_bounds` on the arguments the main path hands
+    the epilogue: a bound for each of the two kernels that run at the
+    shape (one tile: `epilogue_tile`, `epilogue_poses`; several:
+    `epilogue_rows`, `epilogue_points`) and for the function, each
+    bound by bytes, the function's below the sum of the kernels'."""
+    import chip_smoke as cs
+    args, kw = cs.b8_args(tbin, grid, 3, 2000, torch.device("cpu"),
+                          weighted=weighted, terms=0)
+    bounds = cs.epilogue_bounds(tbin, args, kw)
+    kernels = (("epilogue_tile", "epilogue_poses") if tbin._single_tile(grid)
+               else ("epilogue_rows", "epilogue_points"))
+    assert set(bounds) == {*kernels, "function"}
+    assert all(b[0] > 0 and b[1] == "bytes" for b in bounds.values())
+    assert bounds["function"][0] < sum(bounds[k][0] for k in kernels)

@@ -169,15 +169,12 @@ def test_tile_count_and_scale_make_no_host_round_trip(grid, spies):
     assert sums.dtype == torch.int64 and shifts.shape == (2, nt)
 
 
-@pytest.mark.parametrize("grid", [(64, 64), (300, 200), (8, 16, 200)])
-@pytest.mark.parametrize("uniform", [False, True])
-def test_epilogue_makes_no_host_round_trip(grid, uniform, spies):
-    """The pullback's epilogue (`pullback_epilogue`: its torch form on the
-    CPU, two kernels on the card) and the kernels' function in torch
-    (`_epilogue_fixed_plain`) read nothing back to the host."""
+def _epilogue_round_trips(grid, uniform, spies, n_poses):
+    """`pullback_epilogue` and `_epilogue_fixed_plain` at `n_poses` poses
+    of 500 points read nothing back to the host."""
     from dprast_torch.ops import splat_binned as tbin
-    pts, rot, tr, g = _inputs(grid, 2, 500)
-    ow = torch.ones(2)
+    pts, rot, tr, g = _inputs(grid, n_poses, 500)
+    ow = torch.ones(n_poses)
     pw = torch.full((500,), 1.5) if uniform else torch.from_numpy(
         np.random.default_rng(6).uniform(0.5, 2.0, 500).astype(np.float32))
     caught = []
@@ -195,3 +192,20 @@ def test_epilogue_makes_no_host_round_trip(grid, uniform, spies):
     fixed = tbin._epilogue_fixed_plain(*args, **kw)
     assert spies == [], f"host round trips: {spies}"
     assert fixed[0].shape == pts.shape and fixed[4].shape == (500,)
+
+
+@pytest.mark.parametrize("grid", [(64, 64), (300, 200), (8, 16, 200)])
+@pytest.mark.parametrize("uniform", [False, True])
+def test_epilogue_makes_no_host_round_trip(grid, uniform, spies):
+    """The pullback's epilogue (`pullback_epilogue`: its torch form on the
+    CPU, two kernels on the card) and the kernels' function in torch
+    (`_epilogue_fixed_plain`) read nothing back to the host."""
+    _epilogue_round_trips(grid, uniform, spies, 2)
+
+
+@pytest.mark.parametrize("grid", [(64, 64), (300, 200)])
+@pytest.mark.parametrize("n_poses", [1, 9])
+def test_epilogue_pose_groups_make_no_host_round_trip(grid, n_poses, spies):
+    """The same at 1 and 9 poses (one pose group and eight on a single
+    tile), with per-point weights."""
+    _epilogue_round_trips(grid, False, spies, n_poses)
