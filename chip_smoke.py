@@ -28,7 +28,11 @@ on a single tile, the frame gather after the sort on several.  The
 `_prep_binned` bit for bit, each `_enc` instance to the same kernel on
 lane planes and to its plain version (B4 bit for bit, B1 within its
 reordering of fp32 sums), times them, and fails if a fused step makes
-lane planes on the card.
+lane planes on the card.  Before the sort, B9 (`slot_prep`, two kernels)
+writes the per-tile counts, the sort's input keys and the slot table;
+the [B9 slot prep] phase holds them to the eager chain they replace
+(`_slot_prep_plain`) bit for bit, packed and unpacked, and times both in
+turns.
 
 At small sizes the forward and `raster_pullback` are checked against the
 float64 numpy oracles, in 2-D and 3-D.  Then it times the kernels
@@ -235,15 +239,16 @@ def _b4_bound(slot_tile, n_read, n_out, s_pad, win, chunk, ops_per_row):
     return bound(n_bytes, rows * ops_per_row)
 
 
-def frame_gather_bound(data, n_out, n_points):
+def frame_gather_bound(data, n_out, n_points, index):
     """The frame gather writing `data` (B, n_planes, s_pad): the sort's
-    int64 index of every frame row, each point's n_out encoded values and
-    (where the frame has a weight plane) its weight read once, the frame
-    written once; no arithmetic."""
+    index of every frame row (`index`: 4 bytes a row where it is the packed
+    int32 keys, 8 where the int64 permutation), each point's n_out encoded
+    values and (where the frame has a weight plane) its weight read once,
+    the frame written once; no arithmetic."""
     bsz, n_planes, s_pad = data.shape
     weighted = n_planes == n_out + 2
-    n_bytes = (bsz * s_pad * 8 + (n_out * bsz + weighted) * n_points * 4
-               + data.numel() * 4)
+    n_bytes = (bsz * s_pad * index.element_size()
+               + (n_out * bsz + weighted) * n_points * 4 + data.numel() * 4)
     return bound(n_bytes, 0)
 
 
@@ -401,7 +406,7 @@ def phase_train(dprast_torch, sb, pts, rot, tr, pw, cots, totals):
     each run between a reset and a read of the launch counts."""
     want = {FLAGSHIP: ("coords", "fwd_splat_enc", "bwd_gather_enc",
                        *EPILOGUE_TILE),
-            MULTI_TILE: ("coords", "tile_count", "frame_gather",
+            MULTI_TILE: ("coords", "slot_prep", "frame_gather",
                          "fwd_splat_enc", "band_fold", "bwd_gather_grid_enc",
                          *EPILOGUE_TILES)}
     for grid in GRIDS:
@@ -415,7 +420,7 @@ def phase_train(dprast_torch, sb, pts, rot, tr, pw, cots, totals):
                 totals[name] += launched[name]
             for name, count in launched.items():
                 # one launch of each kernel of the path and no other: B1
-                # and B4 read the frame; at 1024^2 the tile count and the
+                # and B4 read the frame; at 1024^2 B9, the sort and the
                 # frame gather make it, B4 reads the cotangent and B3 does
                 # not run; B8's kernels finish the gradients
                 check(count == (name in want[grid]),
@@ -865,7 +870,7 @@ def b7_writers(sb, tag, grid, pts, rot, tr, pw):
         return sb._keys_and_local(*args, **kw)
 
     halo = not sb._single_tile(grid)
-    want = ({"coords": 1, "tile_count": 1, "frame_gather": 1} if halo
+    want = ({"coords": 1, "slot_prep": 1, "frame_gather": 1} if halo
             else {"coords": 1})
     plain_name = "_prep_binned" if halo else "_prep_direct"
     apart = 0
@@ -911,20 +916,46 @@ def b7_writer_times(sb, smi, tag, grid, pts, rot, tr):
         bnd = direct_frame_bound(pts, rot, tr, *run())
     else:
         key, locs, nt = sb._keys_and_local(grid, ts, pts, rot, tr)
-        perm = sb._slot_order(key, nt, chunk, True, True)[0]
+        perm, sorted_keys, _ = sb._slot_order(key, nt, chunk, True, True)
+        index = perm if sorted_keys is None else sorted_keys
         counter, name = "frame_gather", "frame_gather_kernel"
-        run = functools.partial(sb.frame_gather, perm, locs, None)
-        plain = functools.partial(sb._frame_gather_plain, perm, locs, None)
-        bnd = frame_gather_bound(run(), len(grid), pts.shape[0])
+        run = functools.partial(sb.frame_gather, index, locs, None)
+        plain = functools.partial(sb._frame_gather_plain, index, locs, None)
+        bnd = frame_gather_bound(run(), len(grid), pts.shape[0], index)
+        library = gather_library(sb, index, locs)
     entry = {"ms": time_ms(run), "dev_us": kernel_device_us(run, name,
                                                             calls=5),
-             "plain_ms": time_ms(plain, reps=5, warmup=1), "bound": bnd}
+             "plain_ms": time_ms(plain, reps=5, warmup=1), "bound": bnd,
+             "library_ms": None}
+    if counter != "coords":
+        entry["library_ms"] = time_ms(library)
+        entry["library_busy_us"] = device_busy(library)[0]
     what = "B6 writing the frame" if counter == "coords" else counter
     print(f"[B7 frame] {smi} | {tag} {what}: {entry['ms']:.4f} ms (plain "
           f"{entry['plain_ms']:.4f}), device {entry['dev_us']:.2f} us, "
           f"{bnd[0] * 1e3 / max(entry['dev_us'], 1e-9):.1%} of its "
-          f"{bnd[0] * 1e3:.1f} us bound (by {bnd[1]})")
+          f"{bnd[0] * 1e3:.1f} us bound (by {bnd[1]})"
+          + ("" if entry["library_ms"] is None else
+             f"; one torch.gather of the prepared table "
+             f"{entry['library_ms']:.4f} ms, device busy "
+             f"{entry['library_busy_us']:.2f} us"))
     return counter, entry
+
+
+def gather_library(sb, index, locs):
+    """The frame gather's one-call yardstick: one `torch.gather` of a
+    prepared (B, n_planes, P + 1) table (the encoded planes and the point
+    ids, a filler column at P) by a prepared index of each row's source,
+    clamped to P -> the call, its inputs made here once."""
+    bsz, p = locs[0].shape
+    ids = torch.arange(p, dtype=torch.float32, device=locs[0].device)
+    table = torch.stack([torch.cat([pl_, torch.zeros(
+        (bsz, 1), device=pl_.device)], dim=1) for pl_ in locs] + [
+        torch.cat([ids, ids.new_full((1,), float(p))]).expand(bsz, p + 1)],
+        dim=1).contiguous()
+    at = torch.clamp(sb._frame_ids(index, p), max=p)[:, None, :].expand(
+        bsz, table.shape[1], index.shape[1]).contiguous()
+    return lambda: torch.gather(table, 2, at)
 
 
 def b7_calls(sb, frame, win, ts, g_in, layout, terms, weighted):
@@ -1245,10 +1276,10 @@ def phase_3d(dprast_torch, sb, dev):
             torch.cuda.synchronize()
             launched = dict(sb.LAUNCHES)
             check(launched["fwd_splat_3d_enc"] >= 1
-                  and launched["coords"] == launched["tile_count"]
+                  and launched["coords"] == launched["slot_prep"]
                   == launched["frame_gather"] == 1,
-                  f"{tag}: B6, the tile count, the frame gather and B1-3D "
-                  f"ran in the forward")
+                  f"{tag}: B6, B9, the frame gather and B1-3D ran in the "
+                  f"forward")
             check(img.shape == (n_poses,) + grid and
                   bool(torch.isfinite(img).all()), f"{tag}: finite image")
             ref = dprast_torch.raster(grid, pts, rot, tr, bg, ow, w,
@@ -1273,10 +1304,10 @@ def phase_3d(dprast_torch, sb, dev):
                 check(launched[name] >= 1,
                       f"{tag}: {name} ran in the training step")
             # the fused pair reuses the forward's frame
-            check(launched["coords"] == launched["tile_count"]
+            check(launched["coords"] == launched["slot_prep"]
                   == launched["frame_gather"] == 1,
-                  f"{tag}: B6, the tile count and the frame gather ran once "
-                  f"in the training step")
+                  f"{tag}: B6, B9 and the frame gather ran once in the "
+                  f"training step")
             if n_poses == 1:
                 for name in launched:
                     train_launches[name] += launched[name]
@@ -2025,7 +2056,7 @@ SHARDED_MESH = (2, 2)
 SHARDED_WANT = {FLAGSHIP: {"coords": 1, "fwd_splat_enc": 1,
                            "bwd_gather_enc": 1, "epilogue_tile": 1,
                            "epilogue_poses": 1},
-                MULTI_TILE: {"coords": 1, "tile_count": 1,
+                MULTI_TILE: {"coords": 1, "slot_prep": 1,
                              "frame_gather": 1, "fwd_splat_enc": 1,
                              "band_fold": 1, "bwd_gather_grid_enc": 1,
                              "epilogue_rows": 1, "epilogue_points": 1}}
@@ -2398,8 +2429,10 @@ def phase_no_sync(dprast_torch, dev):
     return held
 
 
-# [tile count]: the main path's multi-tile shapes
-TILE_COUNT_CASES = ((MULTI_TILE, N_POSES, N_POINTS), (VOLUME, 1, 1_000_000))
+# [B9 slot prep]: the main path's multi-tile shapes, timed; and a cloud
+# whose ids do not fit the packed sort key (the stable sort's path)
+SLOT_PREP_CASES = ((MULTI_TILE, N_POSES, N_POINTS), (VOLUME, 1, 1_000_000))
+SLOT_PREP_UNPACKED = (VOLUME, 1, 2 ** 22)
 
 
 def main_inputs(grid, n_poses, n_points, dev):
@@ -2415,59 +2448,90 @@ def main_inputs(grid, n_poses, n_points, dev):
     return tuple(torch.from_numpy(a).to(dev) for a in arrays)
 
 
-def phase_tile_count(sb, dev, smi):
-    """[tile count]: the tile count kernel against its plain version (the
-    ranged `histc` it replaces) bit for bit at `TILE_COUNT_CASES`, on the
-    keys B6 writes there and on random keys that fill every bin of [0, nt];
-    timed in turns (kernel, histc,
-    histc, kernel) by CUDA events and by device busy time, the kernel's
-    own device time against its bound, and the one `torch.histc` call on
-    the prepared bins as the library's.  -> {grid: entry}."""
+def slot_prep_bound(key, out):
+    """B9 on the keys `key` (B, P): the keys read once, the sort's input,
+    the slot table and the counts (`out`) written once; no arithmetic
+    that counts against the memory."""
+    return bound((key.numel() + sum(t.numel() for t in out)) * 4, 0)
+
+
+def phase_slot_prep(sb, dev, smi):
+    """[B9 slot prep]: the sort's input, the slot table and the counts of
+    `slot_prep` bit-equal to `_slot_prep_plain` (the eager chain it
+    replaces) at `SLOT_PREP_CASES` and `SLOT_PREP_UNPACKED`, on the keys
+    B6 writes there and on random keys that fill every bin of [0, nt],
+    with ``min_chunk_per_tile`` both ways, packed where the ids fit and
+    unpacked; at `SLOT_PREP_CASES` timed in turns (kernel, eager, eager,
+    kernel) by CUDA events and by device busy time, each kernel's own
+    device time against the bound, and the one ranged `torch.histc` call on
+    the prepared bins as the count's library call.  -> {grid: entry}."""
     out = {}
-    for grid, n_poses, n_points in TILE_COUNT_CASES:
+    for grid, n_poses, n_points in SLOT_PREP_CASES + (SLOT_PREP_UNPACKED,):
         pts, rot, tr = main_inputs(grid, n_poses, n_points, dev)[:3]
         key, _, nt = sb._keys_and_local(grid, sb.tile_shape_for(grid), pts,
                                         rot, tr)
-        got = sb.tile_count(key, nt)
-        ref = sb._tile_count_plain(key, nt)
+        chunk = sb._default_chunk(grid, n_points)
+        fits = (2 * nt + 1) * sb._id_span(n_points) + n_points < 2 ** 31
         wild = torch.randint(0, nt + 1, key.shape, dtype=torch.int32,
                              device=dev)
-        same_wild = torch.equal(sb.tile_count(wild, nt),
-                                sb._tile_count_plain(wild, nt))
-        torch.cuda.synchronize()
-        same = torch.equal(got, ref) and int(got.sum()) == key.numel()
         tag = f"{grid} x {n_poses} x {n_points}"
-        print(f"[tile count] {tag}: counts {tuple(got.shape)} bit-equal to "
-              f"the ranged histc on B6's keys {same}, on random keys in "
-              f"[0, nt] {same_wild}")
-        check(same and same_wild, f"[tile count] {tag} bit-equal to its "
-                                  f"plain version")
+        for keys, label in ((key, "B6's keys"), (wild, "random keys")):
+            for min_chunk in (True, False):
+                for packed in (True, False) if fits else (False,):
+                    got = sb.slot_prep(keys, nt, chunk, min_chunk, packed)
+                    ref = sb._slot_prep_plain(keys, nt, chunk, min_chunk,
+                                              packed)
+                    torch.cuda.synchronize()
+                    same = [torch.equal(g, r) for g, r in zip(got, ref)]
+                    print(f"[B9 slot prep] {tag}, {label}, min_chunk_per_"
+                          f"tile {min_chunk}, packed {packed}: keys2 "
+                          f"{tuple(got[0].shape)}, slot table "
+                          f"{tuple(got[1].shape)}, counts "
+                          f"{tuple(got[2].shape)} bit-equal to "
+                          f"_slot_prep_plain {same}")
+                    check(all(same) and int(got[2].sum()) == keys.numel(),
+                          f"[B9 slot prep] {tag} ({label}, {min_chunk}, "
+                          f"{packed}) bit-equal to its plain version")
+        if (grid, n_poses, n_points) == SLOT_PREP_UNPACKED:
+            check(not fits, f"[B9 slot prep] {tag} takes the unpacked path")
+            continue
         offs = torch.arange(n_poses, device=dev)[:, None] * (nt + 1)
         bins = (key.double() + offs).reshape(-1)
         n_bins = n_poses * (nt + 1)
-        fns = (lambda: sb.tile_count(key, nt),
-               lambda: sb._tile_count_plain(key, nt))
+        fns = (lambda: sb.slot_prep(key, nt, chunk, True, fits),
+               lambda: sb._slot_prep_plain(key, nt, chunk, True, fits))
         ms, busy = {0: [], 1: []}, {0: [], 1: []}
         for i in (0, 1, 1, 0):
             ms[i].append(time_ms(fns[i]))
-            busy[i].append(device_busy(fns[i])[0])
+            busy[i].append(device_busy(fns[i]))
+        count_us = kernel_device_us(fns[0], "slot_count_kernel")
+        fill_us = kernel_device_us(fns[0], "slot_fill_kernel")
         entry = {
             "ms": sum(ms[0]) / 2, "plain_ms": sum(ms[1]) / 2,
-            "busy_us": sum(busy[0]) / 2, "plain_busy_us": sum(busy[1]) / 2,
-            "dev_us": kernel_device_us(fns[0], "tile_count_kernel"),
-            "library_ms": time_ms(lambda: torch.histc(
-                bins, bins=n_bins, min=-0.5, max=n_bins - 0.5)),
-            "bound": bound(key.numel() * 4 + got.numel() * 4, 0)}
+            "busy_us": sum(b[0] for b in busy[0]) / 2,
+            "plain_busy_us": sum(b[0] for b in busy[1]) / 2,
+            "launches": busy[0][0][1], "plain_launches": busy[1][0][1],
+            "count_us": count_us, "fill_us": fill_us,
+            "dev_us": count_us + fill_us,
+            "bound": slot_prep_bound(key, fns[0]())}
+        histc = functools.partial(torch.histc, bins, bins=n_bins, min=-0.5,
+                                  max=n_bins - 0.5)
+        entry["library_ms"] = time_ms(histc)
+        entry["library_busy_us"] = device_busy(histc)[0]
         out[grid] = entry
         share = entry["bound"][0] * 1e3 / max(entry["dev_us"], 1e-9)
-        print(f"[tile count] {smi} | {tag} in turns (kernel, histc, histc, "
-              f"kernel): {ms[0][0]:.4f}, {ms[1][0]:.4f}, {ms[1][1]:.4f}, "
-              f"{ms[0][1]:.4f} ms; device busy {entry['busy_us']:.2f} us "
-              f"(the zero-fill and the kernel) against the plain version's "
-              f"{entry['plain_busy_us']:.2f}; the kernel {entry['dev_us']:.2f}"
-              f" us, {share:.1%} of its {entry['bound'][0] * 1e3:.2f} us "
-              f"bound; one histc "
-              f"call on the prepared bins {entry['library_ms']:.4f} ms")
+        print(f"[B9 slot prep] {smi} | {tag} in turns (kernel, eager, "
+              f"eager, kernel): {ms[0][0]:.4f}, {ms[1][0]:.4f}, "
+              f"{ms[1][1]:.4f}, {ms[0][1]:.4f} ms; device busy "
+              f"{entry['busy_us']:.2f} us in {entry['launches']:.0f} "
+              f"launches (the zero-fill and the two kernels) against the "
+              f"eager chain's {entry['plain_busy_us']:.2f} us in "
+              f"{entry['plain_launches']:.0f}; pass 1 {count_us:.2f} us, "
+              f"pass 2 {fill_us:.2f} us, together {share:.1%} of their "
+              f"{entry['bound'][0] * 1e3:.2f} us bound; one histc call on "
+              f"the prepared bins (the count alone) "
+              f"{entry['library_ms']:.4f} ms, device busy "
+              f"{entry['library_busy_us']:.2f} us")
     return out
 
 
@@ -2856,9 +2920,10 @@ def deterministic_worker():
     print(f"[deterministic] {n} calls ran twice each under "
           f"torch.use_deterministic_algorithms(True), all bit-equal; "
           f"launches {launched}")
-    check(launched.get("tile_count", 0) >= 1 and
+    check(launched.get("slot_prep", 0) >= 1 and
+          launched.get("frame_gather", 0) >= 1 and
           launched.get("fwd_splat_enc", 0) >= 1,
-          "[deterministic] the tile count and B1 ran under the mode")
+          "[deterministic] B9, the frame gather and B1 ran under the mode")
 
 
 def phase_deterministic():
@@ -3101,8 +3166,10 @@ def main():
     # --- 7c. B7: the frame writers, and B1 and B4 on the frame ---
     b7 = phase_b7(dprast_torch, sb, dev, smi)
 
-    # --- 7d. the tile count of the binning sort ---
-    counts = phase_tile_count(sb, dev, smi)
+    # --- 7d. B9: the binning sort's preparation ---
+    t0 = time.perf_counter()
+    slot_prep = phase_slot_prep(sb, dev, smi)
+    print(f"[B9 slot prep] took {time.perf_counter() - t0:.1f} s")
 
     # --- 7e. B8: the pullback's epilogue ---
     t0 = time.perf_counter()
@@ -3402,7 +3469,8 @@ def main():
         return kernel(name, source, replaces, counted[name],
                       b7["errs"][name] if err is None else err, t["ms"],
                       t["plain_ms"], t["bound"], b7_shape[grid],
-                      variant=variant, device_us=t["dev_us"])
+                      variant=variant, device_us=t["dev_us"],
+                      library_ms=t.get("library_ms"))
 
     def b1_variant(n_poses, grid, terms):
         size = sb._b1_cluster(dev, n_poses, sb.n_tiles(grid),
@@ -3451,23 +3519,34 @@ def main():
     # the stack of `_prep_binned`, which XLA fuses)
     for grid, counted in ((MULTI_TILE, train_launches),
                           (VOLUME, launches_3d)):
-        kernels.append(b7_kernel(
+        entry = b7_kernel(
             grid, "frame_gather", gather_cu, f"{src}:334-346", counted,
             err=b7["errs"]["frame"],
-            variant="writes the multi-tile frame after torch.sort; "
-                    "bit-equal to _prep_binned"))
-    # the tile count of the binning sort (replaces `_prep_binned`'s count,
-    # which XLA fuses)
+            variant="writes the multi-tile frame after torch.sort from "
+                    "the packed sorted keys and B6's interleaved planes; "
+                    "bit-equal to _prep_binned; library_ms is one "
+                    "torch.gather of a prepared table")
+        entry["library_busy_us"] = b7["times"][grid, "frame_gather"][
+            "library_busy_us"]
+        kernels.append(entry)
+    # B9, the binning sort's preparation (replaces `_prep_binned`'s count,
+    # offsets, filler keys, packed keys and slot table, which XLA fuses)
     for grid, counted, shape in ((MULTI_TILE, train_launches, mt),
                                  (VOLUME, launches_3d, vol)):
-        t = counts[grid]
-        kernels.append(kernel(
-            "tile_count", "dprast_torch/csrc/tile_count.cu",
-            f"{src}:279-311", counted["tile_count"], 0.0, t["ms"],
-            t["plain_ms"], t["bound"], shape,
-            variant="integer atomics into a shared histogram; bit-equal to "
-                    "the ranged histc it replaces",
-            device_us=t["dev_us"], library_ms=t["library_ms"]))
+        t = slot_prep[grid]
+        entry = kernel(
+            "slot_prep", "dprast_torch/csrc/slot_prep.cu", f"{src}:279-353",
+            counted["slot_prep"], 0.0, t["ms"], t["plain_ms"], t["bound"],
+            shape,
+            variant="two kernels (the count and the sort's real keys; the "
+                    "fillers, the tail and the slot table); bit-equal to "
+                    "the eager _slot_prep_plain; library_ms is the ranged "
+                    "histc of the count alone",
+            device_us=t["dev_us"], library_ms=t["library_ms"])
+        entry.update(count_us=t["count_us"], fill_us=t["fill_us"],
+                     busy_us=t["busy_us"], plain_busy_us=t["plain_busy_us"],
+                     library_busy_us=t["library_busy_us"])
+        kernels.append(entry)
     # B8, the pullback's epilogue (replaces the XLA code after B4's
     # `pallas_call`, which XLA fuses), at the main path's three shapes:
     # each kernel that runs there

@@ -29,7 +29,7 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dprast_torch"
 _SOURCES = ("fwd_splat.cu", "band_fold.cu", "band_unfold.cu",
             "bwd_gather.cu", "coords.cu", "frame_gather.cu",
-            "tile_count.cu", "epilogue.cu")
+            "slot_prep.cu", "epilogue.cu")
 # headers the sources include: not compiled on their own, but part of the
 # library's name, so that an edited header rebuilds it
 _HEADERS = ("slots.cuh",)
@@ -126,11 +126,12 @@ def load():
                                       i32, i32, i32, i32, i32, i32, i32, i32,
                                       i32, i32, i32, f32, f32, f32, vp]
         lib.dprast_coords.restype = i32
-        lib.dprast_frame_gather.argtypes = [vp, i64, vp, vp, vp, i32, vp, vp,
+        lib.dprast_frame_gather.argtypes = [vp, i64, i32, vp, i32, vp, vp,
                                             i32, i32, i32, i64, vp]
         lib.dprast_frame_gather.restype = i32
-        lib.dprast_tile_count.argtypes = [vp, vp, i32, i32, i32, vp]
-        lib.dprast_tile_count.restype = i32
+        lib.dprast_slot_prep.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32,
+                                         i32, i32, i32, vp]
+        lib.dprast_slot_prep.restype = i32
         lib.dprast_epilogue_rows.argtypes = [vp, vp, i64, vp, vp, vp, i64,
                                              f32, f32, f32, vp, i32, vp, i32,
                                              i32, i32, i32, i32, i64, i32, vp]

@@ -17,9 +17,11 @@ The forward, for a batch of B poses:
    A multi-tile grid sorts the points by tile into a padded *slot frame*:
    slot ``s`` covers rows ``[s*chunk, (s+1)*chunk)`` of one tile, every
    tile owns at least one slot, and ``slot_tile[b, -1]`` counts the live
-   slots; on the card one kernel writes the frame after the sort
-   (`frame_gather`; plain: `_prep_binned`).  A 3-D grid is always
-   multi-tile: (7, 15, 127)-voxel bodies.
+   slots; on the card two kernels write the sort's input keys and the
+   slot table (`slot_prep`, kernel B9), `torch.sort` sorts, and one
+   kernel writes the frame after the sort (`frame_gather`; plain:
+   `_prep_binned`).  A 3-D grid is always multi-tile: (7, 15, 127)-voxel
+   bodies.
 3. **Planes.** The JAX package decodes the frame outside its kernels into
    lane planes (``[iy0, dly, (w,) dlx, ix0]`` per row in 2-D,
    ``[iz0, dlz, iy0, dly, (w,) dlx, ix0]`` in 3-D, `_planes_fwd`).  Here
@@ -125,7 +127,7 @@ _B4_ENC = tuple(k for k in _B4_INSTANCES
 # path went through the kernels (CPU twin calls do not count); "coords"
 # counts B6 whether it writes planes or a single tile's frame
 LAUNCHES = dict.fromkeys(
-    ["coords", "tile_count", "frame_gather", "band_fold", "band_unfold",
+    ["coords", "slot_prep", "frame_gather", "band_fold", "band_unfold",
      "epilogue_tile", "epilogue_poses", "epilogue_rows", "epilogue_points",
      *_B1_INSTANCES.values(), *_B4_INSTANCES.values(),
      *(name + _GRID_LOADS for (_, _, layout), name in _B4_INSTANCES.items()
@@ -246,8 +248,10 @@ def _keys_and_local(grid_size, ts, points, rotation, translation,
     `_keys_and_local_plain`).  CPU tensors take the plain twin, CUDA
     tensors the kernel in `csrc/coords.cu`, which gives the twin's bits in
     one launch; inputs of another type are cast to contiguous fp32 first,
-    as the twin casts them.  With ``want_key=False`` `key` is None (the
-    kernel leaves the keys unwritten)."""
+    as the twin casts them.  On the card the planes are views of one (B,
+    P, L) tensor that holds a point's planes side by side (`_lanes`), the
+    layout `frame_gather` reads.  With ``want_key=False`` `key` is None
+    (the kernel leaves the keys unwritten)."""
     if points.device.type == "cpu":
         return _keys_and_local_plain(grid_size, ts, points, rotation,
                                      translation, want_key)
@@ -257,11 +261,35 @@ def _keys_and_local(grid_size, ts, points, rotation, translation,
     p = pts.shape[0]
     key = torch.empty((bsz, p), dtype=torch.int32, device=pts.device) \
         if want_key else None
-    planes = torch.empty((n_out, bsz, p), dtype=torch.float32,
+    planes = torch.empty((bsz, p, _lanes(n_out)), dtype=torch.float32,
                          device=pts.device)
     _coords_launch(grid_size, ts, pts, rot, tr, key, planes, None, None, p,
                    -1, 0)
-    return key, list(planes.unbind(0)), n_tiles(grid_size, ts)
+    return key, list(planes.unbind(-1)[:n_out]), n_tiles(grid_size, ts)
+
+
+def _lanes(n_out):
+    """The lanes a point takes in B6's interleaved planes: its n_out
+    encoded coordinates, padded to 4 in 3-D, so that one 8- or 16-byte
+    load reads them."""
+    return 2 if n_out == 2 else 4
+
+
+def _interleaved(locs):
+    """The (B, P, L) tensor whose first lanes are the planes `locs`, where
+    they are B6's interleaved views (`_keys_and_local` on the card);
+    raises otherwise."""
+    bsz, p = locs[0].shape
+    lanes = _lanes(len(locs))
+    if not (2 <= len(locs) <= 3 and all(
+            pl_.shape == (bsz, p) and pl_.dtype == torch.float32
+            and pl_.stride() == (p * lanes, lanes)
+            and pl_.data_ptr() == locs[0].data_ptr() + 4 * i
+            for i, pl_ in enumerate(locs))):
+        got = [(tuple(pl_.shape), pl_.stride()) for pl_ in locs]
+        raise ValueError(f"frame_gather: planes {got} are not B6's "
+                         f"interleaved (B, P, {lanes}) planes")
+    return locs[0].as_strided((bsz, p, lanes), (p * lanes, lanes, 1))
 
 
 def _coords_inputs(grid_size, ts, points, rotation, translation):
@@ -290,7 +318,7 @@ def _coords_inputs(grid_size, ts, points, rotation, translation):
 def _coords_launch(grid_size, ts, pts, rot, tr, key, planes, weight, slots,
                    n_rows, id_plane, n_slots):
     """One launch of B6 on checked inputs (`_coords_inputs`), into
-    `planes` (n_out, B, P) with ``id_plane=-1``, or into a single tile's
+    `planes` (B, P, `_lanes`) with ``id_plane=-1``, or into a single tile's
     frame (B, id_plane + 1, n_rows) and its slot table `slots`."""
     n_out = len(grid_size)
     bsz, _, n_in = rot.shape
@@ -410,7 +438,18 @@ def _slot_order(key, nt, chunk, min_chunk_per_tile, pack_idx):
     point ``perm[b, r]`` where that is below P, else it is a filler row.
     `sorted_keys` (B, s_pad) carries the packed point ids (``key * P2 +
     id``) where ``pack_idx`` and the bits fit an int32, else it is None
-    (a stable sort; the id is the payload ``perm``).
+    (a stable sort; the id is the payload ``perm``).  The sort's input and
+    the slot table come from `slot_prep` (B9)."""
+    p = key.shape[1]
+    packed = pack_idx and (2 * nt + 1) * _id_span(p) + p < 2 ** 31
+    keys2, slot_tile, _ = slot_prep(key, nt, chunk, min_chunk_per_tile,
+                                    packed)
+    sorted_keys, perm = torch.sort(keys2, dim=1, stable=not packed)
+    return perm, sorted_keys if packed else None, slot_tile
+
+
+def _slot_prep_plain(key, nt, chunk, min_chunk_per_tile, packed):
+    """Plain version of `slot_prep`, in eager torch ops.
 
     Per-tile counts come from the unsorted keys, so filler rows can be
     emitted up front with interleaving keys -- reals of tile t sort as
@@ -422,12 +461,11 @@ def _slot_order(key, nt, chunk, min_chunk_per_tile, pack_idx):
     i32 = torch.int32
     s_pad = _slot_frame_size(p, nt, chunk)
     n_slots = s_pad // chunk
-
     p2 = _id_span(p)
-    packed = pack_idx and (2 * nt + 1) * p2 + p < 2 ** 31
 
     # per-tile counts; the no-overlap sentinel nt has its own bin, dropped
-    counts = tile_count(key, nt)[:, :nt]
+    counts_all = _tile_count_plain(key, nt)
+    counts = counts_all[:, :nt]
     padded = -(-counts // chunk) * chunk
     if min_chunk_per_tile:
         padded = torch.clamp(padded, min=chunk)
@@ -452,49 +490,66 @@ def _slot_order(key, nt, chunk, min_chunk_per_tile, pack_idx):
         sub = torch.cat([torch.arange(p, dtype=i32, device=dev),
                          torch.full((n_fill,), p, dtype=i32, device=dev)])
         keys2 = keys2 * p2 + sub
-    sorted_keys, perm = torch.sort(keys2, dim=1, stable=not packed)
     # slot s belongs to tile #(count of poffs[t+1] <= s*chunk)
     starts = (torch.arange(n_slots, device=dev) * chunk).expand(bsz, n_slots)
     tile_of = torch.searchsorted(poffs[:, 1:].long().contiguous(),
                                  starts.contiguous(), right=True)
     slot_tile = torch.clamp(tile_of, max=nt - 1).to(i32)
     n_live = poffs[:, nt:] // chunk
-    return (perm[:, :s_pad], sorted_keys[:, :s_pad] if packed else None,
-            torch.cat([slot_tile, n_live], dim=1))
+    return keys2, torch.cat([slot_tile, n_live], dim=1), counts_all
+
+
+def slot_prep(key, nt, chunk, min_chunk_per_tile, packed):
+    """B9, the binning sort's preparation: the tile keys `key` (B, P)
+    int32 in [0, nt] (``nt``: no tile) -> ``(keys2 (B, s_pad), slot_tile
+    (B, n_slots + 1), counts (B, nt + 1))``, all int32.  `keys2` is the
+    sort's input: ``2 key`` for the real rows, then per tile t exactly
+    ``padded - count`` filler rows keyed ``2t + 1`` and the rest ``2nt +
+    1`` (each times ``_id_span(P)`` plus the row's id, P for a filler,
+    where `packed`); `slot_tile` the tile of each slot and, last, the live
+    slots; `counts` the points of each tile, the sentinel bin last.  CPU
+    tensors take the plain version `_slot_prep_plain`, CUDA tensors the
+    two kernels of `csrc/slot_prep.cu` (integer arithmetic: the same bits
+    in any order, and no host sync)."""
+    if key.device.type == "cpu":
+        return _slot_prep_plain(key, nt, chunk, min_chunk_per_tile, packed)
+    bsz, p = key.shape
+    p2 = _id_span(p)
+    s_pad = _slot_frame_size(p, nt, chunk)
+    if not (1 <= bsz <= 65535 and 1 <= p and 1 <= nt <= 4096
+            and chunk >= 4 and chunk % 4 == 0 and s_pad < 2 ** 31):
+        raise ValueError(f"slot_prep: B={bsz}, P={p}, nt={nt}, "
+                         f"chunk={chunk} exceed the kernel's launch bounds")
+    if packed and (2 * nt + 1) * p2 + p >= 2 ** 31:
+        raise ValueError(f"slot_prep: packed keys of nt={nt}, P={p} do not "
+                         f"fit an int32")
+    _check_cuda("slot_prep", key, torch.int32)
+    dev = key.device
+    keys2 = torch.empty((bsz, s_pad), dtype=torch.int32, device=dev)
+    slot_tile = torch.empty((bsz, s_pad // chunk + 1), dtype=torch.int32,
+                            device=dev)
+    counts = torch.empty((bsz, nt + 1), dtype=torch.int32, device=dev)
+    _launch("slot_prep", dev, _build.load().dprast_slot_prep, _ptr(key),
+            _ptr(keys2), _ptr(slot_tile), _ptr(counts), bsz, p, nt, chunk,
+            int(min_chunk_per_tile), int(packed), p2)
+    LAUNCHES["slot_prep"] += 1
+    return keys2, slot_tile, counts
 
 
 def _tile_count_plain(key, nt):
-    """Plain version of `tile_count`: one histogram of (pose, tile) bins.
+    """The points of each pose in each tile: keys (B, P) int32 in [0, nt]
+    -> counts (B, nt + 1) int32, by one histogram of (pose, tile) bins.
     Its range is given, so nothing is read back to the host (`bincount`
-    reads its input's), and float64 holds every bin and count exactly."""
+    reads its input's), and float64 holds every bin and count exactly.
+    `slot_prep`'s kernel counts with integer atomics, the same in any
+    order, where torch's `histc` raises under
+    ``torch.use_deterministic_algorithms(True)`` on CUDA."""
     bsz = key.shape[0]
     offs = torch.arange(bsz, device=key.device)[:, None] * (nt + 1)
     n_bins = bsz * (nt + 1)
     counts = torch.histc((key.double() + offs).reshape(-1), bins=n_bins,
                          min=-0.5, max=n_bins - 0.5)
     return counts.to(torch.int32).reshape(bsz, nt + 1)
-
-
-def tile_count(key, nt):
-    """The points of each pose in each tile: keys (B, P) int32 in [0, nt]
-    (``nt``: no tile) -> counts (B, nt + 1) int32.  CPU tensors take the
-    plain version `_tile_count_plain`, CUDA tensors the kernel in
-    `csrc/tile_count.cu`: integer atomics, so the counts are the same in
-    any order and the kernel runs under
-    ``torch.use_deterministic_algorithms(True)``, where torch's `histc`
-    raises on CUDA."""
-    if key.device.type == "cpu":
-        return _tile_count_plain(key, nt)
-    _check_cuda("tile_count", key, torch.int32)
-    bsz, p = key.shape
-    if not (1 <= bsz <= 65535 and 1 <= p < 2 ** 31 and 1 <= nt < 2 ** 14):
-        raise ValueError(f"tile_count: B={bsz}, P={p}, nt={nt} exceed the "
-                         f"kernel's launch bounds")
-    counts = torch.zeros((bsz, nt + 1), dtype=torch.int32, device=key.device)
-    _launch("tile_count", key.device, _build.load().dprast_tile_count,
-            _ptr(key), _ptr(counts), bsz, p, nt)
-    LAUNCHES["tile_count"] += 1
-    return counts
 
 
 def _frame_planes(locs, weight):
@@ -520,11 +575,22 @@ def _frame_planes(locs, weight):
     return planes, fills
 
 
-def _frame_gather_plain(perm, locs, weight):
+def _frame_ids(index, p):
+    """The source of each frame row from the sort -> int64 (B, s_pad):
+    `index` is the sort's int64 permutation, or its packed int32 keys
+    (``key * P2 + id``), whose low bits hold the row's id (P for a
+    filler)."""
+    if index.dtype == torch.int32:
+        return (index & (_id_span(p) - 1)).long()
+    return index
+
+
+def _frame_gather_plain(index, locs, weight):
     """Plain twin of `frame_gather`: `_prep_binned`'s gather, with the id
-    of each row read off `perm` (on both of its paths the point's own id,
-    or P for a filler row)."""
+    of each row read off `index` (on both of its paths the point's own
+    id, or P for a filler row)."""
     bsz, p = locs[0].shape
+    perm = _frame_ids(index, p)
     real = perm < p
     at = torch.where(real, perm, 0)
     sources = list(locs) + ([] if weight is None else [
@@ -535,44 +601,51 @@ def _frame_gather_plain(perm, locs, weight):
     return torch.stack(data, dim=1)
 
 
-def frame_gather(perm, locs, weight):
+def frame_gather(index, locs, weight):
     """The multi-tile frame after the sort -> data (B, n_planes, s_pad):
-    row ``r`` of pose ``b`` holds point ``j = perm[b, r]``'s encoded planes
-    `locs` (each (B, P)), its weight `weight` (P,) where that is given, and
-    its id, or, for ``j >= P``, a filler row (0, 0, P) -- what
-    `_prep_binned` writes.  `perm` (B, s_pad) int64 is `_slot_order`'s and
-    may be a view with a row stride.  CPU tensors take the plain twin, CUDA
-    tensors the kernel in `csrc/frame_gather.cu`: one launch in place of a
-    `cat` and a `gather` per plane and a `stack`."""
-    if perm.device.type == "cpu":
-        return _frame_gather_plain(perm, locs, weight)
+    row ``r`` of pose ``b`` holds point ``j``'s encoded planes `locs`
+    (each (B, P)), its weight `weight` (P,) where that is given, and its
+    id, or, for ``j >= P``, a filler row (0, 0, P) -- what `_prep_binned`
+    writes.  ``j`` comes from `index` (B, s_pad), `_slot_order`'s: the
+    packed sorted keys (int32, ``j = key & (P2 - 1)``) where the sort packs
+    the ids, else the int64 permutation; either may be a view with a row
+    stride.  CPU tensors take the plain twin, CUDA tensors the kernel in
+    `csrc/frame_gather.cu`, which reads the planes as B6 writes them on the
+    card: 2 or 3 views of one (B, P, L) tensor (`_interleaved`), a point's
+    planes in one load."""
+    if index.device.type == "cpu":
+        return _frame_gather_plain(index, locs, weight)
     f32 = torch.float32
-    bsz, s_pad = perm.shape
+    bsz, s_pad = index.shape
     p = locs[0].shape[1]
-    _check_cuda("frame_gather", *itertools.chain.from_iterable(
-        (pl_, f32) for pl_ in locs))
-    if perm.dtype != torch.int64 or perm.device != locs[0].device or \
-            perm.stride(1) != 1 or not 1 <= len(locs) <= 3 or \
-            any(pl_.shape != (bsz, p) for pl_ in locs):
-        raise ValueError(f"frame_gather: perm {tuple(perm.shape)} "
-                         f"{perm.dtype} and planes "
+    dev = index.device
+    if dev.type != "cuda" or any(pl_.device != dev for pl_ in locs):
+        raise ValueError(f"frame_gather: tensors must share one CUDA "
+                         f"device; got {[pl_.device for pl_ in locs]} beside "
+                         f"{dev}")
+    if index.dtype not in (torch.int32, torch.int64) or \
+            index.stride(1) != 1 or locs[0].shape[0] != bsz:
+        raise ValueError(f"frame_gather: index {tuple(index.shape)} "
+                         f"{index.dtype} and planes "
                          f"{[tuple(pl_.shape) for pl_ in locs]} do not form "
                          f"a frame")
+    src = _interleaved(locs)
     w = None
     if weight is not None:
         w = weight.to(f32).contiguous()
-        _check_cuda("frame_gather", locs[0], f32, w, f32)
-        if w.shape != (p,):
+        _check_cuda("frame_gather", w, f32)
+        if w.shape != (p,) or w.device != dev:
             raise ValueError(f"frame_gather: weight {tuple(w.shape)} is not "
                              f"one per point of {p}")
     if not (1 <= bsz <= 65535 and 1 <= p < 2 ** 24):
         raise ValueError(f"frame_gather: B={bsz}, P={p} exceed the kernel's "
                          f"launch bounds")
     n_planes = len(locs) + (1 if w is None else 2)
-    data = torch.empty((bsz, n_planes, s_pad), dtype=f32, device=perm.device)
-    srcs = [_ptr(pl_) for pl_ in locs] + [None] * (3 - len(locs))
-    _launch("frame_gather", perm.device, _build.load().dprast_frame_gather,
-            _ptr(perm), perm.stride(0), *srcs, len(locs),
+    data = torch.empty((bsz, n_planes, s_pad), dtype=f32, device=dev)
+    # the packed keys' id bits, or 0 for the int64 permutation
+    mask = _id_span(p) - 1 if index.dtype == torch.int32 else 0
+    _launch("frame_gather", dev, _build.load().dprast_frame_gather,
+            _ptr(index), index.stride(0), mask, _ptr(src), len(locs),
             None if w is None else _ptr(w), _ptr(data), bsz, p, n_planes,
             s_pad)
     LAUNCHES["frame_gather"] += 1
@@ -1877,9 +1950,10 @@ def _frame(grid_size, points, rotation, translation, weight,
     key, locs, nt = coords(grid_size, ts, points, rotation, translation,
                            want_key=halo)
     if kernels:
-        perm, _, slot_tile = _slot_order(key, nt, chunk, min_chunk_per_tile,
-                                         True)
-        return frame_gather(perm, locs, weight), slot_tile, nt, chunk
+        perm, sorted_keys, slot_tile = _slot_order(key, nt, chunk,
+                                                   min_chunk_per_tile, True)
+        index = perm if sorted_keys is None else sorted_keys
+        return frame_gather(index, locs, weight), slot_tile, nt, chunk
     planes, fills = _frame_planes(locs, weight)
     if halo:
         data, slot_tile = _prep_binned(key, planes, fills, nt, chunk,

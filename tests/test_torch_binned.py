@@ -539,8 +539,8 @@ def test_wrappers_run_the_twin_only_on_cpu():
             torch.zeros(shape, device="meta")
             for shape in ((10, 3), (1, 2, 3), (1, 2))), None, 128)
     with pytest.raises(ValueError, match="CUDA"):
-        tbin.tile_count(torch.zeros((1, 128), dtype=torch.int32,
-                                    device="meta"), 4)
+        tbin.slot_prep(torch.zeros((1, 128), dtype=torch.int32,
+                                   device="meta"), 4, 128, True, True)
     # the pullback's epilogue (B8)
     with pytest.raises(ValueError, match="CUDA"):
         tbin.pullback_epilogue((200, 200), frame, frame[:, -1], *(
@@ -548,7 +548,7 @@ def test_wrappers_run_the_twin_only_on_cpu():
             for shape in ((10, 3), (1, 2, 3), (1,), (10,))))
     # every CUDA instance has a counter, and none counted here
     assert tbin.LAUNCHES == {
-        "coords": 0, "tile_count": 0, "epilogue_tile": 0,
+        "coords": 0, "slot_prep": 0, "epilogue_tile": 0,
         "epilogue_rows": 0, "epilogue_points": 0, "epilogue_poses": 0,
         "fwd_splat": 0, "band_fold": 0,
         "band_unfold": 0, "bwd_gather": 0,

@@ -19,8 +19,9 @@ inputs:
 - the shift helper `_fixed_shift` at 0, subnormal, large and non-finite
   max|w|, against its closed form;
 - NaN and infinite weights: where the fp32 twin puts them;
-- the tile count's plain version (the ranged `histc` the kernel
-  `csrc/tile_count.cu` replaces on the card) against `np.bincount`;
+- the tile count's plain version (the ranged `histc`; B9, `slot_prep`,
+  counts with integer atomics on the card) against `np.bincount`, and
+  `slot_prep`'s counts against it;
 - every entry point under ``torch.use_deterministic_algorithms(True)``,
   twice, to the same bits.
 """
@@ -278,7 +279,9 @@ def test_tile_count_plain_matches_bincount(grid, n_poses, n_points):
     assert got.dtype == torch.int32 and got.shape == (n_poses, nt + 1)
     want = np.stack([np.bincount(k, minlength=nt + 1) for k in key])
     np.testing.assert_array_equal(got.numpy(), want)
-    assert torch.equal(tbin.tile_count(torch.from_numpy(key), nt), got)
+    chunk = tbin._default_chunk(grid, n_points)
+    assert torch.equal(tbin.slot_prep(torch.from_numpy(key), nt, chunk, True,
+                                      False)[2], got)
     # the keys B6's twin gives a small cloud at this grid
     fx = fixtures(seed=3, n_points=2000, batch_size=2, n_in=3,
                   n_out=len(grid))

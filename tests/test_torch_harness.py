@@ -363,12 +363,15 @@ def test_chip_smoke_b7_bounds(grid):
             2 * 2 * pts.shape[0] * cs.coords_ops(3, n_out))
     else:
         key, locs, _ = tbin._keys_and_local(grid, ts, pts, rot, tr)
-        perm = tbin._slot_order(key, nt, chunk, True, True)[0]
-        frame = tbin.frame_gather(perm, locs, pw)
-        assert torch.equal(frame.view(torch.int32), data.view(torch.int32))
-        assert cs.frame_gather_bound(frame, n_out, pts.shape[0]) == cs.bound(
-            (2 * s_pad * 8 + (2 * n_out + 1) * pts.shape[0] * 4
-             + frame.numel() * 4), 0)
+        perm, sorted_keys, _ = tbin._slot_order(key, nt, chunk, True, True)
+        for index, index_bytes in ((perm, 8), (sorted_keys, 4)):
+            frame = tbin.frame_gather(index, locs, pw)
+            assert torch.equal(frame.view(torch.int32),
+                               data.view(torch.int32))
+            assert cs.frame_gather_bound(
+                frame, n_out, pts.shape[0], index) == cs.bound(
+                (2 * s_pad * index_bytes + (2 * n_out + 1) * pts.shape[0] * 4
+                 + frame.numel() * 4), 0)
 
 
 def _rotations(n_poses):
@@ -429,6 +432,22 @@ def test_exp_b8_forms_edit_the_current_source(tmp_path, monkeypatch):
         text = (copy / "dprast_torch" / "csrc" / "epilogue.cu").read_text()
         assert all(new in text for _, new in edits), name
         assert (copy / "chip_smoke.py").exists()
+
+
+@pytest.mark.parametrize("form", ["match", "lead1", "lead2", "no_count"])
+def test_exp_slot_prep_forms_edit_the_current_source(form):
+    """Each form of `exp_slot_prep_forms` replaces the body of B9's
+    `count_key`, which `csrc/slot_prep.cu` holds once, and leaves the rest
+    of the source as it is."""
+    from dprast_torch.benchmarks import exp_slot_prep_forms as forms
+    source = forms.SOURCE.read_text()
+    assert source.count(forms._BODY_START) == 1
+    assert forms.form_source("kernel") == source
+    text = forms.form_source(form)
+    assert forms.BODIES[form] in text and text != source
+    head = source.index(forms._BODY_START) + len(forms._BODY_START)
+    tail = source.index(forms._BODY_END, head)
+    assert text.startswith(source[:head]) and text.endswith(source[tail:])
 
 
 @pytest.mark.parametrize("grid", [(128, 128), (300, 200), (8, 16, 200)])

@@ -147,8 +147,9 @@ def test_device_constants_equal_the_numpy_tables(n_out):
 
 @pytest.mark.parametrize("grid", [(300, 200), (8, 16, 200)])
 def test_tile_count_and_scale_make_no_host_round_trip(grid, spies):
-    """The tile count (`tile_count`: the ranged `histc` on the CPU, an
-    integer kernel on the card) and the fixed-point splat's shift and sums
+    """The binning sort's preparation and tile count (`slot_prep`: the
+    eager chain around the ranged `histc` on the CPU, two integer kernels
+    on the card) and the fixed-point splat's shift and sums
     (`_fixed_shift`, `_fixed_sums`: the kernel's function) read nothing
     back to the host."""
     from dprast_torch.ops import splat_binned as tbin
@@ -160,11 +161,13 @@ def test_tile_count_and_scale_make_no_host_round_trip(grid, spies):
     splat_args, _ = tbin._fwd_frame(grid, pts, rot, tr, pw, False)
     wmax = torch.tensor([0.0, 1.0, float("inf")])
     spies.clear()          # what made the inputs does not count
-    counts = tbin.tile_count(key, nt)
+    keys2, slot_tile, counts = tbin.slot_prep(
+        key, nt, tbin._default_chunk(grid, 500), True, True)
     k = tbin._fixed_shift(torch.full((3,), 1000, dtype=torch.int64), wmax)
     sums, shifts, bad = tbin._fixed_sums(*splat_args)
     assert spies == [], f"host round trips: {spies}"
     assert counts.shape == (2, nt + 1) and int(counts.sum()) == 2 * 500
+    assert keys2.shape[0] == slot_tile.shape[0] == 2
     assert k.tolist() == [52, 52, 52]
     assert sums.dtype == torch.int64 and shifts.shape == (2, nt)
 
