@@ -70,11 +70,23 @@ four worker processes that share the one card and talk over Gloo; every
 rank checks its launches, its shard, its image and gradients against the
 `xla` backend, and that all ranks hold the same bits.
 
-Then four phases: [no sync] runs every entry point (the forward, the
-fused pair, `raster_pullback`, the autograd step; `raster_sharded` on the
-1 x 1 mesh) at 128^2, 1024^2 and 128^3 under
+The [poses] and [poses rows] phases run what CUDA's 65,535 blocks on a
+launch grid's y and z once kept from the card (`csrc/poses.cuh` carries a
+pose's high part on a second coordinate): 64^2 x 65,536 and 70,000 poses,
+(127, 130) and (7, 15, 130) x 70,000 poses of 10^3 points, and (70,000,
+64) x 4 x 10^5 (B2 past 65,535 rows), through `auto`: the forward and the
+fused step twice, bit-equal, within 2e-5 of the `xla` backend, every
+kernel instance launched at 70,000 poses (B1 and B4 bit-equal to their
+lane instances and B4 to its plain version), and the peak device memory.
+
+Then [no sync] runs every entry point (the forward, the fused pair,
+`raster_pullback`, the autograd step; `raster_sharded` on the 1 x 1 mesh)
+at 128^2, 1024^2, 128^3 and 64^2 x 70,000 poses under
 ``torch.cuda.set_sync_debug_mode("error")``, so that a call that makes the
-host wait for the card fails the run; [bench] runs `bench_torch.py`;
+host wait for the card fails the run; [repeat] runs the `binned` forward
+and step at those shapes, and the `xla` rows `auto` takes on the card,
+twice to the same bits; [deterministic] every entry point under
+``torch.use_deterministic_algorithms(True)``; [bench] runs `bench_torch.py`;
 [run] two rows of `dprast_torch.benchmarks.run` (128^2 and 1024^3, with
 the autograd step); [tests_gpu] the on-card parity suite `tests_gpu/`,
 every test of which must pass.
@@ -2305,10 +2317,12 @@ def phase_sharded(dprast_torch, sb, smi, pts, rot, tr, pw, cots):
     return totals, workers
 
 
-# [no sync]: the shapes of the main path through `auto`, and the backends
-# asked for by name at the flagship
+# [no sync]: the shapes of the main path through `auto`, a single tile past
+# the 65,535 poses of a launch grid's y and z, and the backends asked for
+# by name at the flagship
 NO_SYNC_SHAPES = ((FLAGSHIP, N_POSES, N_POINTS),
-                  (MULTI_TILE, N_POSES, N_POINTS), (VOLUME, 1, 1_000_000))
+                  (MULTI_TILE, N_POSES, N_POINTS), (VOLUME, 1, 1_000_000),
+                  ((64, 64), 70_000, 1000))
 NO_SYNC_BACKENDS = ("xla", "matmul", "binned_bf16")
 
 
@@ -2409,6 +2423,15 @@ def phase_no_sync(dprast_torch, dev):
         print(f"[no sync] raster_sharded on the 1 x 1 mesh {grid} x "
               f"{n_poses} poses x {n_points} points, default weights: "
               f"forward, autograd step held")
+    # numpy scalar weights and background are filled on the card, as
+    # Python scalars are, not copied from the host
+    canon = main_inputs(FLAGSHIP, N_POSES, N_POINTS, dev)
+    held_without_sync(lambda: dprast_torch.raster(
+        FLAGSHIP, *canon[:3], np.float32(0.1), np.float64(2.0),
+        np.float32(1.5)))
+    held += 1
+    print("[no sync] numpy scalar background and weights (np.float32, "
+          "np.float64) at the flagship: forward held")
     # the check has teeth: what the repaired sites ran raises under it
     probe = torch.ones(3, device=dev)
     syncing = {
@@ -2826,14 +2849,45 @@ def six_grad_step(dprast_torch, grid, canon, g, weighted, backend):
     return step
 
 
+# [repeat]: the rows that `auto` sends to the `xla` backend on the card
+# (`dprast_torch.benchmarks.exp_xla_scatter`, whose inputs they take)
+REPEAT_XLA = (("1024cube_1e5", (1024, 1024, 1024), 1, 100_000),
+              ("(4096,) x 4 x 1e4", (4096,), 4, 10_000),
+              ("16^4 x 4 x 1e4", (16, 16, 16, 16), 4, 10_000))
+
+
 def phase_repeat(dprast_torch, dev):
     """[repeat]: with torch's deterministic mode off, the `binned` forward
     (`raster`) and fused step (the backend's pair) run twice at the main
-    path's three shapes, default and per-point weights, give the same bits.
-    -> the calls compared."""
+    path's three shapes and 64^2 x 70,000 poses, default and per-point
+    weights, give the same bits; and so do the forward and fused step of
+    the rows that `auto` sends to `xla` (`REPEAT_XLA`), whose scatter adds
+    in a fixed order.  -> the calls compared."""
+    from dprast_torch.benchmarks.exp_xla_scatter import row_inputs
     from dprast_torch.ops import dispatch
-    pair = dispatch.vjp_pair("binned")
     n = 0
+    for name, grid, n_poses, n_points in REPEAT_XLA:
+        args, g = row_inputs(grid, n_poses, n_points, dev)
+        backend = dispatch.resolve("auto", len(grid), grid, n_points,
+                                   accelerator=True)
+        check(backend == "xla", f"[repeat] auto takes xla at {name}")
+        xla = dispatch.vjp_pair("xla")
+
+        def fused():
+            out, res = xla[0](grid, *args)
+            return out, xla[1](grid, res, args, g)
+
+        same_f, _ = repeats(functools.partial(dprast_torch.raster, grid,
+                                              *args, backend="auto"))
+        same_s, k = repeats(fused)
+        n += 2
+        print(f"[repeat] auto -> xla {name}, per-point weights: forward "
+              f"bit-equal on two runs {same_f}; fused step ({k} tensors) "
+              f"{same_s}")
+        check(same_f and same_s, f"[repeat] xla {name} repeats bit for bit")
+        del args, g
+        torch.cuda.empty_cache()
+    pair = dispatch.vjp_pair("binned")
     for grid, n_poses, n_points in NO_SYNC_SHAPES:
         canon = main_inputs(grid, n_poses, n_points, dev)
         g = torch.randn((n_poses,) + grid, device=dev)
@@ -2943,6 +2997,291 @@ def phase_deterministic():
           f"[deterministic] the worker exited {proc.returncode}:\n"
           f"{proc.stderr[-4000:]}")
     return lines
+
+
+# [poses]: past the 65,535 that CUDA allows a launch grid's y and z
+# (csrc/poses.cuh): one tile at 65,536 and 70,000 poses; two tiles in 2-D
+# (B9, the sort, the frame gather, B2, B4's grid source, E1 and E2) and in
+# 3-D (B4 on the unfolded windows); 10^3 points
+POSES_CASES = (((64, 64), 65_536), ((64, 64), 70_000),
+               ((127, 130), 70_000), ((7, 15, 130), 70_000))
+POSES_POINTS = 1000
+# [poses rows]: B2 past 65,535 grid rows, through `auto`
+POSES_ROWS = ((70_000, 64), 4, 100_000)
+# poses a chunk of the `xla` reference takes
+REF_POSES = 8192
+
+
+def poses_kernels(sb, grid):
+    """The kernels the fused step runs at `grid`: B4's grid source counts
+    as ``_ldg`` where a grid row is no multiple of 16 bytes."""
+    if len(grid) == 3:
+        return ("coords", "slot_prep", "frame_gather", "fwd_splat_3d_enc",
+                "bwd_gather_3d_enc", *EPILOGUE_TILES)
+    if sb._single_tile(grid):
+        return ("coords", "fwd_splat_enc", "bwd_gather_enc", *EPILOGUE_TILE)
+    return ("coords", "slot_prep", "frame_gather", "fwd_splat_enc",
+            "band_fold", "bwd_gather_grid_enc"
+            + ("" if grid[1] % 4 == 0 else sb._GRID_LOADS), *EPILOGUE_TILES)
+
+
+def equal_bits(a, b):
+    """Two float32 tensors on the card hold the same bits (no copy to the
+    host, no NaN expected)."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def poses_inputs(grid, n_poses, n_points, dev):
+    """The six inputs of a [poses] case on the card: `main_inputs`' cloud
+    and poses with per-point weights, and per-pose background and
+    out_weight (`vs_xla`'s) -> (args, cotangent)."""
+    pts, rot, tr, _, _, pw = main_inputs(grid, n_poses, n_points, dev)
+    rng = np.random.default_rng(6)
+    bg = (rng.standard_normal(n_poses) * 0.1).astype(np.float32)
+    ow = rng.uniform(0.5, 2.0, n_poses).astype(np.float32)
+    g = torch.randn((n_poses,) + grid, generator=torch.Generator(
+        device=dev).manual_seed(8), device=dev)
+    return (pts, rot, tr, torch.from_numpy(bg).to(dev),
+            torch.from_numpy(ow).to(dev), pw), g
+
+
+def errs_vs_xla(dprast_torch, grid, args, g, out, grads):
+    """Scaled max-abs errors (`scaled_err`) of a call's image `out` and six
+    gradients `grads` (`GRAD_NAMES` order, per pose and per point) against
+    the `xla` backend on the same inputs, run `REF_POSES` poses at a time
+    (its memory); d_points and d_pw, sums over the poses, add up over the
+    chunks in float64 -> {"image" | name: err}."""
+    pts, rot, tr, bg, ow, pw = args
+    diff = dict.fromkeys(("image",) + GRAD_NAMES, 0.0)
+    top = dict(diff)
+    d_pts, d_pw = pts.double() * 0.0, pw.double() * 0.0
+
+    def note(name, a, ref):
+        ref = ref.double()
+        diff[name] = max(diff[name], float((a.double() - ref).abs().max()))
+        top[name] = max(top[name], float(ref.abs().max()))
+
+    for lo in range(0, rot.shape[0], REF_POSES):
+        at = slice(lo, lo + REF_POSES)
+        part = (rot[at], tr[at], bg[at], ow[at])
+        note("image", out[at], dprast_torch.raster(
+            grid, pts, *part, pw, backend="xla"))
+        ref = dprast_torch.raster_pullback(g[at], pts, *part, pw,
+                                           backend="xla")
+        for i in (1, 2, 3, 4):
+            note(GRAD_NAMES[i], grads[i][at], ref[i].double())
+        d_pts += ref.points.double()
+        d_pw += ref.point_weight.double()
+    note("points", grads[0], d_pts)
+    note("point_weight", grads[5], d_pw)
+    return {k: diff[k] / max(top[k], 1.0) for k in diff}
+
+
+def poses_case(dprast_torch, sb, smi, tag, grid, args, g, kernels):
+    """One case of [poses] / [poses rows] through `auto`: the forward
+    (`raster`) and the fused step (the pair of the backend `auto` names,
+    all six gradients) each twice, bit-equal; both against the `xla`
+    backend within 2e-5 scaled (`errs_vs_xla`); and every kernel of
+    `kernels` launched.  -> (the fused step's image and gradients, its
+    launches)."""
+    from dprast_torch.ops import dispatch
+    n_poses, p = args[1].shape[0], args[0].shape[0]
+    backend = dispatch.resolve("auto", len(grid), grid, p, accelerator=True)
+    check(backend == "binned", f"{tag} auto takes binned at {grid}")
+    pair = dispatch.vjp_pair(backend)
+
+    def fused():
+        out, res = pair[0](grid, *args, pw_uniform=False)
+        return out, tuple(pair[1](grid, res, args, g, pw_uniform=False))
+
+    reset_launches(sb)
+    first = fused()
+    second = fused()
+    launched = ran(sb.LAUNCHES)
+    same_s = all(equal_bits(a, b) for a, b in zip(
+        flat_outputs(first), flat_outputs(second)))
+    del second
+    img = dprast_torch.raster(grid, *args)
+    same_f = equal_bits(img, dprast_torch.raster(grid, *args))
+    same_f = same_f and equal_bits(img, first[0])
+    del img
+    torch.cuda.synchronize()
+    out, grads = first
+    check(out.shape == (n_poses,) + grid and bool(torch.isfinite(out).all())
+          and all(bool(torch.isfinite(x).all()) for x in grads),
+          f"{tag} {grid}: finite image and gradients")
+    errs = errs_vs_xla(dprast_torch, grid, args, g, out, grads)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"{tag} {smi} | {grid} x {n_poses} poses x {p} points, per-point "
+          f"weights, auto -> {backend}: forward bit-equal on two runs (and "
+          f"to the fused step's) {same_f}; fused step (7 tensors) {same_s}; "
+          f"scaled max-abs err vs the xla backend, {REF_POSES} poses at a "
+          f"time (tol 2e-5): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f"; launches {launched}; peak device memory so far "
+            f"{peak:.2f} GB")
+    check(same_f and same_s, f"{tag} {grid} repeats bit for bit")
+    check(max(errs.values()) <= 2e-5, f"{tag} {grid} vs xla")
+    for name in kernels:
+        check(launched.get(name, 0) >= 1, f"{tag} {grid}: {name} ran")
+    return first, launched
+
+
+def poses_instances(sb, smi, grid, args, g):
+    """Every B1 and B4 instance that reads a frame of `grid` at 70,000
+    poses, terms 0 and 1 (`b7_calls`): on the encoded frame bit-equal to
+    the same kernel on the frame's lane planes, B4 also to its plain
+    version pose chunk by chunk.  B4 reads what the path hands it (the
+    cotangent on one tile, the unfolded windows in 3-D, the cotangent as
+    its grid source on 2-D tiles, there also a (rows, 132) cotangent,
+    whose rows are multiples of 16 bytes, through the TMA tiled load) ->
+    launches."""
+    pts, rot, tr, _, _, pw = args
+    ts = sb.tile_shape_for(grid)
+    win = sb._window(grid)
+    at_chunks = [slice(lo, lo + REF_POSES)
+                 for lo in range(0, g.shape[0], REF_POSES)]
+    if len(grid) == 3:
+        sources = [("natural", sb._unfold(g, grid, ts))]
+    elif sb._single_tile(grid):
+        sources = [("natural", g)]
+    else:
+        g_tma = torch.randn((g.shape[0], grid[0], 132), device=g.device,
+                            generator=torch.Generator(device=g.device)
+                            .manual_seed(9))
+        check(sb._b4_staging("grid", g_tma, 0) == "tensor",
+              "[poses] a (rows, 132) cotangent takes the TMA tiled load")
+        sources = [("grid", g), ("grid", g_tma)]
+    reset_launches(sb)
+    frame = sb._fwd_prep(grid, pts, rot, tr, pw, False)
+    data, st, _, chunk = frame
+    coord = data[:, :len(grid)]
+    same = True
+    for terms in (0, 1):
+        for k, (layout, g_in) in enumerate(sources):
+            calls = b7_calls(sb, frame, win, ts, g_in, layout, terms, True)
+            if k == 0:
+                b1_enc, b1_lane = calls["b1"][:2]
+                same = same and equal_bits(b1_enc(), b1_lane())
+            b4_enc, b4_lane = calls["b4"][:2]
+            buf = b4_enc()
+            same = same and equal_bits(buf, b4_lane()) and all(
+                equal_bits(buf[at], sb._bwd_gather_enc_plain(
+                    st[at], coord[at], ts, g_in[at], chunk, terms=terms,
+                    layout=layout)) for at in at_chunks)
+            del calls, buf
+    torch.cuda.synchronize()
+    launched = ran(sb.LAUNCHES)
+    print(f"[poses] {smi} | {grid} x {g.shape[0]} poses, every B1 and B4 "
+          f"instance on its frame, terms 0 and 1: bit-equal to the lane "
+          f"instance (B4 also to its plain version) {same}; launches "
+          f"{launched}")
+    check(same, f"[poses] {grid} B1 and B4 instances bit-equal")
+    return launched
+
+
+def poses_band(sb, smi, grid, args, g, fused_out):
+    """At (127, 130) x 70,000 poses: B3 (bit-equal to `_unfold`, pose chunk
+    by chunk); the harness's B4 variants on B3's windows (natural at terms
+    0, 1 and 2, transposed and presplit at 2; `_LAYOUTS`), each bit-equal
+    to its plain version pose chunk by chunk; and the `binned_bf16` fused
+    step within `BF16_TOL` of `binned`'s (`fused_out`) -> launches."""
+    from dprast_torch.ops import dispatch
+    pts, rot, tr, _, _, pw = args
+    ts = sb.tile_shape_for(grid)
+    chunks = [slice(lo, lo + REF_POSES)
+              for lo in range(0, g.shape[0], REF_POSES)]
+    reset_launches(sb)
+    windows = sb.band_unfold(g, grid, ts)
+    same_b3 = all(equal_bits(windows[at], sb._unfold(g[at], grid, ts))
+                  for at in chunks)
+    data, st, _, chunk = sb._fwd_prep(grid, pts, rot, tr, pw, False)
+    lane_b = sb._planes_bwd(data[:, :len(grid)], ts).contiguous()
+    del data
+
+    def held(win, terms, layout, part):
+        buf = sb.bwd_gather(st, lane_b, win, chunk, terms=terms,
+                            layout=layout)
+        return all(equal_bits(buf[at], sb._bwd_gather_plain(
+            st[at], lane_b[at], part(at), chunk, terms=terms,
+            layout=layout)) for at in chunks)
+
+    same_b5 = all(held(windows, terms, "natural", lambda at: windows[at])
+                  for terms in (0, 1, 2))
+    win_t = windows.transpose(-1, -2).contiguous()
+    del windows
+    same_b5 = same_b5 and held(win_t, 2, "transposed", lambda at: win_t[at])
+    hi = win_t.to(torch.bfloat16)
+    lo = (win_t - hi.float()).to(torch.bfloat16)
+    del win_t
+    same_b5 = same_b5 and held((hi, lo), 2, "presplit",
+                               lambda at: (hi[at], lo[at]))
+    del hi, lo, lane_b
+    bf16 = dispatch.vjp_pair("binned_bf16")
+    out, res = bf16[0](grid, *args, pw_uniform=False)
+    grads = bf16[1](grid, res, args, g, pw_uniform=False)
+    del res
+    errs = [scaled_err(a, b) for a, b in zip((out, *grads),
+                                             flat_outputs(fused_out))]
+    torch.cuda.synchronize()
+    launched = ran(sb.LAUNCHES)
+    print(f"[poses] {smi} | {grid} x {g.shape[0]} poses: band_unfold "
+          f"bit-equal to _unfold {same_b3}; B4 on its windows, natural "
+          f"(terms 0, 1, 2), transposed and presplit (terms 2), bit-equal "
+          f"to the plain version {same_b5}; binned_bf16 fused step vs "
+          f"binned, worst scaled max-abs err {max(errs):.3e} (tol "
+          f"{BF16_TOL:g}); launches {launched}")
+    check(same_b3 and same_b5, f"[poses] {grid} B3 and B4's variants "
+                               f"bit-equal")
+    check(max(errs) <= BF16_TOL, f"[poses] {grid} binned_bf16")
+    return launched
+
+
+def phase_poses(dprast_torch, sb, dev, smi):
+    """[poses] and [poses rows]: the shapes that CUDA's 65,535 on a launch
+    grid's y and z kept from the card before (`POSES_CASES`, and
+    `POSES_ROWS` for B2's rows), through `auto` as a user calls them
+    (`poses_case`), every other kernel instance at 70,000 poses
+    (`poses_instances`, `poses_band`), which must leave no counter of
+    `LAUNCHES` at 0; the device memory is freed between cases, and the
+    peak printed.  -> {kernel: launches in these phases}."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    total = {}
+
+    def add(launched):
+        for name, count in launched.items():
+            total[name] = total.get(name, 0) + count
+
+    for grid, n_poses in POSES_CASES:
+        args, g = poses_inputs(grid, n_poses, POSES_POINTS, dev)
+        fused_out, launched = poses_case(dprast_torch, sb, smi, "[poses]",
+                                         grid, args, g,
+                                         poses_kernels(sb, grid))
+        add(launched)
+        if n_poses == max(n for _, n in POSES_CASES):
+            torch.cuda.empty_cache()
+            add(poses_instances(sb, smi, grid, args, g))
+            if len(grid) == 2 and not sb._single_tile(grid):
+                add(poses_band(sb, smi, grid, args, g, fused_out))
+        del args, g, fused_out
+        torch.cuda.empty_cache()
+    grid, n_poses, n_points = POSES_ROWS
+    args, g = poses_inputs(grid, n_poses, n_points, dev)
+    check(sb.n_tiles(grid) > 1, "[poses rows] a multi-tile grid")
+    _, launched = poses_case(dprast_torch, sb, smi, "[poses rows]", grid,
+                             args, g, poses_kernels(sb, grid))
+    add(launched)
+    del args, g
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    print(f"[poses] {smi} | peak device memory of [poses] and [poses rows] "
+          f"{peak:.2f} GB; launches {total}")
+    missing = [name for name in sb.LAUNCHES if not total.get(name)]
+    check(not missing, f"[poses] every kernel instance launched past 65,535 "
+                       f"poses; not: {missing}")
+    return total
 
 
 BENCH_DETAIL = ("backend", "platform", "t_fwd_ms", "t_bwd_ms", "t_fwd_ms_pm",
@@ -3424,7 +3763,12 @@ def main():
     sharded_launches, worker_launches = phase_sharded(
         dprast_torch, sb, smi, pts, rot, tr, pw, cots)
 
-    # --- 20. no host sync on the card's path; the benchmark entry points;
+    # --- 20. past 65,535 poses and grid rows ---
+    t0 = time.perf_counter()
+    poses_launches = phase_poses(dprast_torch, sb, dev, smi)
+    print(f"[poses] took {time.perf_counter() - t0:.1f} s")
+
+    # --- 21. no host sync on the card's path; the benchmark entry points;
     # the on-card parity suite ---
     for tag, phase in (("[no sync]", lambda: phase_no_sync(dprast_torch, dev)),
                        ("[repeat]", lambda: phase_repeat(dprast_torch, dev)),
@@ -3645,6 +3989,8 @@ def main():
     for entry in kernels:
         check(entry["launches"] >= 1,
               f"{entry['name']} ({entry['shape']}) was launched on its path")
+        # its launches past 65,535 poses or grid rows ([poses], [poses rows])
+        entry["launches_poses"] = poses_launches.get(entry["name"], 0)
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

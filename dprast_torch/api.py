@@ -64,21 +64,37 @@ def _device_of(values, device):
     return devices.pop()
 
 
-# the dtype numpy gives a Python scalar (`np.asarray(1.0)` is float64)
-_SCALAR_DTYPES = ((bool, torch.bool), (int, torch.int64),
-                  (float, torch.float64))
+# the dtype numpy gives a Python scalar (`np.asarray(1.0)` is float64), by
+# the scalar's own type: a numpy scalar such as `np.float64(0.5)` is an
+# instance of `float` but no Python scalar, and keeps its dtype
+_SCALAR_DTYPES = {bool: torch.bool, int: torch.int64, float: torch.float64}
+# numpy's dtypes that a 0-d numpy value keeps as a torch tensor
+_NUMPY_DTYPES = {np.dtype(name): getattr(torch, name) for name in (
+    "bool", "uint8", "int8", "int16", "int32", "int64", "float16",
+    "float32", "float64", "complex64", "complex128")}
+
+
+def _python_scalar(value) -> bool:
+    """A Python bool, int or float itself, which is weakly typed as in
+    JAX; numpy scalars, arrays and tensors are strongly typed."""
+    return type(value) in _SCALAR_DTYPES
 
 
 def _as_tensor(value, device):
     """`value` as a tensor on `device`.  A Python scalar (and a defaulted
-    weight) is made there by a fill, with numpy's dtype for it: a copy from
-    the host would wait for the card on every call.  Arrays and lists are
-    the caller's data and are copied."""
+    weight) is made there by a fill, with numpy's dtype for it, and so is
+    a numpy scalar or 0-d array, with its own dtype: a copy from the host
+    would wait for the card on every call.  Other arrays and lists are the
+    caller's data and are copied."""
     if isinstance(value, torch.Tensor):
         return value
-    for kind, dtype in _SCALAR_DTYPES:
-        if isinstance(value, kind):
-            return torch.full((), value, dtype=dtype, device=device)
+    if _python_scalar(value):
+        return torch.full((), value, dtype=_SCALAR_DTYPES[type(value)],
+                          device=device)
+    if isinstance(value, (np.generic, np.ndarray)) and value.ndim == 0 \
+            and value.dtype in _NUMPY_DTYPES:
+        return torch.full((), value.item(), dtype=_NUMPY_DTYPES[value.dtype],
+                          device=device)
     return torch.as_tensor(np.asarray(value), device=device)
 
 
@@ -95,8 +111,7 @@ def _normalise(grid_size, points, rotation, translation, background,
     device = _device_of(raw, device)
     # Python scalars and defaults are weakly typed, as in JAX: they take
     # the dtype of the arrays and never promote it
-    strong = [v is not None and not isinstance(v, (int, float))
-              for v in raw]
+    strong = [v is not None and not _python_scalar(v) for v in raw]
 
     points = _as_tensor(points, device)
     if points.ndim != 2:

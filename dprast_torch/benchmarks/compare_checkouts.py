@@ -32,7 +32,14 @@ points, uniform weights) on 128^2 and 1024^2:
   fused pair, beside its torch form (`_epilogue_plain`), with uniform
   weights and again ("weighted") with per-point weights, and the fused
   step with the torch form in its place (``epilogue=_epilogue_plain``),
-  each with what it keeps the card busy with, at all three shapes.
+  each with what it keeps the card busy with, at all three shapes;
+- what the fused step keeps the card busy with, by kernel
+  (`profile_binned.step_by_kernel`, its inputs): each kernel's device
+  microseconds and launches per step, at all three shapes (a kernel's
+  name without its argument list, which a new parameter changes);
+- the `xla` backend at ``1024cube_1e5`` (1024^3, one pose, 10^5 points,
+  `benchmarks.run`'s inputs): the forward and the fused step, and the
+  fused step's peak device memory.
 
 It prints one line per quantity with the readings of the four runs and
 the means of each checkout.  Usage, from the root of the newer checkout,
@@ -60,7 +67,9 @@ sys.path.insert(0, ".")
 import torch
 import chip_smoke as cs
 import dprast_torch
-from dprast_torch.ops import splat_binned as sb
+from dprast_torch.benchmarks import profile_binned as pb
+from dprast_torch.benchmarks.run import _args_for, _cotangent
+from dprast_torch.ops import core, splat_binned as sb
 
 dev = torch.device("cuda", 0)
 pts, rot, tr = (torch.from_numpy(a).to(dev) for a in cs.flagship_inputs()[:3])
@@ -90,6 +99,29 @@ def entry_points(tag, grid, pts, rot, tr, g):
         grad_step)
     out[f"raster_pullback (API) {tag} ms"] = cs.time_ms(
         lambda: dprast_torch.raster_pullback(g, pts, rot, tr))
+
+
+def short(name):
+    """A kernel's name without the argument list at its end."""
+    if not name.endswith(")"):
+        return name
+    depth = 0
+    for i in range(len(name) - 1, -1, -1):
+        depth += {")": 1, "(": -1}.get(name[i], 0)
+        if depth == 0:
+            return name[:i]
+    return name
+
+
+def by_kernel(tag, grid, points, batch):
+    """The fused step's device time by kernel (`step_by_kernel`)."""
+    res = pb.step_by_kernel(grid, points, batch)
+    for name, us, count in res["rows"]:
+        key = f"fused step {tag} by kernel, {short(name)[:120]}"
+        out[key + " us"] = out.get(key + " us", 0.0) + us
+        out[key + " launches"] = out.get(key + " launches", 0.0) + count
+    out[f"fused step {tag} by kernel, busy us"] = res["busy_us"]
+    out[f"fused step {tag} by kernel, launches"] = res["launches"]
 
 
 # B1 and B4 as the checkout's path runs them: on the frame itself where
@@ -205,6 +237,7 @@ for grid in cs.GRIDS:
     if EPILOGUE:
         epilogue_stage(tag, grid, canon, g)
     entry_points(tag, grid, pts, rot, tr, g)
+    by_kernel(tag, grid, cs.N_POINTS, cs.N_POSES)
 # B1 in 3-D: 128^3, one pose x 10^6 points, uniform weights
 vol = [torch.from_numpy(a).to(dev) for a in cs.volume_inputs(1, 1_000_000)]
 args, data = sb._fwd_frame(cs.VOLUME, *vol[:3], vol[5], True)
@@ -232,6 +265,28 @@ out[f"fused step {tag} ms"] = cs.time_ms(step_3d)
 if EPILOGUE:
     epilogue_stage(tag, cs.VOLUME, canon, g)
 entry_points(tag, cs.VOLUME, *vol[:3], g)
+by_kernel(tag, cs.VOLUME, 1_000_000, 1)
+# the xla backend at 1024cube_1e5
+big = (1024, 1024, 1024)
+args = tuple(torch.from_numpy(a).to(dev) for a in _args_for(100_000, 1, big,
+                                                            3))
+g = _cotangent(1, big, dev)
+
+
+def xla_step():
+    _, res = core.raster_fwd_res(big, *args)
+    return core.raster_pullback_res(big, res, args, g)
+
+
+out["xla forward 1024cube_1e5 ms"] = cs.time_ms(
+    lambda: core.raster_fwd(big, *args))
+out["xla fused step 1024cube_1e5 ms"] = cs.time_ms(xla_step)
+torch.cuda.synchronize()
+torch.cuda.reset_peak_memory_stats()
+xla_step()
+torch.cuda.synchronize()
+out["xla fused step 1024cube_1e5 peak GB"] = (
+    torch.cuda.max_memory_allocated() / 1e9)
 print("RESULT " + json.dumps(out))
 '''
 

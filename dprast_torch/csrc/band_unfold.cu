@@ -26,7 +26,8 @@
 //   tile, so the loads stay 4 bytes wide; neighbouring threads read
 //   neighbouring 16-byte pieces of the row.
 // - A block of 128 threads holds 8 window rows of 16 threads, one block
-//   per 8 (tile, window row) pairs of one pose: the tile, its row and the
+//   per 8 (tile, window row) pairs of one pose (blockIdx.y, plus 65,535
+//   blockIdx.z past 65,535 poses: poses.cuh): the tile, its row and the
 //   `y < gy` test are worked out once per row, not per voxel, in 32-bit
 //   arithmetic.  A looping grid of a fixed number of blocks per SM, the
 //   band fold's, measured slower here the fewer blocks it had: the rows
@@ -39,6 +40,8 @@
 //   bit-equal to the plain twin.
 
 #include <cuda_runtime.h>
+
+#include "poses.cuh"
 
 namespace {
 
@@ -56,12 +59,14 @@ constexpr int kRows = kThreads / kRowThreads;
 __global__ void __launch_bounds__(kThreads)
 band_unfold_kernel(const float* __restrict__ g,  // (B, gy, gx)
                    float* __restrict__ win,      // (B, n0*n1, t0+1, kCols)
-                   int gy, int gx, int t0, int n1, int n_win_rows) {
+                   int bsz, int gy, int gx, int t0, int n1,
+                   int n_win_rows) {
   constexpr int t1 = kCols - 1;
   const int re = t0 + 1;
   const int my_row = threadIdx.x / kRowThreads;
   const int my_quad = threadIdx.x - my_row * kRowThreads;
-  const int b = blockIdx.y;
+  const int b = pose_of(blockIdx.y, blockIdx.z);
+  if (b >= bsz) return;  // past the last pose: the whole block
   const float* gb = g + (long long)b * gy * gx;
   float* wb = win + (long long)b * n_win_rows * kCols;
 
@@ -108,16 +113,16 @@ band_unfold_kernel(const float* __restrict__ g,  // (B, gy, gx)
 
 }  // namespace
 
-// `win` is 16-byte aligned; t1 + 1 == 128, bsz <= 65535 and
-// n0 * n1 * (t0 + 1) < 2^30.
+// `win` is 16-byte aligned; t1 + 1 == 128 and n0 * n1 * (t0 + 1) < 2^30.
 extern "C" int dprast_band_unfold(const void* g, void* win, int bsz, int gy,
                                   int gx, int t0, int t1, void* stream) {
   if (t1 + 1 != kCols) return (int)cudaErrorInvalidValue;
   const int n0 = (gy + t0 - 1) / t0;
   const int n1 = (gx + t1 - 1) / t1;
   const int n_win_rows = n0 * n1 * (t0 + 1);
-  const dim3 grid((n_win_rows + kRows - 1) / kRows, bsz);
+  const dim3 grid((n_win_rows + kRows - 1) / kRows, pose_low(bsz),
+                  pose_high(bsz));
   band_unfold_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)g, (float*)win, gy, gx, t0, n1, n_win_rows);
+      (const float*)g, (float*)win, bsz, gy, gx, t0, n1, n_win_rows);
   return (int)cudaGetLastError();
 }

@@ -31,7 +31,9 @@
 // - One block per (split, tile, pose) stages the tile's window in
 //   dynamic shared memory (64 KB, hence the cudaFuncSetAttribute call),
 //   so every read of a row hits shared memory, and loops over the tile's
-//   live slots.
+//   live slots.  The grid is (splits, tiles + 1, poses): the pose on z,
+//   and past 65,535 poses its high part on x beside the splits
+//   (poses.cuh), so any number of poses runs in the one launch.
 // - The block finds its slots itself: two warps search the pose's sorted
 //   slot table for the tile's [first, end) (`warp_lower_bound` of
 //   slots.cuh, which B1 shares: each step 32 lanes probe
@@ -100,6 +102,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "poses.cuh"
 #include "slots.cuh"
 
 namespace {
@@ -235,7 +238,7 @@ bwd_gather_kernel(const float* __restrict__ lane,  // see `Rows`
                   const void* __restrict__ win_lo,  // presplit: the lo part
                   float* __restrict__ buf,          // (B, n_out + 1, s_pad)
                   __grid_constant__ const CUtensorMap g_map,  // kTensor: g
-                  int nt, int n_slots, long long s_pad,
+                  int bsz, int nt, int n_slots, long long s_pad,
                   long long pose_stride, int chunk, int rows_e, int cols_e,
                   int ny, int nsplit, int gy, int gx, int t0, int t1, int n1,
                   int staging, int bar_offset) {
@@ -245,9 +248,14 @@ bwd_gather_kernel(const float* __restrict__ lane,  // see `Rows`
       reinterpret_cast<unsigned long long*>(w + bar_offset);
   int* range = reinterpret_cast<int*>(bar_p + 1);
   const uint32_t bar = smem_addr(bar_p);
-  const int split_id = blockIdx.x;
+  // the grid's x holds the splits of each high slab of poses (one slab up
+  // to 65,535 poses), z the pose's low part
+  const int high =
+      gridDim.x == (unsigned)nsplit ? 0 : (int)blockIdx.x / nsplit;
+  const int split_id = (int)blockIdx.x - high * nsplit;
   const int t = blockIdx.y;
-  const int b = blockIdx.z;
+  const int b = pose_of(blockIdx.z, high);
+  if (b >= bsz) return;  // past the last pose: the whole block
 
   // the tile's live slots [first, end), or the dead ones [n_live, n_slots)
   const int* st = slot_tile + (long long)b * (n_slots + 1);
@@ -517,10 +525,10 @@ int launch(const void* lane, const void* slot_tile, const void* win,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const int n1 = kLayout == kGrid ? (gx + t1 - 1) / t1 : 1;
-  const dim3 grid(nsplit, nt + 1, bsz);
+  const dim3 grid(nsplit * pose_high(bsz), nt + 1, pose_low(bsz));
   kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const float*)lane, (const int*)slot_tile, win, win_lo, (float*)buf,
-      g_map, nt, n_slots, s_pad, pose_stride, chunk, rows_e, cols_e, ny,
+      g_map, bsz, nt, n_slots, s_pad, pose_stride, chunk, rows_e, cols_e, ny,
       nsplit, gy, gx, t0, t1, n1, staging, bar_offset);
   return (int)cudaGetLastError();
 }

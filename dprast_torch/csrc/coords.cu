@@ -34,9 +34,10 @@
 //   operator of the twin is its own kernel, rounded on its own).  TwoProd
 //   is Dekker's, literally: its partial products underflow where an
 //   FMA's residual would not, and the twin's bits are the contract.
-// - One thread per (pose, point); blockIdx.y is the pose, so a block's
-//   rotation and translation loads are broadcasts.  The loop runs over the
-//   input axes outside and the output axes inside: a point's coordinate is
+// - One thread per (pose, point); a block's points are of one pose
+//   (blockIdx.y, plus 65,535 blockIdx.z past 65,535 poses: poses.cuh), so
+//   its rotation and translation loads are broadcasts.  The loop runs over
+//   the input axes outside and the output axes inside: a point's coordinate is
 //   loaded and split once and feeds every output axis' own chain.
 // - What is the same for every thread of a block is worked out once: the
 //   splits of the pose's rotation entries and of the scales by the block's
@@ -69,6 +70,8 @@
 //   the rotation entries per thread).
 
 #include <cuda_runtime.h>
+
+#include "poses.cuh"
 
 namespace {
 
@@ -144,10 +147,11 @@ coords_kernel(const float* __restrict__ points,  // (P, n_in)
               int* __restrict__ planes,          // see `Layout`
               const float* __restrict__ weight,  // (P,) or null
               int* __restrict__ slots,  // (B, n_slots + 1) or null
-              int n_points, Layout lay, int n_in_rt, Axes ax) {
+              int bsz, int n_points, Layout lay, int n_in_rt, Axes ax) {
   const int n_in = N_IN > 0 ? N_IN : n_in_rt;
   const int pt = blockIdx.x * kThreads + threadIdx.x;
-  const int b = blockIdx.y;
+  const int b = pose_of(blockIdx.y, blockIdx.z);
+  if (b >= bsz) return;  // past the last pose: the whole block
   const float* r = rot + (long long)b * N_OUT * n_in;
 
   // the block's own constants: each rotation entry and each scale with its
@@ -190,7 +194,7 @@ coords_kernel(const float* __restrict__ points,  // (P, n_in)
   float hi[N_OUT], lo[N_OUT];
 #pragma unroll
   for (int i = 0; i < N_OUT; ++i) {
-    hi[i] = tr[b * N_OUT + i];
+    hi[i] = tr[(long long)b * N_OUT + i];
     lo[i] = 0.0f;
   }
 #pragma unroll
@@ -285,10 +289,12 @@ cudaError_t launch(const float* points, const float* rot, const float* tr,
   const bool frame = lay.id_plane >= 0;
   const int n_table = frame ? lay.n_slots + 1 : 0;
   const int n_threads = lay.n_rows > n_table ? lay.n_rows : n_table;
-  const dim3 grid((n_threads + kThreads - 1) / kThreads, bsz);
+  const dim3 grid((n_threads + kThreads - 1) / kThreads, pose_low(bsz),
+                  pose_high(bsz));
 #define DPRAST_LAUNCH(N_IN, FRAME)                                           \
   coords_kernel<N_OUT, N_IN, FRAME><<<grid, kThreads, 0, stream>>>(          \
-      points, rot, tr, key, planes, weight, slots, n_points, lay, n_in, ax)
+      points, rot, tr, key, planes, weight, slots, bsz, n_points, lay, n_in, \
+      ax)
   if (n_in == 2) {
     if (frame) DPRAST_LAUNCH(2, true); else DPRAST_LAUNCH(2, false);
   } else if (n_in == 3) {
@@ -308,7 +314,7 @@ cudaError_t launch(const float* points, const float* rot, const float* tr,
 // null.  With `id_plane` >= 0 `planes` is the single tile's frame (B,
 // id_plane + 1, n_rows), n_rows >= P, whose plane n_out holds `weight`
 // where that is not null, and `slots` its slot table (B, n_slots + 1),
-// n_slots <= n_rows.  n_out is 2 or 3, n_in >= 1, 1 <= B <= 65535, P >= 1,
+// n_slots <= n_rows.  n_out is 2 or 3, n_in >= 1, B >= 1, P >= 1,
 // and on every axis g >= 1, t >= 1 and g t < 2^32.
 extern "C" int dprast_coords(const void* points, const void* rot,
                              const void* tr, void* key, void* planes,
@@ -317,8 +323,7 @@ extern "C" int dprast_coords(const void* points, const void* rot,
                              int n_slots, int n_in, int n_out, int g0, int g1,
                              int g2, int t0, int t1, int t2, float s0,
                              float s1, float s2, void* stream) {
-  if ((n_out != 2 && n_out != 3) || n_in < 1 || bsz < 1 || bsz > 65535 ||
-      n_points < 1)
+  if ((n_out != 2 && n_out != 3) || n_in < 1 || bsz < 1 || n_points < 1)
     return (int)cudaErrorInvalidValue;
   const bool frame = id_plane >= 0;
   if (frame ? (n_rows < n_points || slots == nullptr || n_slots < 1 ||

@@ -58,7 +58,8 @@
 //   pose groups' point sums add in group order through the ring.
 //   `epilogue_poses_kernel` then sums each pose's partials (`poses_body`).
 // - Several tiles: `epilogue_rows_kernel` (E1) takes the frame in order,
-//   one block per (1,024 rows, pose), thread t rows t + 256 m (m < 4),
+//   one block per (1,024 rows, pose) (the pose on y, and past 65,535 poses
+//   its high part on z: poses.cuh), thread t rows t + 256 m (m < 4),
 //   coalesced and streamed (`__ldcs`); all of a thread's loads (ids, du
 //   planes, gw, then the gathers of points[id] and pw[id]) are issued
 //   before any arithmetic, with fillers (id P) clamped to point 0 and
@@ -96,6 +97,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "poses.cuh"
 
 namespace {
 
@@ -274,7 +277,7 @@ __device__ __forceinline__ void poses_body(
   __shared__ double ws[kSumsPerBlock][kWarps];
   __shared__ float fill;
   const int n_vc = (kp + kSumsPerBlock - 1) / kSumsPerBlock;
-  if (blk < bsz * n_vc) {
+  if (blk < (long long)bsz * n_vc) {
     const int b = blk / n_vc;
     const int c0 = blk % n_vc * kSumsPerBlock;
     const double* src = partials + ((long long)b * kp + c0) * n_blk;
@@ -291,7 +294,7 @@ __device__ __forceinline__ void poses_body(
       for (int c = 0; c < kSumsPerBlock; ++c) {
         const int e = c0 + c;
         if (e < n_out)
-          d_t[b * n_out + e] = __double2float_rn(acc[c]);
+          d_t[(long long)b * n_out + e] = __double2float_rn(acc[c]);
         else if (e < kp - 1)
           d_r[(long long)b * n_out * n_in + e - n_out] =
               __double2float_rn(acc[c]);
@@ -316,7 +319,7 @@ __device__ __forceinline__ void poses_body(
   if (threadIdx.x == 0)
     fill = __double2float_rn(__ddiv_rn(sum[0], (double)n_points));
   __syncthreads();
-  const long long base = (long long)(blk - bsz * n_vc) * kFillPoints;
+  const long long base = (blk - (long long)bsz * n_vc) * kFillPoints;
   for (int m = 0; m < kFillPoints / kThreads; ++m) {
     const long long j = base + m * kThreads + threadIdx.x;
     if (j < n_points) d_pw[j] = fill;
@@ -654,8 +657,8 @@ epilogue_rows_kernel(const float* __restrict__ buf,  // (B, N_OUT + 1, s_pad)
                      long long pw_stride, Scale scale,
                      double* __restrict__ partials,  // (B, kp, n_blk)
                      int kp, float* __restrict__ copy,  // (B, P, width)
-                     int width, int n_points, int n_in_rt, long long s_pad,
-                     int uniform) {
+                     int width, int bsz, int n_points, int n_in_rt,
+                     long long s_pad, int uniform) {
   constexpr int KA = kAxesPerPass<N_IN>;
   constexpr int KT = N_OUT * (1 + KA) + 1;
   constexpr int R = kRowsPerThread;
@@ -663,7 +666,8 @@ epilogue_rows_kernel(const float* __restrict__ buf,  // (B, N_OUT + 1, s_pad)
   __shared__ double ws[kWarps][KT];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int b = blockIdx.y;
+  const int b = pose_of(blockIdx.y, blockIdx.z);
+  if (b >= bsz) return;  // past the last pose: the whole block
   const long long base = (long long)blockIdx.x * kRowsPerBlock + threadIdx.x;
   const float* rows = buf + (long long)b * (N_OUT + 1) * s_pad;
   const float* idp = ids + (long long)b * id_stride;
@@ -798,10 +802,10 @@ cudaError_t launch_rows(const float* buf, const float* ids,
                         int n_points, int n_in, long long s_pad, int uniform,
                         cudaStream_t stream) {
   const dim3 grid((unsigned)((s_pad + kRowsPerBlock - 1) / kRowsPerBlock),
-                  bsz);
+                  pose_low(bsz), pose_high(bsz));
   epilogue_rows_kernel<N_OUT, N_IN><<<grid, kThreads, 0, stream>>>(
       buf, ids, id_stride, points, ow, pw, pw_stride, scale, partials, kp,
-      copy, width, n_points, n_in, s_pad, uniform);
+      copy, width, bsz, n_points, n_in, s_pad, uniform);
   return cudaGetLastError();
 }
 
@@ -848,7 +852,7 @@ cudaError_t launch_points(const float* copy, int width, const float* rot,
   return (int)F<3, 0>(__VA_ARGS__);
 
 bool bad_shape(int bsz, int n_out, int n_in, int n_points) {
-  return bsz < 1 || bsz > 65535 || (n_out != 2 && n_out != 3) || n_in < 1 ||
+  return bsz < 1 || (n_out != 2 && n_out != 3) || n_in < 1 ||
          n_points < 1 || n_points >= (1 << 24);
 }
 
@@ -856,9 +860,13 @@ bool misaligned(const void* p) {
   return reinterpret_cast<std::uintptr_t>(p) % 16 != 0;
 }
 
+// the blocks of the final sums; a grid's x holds at most 2^31 - 1 blocks,
+// which no pose count that device memory holds comes near (-1 past it)
 int final_blocks(int bsz, int kp, int n_points, int uniform) {
-  return bsz * ((kp + kSumsPerBlock - 1) / kSumsPerBlock) +
-         (uniform ? (n_points + kFillPoints - 1) / kFillPoints : 0);
+  const long long n =
+      (long long)bsz * ((kp + kSumsPerBlock - 1) / kSumsPerBlock) +
+      (uniform ? (n_points + kFillPoints - 1) / kFillPoints : 0);
+  return n < (1ll << 31) ? (int)n : -1;
 }
 
 }  // namespace
@@ -946,13 +954,15 @@ extern "C" int dprast_epilogue_points(const void* copy, int width,
     return (int)cudaErrorInvalidValue;
   const Scale scale{{s0, s1, s2}};
   const int n_fin = final_blocks(bsz, kp, n_points, uniform);
-  const int n_grid = n_fin + (n_points + kThreads - 1) / kThreads;
+  const long long n_grid =
+      (long long)n_fin + (n_points + kThreads - 1) / kThreads;
+  if (n_fin < 0 || n_grid >= (1ll << 31)) return (int)cudaErrorInvalidValue;
   DPRAST_EPILOGUE_DISPATCH(
       launch_points, (const float*)copy, width, (const float*)rot,
       (const float*)ow, (const float*)pw, pw_stride, scale,
       (const double*)partials, n_blk, kp, (float*)d_points, (float*)d_pw,
       (float*)d_t, (float*)d_r, (float*)d_ow, bsz, n_points, n_in, uniform,
-      n_fin, n_grid, (cudaStream_t)stream)
+      n_fin, (int)n_grid, (cudaStream_t)stream)
 }
 
 // The single tile's final sums.  `partials` its E2's (B, kp, n_blk); `ow`
@@ -963,11 +973,11 @@ extern "C" int dprast_epilogue_poses(const void* partials, int n_blk,
                                      void* d_t, void* d_r, void* d_ow,
                                      int bsz, int n_out, int n_in,
                                      int n_points, void* stream) {
+  const int n_fin = final_blocks(bsz, kp, n_points, 0);
   if (bad_shape(bsz, n_out, n_in, n_points) || n_blk < 1 ||
-      kp != n_out * (1 + n_in) + 1)
+      kp != n_out * (1 + n_in) + 1 || n_fin < 0)
     return (int)cudaErrorInvalidValue;
-  epilogue_poses_kernel<<<final_blocks(bsz, kp, n_points, 0), kThreads, 0,
-                          (cudaStream_t)stream>>>(
+  epilogue_poses_kernel<<<n_fin, kThreads, 0, (cudaStream_t)stream>>>(
       (const double*)partials, n_blk, kp, (const float*)ow, (const float*)pw,
       (float*)d_t, (float*)d_r, (float*)d_ow, bsz, n_out, n_in, n_points);
   return (int)cudaGetLastError();

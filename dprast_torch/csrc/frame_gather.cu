@@ -37,12 +37,15 @@
 // (B, P, L) with L = 2 in 2-D and 4 in 3-D (a pad lane), so a row reads
 // its point's planes with one 8- or 16-byte load: one sector a row in
 // place of n_src.  The row's id is the packed key's low bits where the
-// sort packs the ids: 4 bytes in place of 8.  One thread per (pose, row):
-// the index load and the stores are coalesced.  Values move as 32-bit
-// integers, so the bits of every entry (encoded coordinates are small
-// integers read as f32) are copied unchanged.
+// sort packs the ids: 4 bytes in place of 8.  One thread per (pose, row),
+// a block's rows of one pose (blockIdx.y, plus 65,535 blockIdx.z past
+// 65,535 poses: poses.cuh): the index load and the stores are coalesced.
+// Values move as 32-bit integers, so the bits of every entry (encoded
+// coordinates are small integers read as f32) are copied unchanged.
 
 #include <cuda_runtime.h>
+
+#include "poses.cuh"
 
 namespace {
 
@@ -64,11 +67,12 @@ frame_gather_kernel(const Index* __restrict__ index,  // (B, >= s_pad)
                     const int* __restrict__ src,  // (B, P, L)
                     const float* __restrict__ weight,  // (P,) or null
                     int* __restrict__ data,  // (B, n_planes, s_pad)
-                    int n_points, int n_planes, long long s_pad) {
+                    int bsz, int n_points, int n_planes, long long s_pad) {
   const long long row = (long long)blockIdx.x * kThreads + threadIdx.x;
-  const int b = blockIdx.y;
-  if (row >= s_pad) return;
-  const long long j = row_source(index + b * index_stride + row, mask);
+  const int b = pose_of(blockIdx.y, blockIdx.z);
+  if (row >= s_pad || b >= bsz) return;
+  const long long j =
+      row_source(index + (long long)b * index_stride + row, mask);
   const bool real = j < n_points;
   const long long at = (long long)b * n_points + j;
   int v[N_SRC];
@@ -105,17 +109,18 @@ extern "C" int dprast_frame_gather(const void* index, long long index_stride,
                                    const void* weight, void* data, int bsz,
                                    int n_points, int n_planes,
                                    long long s_pad, void* stream) {
-  if ((n_src != 2 && n_src != 3) || bsz < 1 || bsz > 65535 ||
-      n_points < 1 || s_pad < 1 || index_stride < s_pad || mask < 0 ||
+  if ((n_src != 2 && n_src != 3) || bsz < 1 || n_points < 1 ||
+      s_pad < 1 || index_stride < s_pad || mask < 0 ||
       (mask != 0 && (mask < n_points || (mask & (mask + 1)) != 0)) ||
       n_planes != n_src + (weight != nullptr ? 2 : 1))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((s_pad + kThreads - 1) / kThreads), bsz);
+  const dim3 grid((unsigned)((s_pad + kThreads - 1) / kThreads),
+                  pose_low(bsz), pose_high(bsz));
   const cudaStream_t s = (cudaStream_t)stream;
 #define DPRAST_LAUNCH(T, N)                                                 \
   frame_gather_kernel<T, N><<<grid, kThreads, 0, s>>>(                       \
       (const T*)index, index_stride, mask, (const int*)src,                  \
-      (const float*)weight, (int*)data, n_points, n_planes, s_pad)
+      (const float*)weight, (int*)data, bsz, n_points, n_planes, s_pad)
   if (mask != 0) {
     if (n_src == 2) DPRAST_LAUNCH(int, 2); else DPRAST_LAUNCH(int, 3);
   } else {

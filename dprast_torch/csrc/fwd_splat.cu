@@ -90,7 +90,10 @@
 //   are 64 blocks on 132 SMs) and for uneven ones (the busiest 3-D slab's
 //   slots spread over 4 blocks).  Every rank with slots pays for zeroing,
 //   two barriers and the remote reads, so C stays 1 where the tiles alone
-//   fill the card (1024^2: 5,184).
+//   fill the card (1024^2: 5,184).  The grid is (C, tiles, poses): the
+//   pose on z, and past 65,535 poses its high part on x beside the ranks
+//   (poses.cuh), so any number of poses runs in the one launch with each
+//   cluster's work as before.
 // - Each thread takes four consecutive rows of a slot: one 128-bit load
 //   per plane it reads, all issued before the first atomic, so the loads of a
 //   step are in flight together instead of each waiting behind the
@@ -129,6 +132,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "poses.cuh"
 #include "slots.cuh"
 
 namespace cg = cooperative_groups;
@@ -389,17 +393,21 @@ __global__ void __launch_bounds__(kThreads, 1)
 fwd_splat_kernel(const float* __restrict__ lane,  // (B, L, s_pad) planes
                  const int* __restrict__ slot_tile,  // (B, n_slots + 1)
                  float* __restrict__ ext,  // (B, nt, rows_e, cols_e)
-                 int nt, int n_slots, long long pose_stride, bool with_w,
-                 long long s_pad, int chunk, int ny, int rows_e, int cols_e,
-                 int n_ranks) {
+                 int bsz, int nt, int n_slots, long long pose_stride,
+                 bool with_w, long long s_pad, int chunk, int ny, int rows_e,
+                 int cols_e, int n_ranks) {
   // the window's low words [0, n_win), its high words [n_win, 2 n_win)
   extern __shared__ __align__(16) unsigned win[];
   __shared__ int range[2];
   __shared__ unsigned wmax;
-  // the cluster is (n_ranks, 1, 1) and so is the grid's x
-  const int rank = blockIdx.x;
+  // the cluster is (n_ranks, 1, 1); the grid's x holds the ranks of each
+  // high slab of poses (one slab up to 65,535 poses), z the pose's low part
+  const int high =
+      gridDim.x == (unsigned)n_ranks ? 0 : (int)blockIdx.x / n_ranks;
+  const int rank = (int)blockIdx.x - high * n_ranks;
   const int t = blockIdx.y;
-  const int b = blockIdx.z;
+  const int b = pose_of(blockIdx.z, high);
+  if (b >= bsz) return;  // past the last pose: the whole cluster
   const int n_win = rows_e * cols_e;
   unsigned* lo = win;
   int* hi = reinterpret_cast<int*>(win + n_win);
@@ -566,7 +574,7 @@ int launch(const void* lane, const void* slot_tile, void* ext, int bsz,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(n_ranks, nt, bsz);
+  config.gridDim = dim3(n_ranks * pose_high(bsz), nt, pose_low(bsz));
   config.blockDim = dim3(kThreads);
   config.dynamicSmemBytes = smem;
   config.stream = (cudaStream_t)stream;
@@ -583,9 +591,9 @@ int launch(const void* lane, const void* slot_tile, void* ext, int bsz,
   if (clusters_out != nullptr)
     return (int)cudaOccupancyMaxActiveClusters(clusters_out, kernel, &config);
   err = cudaLaunchKernelEx(&config, kernel, (const float*)lane,
-                           (const int*)slot_tile, (float*)ext, nt, n_slots,
-                           pose_stride, with_w, s_pad, chunk, ny, rows_e,
-                           cols_e, n_ranks);
+                           (const int*)slot_tile, (float*)ext, bsz, nt,
+                           n_slots, pose_stride, with_w, s_pad, chunk, ny,
+                           rows_e, cols_e, n_ranks);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

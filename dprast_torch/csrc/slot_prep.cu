@@ -30,8 +30,9 @@
 // (16.9 us at 3.35 TB/s), 8.4 MB at 128^3 x 1 x 10^6 (2.5 us).
 //
 // The design.  Pass 1 (`slot_count_kernel`, grid (blocks of 4,096 keys,
-// B)) streams a stretch of one pose's keys with 16-byte loads, writes the
-// real rows of keys2 from the same registers with 16-byte stores, and
+// B); the pose is blockIdx.y, plus 65,535 blockIdx.z past 65,535 poses:
+// poses.cuh) streams a stretch of one pose's keys with 16-byte loads,
+// writes the real rows of keys2 from the same registers with 16-byte stores, and
 // counts them in a shared histogram, one shared atomic a key.  The keys
 // of a dense cloud land in a few hot bins, where same-address atomics
 // serialise inside a warp; yet on an H100 the plain atomics cost nothing
@@ -50,6 +51,8 @@
 
 #include <cuda_runtime.h>
 
+#include "poses.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -62,6 +65,7 @@ constexpr int kFillPerBlock = 2048;
 constexpr int kMaxTiles = 4096;
 
 struct Prep {
+  int bsz;      // poses
   int p;        // points per pose
   int nt;       // tiles; key nt is the no-tile sentinel
   int chunk;    // rows per slot
@@ -94,7 +98,8 @@ slot_count_kernel(const int* __restrict__ keys,  // (B, P)
                   int* __restrict__ counts,      // (B, nt + 1), zeroed
                   Prep a) {
   __shared__ int hist[kMaxTiles + 1];
-  const int b = blockIdx.y;
+  const int b = pose_of(blockIdx.y, blockIdx.z);
+  if (b >= a.bsz) return;  // past the last pose: the whole block
   for (int i = threadIdx.x; i <= a.nt; i += kThreads) hist[i] = 0;
   __syncthreads();
   const int* kb = keys + (long long)b * a.p;
@@ -152,7 +157,8 @@ slot_fill_kernel(const int* __restrict__ counts,  // (B, nt + 1)
   __shared__ int need[kMaxTiles];
   __shared__ int offs[kMaxTiles];
   __shared__ int warp_sums[kWarps];
-  const int b = blockIdx.y;
+  const int b = pose_of(blockIdx.y, blockIdx.z);
+  if (b >= a.bsz) return;  // past the last pose: the whole block
   const int nt = a.nt, chunk = a.chunk;
   const int* cb = counts + (long long)b * (nt + 1);
   // each thread scans a run of `per` consecutive tiles
@@ -232,7 +238,7 @@ extern "C" int dprast_slot_prep(const void* keys, void* keys2,
                                 void* slot_tile, void* counts, int bsz,
                                 int p, int nt, int chunk, int min_chunk,
                                 int packed, int p2, void* stream) {
-  if (bsz < 1 || bsz > 65535 || p < 1 || nt < 1 || nt > kMaxTiles ||
+  if (bsz < 1 || p < 1 || nt < 1 || nt > kMaxTiles ||
       chunk < 4 || chunk % 4 != 0)
     return (int)cudaErrorInvalidValue;
   const long long p_pad = ((long long)p + chunk - 1) / chunk * chunk;
@@ -242,6 +248,7 @@ extern "C" int dprast_slot_prep(const void* keys, void* keys2,
                   (2ll * nt + 1) * p2 + p >= (1ll << 31))))
     return (int)cudaErrorInvalidValue;
   Prep a;
+  a.bsz = bsz;
   a.p = p;
   a.nt = nt;
   a.chunk = chunk;
@@ -255,12 +262,14 @@ extern "C" int dprast_slot_prep(const void* keys, void* keys2,
   cudaError_t err = cudaMemsetAsync(
       counts, 0, (size_t)bsz * (nt + 1) * sizeof(int), s);
   if (err != cudaSuccess) return (int)err;
-  slot_count_kernel<<<dim3((p + kKeysPerBlock - 1) / kKeysPerBlock, bsz),
+  slot_count_kernel<<<dim3((p + kKeysPerBlock - 1) / kKeysPerBlock,
+                           pose_low(bsz), pose_high(bsz)),
                       kThreads, 0, s>>>((const int*)keys, (int*)keys2,
                                         (int*)counts, a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  slot_fill_kernel<<<dim3(a.fill_blocks, bsz), kThreads, 0, s>>>(
+  slot_fill_kernel<<<dim3(a.fill_blocks, pose_low(bsz), pose_high(bsz)),
+                     kThreads, 0, s>>>(
       (const int*)counts, (int*)keys2, (int*)slot_tile, a);
   return (int)cudaGetLastError();
 }

@@ -32,7 +32,7 @@ _SOURCES = ("fwd_splat.cu", "band_fold.cu", "band_unfold.cu",
             "slot_prep.cu", "epilogue.cu")
 # headers the sources include: not compiled on their own, but part of the
 # library's name, so that an edited header rebuilds it
-_HEADERS = ("slots.cuh",)
+_HEADERS = ("poses.cuh", "slots.cuh")
 
 # B1 and B4 keep one tile window of at most 128 x 128 entries in dynamic
 # shared memory: B4's holds fp32 (64 KB), B1's 64-bit fixed point as two

@@ -2,8 +2,8 @@
 (PyTorch port of `dprast/ops/core.py`).
 
 Works for any (N_in, N_out) with N_in >= N_out, on any device.  The
-forward is an `index_add_` scatter; the pullback is a pure gather.  All
-functions take canonical batched arguments:
+forward is a scatter-add in a fixed order (`_scatter_add`); the pullback
+is a pure gather.  All functions take canonical batched arguments:
 
     points       (P, N_in)
     rotation     (B, N_out, N_in)
@@ -61,6 +61,19 @@ def _neighbour_data(points, rotation, translation, grid_size):
     return idx_flat, wsplat, dl, shifts
 
 
+def _scatter_add(flat, idx, w):
+    """``flat[idx[i]] += w[i]`` for every i, in place, each entry's terms
+    added in the order of i, so that a call repeats bit for bit.  On the
+    card `index_put_` with ``accumulate=True`` sorts by index (stably) and
+    adds each entry's run of terms in turn, where `index_add_` adds them
+    with float atomics in the order they land; on the CPU `index_add_` adds
+    in the order of i, where `index_put_` adds from several threads at
+    once."""
+    if flat.device.type == "cuda":
+        return flat.index_put_((idx,), w, accumulate=True)
+    return flat.index_add_(0, idx, w)
+
+
 def raster_fwd(grid_size, points, rotation, translation, background,
                out_weight, point_weight, *, pw_uniform: bool = False):
     """Forward rasterisation on canonical batched args -> (B, *grid_size):
@@ -90,7 +103,7 @@ def raster_fwd_res(grid_size, points, rotation, translation, background,
     # out-of-grid sink
     out = background[:, None].expand(b, total + 1).contiguous()
     base = torch.arange(b, device=points.device)[:, None, None] * (total + 1)
-    out.view(-1).index_add_(0, (idx_flat + base).reshape(-1), w.reshape(-1))
+    _scatter_add(out.view(-1), (idx_flat + base).reshape(-1), w.reshape(-1))
     return (out[:, :total].reshape((b,) + tuple(grid_size)),
             (idx_flat, wsplat, dl))
 

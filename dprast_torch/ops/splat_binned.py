@@ -309,7 +309,7 @@ def _coords_inputs(grid_size, ts, points, rotation, translation):
                          f"{tuple(tr.shape)} do not form poses onto the "
                          f"grid {tuple(grid_size)} with tiles {tuple(ts)}")
     p, n_in = pts.shape
-    if not (1 <= bsz <= 65535 and 1 <= p < 2 ** 31 and n_in >= 1):
+    if not (bsz >= 1 and 1 <= p < 2 ** 31 and n_in >= 1):
         raise ValueError(f"coords: B={bsz}, P={p}, n_in={n_in} exceed the "
                          f"kernel's launch bounds")
     return pts, rot, tr
@@ -516,7 +516,7 @@ def slot_prep(key, nt, chunk, min_chunk_per_tile, packed):
     bsz, p = key.shape
     p2 = _id_span(p)
     s_pad = _slot_frame_size(p, nt, chunk)
-    if not (1 <= bsz <= 65535 and 1 <= p and 1 <= nt <= 4096
+    if not (bsz >= 1 and p >= 1 and 1 <= nt <= 4096
             and chunk >= 4 and chunk % 4 == 0 and s_pad < 2 ** 31):
         raise ValueError(f"slot_prep: B={bsz}, P={p}, nt={nt}, "
                          f"chunk={chunk} exceed the kernel's launch bounds")
@@ -619,7 +619,7 @@ def frame_gather(index, locs, weight):
     bsz, s_pad = index.shape
     p = locs[0].shape[1]
     dev = index.device
-    if dev.type != "cuda" or any(pl_.device != dev for pl_ in locs):
+    if not _on_card(index) or any(pl_.device != dev for pl_ in locs):
         raise ValueError(f"frame_gather: tensors must share one CUDA "
                          f"device; got {[pl_.device for pl_ in locs]} beside "
                          f"{dev}")
@@ -637,7 +637,7 @@ def frame_gather(index, locs, weight):
         if w.shape != (p,) or w.device != dev:
             raise ValueError(f"frame_gather: weight {tuple(w.shape)} is not "
                              f"one per point of {p}")
-    if not (1 <= bsz <= 65535 and 1 <= p < 2 ** 24):
+    if not (bsz >= 1 and 1 <= p < 2 ** 24):
         raise ValueError(f"frame_gather: B={bsz}, P={p} exceed the kernel's "
                          f"launch bounds")
     n_planes = len(locs) + (1 if w is None else 2)
@@ -1033,10 +1033,9 @@ def _splat(instance, slot_tile, planes, nt, win, chunk, terms, cluster,
                          f"do not form a frame of chunk {chunk}")
     _check_four_rows("fwd_splat", chunk, planes)
     rows_e, cols_e = math.prod(win[:-1]), win[-1]
-    if rows_e * cols_e * 8 > _build.MAX_FIXED_WINDOW_BYTES or bsz > 65535 \
-            or nt > 65535:
-        raise ValueError(f"fwd_splat: window {win}, B={bsz}, nt={nt} exceed "
-                         f"the kernel's launch bounds")
+    if rows_e * cols_e * 8 > _build.MAX_FIXED_WINDOW_BYTES or nt > 65535:
+        raise ValueError(f"fwd_splat: window {win}, nt={nt} exceed the "
+                         f"kernel's launch bounds")
     if cluster is not None and not 1 <= cluster <= _MAX_CLUSTER:
         raise ValueError(f"fwd_splat: cluster {cluster} is not in 1.."
                          f"{_MAX_CLUSTER}")
@@ -1130,9 +1129,6 @@ def band_fold(ext, grid_size, ts, ow, bg):
         raise ValueError(f"band_fold: ext {tuple(ext.shape)}, ow "
                          f"{tuple(ow.shape)}, bg {tuple(bg.shape)} do not "
                          f"match grid {grid_size} with tiles {ts}")
-    if bsz > 65535 or gy > 65535:
-        raise ValueError(f"band_fold: B={bsz}, gy={gy} exceed the kernel's "
-                         f"launch bounds")
     out = torch.empty((bsz, gy, gx), dtype=torch.float32, device=ext.device)
     _launch("band_fold", ext.device, _build.load().dprast_band_fold,
             _ptr(ext), _ptr(ow), _ptr(bg), _ptr(out), bsz, gy, gx, t0, t1)
@@ -1174,7 +1170,9 @@ def _unfold(x, grid_size, ts):
                                                   for i in range(n)]
     xp = xp.permute(perm)          # (B, m0.., t0+1..)
     rows = math.prod(t + 1 for t in ts[:-1])
-    return xp.reshape(b, math.prod(nts), rows, ts[-1] + 1)
+    # one tile on every axis but the last is a view of the permuted
+    # tensor, not a copy: B4 reads contiguous windows
+    return xp.reshape(b, math.prod(nts), rows, ts[-1] + 1).contiguous()
 
 
 def band_unfold(g, grid_size, ts):
@@ -1196,9 +1194,9 @@ def band_unfold(g, grid_size, ts):
     if t1 + 1 != TILE:
         raise ValueError(f"band_unfold: the kernel cuts windows {TILE} "
                          f"columns wide, tiles {ts} give {t1 + 1}")
-    if bsz > 65535 or n0 * n1 * (t0 + 1) >= 2 ** 30:
-        raise ValueError(f"band_unfold: B={bsz}, grid {grid_size} exceed "
-                         f"the kernel's launch bounds")
+    if n0 * n1 * (t0 + 1) >= 2 ** 30:
+        raise ValueError(f"band_unfold: grid {grid_size} exceeds the "
+                         f"kernel's launch bounds")
     win = torch.empty((bsz, n0 * n1, t0 + 1, t1 + 1), dtype=torch.float32,
                       device=g.device)
     _launch("band_unfold", g.device, _build.load().dprast_band_unfold,
@@ -1382,7 +1380,7 @@ def bwd_gather_enc(slot_tile, coord, ts, win, chunk, terms=0,
     if coord.device.type == "cpu":
         return _bwd_gather_enc_plain(slot_tile, coord, ts, win, chunk, terms,
                                      layout)
-    if coord.device.type != "cuda" or coord.dtype != torch.float32 or \
+    if not _on_card(coord) or coord.dtype != torch.float32 or \
             coord.stride(2) != 1 or coord.stride(1) != s_pad or \
             coord.stride(0) % 4:
         raise ValueError(f"bwd_gather: expected the encoded planes of a "
@@ -1444,10 +1442,9 @@ def _gather(instance, slot_tile, rows, n_out, win, chunk, terms, layout,
     elif rows_e % ny:
         raise ValueError(f"bwd_gather: a window of {rows_e} rows holds no "
                          f"whole z planes of {ny} rows")
-    if rows_e * cols_e * 4 > _build.MAX_WINDOW_BYTES or bsz > 65535 \
-            or nt >= 65535:
-        raise ValueError(f"bwd_gather: window {rows_e}x{cols_e}, B={bsz}, "
-                         f"nt={nt} exceed the kernel's launch bounds")
+    if rows_e * cols_e * 4 > _build.MAX_WINDOW_BYTES or nt >= 65535:
+        raise ValueError(f"bwd_gather: window {rows_e}x{cols_e}, nt={nt} "
+                         f"exceed the kernel's launch bounds")
     dev = rows.device
     staging = _b4_staging(layout, hi, rows_e * cols_e)
     nsplit = _split_count(dev, bsz * nt)
@@ -1775,7 +1772,7 @@ def pullback_epilogue(grid_size, buf, idx_rows, points, rotation,
             f"{tuple(pts.shape)}, rotation {tuple(rot.shape)}, weights "
             f"{tuple(ow.shape)}, {tuple(pw.shape)} do not form a pullback "
             f"onto {tuple(grid_size)}")
-    if not (1 <= bsz <= 65535 and 1 <= p < 2 ** 24):
+    if not (bsz >= 1 and 1 <= p < 2 ** 24):
         raise ValueError(f"epilogue: B={bsz}, P={p} exceed the kernels' "
                          f"launch bounds")
     if single and (s_pad % 4 or buf.data_ptr() % 16):
@@ -1825,12 +1822,18 @@ def pullback_epilogue(grid_size, buf, idx_rows, points, rotation,
     return d_points, d_r, d_t, d_ow, d_pw
 
 
+def _on_card(t):
+    """Whether the tensor `t` lies on a CUDA device, where a wrapper
+    launches its kernel."""
+    return t.device.type == "cuda"
+
+
 def _check_cuda(name, *pairs):
     """Every tensor on one CUDA device, of its dtype, contiguous."""
     tensors = pairs[0::2]
     dev = tensors[0].device
     for t, dtype in zip(tensors, pairs[1::2]):
-        if t.device.type != "cuda" or t.device != dev:
+        if not _on_card(t) or t.device != dev:
             raise ValueError(f"{name}: tensors must share one CUDA device; "
                              f"got {t.device} beside {dev}")
         if t.dtype != dtype or not t.is_contiguous():

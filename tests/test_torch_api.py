@@ -11,6 +11,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+import dprast  # noqa: E402
 import dprast_torch  # noqa: E402
 from dprast.ops import core as jcore  # noqa: E402
 from dprast.ops import dispatch as jdispatch  # noqa: E402
@@ -124,6 +125,36 @@ def test_dtype_promotion():
     assert outi.dtype == torch.float32
     assert _raster((8, 8), *f32.values(),
                                dtype=torch.float64).dtype == torch.float64
+
+
+# the forms of a scalar argument: numpy scalars and 0-d arrays are
+# strongly typed in both packages, a Python float weakly
+NUMPY_SCALARS = {"np.float64": np.float64(0.5), "np.float32": np.float32(0.5),
+                 "np.int64": np.int64(2), "np.bool_": np.bool_(True),
+                 "0-d array": np.array(0.5), "float": 0.5}
+
+
+@pytest.mark.parametrize("form", list(NUMPY_SCALARS))
+@pytest.mark.parametrize("arg", ["background", "out_weight",
+                                 "point_weight"])
+def test_numpy_scalar_dtypes_match_jax(arg, form):
+    """Under x64 a numpy scalar weight or background keeps its dtype in the
+    promotion, as in JAX: `np.float64` makes the image float64 in both
+    packages, `np.float32`, `np.int64`, `np.bool_` and a Python float keep
+    the float32 arrays' float32; the values agree too (`xla` backend)."""
+    fx = _fx()
+    args = [np.asarray(fx[k], np.float32)
+            for k in ("points", "rotation", "translation")]
+    kw = {arg: NUMPY_SCALARS[form]}
+    with jax.enable_x64(True):
+        ref = dprast.raster((8, 8), *args, backend="xla", **kw)
+    got = _raster((8, 8), *args, backend="xla", **kw)
+    assert got.dtype == getattr(torch, str(ref.dtype)), (got.dtype,
+                                                          ref.dtype)
+    if form == "np.float64":
+        assert got.dtype == torch.float64
+    np.testing.assert_allclose(_np(got), np.asarray(ref), rtol=1e-6,
+                               atol=1e-6)
 
 
 DIM_ERRORS = [
@@ -250,6 +281,46 @@ def test_xla_backend_matches_jax_oracle(case):
     assert out.dtype == torch.float32
     err = np.max(np.abs(_np(out) - ref)) / max(np.max(np.abs(ref)), 1.0)
     assert err < 1e-6
+
+
+# the `xla` backend's rows that `auto` sends there on the card, shrunk: a
+# 1-D grid, a rank-4 grid, a dense 3-D cloud
+SCATTER_CASES = {"1d": ((64,), 1, 2000), "4d": ((5, 4, 6, 3), 4, 2000),
+                 "3d": ((6, 7, 5), 3, 2000)}
+
+
+@pytest.mark.parametrize("case", list(SCATTER_CASES))
+def test_xla_scatter_adds_in_a_fixed_order(case):
+    """The `xla` forward's scatter (`core._scatter_add`) repeats bit for bit
+    on clouds that put many terms into each voxel, and the card's form of
+    it, `index_put_` with accumulate (which on the CPU takes the card's
+    sorted path under torch's deterministic mode), gives the image of
+    `index_add_`, the CPU's form, within fp32 rounding."""
+    from dprast_torch.ops import core as tcore
+    grid, n, p = SCATTER_CASES[case]
+    fx = fixtures(seed=9, n_points=p, batch_size=3, n_in=n, n_out=n)
+    args = [torch.from_numpy(np.asarray(v, np.float32)) for v in fx.values()]
+    want = tcore.raster_fwd(grid, *args)
+    assert torch.equal(want.view(torch.int32),
+                       tcore.raster_fwd(grid, *args).view(torch.int32))
+    scale = float(want.abs().max())
+    assert scale > 10.0          # many terms a voxel
+    idx, wsplat, _, _ = tcore._neighbour_data(args[0], args[1], args[2],
+                                              grid)
+    w = wsplat * args[4][:, None, None] * args[5][None, :, None]
+    total = want[0].numel()
+    base = torch.arange(3)[:, None, None] * (total + 1)
+    flat = args[3][:, None].expand(3, total + 1).contiguous().view(-1)
+    keep = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        got = flat.index_put_(((idx + base).reshape(-1),), w.reshape(-1),
+                              accumulate=True)
+    finally:
+        torch.use_deterministic_algorithms(keep)
+    got = got.view(3, total + 1)[:, :total].reshape(want.shape)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=0,
+                               atol=8 * np.finfo(np.float32).eps * scale)
 
 
 DISPATCH_TABLE = [

@@ -429,3 +429,35 @@ def test_double_backward_works_on_xla():
         fd = (first(w + step).sum() - first(w - step).sum()) / (2 * eps)
         np.testing.assert_allclose(float(second[i]), float(fd), rtol=1e-5,
                                    atol=1e-8)
+
+
+def test_float32_coordinates_put_a_point_by_an_edge_onto_it():
+    """A point whose x coordinate u lies 2.7e-8 above a voxel edge (u = 32 +
+    2.68e-8 in float64, for this rotation and these float32 values) lands on
+    the edge in the float32 compensated coordinates of every float32
+    backend (dl = 1 in the voxel below) and stays above it in float64.
+    The gradient of a multilinear splat jumps at an edge, so the float32
+    `binned` and `xla` backends agree with each other there (and with JAX's
+    `xla`) and not with the float64 `xla` backend.  `chip_smoke.py`
+    [poses] therefore holds `binned` to `xla` in float32: at 70,000 poses x
+    10^3 points a few such points occur."""
+    c, s = np.float32(0.7648422), np.float32(0.64421767)
+    pts = np.array([[0.26004097, 0.1, 0.3], [0.2, -0.3, 0.1]], np.float32)
+    rot = np.array([[c, 0, -s], [0, 1, 0]], np.float32)
+    tr = np.array([0.01, 0.0], np.float32)
+    u = (np.float64(c) * pts[0, 0] - np.float64(s) * pts[0, 2] + tr[0]
+         + 1.0) * 32.0 - 0.5
+    assert 0 < u - 32.0 <= 2.0 ** -24
+    g = np.random.default_rng(1).standard_normal((64, 64)).astype(np.float32)
+    got = {be: _raster_pullback(g, pts, rot, tr, backend=be).translation
+           for be in ("binned", "xla")}
+    f64 = _raster_pullback(g.astype(np.float64), pts.astype(np.float64),
+                           rot.astype(np.float64), tr.astype(np.float64),
+                           backend="xla").translation
+    ref = np.asarray(dprast.raster_pullback(
+        jnp.asarray(g), jnp.asarray(pts), jnp.asarray(rot), jnp.asarray(tr),
+        backend="xla").translation)
+    scale = max(float(np.abs(ref).max()), 1.0)
+    for t in got.values():
+        assert np.abs(t.numpy() - ref).max() / scale < 1e-6
+    assert np.abs(f64.numpy() - ref).max() / scale > 1e-3

@@ -114,6 +114,26 @@ def test_python_scalars_keep_numpy_dtypes():
     assert api._as_tensor([1.0, 2.0], "cpu").dtype == torch.float64
 
 
+@pytest.mark.parametrize("value", [np.float64(0.5), np.float32(1.5),
+                                   np.int64(2), np.bool_(True),
+                                   np.array(0.5)],
+                         ids=["float64", "float32", "int64", "bool_", "0-d"])
+def test_numpy_scalars_are_filled_not_copied(value, spies):
+    """A numpy scalar or 0-d array background and weights are made on the
+    device by a fill, with their own dtype, as Python scalars are: no
+    copy from the host, which would wait for the card."""
+    pts, rot, tr, _ = _inputs((16, 16), 2, 20)
+    spies.clear()
+    _, args, _, uniform = api._normalise(
+        (16, 16), pts, rot, tr, value, value, value, None, "cpu")
+    assert spies == [], f"host round trips: {spies}"
+    assert uniform
+    want = torch.promote_types(torch.float32, api._NUMPY_DTYPES[
+        np.asarray(value).dtype])
+    assert all(a.dtype == want for a in args)
+    assert float(args[4][0]) == float(value)
+
+
 @pytest.mark.parametrize("point_weight", [None, 1.7])
 def test_defaults_keep_dtype_and_uniform_flag(point_weight):
     """Defaulted and scalar weights are weakly typed (the call stays
