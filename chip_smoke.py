@@ -79,6 +79,15 @@ fused step twice, bit-equal, within 2e-5 of the `xla` backend, every
 kernel instance launched at 70,000 poses (B1 and B4 bit-equal to their
 lane instances and B4 to its plain version), and the peak device memory.
 
+The [xla path] phase drives the `xla` backend's kernels
+(`csrc/xla_path.cu`: X1 the neighbour stage, X2 the fixed-order scatter
+after a stable sort, X3 the pullback's gather): each bit-equal to its
+plain version (X2 to the CPU's `index_add_`) at the rows `auto` sends to
+`xla`, the launches of its entry points, a run of 1.2 x 10^6 terms, the
+f64 oracles at small sizes, the second derivatives (C8) against a
+float64 run on the CPU, and its times at 1024^3 x 10^5 and 512^3 x 10^6;
+`python3 chip_smoke.py --xla-path` runs the build and this phase alone.
+
 Then [no sync] runs every entry point (the forward, the fused pair,
 `raster_pullback`, the autograd step; `raster_sharded` on the 1 x 1 mesh)
 at 128^2, 1024^2, 128^3 and 64^2 x 70,000 poses under
@@ -108,6 +117,7 @@ from __future__ import annotations
 import functools
 import importlib.util
 import json
+import math
 import sys
 import time
 from pathlib import Path
@@ -392,6 +402,20 @@ def reset_launches(sb):
 def ran(launched):
     """The kernels of a launch count that ran at all."""
     return {name: count for name, count in launched.items() if count}
+
+
+def binned_ran(launched):
+    """`ran` without the `xla` path's kernels, which every comparison
+    with the `xla` backend launches."""
+    from dprast_torch.ops import core
+    return {name: count for name, count in ran(launched).items()
+            if name not in core.XLA_KERNELS}
+
+
+def xla_ran(launched):
+    """Each of the `xla` path's kernels X1-X3 ran."""
+    from dprast_torch.ops import core
+    return all(launched.get(name, 0) >= 1 for name in core.XLA_KERNELS)
 
 
 def train_inputs(pts, rot, tr, pw, weighted):
@@ -1858,7 +1882,9 @@ def phase_matmul(dprast_torch, sb, dev, smi, oracle, pts, rot, tr, pw):
         check(all(products.calls),
               f"{tag}: every bf16 product ran with an fp32 result and the "
               f"reduced-precision reduction off")
-        check(not ran(sb.LAUNCHES), f"{tag}: no binned kernel ran")
+        check(not binned_ran(sb.LAUNCHES), f"{tag}: no binned kernel ran")
+        check(xla_ran(sb.LAUNCHES),
+              f"{tag}: the xla reference ran X1-X3")
         check(max(err_img, *errs.values()) <= 2e-5, f"{tag}: matmul vs xla")
 
         picked = dispatch.resolve_pair("auto", len(grid), grid, n_points,
@@ -1867,8 +1893,8 @@ def phase_matmul(dprast_torch, sb, dev, smi, oracle, pts, rot, tr, pw):
               f"{tag}: auto picks {auto_picks}")
         with Bf16Products() as products:
             err_img, errs = vs_xla(dprast_torch, tag, grid, inputs, "auto")
-        launched = ran(sb.LAUNCHES)
-        print(f"{tag}: auto -> {picked[0]}; launches {launched}; scaled "
+        launched = binned_ran(sb.LAUNCHES)
+        print(f"{tag}: auto -> {picked[0]}; launches {ran(sb.LAUNCHES)}; scaled "
               f"max-abs err vs the xla backend (tol 2e-5): image "
               f"{err_img:.3e}, "
               + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
@@ -2423,6 +2449,21 @@ def phase_no_sync(dprast_torch, dev):
         print(f"[no sync] raster_sharded on the 1 x 1 mesh {grid} x "
               f"{n_poses} poses x {n_points} points, default weights: "
               f"forward, autograd step held")
+    # the rows `auto` sends to `xla` (X1, the sort, X2, X3)
+    from dprast_torch.benchmarks.exp_xla_scatter import row_inputs
+    for name, grid, n_poses, n_points in REPEAT_XLA:
+        canon, g = row_inputs(grid, n_poses, n_points, dev)
+        for weighted in (False, True):
+            paths = no_sync_paths(dprast_torch, dispatch, grid, canon, g,
+                                  weighted, "auto")
+            for fn in paths.values():
+                held_without_sync(fn)
+            held += len(paths)
+            print(f"[no sync] auto -> xla {name}, "
+                  f"{'per-point' if weighted else 'default'} weights: "
+                  f"{', '.join(paths)} held")
+        del canon, g
+        torch.cuda.empty_cache()
     # numpy scalar weights and background are filled on the card, as
     # Python scalars are, not copied from the host
     canon = main_inputs(FLAGSHIP, N_POSES, N_POINTS, dev)
@@ -2864,7 +2905,7 @@ def phase_repeat(dprast_torch, dev):
     the rows that `auto` sends to `xla` (`REPEAT_XLA`), whose scatter adds
     in a fixed order.  -> the calls compared."""
     from dprast_torch.benchmarks.exp_xla_scatter import row_inputs
-    from dprast_torch.ops import dispatch
+    from dprast_torch.ops import dispatch, splat_binned as sb
     n = 0
     for name, grid, n_poses, n_points in REPEAT_XLA:
         args, g = row_inputs(grid, n_poses, n_points, dev)
@@ -2877,14 +2918,18 @@ def phase_repeat(dprast_torch, dev):
             out, res = xla[0](grid, *args)
             return out, xla[1](grid, res, args, g)
 
+        reset_launches(sb)
         same_f, _ = repeats(functools.partial(dprast_torch.raster, grid,
                                               *args, backend="auto"))
         same_s, k = repeats(fused)
         n += 2
         print(f"[repeat] auto -> xla {name}, per-point weights: forward "
               f"bit-equal on two runs {same_f}; fused step ({k} tensors) "
-              f"{same_s}")
+              f"{same_s}; launches {ran(sb.LAUNCHES)}")
         check(same_f and same_s, f"[repeat] xla {name} repeats bit for bit")
+        check(ran(sb.LAUNCHES) == {"xla_neighbours": 4, "xla_scatter": 4,
+                                   "xla_gather": 2},
+              f"[repeat] xla {name} runs through X1-X3")
         del args, g
         torch.cuda.empty_cache()
     pair = dispatch.vjp_pair("binned")
@@ -2978,6 +3023,7 @@ def deterministic_worker():
           launched.get("frame_gather", 0) >= 1 and
           launched.get("fwd_splat_enc", 0) >= 1,
           "[deterministic] B9, the frame gather and B1 ran under the mode")
+    check(xla_ran(launched), "[deterministic] X1-X3 ran under the mode")
 
 
 def phase_deterministic():
@@ -3078,6 +3124,27 @@ def errs_vs_xla(dprast_torch, grid, args, g, out, grads):
     return {k: diff[k] / max(top[k], 1.0) for k in diff}
 
 
+def xla_past_65535(dprast_torch, grid, args, g):
+    """The `xla` backend's forward and `raster_pullback` at all of the
+    poses in one call (X1-X3 carry the pose's high part on z,
+    `csrc/poses.cuh`) against the same calls `REF_POSES` poses at a time,
+    bit for bit in the image and every per-pose gradient -> bool."""
+    pts, rot, tr, bg, ow, pw = args
+    img = dprast_torch.raster(grid, *args, backend="xla")
+    res = dprast_torch.raster_pullback(g, *args, backend="xla")
+    same = True
+    for lo in range(0, rot.shape[0], REF_POSES):
+        at = slice(lo, lo + REF_POSES)
+        part = (rot[at], tr[at], bg[at], ow[at])
+        same = same and equal_bits(img[at], dprast_torch.raster(
+            grid, pts, *part, pw, backend="xla"))
+        ref = dprast_torch.raster_pullback(g[at], pts, *part, pw,
+                                           backend="xla")
+        same = same and all(equal_bits(res[i][at], ref[i])
+                            for i in (1, 2, 3, 4))
+    return same
+
+
 def poses_case(dprast_torch, sb, smi, tag, grid, args, g, kernels):
     """One case of [poses] / [poses rows] through `auto`: the forward
     (`raster`) and the fused step (the pair of the backend `auto` names,
@@ -3112,6 +3179,16 @@ def poses_case(dprast_torch, sb, smi, tag, grid, args, g, kernels):
           and all(bool(torch.isfinite(x).all()) for x in grads),
           f"{tag} {grid}: finite image and gradients")
     errs = errs_vs_xla(dprast_torch, grid, args, g, out, grads)
+    if grid == (64, 64) and n_poses == max(n for _, n in POSES_CASES):
+        same_x = xla_past_65535(dprast_torch, grid, args, g)
+        print(f"{tag} {grid} x {n_poses} poses: the xla backend in one call "
+              f"bit-equal to its calls {REF_POSES} poses at a time in the "
+              f"image and every per-pose gradient {same_x}")
+        check(same_x, f"{tag} {grid}: xla past 65,535 poses")
+    # the `xla` reference runs through X1-X3
+    from dprast_torch.ops import core
+    launched.update((k, v) for k, v in ran(sb.LAUNCHES).items()
+                    if k in core.XLA_KERNELS)
     peak = torch.cuda.max_memory_allocated() / 1e9
     print(f"{tag} {smi} | {grid} x {n_poses} poses x {p} points, per-point "
           f"weights, auto -> {backend}: forward bit-equal on two runs (and "
@@ -3376,6 +3453,526 @@ def phase_tests_gpu():
     return passed, collected
 
 
+# [xla path]: the `xla` backend's kernels (csrc/xla_path.cu) X1
+# `xla_neighbours`, X2 `xla_scatter` and X3 `xla_gather`.  Each held to
+# its plain version bit for bit at (name, grid, poses, points, dtype): the
+# rows `auto` sends to `xla` on the card ([repeat]'s), a sparse 1024^2
+# cloud, float64, and a rank-5 grid (the instances that take the rank at
+# run time)
+XLA_CASES = (("1024cube_1e5", (1024, 1024, 1024), 1, 100_000, torch.float32),
+             ("(4096,) x 4 x 1e4", (4096,), 4, 10_000, torch.float32),
+             ("16^4 x 4 x 1e4", (16, 16, 16, 16), 4, 10_000, torch.float32),
+             ("1024^2 x 64 x 1e3", (1024, 1024), 64, 1000, torch.float32),
+             ("64^2 x 4 x 1e4 float64", (64, 64), 4, 10_000, torch.float64),
+             ("(7, 6, 5, 4, 3) x 2 x 2000", (7, 6, 5, 4, 3), 2, 2000,
+              torch.float32),
+             ("(7, 6, 5, 4, 3) x 2 x 2000 float64", (7, 6, 5, 4, 3), 2, 2000,
+              torch.float64))
+# the timed rows: the reference table's 1024^3 row and a tomography-sized
+# volume past `supported()` (12,950 tiles), one pose
+XLA_TIMED = (("1024cube_1e5", (1024, 1024, 1024), 1, 100_000),
+             ("512cube_1e6", (512, 512, 512), 1, 1_000_000))
+# the longest run X2 meets: every point of a 1-D cloud in one voxel, so
+# two voxels take a run of this many terms each
+XLA_LONG_RUN = ((64,), 1_200_000)
+# small cases against the f64 oracles: (grid, seed, points, poses)
+XLA_SMALL = (((17,), 3, 1500, 4), ((9, 12), 5, 1500, 4),
+             ((6, 7, 5), 6, 1500, 4), ((300, 200), 7, 1500, 4))
+# C8 on the card: second derivatives through `xla` in float32 against the
+# CPU's float64 run, within this share of each pair's largest entry
+SECOND_FIELDS = ("points", "rotation", "translation", "point_weight")
+SECOND_GRID = (8, 9)
+SECOND_TOL = 1e-5
+
+
+def xla_bits(a, b):
+    """Two tensors of one shape and dtype hold the same bits (floats read
+    as integers of their width)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        as_int = {4: torch.int32, 8: torch.int64}[a.element_size()]
+        a, b = a.view(as_int), b.view(as_int)
+    return torch.equal(a, b.to(a.device))
+
+
+def xla_inputs(grid, n_poses, n_points, dev, dtype=torch.float32):
+    """A row's six inputs (`benchmarks.run`'s, per-point weights) and its
+    cotangent on the card, in `dtype`."""
+    from dprast_torch.benchmarks.exp_xla_scatter import row_inputs
+    args, g = row_inputs(grid, n_poses, n_points, dev)
+    return tuple(a.to(dtype) for a in args), g.to(dtype)
+
+
+def xla_filled(bg, grid):
+    """The volume X2 adds into: each pose's background."""
+    shape = (bg.shape[0],) + tuple(grid)
+    return bg.reshape((bg.shape[0],) + (1,) * len(grid)).expand(
+        shape).contiguous()
+
+
+def x2_cpu_reference(filled, order, perm, vals):
+    """The CPU's `index_add_` of the terms in input order onto the voxels
+    they reach, from the background (the stable sort keeps each voxel's
+    terms in input order) -> (those voxels, on the card; their sums)."""
+    keys = order.cpu()
+    terms = vals.cpu()[perm.cpu()]
+    live = keys < filled.numel()
+    voxels, inv = torch.unique_consecutive(keys[live], return_inverse=True)
+    voxels = voxels.long().to(filled.device)
+    sums = filled.reshape(-1)[voxels].cpu().index_add_(0, inv, terms[live])
+    return voxels, sums
+
+
+def x2_matches(filled, out, voxels, sums):
+    """X2's volume holds `sums` at `voxels` and the background elsewhere."""
+    flat = out.reshape(-1)
+    rest = flat.clone()
+    rest[voxels] = filled.reshape(-1)[voxels]
+    return xla_bits(flat[voxels].cpu(), sums) and xla_bits(
+        rest, filled.reshape(-1))
+
+
+class NoScatterCopies:
+    """While open, records each call of `index_put_`, `index_add_` and
+    `torch.cat`: the card's `xla` path runs none of them."""
+
+    NAMES = ((torch.Tensor, "index_put_"), (torch.Tensor, "index_add_"),
+             (torch, "cat"))
+
+    def __enter__(self):
+        self.calls, self._real = [], []
+        for owner, name in self.NAMES:
+            real = getattr(owner, name)
+            self._real.append((owner, name, real))
+
+            def spy(*a, _real=real, _name=name, **kw):
+                self.calls.append(_name)
+                return _real(*a, **kw)
+
+            setattr(owner, name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, real in self._real:
+            setattr(owner, name, real)
+
+
+def xla_case(dprast_torch, sb, core, dev, name, grid, n_poses, n_points,
+             dtype):
+    """One [xla path] case: X1, X2 and X3 against their plain versions
+    (X1 and X3 on the card and X1 on the CPU too, X2 against the CPU's
+    `index_add_`), bit for bit; then `raster` through `auto`, the autograd
+    step of all six inputs and `raster_pullback`, each between a reset and
+    a read of the launch counts and under `NoScatterCopies`."""
+    from dprast_torch.ops import dispatch
+    args, g = xla_inputs(grid, n_poses, n_points, dev, dtype)
+    pts, rot, tr, bg, ow, pw = args
+    five = (pts, rot, tr, ow, pw)
+    kern = core.xla_neighbours(grid, *five)
+    plain = core._xla_neighbours_plain(grid, *five)
+    on_cpu = core._xla_neighbours_plain(grid, *(x.cpu() for x in five))
+    flat = [kern[0], kern[1], *kern[2]]
+    x1 = all(xla_bits(a, b) for a, b in zip(
+        flat, [plain[0], plain[1], *plain[2]]))
+    x1_cpu = all(xla_bits(a.cpu(), b) for a, b in zip(
+        flat, [on_cpu[0], on_cpu[1], *on_cpu[2]]))
+    del plain, on_cpu
+    keys, vals, res = kern
+    order, perm = torch.sort(keys.reshape(-1), stable=True)
+    filled = xla_filled(bg, grid)
+    out = core.xla_scatter(bg, grid, order, perm, vals.reshape(-1))
+    again = core.xla_scatter(bg, grid, order, perm, vals.reshape(-1))
+    voxels, sums = x2_cpu_reference(filled, order, perm, vals.reshape(-1))
+    x2 = x2_matches(filled, out, voxels, sums) and xla_bits(out, again)
+    del again
+    scaled, gw = core.xla_gather(grid, g, res, ow, pw)
+    scaled_p, gw_p = core._xla_gather_plain(grid, g, res, ow, pw)
+    x3 = xla_bits(scaled, scaled_p) and xla_bits(gw, gw_p)
+    torch.cuda.synchronize()
+    print(f"[xla path] {name}: X1 bit-equal to its plain version on the "
+          f"card {x1} and on the CPU {x1_cpu} ({keys.dtype} keys, "
+          f"{int((order < filled.numel()).sum())} of {order.numel()} terms "
+          f"in the grid); X2 bit-equal to the CPU's index_add_ of the same "
+          f"terms onto the background on {voxels.numel()} voxels, the "
+          f"background elsewhere, and on a second run {x2}; X3 bit-equal "
+          f"to its plain version {x3}")
+    check(x1 and x1_cpu and x2 and x3,
+          f"[xla path] {name}: X1-X3 bit-equal to their plain versions")
+    del kern, keys, vals, res, order, perm, out, filled, scaled, gw, \
+        scaled_p, gw_p
+
+    backend = dispatch.resolve("auto", len(grid), grid, n_points,
+                               accelerator=True, f64=dtype == torch.float64)
+    check(backend == "xla", f"[xla path] {name}: auto takes xla")
+    step = six_grad_step(dprast_torch, grid, args, g, True, "auto")
+    calls = {"forward": (lambda: dprast_torch.raster(grid, *args),
+                         {"xla_neighbours": 1, "xla_scatter": 1}),
+             "autograd step": (step, dict.fromkeys(core.XLA_KERNELS, 1)),
+             "raster_pullback": (lambda: dprast_torch.raster_pullback(
+                 g, *args), {"xla_neighbours": 1, "xla_gather": 1})}
+    got = {}
+    with NoScatterCopies() as spy:
+        for what, (fn, want) in calls.items():
+            reset_launches(sb)
+            result = fn()
+            torch.cuda.synchronize()
+            got[what] = ran(sb.LAUNCHES)
+            check(got[what] == want, f"[xla path] {name} {what}: launches "
+                                     f"{got[what]}, want {want}")
+            check(all(bool(torch.isfinite(t).all())
+                      for t in flat_outputs(result)),
+                  f"[xla path] {name} {what}: finite")
+    print(f"[xla path] {name}: auto -> xla; launches "
+          + "; ".join(f"{k} {v}" for k, v in got.items())
+          + f"; index_put_ / index_add_ / torch.cat calls {spy.calls}")
+    check(not spy.calls, f"[xla path] {name}: no index_put_, index_add_ or "
+                         f"torch.cat on the card's path")
+    return got["autograd step"]
+
+
+def xla_old_forward(core, grid, args):
+    """The forward the card ran before X1-X3: the eager neighbour stage,
+    one buffer of B blocks of total + 1 (the last entry of each absorbs
+    the out-of-grid terms) and `index_put_` with accumulate."""
+    pts, rot, tr, bg, ow, pw = args
+    b, total = rot.shape[0], math.prod(grid)
+    idx, ws, _, _ = core._neighbour_data(pts, rot, tr, grid)
+    w = ws * ow[:, None, None] * pw[None, :, None]
+    buf = bg[:, None].expand(b, total + 1).contiguous()
+    base = torch.arange(b, device=pts.device)[:, None, None] * (total + 1)
+    buf.view(-1).index_put_(((idx + base).reshape(-1),), w.reshape(-1),
+                            accumulate=True)
+    return buf[:, :total].reshape((b,) + tuple(grid))
+
+
+def xla_ops(n_in, n_out):
+    """X1's rounded fp32 operations per (pose, point), counted from
+    `csrc/xla_path.cu` and `twofloat.cuh`: 3 per input axis (the point's
+    split); per output axis 20 per input axis (the rotation entry's split
+    3, TwoProd 9, TwoSum 6, the lo term 2) and 52 (the scale's split 3,
+    the + 1, * scale, - 1/2 and renormalising steps 35, voxel, delta and
+    fix-up 13, 1 - dl 1); per shift n_out + 1 (the hat weight's products
+    and the term's two)."""
+    return 3 * n_in + n_out * (20 * n_in + 52) + 2 ** n_out * (n_out + 1)
+
+
+def xla_bounds(pts, rot, keys, vals, res, order, total):
+    """X1, X2 and X3 on this run's data -> {name: (ms, "bytes" |
+    "operations")}: each input read once, each output written once.  X2
+    reads a key, an index and a term a sorted position and writes the
+    volume once; its scatter kernel alone ("xla_scatter runs") reads them
+    and reads and writes each voxel it adds to.  X3 reads the residuals,
+    the cotangent at each voxel the terms reach, the weights, and writes
+    (B, P, n_out + 1) values."""
+    idx, ws, dl = res
+    bsz, p, n_s = idx.shape
+    n_out, n_in = rot.shape[1], rot.shape[2]
+    t = ws.element_size()
+    live = order[order < bsz * total]
+    voxels = int(torch.unique_consecutive(live).numel())
+    x1_bytes = ((pts.numel() + rot.numel() + rot.shape[0] * (n_out + 1) + p)
+                * t + keys.numel() * keys.element_size() + vals.numel() * t
+                + idx.numel() * 8 + ws.numel() * t + dl.numel() * t)
+    x2_reads = order.numel() * (order.element_size() + 8 + t)
+    x2_bytes = x2_reads + bsz * total * t
+    x3_bytes = (idx.numel() * (8 + t) + dl.numel() * t + voxels * t
+                + (bsz + p) * t + bsz * p * (n_out + 1) * t)
+    return {"xla_neighbours": bound(x1_bytes,
+                                    2 * bsz * p * xla_ops(n_in, n_out)),
+            "xla_scatter": bound(x2_bytes, live.numel()),
+            "xla_scatter runs": bound(x2_reads + 2 * voxels * t,
+                                      live.numel()),
+            "xla_gather": bound(x3_bytes, bsz * p * n_s * (4 * n_out + 4))}
+
+
+def launch_us(fn, name, calls=10):
+    """Device microseconds of one launch of the kernel whose name holds
+    `name` (launched once a call of `fn`): its traced time over the
+    launches the trace holds, so a trace that lost rows still reads right;
+    0 where three traces hold none."""
+    import tempfile
+    from torch.autograd import DeviceType
+    from dprast_torch.utils import profiling
+    fn()
+    for _ in range(3):
+        with tempfile.TemporaryDirectory() as tmp:
+            with profiling.trace(tmp) as prof:
+                for _ in range(calls):
+                    fn()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and name in e.key]
+        if rows:
+            return (sum(e.device_time_total for e in rows)
+                    / sum(e.count for e in rows))
+    return 0.0
+
+
+def xla_times(dprast_torch, sb, core, dev, smi, name, grid, n_poses,
+              n_points):
+    """A timed row: X1, X2 and X3 alone (wrapper ms, the kernel's device
+    us) beside their plain versions on the card and their bounds; X2
+    beside `index_put_` with accumulate into the (B, total + 1) buffer
+    and X3 beside `torch.gather` of a padded cotangent, each one call;
+    the forward, the fused step and the autograd step with what they keep
+    the card busy with, and the fused step's peak memory.  -> {key: value}."""
+    args, g = xla_inputs(grid, n_poses, n_points, dev)
+    pts, rot, tr, bg, ow, pw = args
+    five = (pts, rot, tr, ow, pw)
+    keys, vals, res = core.xla_neighbours(grid, *five)
+    order, perm = torch.sort(keys.reshape(-1), stable=True)
+    flat_vals = vals.reshape(-1)
+    total = math.prod(grid)
+    b = n_poses
+    sink = torch.cat([xla_filled(bg, grid).reshape(b, -1),
+                      bg.new_zeros((b, 1))], dim=1).reshape(-1)
+    # the (B, total + 1) buffer's index of each term, the sink for an
+    # out-of-grid one
+    unsorted = (res[0] + torch.arange(b, device=dev)[:, None, None]
+                * (total + 1)).reshape(-1)
+    g_pad = torch.cat([g.reshape(b, -1), g.new_zeros((b, 1))], dim=1)
+    gather_idx = res[0].reshape(b, -1)
+    t = {"bounds": xla_bounds(pts, rot, keys, vals, res, order, total)}
+    fns = {
+        "xla_neighbours": (lambda: core.xla_neighbours(grid, *five),
+                           lambda: core._xla_neighbours_plain(grid, *five),
+                           None),
+        "xla_scatter": (lambda: core.xla_scatter(bg, grid, order, perm,
+                                                 flat_vals),
+                        lambda: core._xla_scatter_plain(bg, grid, order,
+                                                        perm, flat_vals),
+                        lambda: sink.index_put_((unsorted,), flat_vals,
+                                                accumulate=True)),
+        "xla_gather": (lambda: core.xla_gather(grid, g, res, ow, pw),
+                       lambda: core._xla_gather_plain(grid, g, res, ow, pw),
+                       lambda: torch.gather(g_pad, 1, gather_idx))}
+    for kname, (kernel_fn, plain_fn, library_fn) in fns.items():
+        t[kname] = {
+            "ms": time_ms(kernel_fn), "plain_ms": time_ms(plain_fn),
+            "dev_us": launch_us(kernel_fn, kname + "_kernel"),
+            "library_ms": None if library_fn is None else time_ms(library_fn)}
+    t["xla_scatter"]["library_dev_us"] = launch_us(
+        fns["xla_scatter"][2], "indexing_backward_kernel")
+    for part in ("fill", "scatter"):
+        t["xla_scatter"][part + "_us"] = launch_us(
+            fns["xla_scatter"][0], f"xla_{part}_kernel")
+    t["xla_scatter"]["dev_us"] = (t["xla_scatter"]["fill_us"]
+                                  + t["xla_scatter"]["scatter_us"])
+    del sink, unsorted, g_pad, fns
+    leaves = [x.clone().requires_grad_() for x in args]
+
+    def fused():
+        out, r = core.raster_fwd_res(grid, *args)
+        return out, core.raster_pullback_res(grid, r, args, g)
+
+    def autograd():
+        out = dprast_torch.raster(grid, *leaves)
+        return torch.autograd.grad((out * g).sum(), leaves)
+
+    torch.cuda.synchronize()
+    t["resident GB"] = torch.cuda.memory_allocated(dev) / 1e9
+    for what, fn in (("forward", lambda: dprast_torch.raster(grid, *args)),
+                     ("fused step", fused), ("autograd step", autograd)):
+        t[what + " ms"] = time_ms(fn)
+        t[what + " busy us"], t[what + " launches"] = device_busy(fn)
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        fn()
+        torch.cuda.synchronize()
+        t[what + " peak GB"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    print(f"[xla path] {smi} | {name}: "
+          + "; ".join(f"{k} {v['dev_us']:.2f} us on the card (bound "
+                      f"{t['bounds'][k][0] * 1e3:.2f} us by "
+                      f"{t['bounds'][k][1]}), wrapper {v['ms']:.4f} ms, plain "
+                      f"{v['plain_ms']:.4f} ms"
+                      + ("" if v["library_ms"] is None else
+                         f", one library call {v['library_ms']:.4f} ms")
+                      for k, v in ((k, t[k]) for k in core.XLA_KERNELS))
+          + f"; X2's fill {t['xla_scatter']['fill_us']:.2f} us and runs "
+            f"{t['xla_scatter']['scatter_us']:.2f} us (bound "
+            f"{t['bounds']['xla_scatter runs'][0] * 1e3:.2f} us); "
+            f"index_put_'s kernel {t['xla_scatter']['library_dev_us']:.2f}"
+            f" us (the library call: index_put_ with accumulate into the "
+            f"filled volume); each kernel alone, so X3's gathers find the "
+            f"cotangent warm in L2 where the step's do not (by-kernel lines "
+            f"below)")
+    print(f"[xla path] {smi} | {name}: "
+          + "; ".join(f"{what} {t[what + ' ms']:.4f} ms, busy "
+                      f"{t[what + ' busy us']:.1f} us in "
+                      f"{t[what + ' launches']:.0f} launches, peak "
+                      f"{t[what + ' peak GB']:.2f} GB"
+                      for what in ("forward", "fused step", "autograd step"))
+          + f" (the inputs, the cotangent and the filled volume held "
+            f"before: {t['resident GB']:.2f} GB)")
+    from dprast_torch.benchmarks.exp_xla_scatter import by_kernel
+    for what, fn in (("forward", lambda: dprast_torch.raster(grid, *args)),
+                     ("fused step", fused)):
+        print(f"[xla path] {smi} | {name} {what} by kernel (us, launches): "
+              + "; ".join(f"{k[:60]} {us:.1f} x{n:.2f}"
+                          for k, us, n in by_kernel(fn)))
+    return t
+
+
+def xla_long_run(core, dev, smi):
+    """X2 on the longest run: a 1-D cloud of `XLA_LONG_RUN` points in one
+    voxel's span, so two voxels take a run of that many terms each; bit
+    for bit against the CPU's `index_add_`, timed -> (ms, device us)."""
+    grid, p = XLA_LONG_RUN
+    gen = torch.Generator(device=dev).manual_seed(3)
+    pts = 0.1 + 1e-4 * torch.rand((p, 1), generator=gen, device=dev)
+    pw = 0.5 + torch.rand(p, generator=gen, device=dev)
+    rot = torch.ones((1, 1, 1), device=dev)
+    tr, bg, ow = (torch.zeros((1, 1), device=dev),
+                  torch.zeros(1, device=dev), torch.ones(1, device=dev))
+    keys, vals, _ = core.xla_neighbours(grid, pts, rot, tr, ow, pw,
+                                        residuals=False)
+    order, perm = torch.sort(keys.reshape(-1), stable=True)
+    filled = xla_filled(bg, grid)
+    out = core.xla_scatter(bg, grid, order, perm, vals.reshape(-1))
+    voxels, sums = x2_cpu_reference(filled, order, perm, vals.reshape(-1))
+    runs = torch.unique_consecutive(order, return_counts=True)[1]
+    same = x2_matches(filled, out, voxels, sums)
+
+    def scatter():
+        return core.xla_scatter(bg, grid, order, perm, vals.reshape(-1))
+
+    t0 = time.perf_counter()
+    scatter()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    ms = time_ms(scatter, reps=5, warmup=1)
+    dev_us = kernel_device_us(scatter, "xla_scatter_kernel", calls=3)
+    print(f"[xla path] {smi} | X2 on runs of {runs.tolist()} terms ({grid} "
+          f"x 1 pose x {p} points): bit-equal to the CPU's index_add_ "
+          f"{same}; {first_s:.3f} s the first call, {ms:.3f} ms, "
+          f"{dev_us:.1f} us on the card")
+    check(same and int(runs.max()) >= 1_000_000,
+          "[xla path] X2 adds a run of 10^6 terms in input order")
+    check(first_s < 10, "[xla path] X2's longest run takes seconds")
+    return ms, dev_us
+
+
+def second_derivatives(dprast_torch, args, dirs, dev):
+    """The 16 (inner, outer) second derivatives through `raster` on `xla`
+    on `dev`: ``d/d outer <d sum(out^2) / d inner, dirs[inner]>``."""
+    names = ("points", "rotation", "translation", "background", "out_weight",
+             "point_weight")
+    got = {}
+    for inner in SECOND_FIELDS:
+        for outer in SECOND_FIELDS:
+            leaves = [torch.from_numpy(a).to(dev).requires_grad_()
+                      for a in args]
+            out = dprast_torch.raster(SECOND_GRID, *leaves, backend="xla")
+            (first,) = torch.autograd.grad(
+                (out ** 2).sum(), leaves[names.index(inner)],
+                create_graph=True)
+            h = (first * torch.from_numpy(dirs[inner]).to(dev)).sum()
+            (second,) = torch.autograd.grad(h, leaves[names.index(outer)])
+            got[inner, outer] = second.double().cpu()
+    return got
+
+
+def phase_c8(dprast_torch, sb, core, testing, dev):
+    """C8 on the card: the 16 second derivatives through `xla` in float32
+    on the card against the CPU's float64 run, within `SECOND_TOL` of each
+    pair's largest entry.  Each pair's first derivative (a backward under
+    ``create_graph=True``) runs the graph-recording form; its derivative
+    reaches the forward's output once more through ``d sum(out^2) / d out
+    = 2 out``, a first-order backward, which runs X3."""
+    fx = testing.fixtures(seed=5, n_points=50, batch_size=2, n_in=3,
+                          n_out=2)
+    dirs64 = {name: np.random.default_rng(7 + k).standard_normal(
+        np.shape(fx[name])) for k, name in enumerate(SECOND_FIELDS)}
+    args32 = [np.asarray(v, np.float32) for v in fx.values()]
+    dirs32 = {k: v.astype(np.float32) for k, v in dirs64.items()}
+    before = core.GRAPH_FORM_CALLS["xla_plain"]
+    reset_launches(sb)
+    card = second_derivatives(dprast_torch, args32, dirs32, dev)
+    torch.cuda.synchronize()
+    launched = ran(sb.LAUNCHES)
+    graph = core.GRAPH_FORM_CALLS["xla_plain"] - before
+    cpu = second_derivatives(dprast_torch, [np.asarray(v, np.float64)
+                                            for v in fx.values()],
+                             dirs64, "cpu")
+    errs = {k: float((card[k] - cpu[k]).abs().max() / cpu[k].abs().max())
+            for k in card}
+    print(f"[xla path] C8: second derivatives through xla, float32 on the "
+          f"card vs float64 on the CPU, max-abs err / the pair's largest "
+          f"entry (tol {SECOND_TOL:g}): "
+          + ", ".join(f"({i}, {o}) {e:.2e}" for (i, o), e in errs.items())
+          + f"; graph-recording pullbacks {graph}, launches {launched}")
+    check(max(errs.values()) <= SECOND_TOL,
+          "[xla path] C8: second derivatives on the card")
+    want = dict.fromkeys(core.XLA_KERNELS, len(card))
+    check(graph == len(card) and launched == want,
+          f"[xla path] C8: one graph-recording pullback a pair, and the "
+          f"launches {want}")
+
+
+def phase_xla_path(dprast_torch, sb, core, testing, dev, smi):
+    """[xla path]: `XLA_CASES`, the long run, the path at `XLA_SMALL`
+    against the f64 oracles, the image at 1024cube_1e5 against the form
+    it replaced, C8 on the card, and the timed rows `XLA_TIMED`.  ->
+    {"launches": the autograd step's launches at 1024cube_1e5, "times":
+    {row: xla_times}, "long_run": (ms, us)}."""
+    launches = None
+    for case in XLA_CASES:
+        got = xla_case(dprast_torch, sb, core, dev, *case)
+        if case[0] == "1024cube_1e5":
+            launches = got
+        torch.cuda.empty_cache()
+    long_run = xla_long_run(core, dev, smi)
+    phase_small(dprast_torch, testing, dev, "[xla small]", XLA_SMALL,
+                backend="xla")
+    args, _ = xla_inputs(*XLA_CASES[0][1:4], dev)
+    img = dprast_torch.raster(XLA_CASES[0][1], *args)
+    old = xla_old_forward(core, XLA_CASES[0][1], args)
+    scale = float(old.abs().max())
+    diff = float((img - old).abs().max())
+    print(f"[xla path] 1024cube_1e5: image against the index_put_ form it "
+          f"replaced: max-abs difference {diff:.3e} of max {scale:.3e} "
+          f"(tol 8 eps x max)")
+    check(diff <= 8 * torch.finfo(torch.float32).eps * scale,
+          "[xla path] 1024cube_1e5 within fp32 rounding of the index_put_ "
+          "form")
+    del args, img, old
+    torch.cuda.empty_cache()
+    phase_c8(dprast_torch, sb, core, testing, dev)
+    times = {}
+    for name, grid, n_poses, n_points in XLA_TIMED:
+        times[name] = xla_times(dprast_torch, sb, core, dev, smi, name, grid,
+                                n_poses, n_points)
+        torch.cuda.empty_cache()
+    return {"launches": launches, "times": times, "long_run": long_run}
+
+
+def xla_path_alone():
+    """`python3 chip_smoke.py --xla-path`: the build and [xla path] alone,
+    without the lines a whole run ends with."""
+    import dprast_torch
+    from dprast_torch.ops import _build, core, splat_binned as sb
+    from dprast_torch.utils import profiling, testing
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    smi = profiling.card(0)
+    print(smi)
+    t0 = time.perf_counter()
+    so = _build.build()
+    _build.load()
+    print(f"[build] {time.perf_counter() - t0:.1f} s")
+    entry = False
+    for ln in so.with_suffix(".log").read_text().splitlines():
+        if "Compiling entry" in ln:
+            entry = "xla_" in ln
+        if entry and ("Compiling entry" in ln or "registers" in ln
+                      or "spill" in ln):
+            print(f"[build] {ln.strip()}")
+    t0 = time.perf_counter()
+    phase_xla_path(dprast_torch, sb, core, testing, dev, smi)
+    print(f"[xla path] took {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3386,6 +3983,9 @@ def main():
     if sys.argv[1:2] == ["--deterministic"]:
         # [deterministic]'s process, started by the run itself
         return deterministic_worker()
+    if sys.argv[1:2] == ["--xla-path"]:
+        # the build and [xla path] alone, for a short call
+        return xla_path_alone()
 
     import dprast_torch
     from dprast_torch.ops import _build, core, splat_binned as sb
@@ -3768,6 +4368,11 @@ def main():
     poses_launches = phase_poses(dprast_torch, sb, dev, smi)
     print(f"[poses] took {time.perf_counter() - t0:.1f} s")
 
+    # --- 20b. the `xla` path's kernels X1-X3 ---
+    t0 = time.perf_counter()
+    xla = phase_xla_path(dprast_torch, sb, core, testing, dev, smi)
+    print(f"[xla path] took {time.perf_counter() - t0:.1f} s")
+
     # --- 21. no host sync on the card's path; the benchmark entry points;
     # the on-card parity suite ---
     for tag, phase in (("[no sync]", lambda: phase_no_sync(dprast_torch, dev)),
@@ -3977,6 +4582,39 @@ def main():
         kernels.append(kernel(key[1], bwd_cu, replaces, launched, err, k_ms,
                               plain_ms, bound_, shape, variant=variant,
                               device_us=dev_us))
+    # the `xla` path's kernels (replace the device code XLA compiles
+    # `dprast/ops/core.py` into), at the timed rows; launches from the
+    # autograd step through `auto` at 1024cube_1e5
+    xla_cu = "dprast_torch/csrc/xla_path.cu"
+    xla_src = "dprast/ops/core.py"
+    xla_lines = {"xla_neighbours": f"{xla_src}:44-70", "xla_scatter":
+                 f"{xla_src}:103-112", "xla_gather": f"{xla_src}:160-193"}
+    xla_variant = {
+        "xla_neighbours": "X1: keys, terms and the fused pair's residuals; "
+                          "bit-equal to _xla_neighbours_plain",
+        "xla_scatter": "X2: the background's fill, then each run of "
+                       "sorted keys added in input order; bit-equal to the "
+                       "CPU's index_add_; library_ms is index_put_ with "
+                       "accumulate into the filled volume (the runs alone)",
+        "xla_gather": "X3: the cotangent read in place; bit-equal to "
+                      "_xla_gather_plain; library_ms is torch.gather of a "
+                      "padded cotangent"}
+    for row, t in xla["times"].items():
+        for name in core.XLA_KERNELS:
+            entry = kernel(name, xla_cu, xla_lines[name],
+                           xla["launches"][name], 0.0, t[name]["ms"],
+                           t[name]["plain_ms"], t["bounds"][name],
+                           f"{row}, per-point weights",
+                           variant=xla_variant[name],
+                           device_us=t[name]["dev_us"],
+                           library_ms=t[name]["library_ms"])
+            if name == "xla_scatter":
+                entry.update(
+                    fill_us=t[name]["fill_us"],
+                    runs_us=t[name]["scatter_us"],
+                    runs_bound_ms=t["bounds"]["xla_scatter runs"][0],
+                    library_dev_us=t[name]["library_dev_us"])
+            kernels.append(entry)
     # [sharded] is a main path too: its 1 x 1 mesh, driven in this
     # process between a reset and a read of the counts, adds to `launches`;
     # the four workers' own counts stand beside it

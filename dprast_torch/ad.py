@@ -19,7 +19,13 @@ class _Raster(torch.autograd.Function):
     When both directions run on one backend with a fused pair, the
     forward saves that backend's residuals (the binned backend's sorted
     slot frame, the oracle's neighbour geometry) and the backward reuses
-    them; otherwise the backward recomputes from the six inputs."""
+    them; otherwise the backward recomputes from the six inputs.  The
+    residuals are made with grad mode off and carry no graph: under
+    ``create_graph=True`` (a second derivative; grad mode is on inside
+    the backward only then) the oracle's fused pullback
+    (`core.raster_pullback_res`) recomputes them from the inputs in plain
+    torch, so that the graph holds every second-order term of the point
+    geometry."""
 
     @staticmethod
     def forward(ctx, grid_size, backend, pw_uniform, *args):
@@ -74,7 +80,8 @@ class _RasterOnce(_Raster):
         return _Raster.backward(ctx, ds_dout)
 
 
-# the backend whose pullback is plain torch in the inputs' own precision
+# the backend whose pullback has a plain torch form in the inputs' own
+# precision, which a backward under create_graph=True runs
 _TWICE_DIFFERENTIABLE = ("xla",)
 
 

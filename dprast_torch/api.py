@@ -221,7 +221,9 @@ def raster(grid_size, points, rotation, translation, background=None,
     pullback of the chosen backend.  A numpy float64 input makes the whole
     call float64 and sends 'auto' to the float64 oracle, so cast what
     `np.random` returns to float32 first.  The 'binned' and 'matmul'
-    backends can be differentiated once; 'xla' also a second time.
+    backends can be differentiated once; 'xla' also a second time (its
+    backward under ``create_graph=True`` runs in plain torch, which
+    records the graph; otherwise its kernels run on the card).
 
     Args:
       grid_size: tuple of N_out ints, the output grid shape.
@@ -237,8 +239,10 @@ def raster(grid_size, points, rotation, translation, background=None,
         'binned_bf16' (the `_bf16` names are the ~2e-3 fast modes of
         'matmul' and 'binned', never chosen by 'auto').  On a CUDA device
         'auto' takes 'binned' for 2-D and 3-D grids (but for a cloud too
-        sparse for its grid) and 'xla' otherwise; on the CPU and for
-        float64 'xla'.
+        sparse for its grid, or a grid of more than 4,096 tiles) and
+        'xla' otherwise, whose path on the card is three kernels
+        (`dprast_torch/csrc/xla_path.cu`); on the CPU and for float64
+        'xla'.
       device: where numpy / list inputs go when no input is a tensor;
         by default the current CUDA device (a RuntimeError where there is
         none), ``"cpu"`` for the CPU.

@@ -38,8 +38,11 @@ points, uniform weights) on 128^2 and 1024^2:
   microseconds and launches per step, at all three shapes (a kernel's
   name without its argument list, which a new parameter changes);
 - the `xla` backend at ``1024cube_1e5`` (1024^3, one pose, 10^5 points,
-  `benchmarks.run`'s inputs): the forward and the fused step, and the
-  fused step's peak device memory.
+  `benchmarks.run`'s inputs, per-point weights) and at ``512cube_1e6``
+  (512^3, one pose, 10^6 points): the forward, the fused step and the
+  autograd step of all six inputs, each with what it keeps the card busy
+  with and its peak device memory.  ``--xla-only`` times these rows
+  alone.
 
 It prints one line per quantity with the readings of the four runs and
 the means of each checkout.  Usage, from the root of the newer checkout,
@@ -47,6 +50,8 @@ with the older one unpacked by `git archive` into a directory that
 `.gitignore` lists:
 
     python3 -m dprast_torch.benchmarks.compare_checkouts build/parent .
+    python3 -m dprast_torch.benchmarks.compare_checkouts --xla-only \
+        build/parent .
 
 A worker uses only what both checkouts have: the public entry points, the
 wrappers of `dprast_torch.ops.splat_binned` and the helpers of
@@ -61,7 +66,10 @@ import subprocess
 import sys
 from pathlib import Path
 
-WORKER = r'''
+# a worker is HEAD_WORKER (imports and helpers), BINNED_WORKER (the binned
+# path's stages at the three shapes; left out by --xla-only) and XLA_WORKER
+# (the xla rows, and the result line)
+HEAD_WORKER = r'''
 import json, sys
 sys.path.insert(0, ".")
 import torch
@@ -194,6 +202,9 @@ def epilogue_stage(tag, grid, canon, g):
         cs.device_busy(step_torch_form)
 
 
+'''
+
+BINNED_WORKER = r'''
 for grid in cs.GRIDS:
     tag = "x".join(map(str, grid))
     ts = sb.tile_shape_for(grid)
@@ -266,33 +277,54 @@ if EPILOGUE:
     epilogue_stage(tag, cs.VOLUME, canon, g)
 entry_points(tag, cs.VOLUME, *vol[:3], g)
 by_kernel(tag, cs.VOLUME, 1_000_000, 1)
-# the xla backend at 1024cube_1e5
-big = (1024, 1024, 1024)
-args = tuple(torch.from_numpy(a).to(dev) for a in _args_for(100_000, 1, big,
-                                                            3))
-g = _cotangent(1, big, dev)
+'''
 
+XLA_WORKER = r'''
+# the xla backend at its timed rows: the forward, the fused step and the
+# autograd step of all six inputs (per-point weights), with what each
+# keeps the card busy with and its peak device memory
+for name, big, n_points in (("1024cube_1e5", (1024, 1024, 1024), 100_000),
+                            ("512cube_1e6", (512, 512, 512), 1_000_000)):
+    args = tuple(torch.from_numpy(a).to(dev)
+                 for a in _args_for(n_points, 1, big, 3))
+    g = _cotangent(1, big, dev)
+    leaves = [x.clone().requires_grad_() for x in args]
 
-def xla_step():
-    _, res = core.raster_fwd_res(big, *args)
-    return core.raster_pullback_res(big, res, args, g)
+    def xla_step():
+        _, res = core.raster_fwd_res(big, *args)
+        return core.raster_pullback_res(big, res, args, g)
 
+    def xla_autograd():
+        img = dprast_torch.raster(big, *leaves, backend="xla")
+        return torch.autograd.grad((img * g).sum(), leaves)
 
-out["xla forward 1024cube_1e5 ms"] = cs.time_ms(
-    lambda: core.raster_fwd(big, *args))
-out["xla fused step 1024cube_1e5 ms"] = cs.time_ms(xla_step)
-torch.cuda.synchronize()
-torch.cuda.reset_peak_memory_stats()
-xla_step()
-torch.cuda.synchronize()
-out["xla fused step 1024cube_1e5 peak GB"] = (
-    torch.cuda.max_memory_allocated() / 1e9)
+    for what, fn in (("forward", lambda: core.raster_fwd(big, *args)),
+                     ("fused step", xla_step),
+                     ("autograd step", xla_autograd)):
+        key = f"xla {what} {name}"
+        out[key + " ms"] = cs.time_ms(fn)
+        out[key + " device-busy us"], out[key + " kernels and copies"] = \
+            cs.device_busy(fn)
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        out[key + " peak GB"] = torch.cuda.max_memory_allocated() / 1e9
+    del args, g, leaves
+    torch.cuda.empty_cache()
 print("RESULT " + json.dumps(out))
 '''
 
 
-def run_worker(checkout: Path) -> dict:
-    proc = subprocess.run([sys.executable, "-c", WORKER], cwd=checkout,
+
+# the whole comparison's worker
+WORKER = HEAD_WORKER + BINNED_WORKER + XLA_WORKER
+
+
+def run_worker(checkout: Path, xla_only: bool = False) -> dict:
+    worker = HEAD_WORKER + XLA_WORKER if xla_only else WORKER
+    proc = subprocess.run([sys.executable, "-c", worker], cwd=checkout,
                           capture_output=True, text=True)
     lines = [ln for ln in proc.stdout.splitlines()
              if ln.startswith("RESULT ")]
@@ -309,13 +341,15 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("before", type=Path, help="the older checkout")
     ap.add_argument("after", type=Path, help="the newer checkout")
+    ap.add_argument("--xla-only", action="store_true",
+                    help="time the xla backend's rows alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("compare_checkouts: torch.cuda.is_available() is "
                          "False")
     card = profiling.card()
     order = (args.before, args.after, args.after, args.before)
-    runs = [run_worker(path.resolve()) for path in order]
+    runs = [run_worker(path.resolve(), args.xla_only) for path in order]
     print(f"{card} | runs in the order before, after, after, before",
           flush=True)
     keys = list(dict.fromkeys(k for run in runs for k in run))

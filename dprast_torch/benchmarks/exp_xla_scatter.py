@@ -1,10 +1,12 @@
 """The `xla` backend's scatter on one CUDA card, in three forms:
-`index_add_` (float atomics; the backend's earlier forward on the card);
-`index_put_(..., accumulate=True)` (a stable sort by index, then
-each voxel's terms added in input order); and "sorted runs" (the terms
-sorted by index, each run of equal indices summed in order by
-`index_put_` into a buffer of one entry a term, then each run's sum added
-into the volume once by `index_add_`, whose other terms are zeros).
+`xla_scatter` (kernel X2, `csrc/xla_path.cu`: each run of the stably
+sorted keys added onto its voxel in input order, one writer a voxel; the
+backend's forward on the card); `index_put_(..., accumulate=True)`
+(torch's sorted path: a stable sort by index, then each voxel's terms
+added in input order; the card's forward before X2); and `index_add_`
+(float atomics; the card's forward before that).  The two torch forms
+take the sorted keys and terms that X1 and the sort hand X2, into a
+buffer of the volume plus one entry that absorbs the out-of-grid terms.
 
 With torch's deterministic mode off, for each of the three rows that
 `auto` sends to `xla` on the card -- ``1024cube_1e5`` (1024^3, one pose,
@@ -14,7 +16,7 @@ the forward and the fused step (`core.raster_fwd_res`, then
 `core.raster_pullback_res` on its residuals) of each form twice and says
 whether the two runs give the same bits.  At ``1024cube_1e5`` it then
 times the forward and the fused step of each form with CUDA events, in
-the order add, put, put, add, and reads the peak device memory of one
+the order of the forms and back, and reads the peak device memory of one
 fused step of each and, from `torch.profiler`, what one forward keeps
 the card busy with, kernel by kernel.  The inputs are
 `dprast_torch.benchmarks.run`'s (`_args_for`, `_cotangent`).
@@ -27,6 +29,7 @@ Usage, from the root of the repository:
 from __future__ import annotations
 
 import contextlib
+import math
 import tempfile
 
 import torch
@@ -42,34 +45,35 @@ ROWS = (("1024cube_1e5", (1024, 1024, 1024), 1, 100_000),
         ("16^4 x 4 x 1e4", (16, 16, 16, 16), 4, 10_000))
 
 
-def sorted_runs(flat, idx, w):
-    """``flat[idx[i]] += w[i]``: each run of equal indices, in input order
-    (a stable sort), summed by `index_put_` into a buffer of one entry a
-    term at the run's first position, then added once into `flat`."""
-    s, perm = torch.sort(idx, stable=True)
-    start = torch.ones_like(s, dtype=torch.bool)
-    start[1:] = s[1:] != s[:-1]
-    pos = torch.arange(s.numel(), device=s.device)
-    first = torch.cummax(torch.where(start, pos, 0), 0).values
-    runs = torch.zeros_like(w).index_put_((first,), w[perm], accumulate=True)
-    return flat.index_add_(0, s, torch.where(start, runs, 0.0))
+def _into_sink(torch_form):
+    """A torch form of X2 on its arguments: the terms added into the
+    backgrounds' volume with one more entry, which absorbs the out-of-grid
+    keys."""
+    def scatter(background, grid, keys, perm, vals):
+        b, total = background.shape[0], math.prod(grid)
+        flat = background[:, None].expand(b, total).reshape(-1)
+        buf = torch.cat([flat, flat.new_zeros(1)])
+        torch_form(buf, keys, vals[perm])
+        return buf[:-1].view((b,) + tuple(grid))
+    return scatter
 
 
-FORMS = {"index_add_": lambda flat, idx, w: flat.index_add_(0, idx, w),
-         "index_put_": lambda flat, idx, w: flat.index_put_(
-             (idx,), w, accumulate=True),
-         "sorted runs": sorted_runs}
+FORMS = {"xla_scatter": core.xla_scatter,
+         "index_put_": _into_sink(lambda buf, idx, w: buf.index_put_(
+             (idx,), w, accumulate=True)),
+         "index_add_": _into_sink(lambda buf, idx, w: buf.index_add_(
+             0, idx, w))}
 
 
 @contextlib.contextmanager
 def scatter(form):
-    """`core._scatter_add` is the form `form` while open."""
-    keep = core._scatter_add
-    core._scatter_add = FORMS[form]
+    """`core.xla_scatter` is the form `form` while open."""
+    keep = core.xla_scatter
+    core.xla_scatter = FORMS[form]
     try:
         yield
     finally:
-        core._scatter_add = keep
+        core.xla_scatter = keep
 
 
 def row_inputs(grid, n_poses, n_points, dev):

@@ -28,7 +28,8 @@
 //
 // What the design does about it.
 // - Every +, - and * of steps 1 and 2 is an `__f*_rn` intrinsic, in the
-//   order of the plain twin, parentheses included.  nvcc never contracts
+//   order of the plain twin, parentheses included (the double-float32
+//   helpers of twofloat.cuh, which X1 of xla_path.cu shares).  nvcc never contracts
 //   these into an FMA and never re-associates them, so `c - (c - a)` of the
 //   split survives -O3 and the result is the twin's bit for bit (each
 //   operator of the twin is its own kernel, rounded on its own).  TwoProd
@@ -72,6 +73,7 @@
 #include <cuda_runtime.h>
 
 #include "poses.cuh"
+#include "twofloat.cuh"
 
 namespace {
 
@@ -99,39 +101,6 @@ struct Layout {
   int id_plane;
   int n_slots;  // the frame's slots, whose table the kernel writes too
 };
-
-// floor(n / t) for 0 <= n < 2^32 / t, by the multiplier of `Axes::inv`.
-__device__ __forceinline__ int tile_of(int n, unsigned inv) {
-  return inv == 0u ? n : (int)__umulhi((unsigned)n, inv);
-}
-
-// Knuth TwoSum: s + e == a + b exactly, s = fl(a + b).
-__device__ __forceinline__ void two_sum(float a, float b, float& s,
-                                        float& e) {
-  s = __fadd_rn(a, b);
-  const float v = __fsub_rn(s, a);
-  e = __fadd_rn(__fsub_rn(a, __fsub_rn(s, v)), __fsub_rn(b, v));
-}
-
-// Veltkamp split of an fp32 into 12 + 12 bit halves.
-__device__ __forceinline__ void split(float a, float& hi, float& lo) {
-  const float c = __fmul_rn(a, 4097.0f);  // 2^12 + 1
-  hi = __fsub_rn(c, __fsub_rn(c, a));
-  lo = __fsub_rn(a, hi);
-}
-
-// Dekker TwoProd on operands that are already split: p + e == a * b
-// exactly, p = fl(a * b);
-// e = (((ah bh - p) + ah bl) + al bh) + al bl.
-__device__ __forceinline__ void two_prod(float a, float ah, float al, float b,
-                                         float bh, float bl, float& p,
-                                         float& e) {
-  p = __fmul_rn(a, b);
-  e = __fadd_rn(
-      __fadd_rn(__fadd_rn(__fsub_rn(__fmul_rn(ah, bh), p), __fmul_rn(ah, bl)),
-                __fmul_rn(al, bh)),
-      __fmul_rn(al, bl));
-}
 
 // kFrame: the single tile's frame (`Layout`), else the (B, P, L) planes;
 // an instance apiece, so that the planes' instance carries no frame code
@@ -204,7 +173,7 @@ coords_kernel(const float* __restrict__ points,  // (P, n_in)
     split(xj, xh, xl);
 #pragma unroll
     for (int i = 0; i < N_OUT; ++i) {
-      float rij, rh, rl, pr, pe, e;
+      float rij, rh, rl;
       if (N_IN > 0) {
         rij = r_split[i * N_IN + j][0];
         rh = r_split[i * N_IN + j][1];
@@ -213,9 +182,7 @@ coords_kernel(const float* __restrict__ points,  // (P, n_in)
         rij = r[i * n_in + j];
         split(rij, rh, rl);
       }
-      two_prod(rij, rh, rl, xj, xh, xl, pr, pe);
-      two_sum(hi[i], pr, hi[i], e);
-      lo[i] = __fadd_rn(lo[i], __fadd_rn(pe, e));
+      add_product_2f(hi[i], lo[i], rij, rh, rl, xj, xh, xl);
     }
   }
 
@@ -225,28 +192,12 @@ coords_kernel(const float* __restrict__ points,  // (P, n_in)
   int enc_out[N_OUT];
 #pragma unroll
   for (int i = 0; i < N_OUT; ++i) {
-    // u = (q + 1) * scale - 1/2, renormalised
-    float h = hi[i], l = lo[i], e;
-    two_sum(h, 1.0f, h, e);
-    l = __fadd_rn(l, e);
-    const float sc = s_split[i][0];
-    float hh, hl;
-    split(h, hh, hl);
-    two_prod(h, hh, hl, sc, s_split[i][1], s_split[i][2], h, e);
-    l = __fadd_rn(__fmul_rn(l, sc), e);
-    two_sum(h, -0.5f, h, e);
-    l = __fadd_rn(l, e);
-    two_sum(h, l, h, l);
-
-    // 2. (r0, dl) with dl in (0, 1]: h - r0f is exact, and one fix-up step
-    //    where the lo term pushed dl across a voxel boundary
-    float r0f = __fsub_rn(ceilf(h), 1.0f);
-    float dl = __fadd_rn(__fsub_rn(h, r0f), l);
-    const bool up = dl > 1.0f;
-    const bool dn = dl <= 0.0f;
-    r0f = __fsub_rn(__fadd_rn(r0f, up ? 1.0f : 0.0f), dn ? 1.0f : 0.0f);
-    dl = up ? __fsub_rn(dl, 1.0f) : (dn ? __fadd_rn(dl, 1.0f) : dl);
-    const int r0 = __float2int_rz(r0f);  // saturates, as a tensor cast does
+    // u = (q + 1) * scale - 1/2, renormalised; 2. (r0, dl) with dl in
+    // (0, 1] (`voxel_and_delta_2f`, twofloat.cuh)
+    int r0;
+    float dl;
+    voxel_and_delta_2f(hi[i], lo[i], s_split[i][0], s_split[i][1],
+                       s_split[i][2], r0, dl);
 
     // 3. tile index, key, and the encoded coordinate; the integer
     //    arithmetic wraps as int32 tensors do (unsigned here)

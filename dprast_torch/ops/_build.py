@@ -29,10 +29,10 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dprast_torch"
 _SOURCES = ("fwd_splat.cu", "band_fold.cu", "band_unfold.cu",
             "bwd_gather.cu", "coords.cu", "frame_gather.cu",
-            "slot_prep.cu", "epilogue.cu")
+            "slot_prep.cu", "epilogue.cu", "xla_path.cu")
 # headers the sources include: not compiled on their own, but part of the
 # library's name, so that an edited header rebuilds it
-_HEADERS = ("poses.cuh", "slots.cuh")
+_HEADERS = ("poses.cuh", "slots.cuh", "twofloat.cuh")
 
 # B1 and B4 keep one tile window of at most 128 x 128 entries in dynamic
 # shared memory: B4's holds fp32 (64 KB), B1's 64-bit fixed point as two
@@ -149,6 +149,17 @@ def load():
         lib.dprast_epilogue_poses.argtypes = [vp, i32, i32, vp, vp, vp, vp, vp,
                                               i32, i32, i32, i32, vp]
         lib.dprast_epilogue_poses.restype = i32
+        sizes = ctypes.POINTER(ctypes.c_int)
+        lib.dprast_xla_neighbours.argtypes = [vp, vp, vp, vp, i64, vp, i64,
+                                              vp, i32, vp, vp, vp, vp, i32,
+                                              i32, i32, i32, sizes, i32, vp]
+        lib.dprast_xla_neighbours.restype = i32
+        lib.dprast_xla_scatter.argtypes = [vp, vp, i64, vp, i32, vp, vp, i64,
+                                           i32, i64, i32, vp]
+        lib.dprast_xla_scatter.restype = i32
+        lib.dprast_xla_gather.argtypes = [vp, vp, vp, vp, vp, i64, vp, i64, vp,
+                                          vp, i32, i32, i32, sizes, i32, vp]
+        lib.dprast_xla_gather.restype = i32
         lib.dprast_error_string.argtypes = [i32]
         lib.dprast_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -1,9 +1,33 @@
-"""Plain-torch scatter/gather oracle (the ``"xla"`` backend)
+"""Scatter/gather oracle (the ``"xla"`` backend)
 (PyTorch port of `dprast/ops/core.py`).
 
 Works for any (N_in, N_out) with N_in >= N_out, on any device.  The
-forward is a scatter-add in a fixed order (`_scatter_add`); the pullback
-is a pure gather.  All functions take canonical batched arguments:
+forward is a scatter-add in a fixed order; the pullback is a pure
+gather.  On the card three hand-written kernels run the path
+(`csrc/xla_path.cu`), the device code that XLA compiles the JAX
+functions into:
+
+- X1 `xla_neighbours`: per (pose, point) the compensated voxel and
+  deltas, and per neighbour its flat index, hat weight and term -- the
+  scatter's sort keys and terms and the fused pair's residuals;
+- the keys sorted stably (`torch.sort`), then X2 `xla_scatter`: the
+  volume filled with each pose's background, and each run of equal keys
+  added onto its voxel in the sort's order, one add at a time, which is
+  `index_add_`'s order on the CPU, so the card's forward has the CPU's
+  bits;
+- X3 `xla_gather`: per (pose, point) the 2^N cotangent values read in
+  place and the products of the pullback; the sums over poses and points
+  stay small torch contractions, as JAX computes them outside any
+  kernel.
+
+On CPU tensors each wrapper runs its plain version (`_xla_*_plain`),
+which gives the kernel's bits.  A pullback that must record a graph
+(grad mode on, and an input or the cotangent that requires grad: a
+second derivative) runs the plain torch form from the inputs, on any
+device, and counts it in `GRAPH_FORM_CALLS`; the kernels record no graph,
+and neither do the residuals the forward saved.
+
+All functions take canonical batched arguments:
 
     points       (P, N_in)
     rotation     (B, N_out, N_in)
@@ -16,12 +40,22 @@ is a pure gather.  All functions take canonical batched arguments:
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import NamedTuple
 
 import torch
 
 from dprast_torch.ops import geometry
+
+# the path's kernels, by the names their launches count under in
+# `splat_binned.LAUNCHES`
+XLA_KERNELS = ("xla_neighbours", "xla_scatter", "xla_gather")
+# calls of the graph-recording pullback form (`_pullback_graph`)
+GRAPH_FORM_CALLS = {"xla_plain": 0}
+
+# the ranks the kernels take (their per-axis tables, csrc/xla_path.cu)
+MAX_AXES = 16
 
 
 class PullbackResult(NamedTuple):
@@ -53,25 +87,287 @@ def _neighbour_data(points, rotation, translation, grid_size):
         dev)
     total = int(math.prod(grid_size))
     idx_flat = torch.sum(idx.long() * strides, dim=-1)
-    # out-of-grid -> one past the end: the scatter buffer's last slot
-    # absorbs it, and the gather reads the zero appended there (the
-    # reference's silent per-neighbour drop)
+    # out-of-grid -> one past the end, which the scatter never stores and
+    # the gather reads as 0 (the reference's silent per-neighbour drop)
     idx_flat = torch.where(inb, idx_flat, total)
     wsplat = geometry.splat_weights(dl, shifts)             # (B, P, S)
     return idx_flat, wsplat, dl, shifts
 
 
-def _scatter_add(flat, idx, w):
-    """``flat[idx[i]] += w[i]`` for every i, in place, each entry's terms
-    added in the order of i, so that a call repeats bit for bit.  On the
-    card `index_put_` with ``accumulate=True`` sorts by index (stably) and
-    adds each entry's run of terms in turn, where `index_add_` adds them
-    with float atomics in the order they land; on the CPU `index_add_` adds
-    in the order of i, where `index_put_` adds from several threads at
-    once."""
-    if flat.device.type == "cuda":
-        return flat.index_put_((idx,), w, accumulate=True)
-    return flat.index_add_(0, idx, w)
+def _key_dtype(bsz, total):
+    """The sort keys' dtype: int32 while every key, B * total for an
+    out-of-grid term among them, fits."""
+    return torch.int32 if bsz * total < 2 ** 31 else torch.int64
+
+
+# ---------------------------------------------------------------------------
+# X1: the neighbour stage
+# ---------------------------------------------------------------------------
+
+
+def _xla_neighbours_plain(grid_size, points, rotation, translation,
+                          out_weight, point_weight, *, terms=True,
+                          residuals=True):
+    """Plain version of X1 -> ``(keys, vals, residuals)``: the sort keys
+    (B, P, S), ``b * total + flat`` and B * total where out of grid, int32
+    or int64 (`_key_dtype`); the terms ``(W_s * ow[b]) * pw[p]`` (B, P,
+    S); the residuals ``(idx_flat, wsplat, dl)`` of `_neighbour_data`.
+    What is not asked for (`terms`, `residuals`) is None."""
+    idx_flat, wsplat, dl, _ = _neighbour_data(points, rotation, translation,
+                                              grid_size)
+    keys = vals = None
+    if terms:
+        bsz = rotation.shape[0]
+        total = int(math.prod(grid_size))
+        base = torch.arange(bsz, device=points.device)[:, None, None] * total
+        keys = torch.where(idx_flat < total, idx_flat + base,
+                           bsz * total).to(_key_dtype(bsz, total))
+        vals = wsplat * out_weight[:, None, None] * point_weight[None, :, None]
+    return keys, vals, ((idx_flat, wsplat, dl) if residuals else None)
+
+
+def _coordinate_dtype(points, rotation, translation):
+    """What `geometry.pose_voxel_and_deltas` computes in: float64 where an
+    input is, else float32."""
+    if torch.float64 in (points.dtype, rotation.dtype, translation.dtype):
+        return torch.float64
+    return torch.float32
+
+
+def _weight(name, w, dtype, n, dev):
+    """A per-pose or per-point value (a weight, the background) for a
+    kernel: `dtype` on `dev`, (n,) with any element stride (0 for a
+    broadcast value)."""
+    from dprast_torch.ops import splat_binned as sb
+    w = w.to(dtype)
+    if w.shape != (n,) or not sb._on_card(w) or w.device != dev:
+        raise ValueError(f"{name}: a weight of shape {tuple(w.shape)} on "
+                         f"{w.device}; expected ({n},) on the CUDA device "
+                         f"{dev}")
+    return w
+
+
+def _sizes(grid_size):
+    n = len(grid_size)
+    if not 1 <= n <= MAX_AXES:
+        raise ValueError(f"xla path: a grid of {n} axes exceeds the "
+                         f"kernels' {MAX_AXES}")
+    return (ctypes.c_int * n)(*grid_size)
+
+
+def xla_neighbours(grid_size, points, rotation, translation, out_weight,
+                   point_weight, *, terms=True, residuals=True):
+    """X1 -> ``(keys, vals, residuals)`` as `_xla_neighbours_plain` gives
+    them.  CPU tensors take the plain version, CUDA tensors one launch of
+    `csrc/xla_path.cu` (fp32 coordinates by the double-float32 transform,
+    or fp64 where an input of the transform is; the weights are cast to
+    that dtype), which gives the plain version's bits."""
+    if points.device.type == "cpu":
+        return _xla_neighbours_plain(grid_size, points, rotation,
+                                     translation, out_weight, point_weight,
+                                     terms=terms, residuals=residuals)
+    from dprast_torch.ops import splat_binned as sb
+    dtype = _coordinate_dtype(points, rotation, translation)
+    pts, rot, tr = (x.to(dtype).contiguous()
+                    for x in (points, rotation, translation))
+    sb._check_cuda("xla_neighbours", pts, dtype, rot, dtype, tr, dtype)
+    n_out = len(grid_size)
+    bsz = rot.shape[0]
+    p, n_in = pts.shape if pts.dim() == 2 else (0, 0)
+    if pts.dim() != 2 or n_in < 1 or rot.shape != (bsz, n_out, n_in) or \
+            tr.shape != (bsz, n_out):
+        raise ValueError(f"xla_neighbours: points {tuple(pts.shape)}, "
+                         f"rotation {tuple(rot.shape)} and translation "
+                         f"{tuple(tr.shape)} do not form poses onto the "
+                         f"grid {tuple(grid_size)}")
+    if p >= 2 ** 31:
+        raise ValueError(f"xla_neighbours: P={p} exceeds the kernel's "
+                         f"launch bounds")
+    dev = pts.device
+    ow = _weight("xla_neighbours", out_weight, dtype, bsz, dev)
+    pw = _weight("xla_neighbours", point_weight, dtype, p, dev)
+    sizes = _sizes(grid_size)
+    total = int(math.prod(grid_size))
+    n_s = 2 ** n_out
+    key_dtype = _key_dtype(bsz, total)
+    keys = torch.empty((bsz, p, n_s), dtype=key_dtype, device=dev) \
+        if terms else None
+    vals = torch.empty((bsz, p, n_s), dtype=dtype, device=dev) \
+        if terms else None
+    res = (torch.empty((bsz, p, n_s), dtype=torch.int64, device=dev),
+           torch.empty((bsz, p, n_s), dtype=dtype, device=dev),
+           torch.empty((bsz, p, n_out), dtype=dtype, device=dev)) \
+        if residuals else None
+    if bsz and p and (terms or residuals):
+        def ptr(t):
+            return None if t is None else sb._ptr(t)
+        idx, ws, dl = res if residuals else (None, None, None)
+        sb._launch("xla_neighbours", dev,
+                   sb._build.load().dprast_xla_neighbours, ptr(pts),
+                   ptr(rot), ptr(tr), ptr(ow), ow.stride(0), ptr(pw),
+                   pw.stride(0), ptr(keys), int(key_dtype == torch.int64),
+                   ptr(vals), ptr(idx), ptr(ws), ptr(dl), bsz, p, n_in,
+                   n_out, sizes, int(dtype == torch.float64))
+        sb.LAUNCHES["xla_neighbours"] += 1
+    return keys, vals, res
+
+
+# ---------------------------------------------------------------------------
+# X2: the fixed-order scatter
+# ---------------------------------------------------------------------------
+
+
+def _xla_scatter_plain(background, grid_size, keys, perm, vals):
+    """Plain version of X2 -> (B, *grid): each pose's background, then
+    ``flat[keys[i]] += vals[perm[i]]`` in the order of i by `index_add_`
+    (the CPU adds in input order), keys at or past B * total into a sink
+    that is dropped."""
+    bsz, total = background.shape[0], int(math.prod(grid_size))
+    flat = background.to(vals.dtype)[:, None].expand(bsz, total).reshape(-1)
+    buf = torch.cat([flat, flat.new_zeros(1)])
+    buf.index_add_(0, keys, vals[perm])
+    return buf[:-1].view((bsz,) + tuple(grid_size))
+
+
+def xla_scatter(background, grid_size, keys, perm, vals):
+    """X2 -> out (B, *grid): each pose's background (B,), plus each term
+    ``vals[perm[i]]`` at ``keys[i]`` of the flat volume, where `keys` (n,)
+    are sorted stably and `perm` (n,) int64 is the sort's permutation of
+    the terms `vals` (n,); keys at or past B * total are out of grid and
+    skipped.  Each run of equal keys is added onto its voxel in the order
+    of i, one add at a time, from the background: the bits of `index_add_`
+    of the terms in input order on the CPU.  CPU tensors take the plain
+    version, CUDA tensors one call of `csrc/xla_path.cu` (the fill, then
+    the runs: no atomics, one writer a voxel)."""
+    if vals.device.type == "cpu":
+        return _xla_scatter_plain(background, grid_size, keys, perm, vals)
+    from dprast_torch.ops import splat_binned as sb
+    dtype = vals.dtype
+    if dtype not in (torch.float32, torch.float64) or \
+            keys.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"xla_scatter: {dtype} terms and {keys.dtype} "
+                         f"keys; expected float32 or float64 and int32 or "
+                         f"int64")
+    sb._check_cuda("xla_scatter", vals, dtype, keys, keys.dtype, perm,
+                   torch.int64)
+    n = keys.numel()
+    if keys.dim() != 1 or perm.shape != (n,) or vals.shape != (n,):
+        raise ValueError(f"xla_scatter: keys {tuple(keys.shape)}, perm "
+                         f"{tuple(perm.shape)} and terms {tuple(vals.shape)} "
+                         f"are not three vectors of one length")
+    bsz, total = background.shape[0], int(math.prod(grid_size))
+    bg = _weight("xla_scatter", background, dtype, bsz, vals.device)
+    if keys.dtype == torch.int32 and bsz * total >= 2 ** 31:
+        raise ValueError(f"xla_scatter: int32 keys into a volume of "
+                         f"{bsz * total} entries")
+    out = torch.empty((bsz,) + tuple(grid_size), dtype=dtype,
+                      device=vals.device)
+    if out.numel():
+        sb._launch("xla_scatter", out.device,
+                   sb._build.load().dprast_xla_scatter, sb._ptr(out),
+                   sb._ptr(bg), bg.stride(0), sb._ptr(keys),
+                   int(keys.dtype == torch.int64), sb._ptr(perm),
+                   sb._ptr(vals), n, bsz, total,
+                   int(dtype == torch.float64))
+        sb.LAUNCHES["xla_scatter"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# X3: the in-place pullback gather
+# ---------------------------------------------------------------------------
+
+
+def _xla_gather_plain(grid_size, ds_dout, residuals, out_weight,
+                      point_weight):
+    """Plain version of X3 -> ``(scaled (B, P, N), gw (B, P))``: per
+    (pose, point) the cotangent at its 2^N neighbours (0 out of grid),
+    ``gw = sum_s g_s W_s`` and ``scaled_i = (sum_s g_s (ow pw) dW_s/ddl_i)
+    * g_i / 2``, each sum in increasing s, each product of the hat
+    weight's derivative left to right; plain torch, so it records a
+    graph where one is wanted."""
+    idx_flat, wsplat, dl = residuals
+    bsz, p, n_s = idx_flat.shape
+    n = dl.shape[-1]
+    total = int(math.prod(grid_size))
+    g_flat = ds_dout.reshape(bsz, -1)
+    inb = idx_flat < total
+    g = torch.gather(g_flat, 1, torch.clamp(idx_flat, max=total - 1)
+                     .reshape(bsz, -1)).reshape(idx_flat.shape)
+    g = torch.where(inb, g, 0)
+    c = out_weight[:, None] * point_weight[None, :]          # (B, P)
+    one_minus = 1 - dl
+    sign = torch.ones((), dtype=dl.dtype, device=dl.device)
+    gw = None
+    acc = [None] * n
+    for s in range(n_s):
+        gs = g[..., s]
+        t = gs * wsplat[..., s]
+        gw = t if gw is None else gw + t
+        f = gs * c
+        sel = [dl[..., j] if (s >> j) & 1 else one_minus[..., j]
+               for j in range(n)]
+        for i in range(n):
+            d = None
+            for j in range(n):
+                if j != i:
+                    d = sel[j] if d is None else d * sel[j]
+            d = sign if d is None else d
+            d = (sign if (s >> i) & 1 else -sign) * d
+            term = f * d
+            acc[i] = term if acc[i] is None else acc[i] + term
+    scale = geometry.axis_values([x / 2 for x in grid_size], dl.dtype,
+                                 dl.device)
+    return torch.stack(acc, dim=-1) * scale, gw
+
+
+def xla_gather(grid_size, ds_dout, residuals, out_weight, point_weight):
+    """X3 -> ``(scaled, gw)`` as `_xla_gather_plain` gives them, from the
+    cotangent (B, *grid) read in place and X1's residuals ``(idx_flat,
+    wsplat, dl)``.  CPU tensors take the plain version, CUDA tensors one
+    launch of `csrc/xla_path.cu`, which gives its bits."""
+    if ds_dout.device.type == "cpu":
+        return _xla_gather_plain(grid_size, ds_dout, residuals, out_weight,
+                                 point_weight)
+    from dprast_torch.ops import splat_binned as sb
+    idx, ws, dl = residuals
+    dtype = ws.dtype
+    g = ds_dout.to(dtype).contiguous()
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"xla_gather: {dtype} residuals; expected float32 "
+                         f"or float64")
+    sb._check_cuda("xla_gather", g, dtype, idx, torch.int64, ws, dtype, dl,
+                   dtype)
+    n_out = len(grid_size)
+    bsz, p, n_s = idx.shape
+    total = int(math.prod(grid_size))
+    if g.numel() != bsz * total or n_s != 2 ** n_out or \
+            ws.shape != idx.shape or dl.shape != (bsz, p, n_out):
+        raise ValueError(f"xla_gather: cotangent {tuple(g.shape)} and "
+                         f"residuals {tuple(idx.shape)}, {tuple(ws.shape)}, "
+                         f"{tuple(dl.shape)} do not match the grid "
+                         f"{tuple(grid_size)}")
+    if p >= 2 ** 31:
+        raise ValueError(f"xla_gather: P={p} exceeds the kernel's launch "
+                         f"bounds")
+    dev = g.device
+    ow = _weight("xla_gather", out_weight, dtype, bsz, dev)
+    pw = _weight("xla_gather", point_weight, dtype, p, dev)
+    scaled = torch.empty((bsz, p, n_out), dtype=dtype, device=dev)
+    gw = torch.empty((bsz, p), dtype=dtype, device=dev)
+    if bsz and p:
+        sb._launch("xla_gather", dev, sb._build.load().dprast_xla_gather,
+                   sb._ptr(g), sb._ptr(idx), sb._ptr(ws), sb._ptr(dl),
+                   sb._ptr(ow), ow.stride(0), sb._ptr(pw), pw.stride(0),
+                   sb._ptr(scaled), sb._ptr(gw), bsz, p, n_out,
+                   _sizes(grid_size), int(dtype == torch.float64))
+        sb.LAUNCHES["xla_gather"] += 1
+    return scaled, gw
+
+
+# ---------------------------------------------------------------------------
+# the backend
+# ---------------------------------------------------------------------------
 
 
 def raster_fwd(grid_size, points, rotation, translation, background,
@@ -82,9 +378,8 @@ def raster_fwd(grid_size, points, rotation, translation, background,
     neighbours dropped.  (`pw_uniform` is accepted for dispatch
     uniformity; the weight multiply is fused into the scatter operand.)"""
     del pw_uniform
-    out, _ = raster_fwd_res(grid_size, points, rotation, translation,
-                            background, out_weight, point_weight)
-    return out
+    return _forward(grid_size, points, rotation, translation, background,
+                    out_weight, point_weight, residuals=False)[0]
 
 
 def raster_fwd_res(grid_size, points, rotation, translation, background,
@@ -94,28 +389,46 @@ def raster_fwd_res(grid_size, points, rotation, translation, background,
     autograd pair skips the compensated transform and the neighbour
     enumeration."""
     del pw_uniform
-    b = rotation.shape[0]
-    total = int(math.prod(grid_size))
-    idx_flat, wsplat, dl, _ = _neighbour_data(points, rotation, translation,
-                                              grid_size)
-    w = wsplat * out_weight[:, None, None] * point_weight[None, :, None]
-    # one flat buffer of B blocks of total + 1: block b's last slot is its
-    # out-of-grid sink
-    out = background[:, None].expand(b, total + 1).contiguous()
-    base = torch.arange(b, device=points.device)[:, None, None] * (total + 1)
-    _scatter_add(out.view(-1), (idx_flat + base).reshape(-1), w.reshape(-1))
-    return (out[:, :total].reshape((b,) + tuple(grid_size)),
-            (idx_flat, wsplat, dl))
+    return _forward(grid_size, points, rotation, translation, background,
+                    out_weight, point_weight, residuals=True)
+
+
+def _forward(grid_size, points, rotation, translation, background,
+             out_weight, point_weight, *, residuals):
+    """X1, the stable sort of its keys, and X2 (the background, then the
+    terms) -> (out, residuals or None).  Nothing reads a size back to the
+    host."""
+    keys, vals, res = xla_neighbours(grid_size, points, rotation,
+                                     translation, out_weight, point_weight,
+                                     residuals=residuals)
+    order, perm = torch.sort(keys.reshape(-1), stable=True)
+    return xla_scatter(background, grid_size, order, perm,
+                       vals.reshape(-1)), res
+
+
+def _records_graph(*tensors):
+    """Whether a pullback must record a graph: grad mode on (inside a
+    backward only under ``create_graph=True``) and a tensor that requires
+    grad."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def raster_pullback_res(grid_size, residuals, args, ds_dout, *,
                         pw_uniform: bool = False) -> PullbackResult:
-    """Pullback reusing the `raster_fwd_res` residuals."""
+    """Pullback reusing the `raster_fwd_res` residuals: X3 and the
+    contractions.  The residuals carry no graph, so where one must be
+    recorded (`_records_graph`) this recomputes from `args` as
+    `raster_pullback` does."""
     del pw_uniform
-    points, rotation, _, _, out_weight, point_weight = args
-    idx_flat, wsplat, dl = residuals
-    return _pullback_impl(grid_size, points, rotation, out_weight,
-                          point_weight, ds_dout, idx_flat, wsplat, dl)
+    points, rotation, translation, _, out_weight, point_weight = args
+    if _records_graph(points, rotation, translation, out_weight,
+                      point_weight, ds_dout):
+        return _pullback_graph(grid_size, points, rotation, translation,
+                               out_weight, point_weight, ds_dout)
+    scaled, gw = xla_gather(grid_size, ds_dout, residuals, out_weight,
+                            point_weight)
+    return _contract(points, rotation, out_weight, point_weight, ds_dout,
+                     scaled, gw)
 
 
 def raster_pullback(grid_size, points, rotation, translation, background,
@@ -123,8 +436,9 @@ def raster_pullback(grid_size, points, rotation, translation, background,
                     pw_uniform: bool = False) -> PullbackResult:
     """Analytic pullback on canonical batched args.
 
-    A pure gather: recompute the forward's neighbour geometry, read the
-    2^N cotangent values per (pose, point) and contract:
+    A pure gather: recompute the forward's neighbour geometry (X1's
+    residuals), read the 2^N cotangent values per (pose, point) (X3) and
+    contract:
 
       ds/du_i  = sum_s g * ow * pw * dW_s/ddl_i
       scaled   = ds/du * (n/2)
@@ -134,41 +448,48 @@ def raster_pullback(grid_size, points, rotation, translation, background,
       ds/dbg   = sum_grid ds_dout
       ds/dow   = sum_{p,s} g * W_s * pw
       ds/dpw   = sum_{b,s} g * W_s * ow
-    """
-    del pw_uniform
-    idx_flat, wsplat, dl, _ = _neighbour_data(points, rotation,
-                                              translation, grid_size)
-    return _pullback_impl(grid_size, points, rotation, out_weight,
-                          point_weight, ds_dout, idx_flat, wsplat, dl)
+
+    Where a graph must be recorded (grad mode on and a tensor that
+    requires grad: the pullback differentiated once more) it runs the
+    plain torch form instead (`_pullback_graph`), on any device."""
+    del pw_uniform, background
+    if _records_graph(points, rotation, translation, out_weight,
+                      point_weight, ds_dout):
+        return _pullback_graph(grid_size, points, rotation, translation,
+                               out_weight, point_weight, ds_dout)
+    _, _, res = xla_neighbours(grid_size, points, rotation, translation,
+                               out_weight, point_weight, terms=False)
+    scaled, gw = xla_gather(grid_size, ds_dout, res, out_weight,
+                            point_weight)
+    return _contract(points, rotation, out_weight, point_weight, ds_dout,
+                     scaled, gw)
 
 
-def _pullback_impl(grid_size, points, rotation, out_weight, point_weight,
-                   ds_dout, idx_flat, wsplat, dl) -> PullbackResult:
-    shifts = geometry.shift_table(len(grid_size), points.device)
+def _pullback_graph(grid_size, points, rotation, translation, out_weight,
+                    point_weight, ds_dout) -> PullbackResult:
+    """The pullback in plain torch from the inputs (`_neighbour_data`,
+    `_xla_gather_plain`, the contractions), which records the graph of
+    every input and the cotangent: the form a second derivative runs."""
+    GRAPH_FORM_CALLS["xla_plain"] += 1
+    idx_flat, wsplat, dl, _ = _neighbour_data(points, rotation, translation,
+                                              grid_size)
+    scaled, gw = _xla_gather_plain(grid_size, ds_dout, (idx_flat, wsplat, dl),
+                                   out_weight, point_weight)
+    return _contract(points, rotation, out_weight, point_weight, ds_dout,
+                     scaled, gw)
+
+
+def _contract(points, rotation, out_weight, point_weight, ds_dout, scaled,
+              gw) -> PullbackResult:
+    """The gradients from X3's ``(scaled, gw)``: small contractions over
+    poses and points (fp32 products: TF32 stays off), and `d_bg`, one sum
+    of the cotangent."""
     b = rotation.shape[0]
-    g_flat = ds_dout.reshape(b, -1)
-    # a zero appended to each pose's cotangent: out-of-grid neighbours
-    # (mapped to `total`) gather it
-    g_pad = torch.cat([g_flat, g_flat.new_zeros((b, 1))], dim=1)
-    g = torch.gather(g_pad, 1, idx_flat.reshape(b, -1)).reshape(
-        idx_flat.shape)                                      # (B, P, S)
-
-    gw = g * wsplat
-    ds_dout_weight = torch.einsum("bps,p->b", gw, point_weight)
-    ds_dpoint_weight = torch.einsum("bps,b->p", gw, out_weight)
-
-    factor = g * (out_weight[:, None] * point_weight[None, :])[..., None]
-    dw_ddl = geometry.splat_weight_grads(dl, shifts)        # (B, P, S, N)
-    ds_du = torch.einsum("bps,bpsn->bpn", factor, dw_ddl)
-    scale = geometry.axis_values([g / 2 for g in grid_size], ds_du.dtype,
-                                 ds_du.device)
-    scaled = ds_du * scale                                   # (B, P, N)
-
     return PullbackResult(
         points=torch.einsum("boi,bpo->pi", rotation, scaled),
         rotation=torch.einsum("bpo,pi->boi", scaled, points),
         translation=torch.sum(scaled, dim=1),
-        background=torch.sum(g_flat, dim=-1),
-        out_weight=ds_dout_weight,
-        point_weight=ds_dpoint_weight,
+        background=torch.sum(ds_dout.reshape(b, -1), dim=-1),
+        out_weight=torch.einsum("bp,p->b", gw, point_weight),
+        point_weight=torch.einsum("bp,b->p", gw, out_weight),
     )

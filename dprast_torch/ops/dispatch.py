@@ -2,8 +2,12 @@
 
 A backend is a kernel strategy:
 
-- ``"xla"``     plain-torch scatter/gather oracle (`dprast_torch.ops.core`),
-                any dims, any device (the name is the JAX package's)
+- ``"xla"``     the scatter/gather oracle (`dprast_torch.ops.core`), any
+                dims, any device (the name is the JAX package's): on the
+                card three kernels (`csrc/xla_path.cu`: X1 the neighbour
+                stage, the stable sort, X2 the fixed-order scatter, X3
+                the pullback's gather), plain torch on the CPU and where
+                a second derivative records a graph
 - ``"matmul"``  scatter-free one-hot matrix products (`splat_matmul`),
                 1-D to 3-D grids
 - ``"binned"``  slot-scheduled tile-binned kernels (`splat_binned`),
@@ -19,8 +23,9 @@ have no matrix product whose operands it narrows.
 
 `auto` on CUDA tensors: 2-D and 3-D grids go to `binned` where
 `splat_binned.profitable` says so, everything else (very sparse large
-grids, 1-D grids, ranks above 3) to `xla`; float64 inputs and every CPU
-call go to `xla`.  `matmul`, which the JAX package picks for small grids
+grids, grids of more than 4,096 tiles, 1-D grids, ranks above 3) to
+`xla`, which runs X1-X3 there; float64 inputs and every CPU call go to
+`xla`.  `matmul`, which the JAX package picks for small grids
 on its own chip, is picked nowhere: on the H100 it is the slowest fused
 step in every regime read (the rows are in `resolve`'s docstring).  It
 stays selectable by name.

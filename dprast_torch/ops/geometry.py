@@ -18,15 +18,18 @@ being rounded on its own: eager torch runs every operator as its own
 kernel, so nothing is contracted into an FMA.  Do not put these functions
 under ``torch.compile``.
 
-Who runs the eager form: the ``xla`` and ``matmul`` backends
-(`pose_voxel_and_deltas` in `core.py` and `splat_matmul.py`) on any
-device, and every call on CPU tensors.  The ``binned`` backends on CUDA
-tensors do not: their coordinate stage, `splat_binned._keys_and_local`, is
-one hand-written kernel (`csrc/coords.cu`) that performs the operations of
-`grid_coords_2f` and `reference_voxel_and_deltas_2f` below with rounded
-intrinsics in the same order and gives the same bits.  These functions
-stay the definition that kernel is held to, and ``xla`` stays an oracle
-that shares no device code with it.
+Who runs the eager form: the ``matmul`` backends
+(`pose_voxel_and_deltas` in `splat_matmul.py`) on any device, the ``xla``
+backend where a second derivative records a graph (`core.py`), and every
+call on CPU tensors.  On CUDA tensors the ``binned`` backends' coordinate
+stage, `splat_binned._keys_and_local`, is one hand-written kernel
+(`csrc/coords.cu`), and so is the ``xla`` backend's neighbour stage (X1,
+`csrc/xla_path.cu`); both perform the operations of `grid_coords_2f` and
+`reference_voxel_and_deltas_2f` below with rounded intrinsics in the same
+order (their shared `csrc/twofloat.cuh`) and give the same bits, and X1
+those of `transform_points` and `reference_voxel_and_deltas` in float64
+and of `splat_weights`.  These functions stay the definition the kernels
+are held to.
 """
 
 from __future__ import annotations
@@ -95,10 +98,15 @@ def reference_voxel_and_deltas(q: torch.Tensor, grid_size: tuple[int, ...]):
 
 def splat_weights(dl: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:
     """dl (..., N_out), shifts (S, N_out) -> (..., S) multilinear weights
-    ``w[..., k] = prod_i (shifts[k,i] ? dl_i : 1 - dl_i)``."""
+    ``w[..., k] = prod_i (shifts[k,i] ? dl_i : 1 - dl_i)``, multiplied
+    left to right: the order of the `xla` path's kernel X1
+    (`csrc/xla_path.cu`), and of `torch.prod` on the CPU."""
     sel = torch.where(shifts.to(torch.bool), dl[..., None, :],
                       1 - dl[..., None, :])
-    return torch.prod(sel, dim=-1)
+    w = sel[..., 0]
+    for i in range(1, sel.shape[-1]):
+        w = w * sel[..., i]
+    return w
 
 
 def splat_weight_grads(dl: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:

@@ -125,7 +125,9 @@ _B4_ENC = tuple(k for k in _B4_INSTANCES
 
 # kernel launches per CUDA instance: a run reads these to show that its
 # path went through the kernels (CPU twin calls do not count); "coords"
-# counts B6 whether it writes planes or a single tile's frame
+# counts B6 whether it writes planes or a single tile's frame; the `xla`
+# backend's X1-X3 (`core.xla_neighbours`, `xla_scatter`, `xla_gather`)
+# count here too
 LAUNCHES = dict.fromkeys(
     ["coords", "slot_prep", "frame_gather", "band_fold", "band_unfold",
      "epilogue_tile", "epilogue_poses", "epilogue_rows", "epilogue_points",
@@ -135,7 +137,7 @@ LAUNCHES = dict.fromkeys(
      *(name + _ENC for name in _B1_INSTANCES.values()),
      *(_B4_INSTANCES[k] + _ENC for k in _B4_ENC),
      *(_B4_INSTANCES[k] + _ENC + _GRID_LOADS for k in _B4_ENC
-       if k[2] == "grid")], 0)
+       if k[2] == "grid"), *core.XLA_KERNELS], 0)
 
 
 def tile_shape_for(grid_size):

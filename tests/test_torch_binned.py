@@ -546,8 +546,27 @@ def test_wrappers_run_the_twin_only_on_cpu():
         tbin.pullback_epilogue((200, 200), frame, frame[:, -1], *(
             torch.zeros(shape, device="meta")
             for shape in ((10, 3), (1, 2, 3), (1,), (10,))))
+    # the `xla` path's kernels X1-X3 (`core`), which count here too
+    from dprast_torch.ops import core as tcore
+    pts, rot, tr = (torch.zeros(shape, device="meta")
+                    for shape in ((10, 3), (1, 2, 3), (1, 2)))
+    w1, w10 = torch.ones((1,), device="meta"), torch.ones((10,),
+                                                           device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        tcore.xla_neighbours((8, 8), pts, rot, tr, w1, w10)
+    with pytest.raises(ValueError, match="CUDA"):
+        tcore.xla_scatter(w1, (8, 8), torch.zeros(40, dtype=torch.int32,
+                                                  device="meta"),
+                          torch.zeros(40, dtype=torch.int64, device="meta"),
+                          torch.zeros(40, device="meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        tcore.xla_gather((8, 8), torch.zeros((1, 8, 8), device="meta"), (
+            torch.zeros((1, 10, 4), dtype=torch.int64, device="meta"),
+            torch.zeros((1, 10, 4), device="meta"),
+            torch.zeros((1, 10, 2), device="meta")), w1, w10)
     # every CUDA instance has a counter, and none counted here
     assert tbin.LAUNCHES == {
+        "xla_neighbours": 0, "xla_scatter": 0, "xla_gather": 0,
         "coords": 0, "slot_prep": 0, "epilogue_tile": 0,
         "epilogue_rows": 0, "epilogue_points": 0, "epilogue_poses": 0,
         "fwd_splat": 0, "band_fold": 0,

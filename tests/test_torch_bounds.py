@@ -23,6 +23,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from dprast.ops import splat_binned as jbin  # noqa: E402
+from dprast_torch import ad  # noqa: E402
+from dprast_torch.ops import core as tcore  # noqa: E402
 from dprast_torch.ops import dispatch, splat_binned as tbin  # noqa: E402
 
 # past CUDA's 65,535 on a grid's y and z
@@ -131,9 +133,29 @@ def _epilogue(bsz, grid=(127, 130)):
         grid, buf, data[:, -1], pts, rot, _empty((bsz,)), _empty((P,)))
 
 
+def _xla_neighbours(bsz, grid=(64, 64)):
+    return lambda: tcore.xla_neighbours(grid, *_poses(grid, bsz),
+                                        _empty((bsz,)), _empty((P,)))
+
+
+def _xla_scatter(bsz, grid=(64, 64), keys=I32):
+    n = bsz * P * 2 ** len(grid)
+    return lambda: tcore.xla_scatter(_empty((bsz,)), grid, _empty((n,), keys),
+                                     _empty((n,), torch.int64), _empty((n,)))
+
+
+def _xla_gather(bsz, grid=(64, 64)):
+    n_s = 2 ** len(grid)
+    res = (_empty((bsz, P, n_s), torch.int64), _empty((bsz, P, n_s)),
+           _empty((bsz, P, len(grid))))
+    return lambda: tcore.xla_gather(grid, _empty((bsz,) + grid), res,
+                                    _empty((bsz,)), _empty((P,)))
+
+
 # every wrapper of the `binned` path's kernels at `MANY` poses (B2 also at
-# `MANY` grid rows) -> (call, the launch it reaches: the name it counts
-# under and the C entry point it calls)
+# `MANY` grid rows), and of the `xla` path's (X2 also with int64 keys, on
+# a volume of more than 2^31 voxels) -> (call, the launch it reaches: the
+# name it counts under and the C entry point it calls)
 WRAPPERS = {
     "B6 coords": (_coords(MANY), "coords"),
     "B6 direct_frame": (_direct_frame(MANY), "coords"),
@@ -156,6 +178,14 @@ WRAPPERS = {
     "B4 bwd_gather": (_bwd_gather(MANY), "bwd_gather"),
     "B8 epilogue": (_epilogue(MANY), "epilogue_rows"),
     "B8 epilogue single tile": (_epilogue(MANY, (64, 64)), "epilogue_tile"),
+    "X1 xla_neighbours": (_xla_neighbours(MANY), "xla_neighbours"),
+    "X1 xla_neighbours 4-D": (_xla_neighbours(MANY, (5, 4, 6, 3)),
+                              "xla_neighbours"),
+    "X2 xla_scatter": (_xla_scatter(MANY), "xla_scatter"),
+    "X2 xla_scatter int64 keys": (_xla_scatter(MANY, (256, 256),
+                                               torch.int64), "xla_scatter"),
+    "X3 xla_gather": (_xla_gather(MANY), "xla_gather"),
+    "X3 xla_gather 1-D": (_xla_gather(MANY, (4096,)), "xla_gather"),
 }
 
 
@@ -291,3 +321,74 @@ def test_auto_takes_binned_for_70000_grid_rows():
     assert tbin.profitable(2, grid, p) and jbin.profitable(2, grid, p)
     assert dispatch.resolve("auto", 2, grid, p, accelerator=True) == "binned"
 
+
+
+# grids of the `xla` path on the stand-in card at `MANY` poses: 2-D, 1-D
+# and rank 4, which `binned` does not take
+XLA_GRIDS = ((64, 64), (4096,), (5, 4, 6, 3))
+
+
+@pytest.mark.parametrize("grid", XLA_GRIDS, ids=str)
+def test_xla_fused_step_reaches_every_launch(grid, stand_in_card):
+    """The `xla` fused pair at 70,000 poses on the stand-in card: X1 (keys,
+    terms and residuals), the sort, X2 and X3, each reached once, in
+    order, with the 70,000 poses; no graph-recording form."""
+    before = tcore.GRAPH_FORM_CALLS["xla_plain"]
+    n = len(grid)
+    args = (_empty((P, n)), _empty((MANY, n, n)), _empty((MANY, n)),
+            _empty((MANY,)), _empty((MANY,)), _empty((P,)))
+    out, res = tcore.raster_fwd_res(grid, *args)
+    grads = tcore.raster_pullback_res(grid, res, args,
+                                      _empty((MANY,) + grid))
+    assert out.shape == (MANY,) + grid
+    assert [g.shape for g in grads] == [a.shape for a in args]
+    assert tuple(name for name, _, _ in stand_in_card) == tcore.XLA_KERNELS
+    assert all(MANY in ints for _, _, ints in stand_in_card)
+    assert tcore.GRAPH_FORM_CALLS["xla_plain"] == before
+
+
+def test_xla_keys_past_int32(stand_in_card):
+    """Two poses of a 1024^3 volume: X1 writes int64 keys (B * total =
+    2^31) and hands X2 its volume as two poses of 2^30 voxels."""
+    grid = (1024, 1024, 1024)
+    keys, _, _ = tcore.xla_neighbours(grid, *_poses(grid, 2), _empty((2,)),
+                                      _empty((P,)), residuals=False)
+    assert keys.dtype == torch.int64 and keys.shape == (2, P, 8)
+    order, perm = torch.sort(keys.reshape(-1), stable=True)
+    out = tcore.xla_scatter(_empty((2,)), grid, order, perm,
+                            _empty((2 * P * 8,)))
+    assert out.shape == (2,) + grid
+    (_, _, x1), (_, _, x2) = stand_in_card
+    assert 1 in x1 and 2 in x1           # key64, B
+    # the background's stride, key64, n, B, total
+    assert x2[:5] == [1, 1, 2 * P * 8, 2, 1024 ** 3]
+    with pytest.raises(ValueError, match="int32 keys"):
+        tcore.xla_scatter(_empty((2,)), grid, order.to(I32), perm,
+                          _empty((2 * P * 8,)))
+
+
+@pytest.mark.parametrize("create_graph", [False, True])
+def test_xla_second_derivative_runs_the_graph_form(create_graph,
+                                                    stand_in_card):
+    """Autograd through `xla` on the stand-in card: a plain backward runs
+    X3 on the forward's residuals; a backward under ``create_graph=True``
+    runs the plain torch form from the inputs (`GRAPH_FORM_CALLS`), which
+    records the graph, and launches nothing."""
+    grid, bsz = (16, 16), 3
+    leaves = [_empty(s).requires_grad_() for s in
+              ((P, 2), (bsz, 2, 2), (bsz, 2), (bsz,), (bsz,), (P,))]
+    out = ad.raster_canonical(grid, "xla", False, *leaves)
+    assert tuple(name for name, _, _ in stand_in_card) == (
+        "xla_neighbours", "xla_scatter")
+    before = tcore.GRAPH_FORM_CALLS["xla_plain"]
+    (d_pts,) = torch.autograd.grad(out.sum(), leaves[0],
+                                   create_graph=create_graph)
+    backward = tuple(name for name, _, _ in stand_in_card[2:])
+    if create_graph:
+        assert backward == ()
+        assert tcore.GRAPH_FORM_CALLS["xla_plain"] == before + 1
+        assert d_pts.requires_grad
+    else:
+        assert backward == ("xla_gather",)
+        assert tcore.GRAPH_FORM_CALLS["xla_plain"] == before
+        assert not d_pts.requires_grad

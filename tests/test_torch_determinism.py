@@ -366,7 +366,7 @@ def deterministic():
 
 
 # (backend, grid, poses, points): `auto` on one tile, several and a
-# volume, and every backend by name
+# volume, and every backend by name (`xla` at ranks 1-3)
 DET_CASES = {
     "auto-one-tile": ("auto", (64, 64), 2, 500),
     "auto-multi-tile": ("auto", (300, 200), 2, 500),
@@ -374,6 +374,8 @@ DET_CASES = {
     "binned": ("binned", (300, 200), 2, 500),
     "binned_bf16": ("binned_bf16", (300, 200), 2, 500),
     "xla": ("xla", (40, 56), 2, 500),
+    "xla-1d": ("xla", (64,), 2, 500),
+    "xla-3d": ("xla", (6, 7, 5), 2, 500),
     "matmul": ("matmul", (40, 56), 2, 500),
     "matmul_bf16": ("matmul_bf16", (40, 56), 2, 500),
 }

@@ -461,3 +461,122 @@ def test_float32_coordinates_put_a_point_by_an_edge_onto_it():
     for t in got.values():
         assert np.abs(t.numpy() - ref).max() / scale < 1e-6
     assert np.abs(f64.numpy() - ref).max() / scale > 1e-3
+
+
+# Second derivatives through the `xla` backend: the first derivative of
+# ``sum(out^2)`` with respect to `inner`, along a fixed direction, then its
+# derivative with respect to `outer`.  The fused pair's residuals carry no
+# graph, so a backward under ``create_graph=True`` recomputes them from the
+# inputs in plain torch; every second-order term of the point geometry
+# rides on that (with the residuals it dropped 12 of these 16 pairs by
+# 10-90% of their size).
+SECOND_GRID = (8, 9)
+SECOND_FIELDS = ("points", "rotation", "translation", "point_weight")
+SECOND_PAIRS = [(i, o) for i in SECOND_FIELDS for o in SECOND_FIELDS]
+
+
+def _second_inputs(dtype=np.float32):
+    fx = fixtures(seed=5, n_points=50, batch_size=2, n_in=3, n_out=2)
+    args = [np.asarray(v, dtype) for v in fx.values()]
+    dirs = {name: np.random.default_rng(7 + k).standard_normal(
+        args[FIELDS.index(name)].shape).astype(dtype)
+        for k, name in enumerate(SECOND_FIELDS)}
+    return args, dirs
+
+
+def _torch_second(args, dirs, inner, outer, call=None):
+    """``d/d outer [ <d sum(out^2) / d inner, dirs[inner]> ]`` through
+    `dprast_torch.raster` on `xla` (or `call(leaves)` -> the first
+    derivative's tensor)."""
+    leaves = [torch.from_numpy(a).requires_grad_() for a in args]
+    if call is None:
+        out = _raster(SECOND_GRID, *leaves, backend="xla")
+        (first,) = torch.autograd.grad((out ** 2).sum(),
+                                       leaves[FIELDS.index(inner)],
+                                       create_graph=True)
+    else:
+        first = call(leaves)
+    h = (first * torch.from_numpy(dirs[inner])).sum()
+    (second,) = torch.autograd.grad(h, leaves[FIELDS.index(outer)])
+    return second.numpy()
+
+
+def _jax_second(args, dirs, inner, outer, first=None):
+    """The same through `jax.grad` of `jax.grad` of `dprast.raster` on
+    `xla` (or `first(*args)` -> the first derivative)."""
+    i, o = FIELDS.index(inner), FIELDS.index(outer)
+
+    def loss(*a):
+        return jnp.sum(dprast.raster(SECOND_GRID, *a, backend="xla") ** 2)
+
+    def h(x):
+        a = [jnp.asarray(v) for v in args]
+        a[o] = x
+        d = jax.grad(loss, argnums=i)(*a) if first is None else first(*a)
+        return jnp.sum(d * dirs[inner])
+
+    return np.asarray(jax.grad(h)(jnp.asarray(args[o])))
+
+
+@pytest.mark.parametrize("inner,outer", SECOND_PAIRS,
+                         ids=[f"{i}-{o}" for i, o in SECOND_PAIRS])
+def test_second_derivative_matches_jax(inner, outer):
+    """All 16 (inner, outer) pairs of points, rotation, translation and
+    point_weight through `raster(..., backend="xla")`, float32 on both
+    sides, within 1e-5 of each pair's largest entry of JAX's
+    `jax.grad`-of-`jax.grad`."""
+    args, dirs = _second_inputs()
+    got = _torch_second(args, dirs, inner, outer)
+    ref = _jax_second(args, dirs, inner, outer)
+    assert got.shape == ref.shape
+    scale = float(np.max(np.abs(ref)))
+    assert scale > 0
+    assert float(np.max(np.abs(got - ref))) <= 1e-5 * scale
+
+
+def test_second_derivative_matches_central_difference():
+    """(points, points) in float64 along a random direction u: the second
+    derivative agrees with a central difference of the first derivative,
+    ``(<g(x + eps u), v> - <g(x - eps u), v>) / (2 eps)``."""
+    args, dirs = _second_inputs(np.float64)
+    second = _torch_second(args, dirs, "points", "points")
+    u = np.random.default_rng(12).standard_normal(args[0].shape)
+
+    def first_along(x):
+        a = [torch.from_numpy(v) for v in args]
+        a[0] = torch.from_numpy(x).requires_grad_()
+        out = _raster(SECOND_GRID, *a, backend="xla")
+        (d,) = torch.autograd.grad((out ** 2).sum(), a[0])
+        return float((d.numpy() * dirs["points"]).sum())
+
+    eps = 1e-6
+    fd = (first_along(args[0] + eps * u) - first_along(args[0] - eps * u)) \
+        / (2 * eps)
+    want = float((second * u).sum())
+    assert abs(want) > 1.0
+    np.testing.assert_allclose(want, fd, rtol=1e-6)
+
+
+def test_raster_pullback_differentiates_once_more():
+    """The public `raster_pullback` on `xla` with inputs that require grad
+    records a graph: the derivative of its point gradient along a
+    direction, with respect to the points and the rotation, matches JAX's
+    `jax.grad` of `dprast.raster_pullback` within 1e-5 of the largest
+    entry."""
+    args, dirs = _second_inputs()
+    g = _cot((2,) + SECOND_GRID, seed=3)
+
+    def call(leaves):
+        return _raster_pullback(torch.from_numpy(g), *leaves,
+                                backend="xla").points
+
+    def first(*a):
+        return dprast.raster_pullback(jnp.asarray(g), *a,
+                                      backend="xla").points
+
+    for outer in ("points", "rotation"):
+        got = _torch_second(args, dirs, "points", outer, call)
+        ref = _jax_second(args, dirs, "points", outer, first)
+        scale = float(np.max(np.abs(ref)))
+        assert scale > 0
+        assert float(np.max(np.abs(got - ref))) <= 1e-5 * scale, outer

@@ -30,13 +30,16 @@ torch.set_num_threads(2)
 SPIED = (("torch", torch, ("tensor", "as_tensor", "from_numpy", "bincount")),
          ("Tensor", torch.Tensor, ("item", "tolist", "cpu")))
 
-# (backend, grid, poses, points): one tile, several tiles, a volume
+# (backend, grid, poses, points): one tile, several tiles, a volume; the
+# `xla` path at ranks 1-3
 CASES = {
     "binned-one-tile": ("binned", (64, 64), 2, 500),
     "binned-multi-tile": ("binned", (300, 200), 2, 500),
     "binned-3d": ("binned", (8, 16, 200), 2, 300),
     "binned_bf16": ("binned_bf16", (300, 200), 2, 500),
     "xla": ("xla", (40, 56), 2, 500),
+    "xla-1d": ("xla", (64,), 2, 500),
+    "xla-3d": ("xla", (6, 7, 5), 2, 500),
     "matmul": ("matmul", (40, 56), 2, 500),
 }
 
