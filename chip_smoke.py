@@ -3457,9 +3457,11 @@ def phase_tests_gpu():
 # `xla_neighbours`, X2 `xla_scatter` and X3 `xla_gather`.  Each held to
 # its plain version bit for bit at (name, grid, poses, points, dtype): the
 # rows `auto` sends to `xla` on the card ([repeat]'s), a sparse 1024^2
-# cloud, float64, and a rank-5 grid (the instances that take the rank at
-# run time)
+# cloud, float64, a rank-5 grid (the instances that take the rank at run
+# time), and two poses of 1024^3, whose B * total passes 2^31 (int64 keys)
 XLA_CASES = (("1024cube_1e5", (1024, 1024, 1024), 1, 100_000, torch.float32),
+             ("1024cube x 2 x 1e5", (1024, 1024, 1024), 2, 100_000,
+              torch.float32),
              ("(4096,) x 4 x 1e4", (4096,), 4, 10_000, torch.float32),
              ("16^4 x 4 x 1e4", (16, 16, 16, 16), 4, 10_000, torch.float32),
              ("1024^2 x 64 x 1e3", (1024, 1024), 64, 1000, torch.float32),
@@ -3533,6 +3535,25 @@ def x2_matches(filled, out, voxels, sums):
         rest, filled.reshape(-1))
 
 
+def x2_err(filled, out, voxels, sums):
+    """X2's largest absolute difference from `x2_cpu_reference`: `sums` at
+    `voxels`, the background elsewhere."""
+    flat = out.reshape(-1)
+    rest = flat.clone()
+    rest[voxels] = filled.reshape(-1)[voxels]
+    err = float((rest - filled.reshape(-1)).abs().max())
+    if voxels.numel():
+        err = max(err, float((flat[voxels].cpu() - sums).abs().max()))
+    return err
+
+
+def max_abs_err(got, want):
+    """The largest absolute difference over pairs of tensors (integers
+    read as float64)."""
+    return max(float((a.double() - b.double().to(a.device)).abs().max())
+               if a.numel() else 0.0 for a, b in zip(got, want))
+
+
 class NoScatterCopies:
     """While open, records each call of `index_put_`, `index_add_` and
     `torch.cat`: the card's `xla` path runs none of them."""
@@ -3579,6 +3600,10 @@ def xla_case(dprast_torch, sb, core, dev, name, grid, n_poses, n_points,
         flat, [on_cpu[0], on_cpu[1], *on_cpu[2]]))
     del plain, on_cpu
     keys, vals, res = kern
+    wide = n_poses * math.prod(grid) >= 2 ** 31
+    check(keys.dtype == (torch.int64 if wide else torch.int32),
+          f"[xla path] {name}: {keys.dtype} keys for B * total = "
+          f"{n_poses * math.prod(grid)}")
     order, perm = torch.sort(keys.reshape(-1), stable=True)
     filled = xla_filled(bg, grid)
     out = core.xla_scatter(bg, grid, order, perm, vals.reshape(-1))
@@ -3690,7 +3715,7 @@ def launch_us(fn, name, calls=10):
     """Device microseconds of one launch of the kernel whose name holds
     `name` (launched once a call of `fn`): its traced time over the
     launches the trace holds, so a trace that lost rows still reads right;
-    0 where three traces hold none."""
+    None (not measured) where three traces hold none."""
     import tempfile
     from torch.autograd import DeviceType
     from dprast_torch.utils import profiling
@@ -3705,13 +3730,21 @@ def launch_us(fn, name, calls=10):
         if rows:
             return (sum(e.device_time_total for e in rows)
                     / sum(e.count for e in rows))
-    return 0.0
+    return None
+
+
+def us_text(us):
+    """A device time for a line of output: "12.34 us" or "not measured"."""
+    return "not measured" if us is None else f"{us:.2f} us"
 
 
 def xla_times(dprast_torch, sb, core, dev, smi, name, grid, n_poses,
               n_points):
     """A timed row: X1, X2 and X3 alone (wrapper ms, the kernel's device
-    us) beside their plain versions on the card and their bounds; X2
+    us), each held to its plain version at the row (X1 and X3 bit for bit
+    against theirs on the card, X2 against the CPU's `index_add_`; the
+    measured max-abs error goes into the kernels line), beside their plain
+    versions' times on the card and their bounds; X2
     beside `index_put_` with accumulate into the (B, total + 1) buffer
     and X3 beside `torch.gather` of a padded cotangent, each one call;
     the forward, the fused step and the autograd step with what they keep
@@ -3733,6 +3766,30 @@ def xla_times(dprast_torch, sb, core, dev, smi, name, grid, n_poses,
     g_pad = torch.cat([g.reshape(b, -1), g.new_zeros((b, 1))], dim=1)
     gather_idx = res[0].reshape(b, -1)
     t = {"bounds": xla_bounds(pts, rot, keys, vals, res, order, total)}
+    plain = core._xla_neighbours_plain(grid, *five)
+    got, want = [keys, vals, *res], [plain[0], plain[1], *plain[2]]
+    x1_same = all(xla_bits(a, b) for a, b in zip(got, want))
+    errs = {"xla_neighbours": max_abs_err(got, want)}
+    del plain, got, want
+    filled = xla_filled(bg, grid)
+    out = core.xla_scatter(bg, grid, order, perm, flat_vals)
+    voxels, sums = x2_cpu_reference(filled, order, perm, flat_vals)
+    x2_same = x2_matches(filled, out, voxels, sums)
+    errs["xla_scatter"] = x2_err(filled, out, voxels, sums)
+    del filled, out, voxels, sums
+    got = core.xla_gather(grid, g, res, ow, pw)
+    want = core._xla_gather_plain(grid, g, res, ow, pw)
+    x3_same = all(xla_bits(a, b) for a, b in zip(got, want))
+    errs["xla_gather"] = max_abs_err(got, want)
+    del got, want
+    torch.cuda.empty_cache()
+    print(f"[xla path] {name}: X1 bit-equal to its plain version {x1_same},"
+          f" X2 to the CPU's index_add_ {x2_same}, X3 to its plain version "
+          f"{x3_same}; max-abs errors "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    check(x1_same and x2_same and x3_same,
+          f"[xla path] {name}: X1-X3 bit-equal to their plain versions at "
+          f"the timed row")
     fns = {
         "xla_neighbours": (lambda: core.xla_neighbours(grid, *five),
                            lambda: core._xla_neighbours_plain(grid, *five),
@@ -3750,14 +3807,15 @@ def xla_times(dprast_torch, sb, core, dev, smi, name, grid, n_poses,
         t[kname] = {
             "ms": time_ms(kernel_fn), "plain_ms": time_ms(plain_fn),
             "dev_us": launch_us(kernel_fn, kname + "_kernel"),
-            "library_ms": None if library_fn is None else time_ms(library_fn)}
+            "library_ms": None if library_fn is None else time_ms(library_fn),
+            "max_abs_err": errs[kname]}
     t["xla_scatter"]["library_dev_us"] = launch_us(
         fns["xla_scatter"][2], "indexing_backward_kernel")
     for part in ("fill", "scatter"):
         t["xla_scatter"][part + "_us"] = launch_us(
             fns["xla_scatter"][0], f"xla_{part}_kernel")
-    t["xla_scatter"]["dev_us"] = (t["xla_scatter"]["fill_us"]
-                                  + t["xla_scatter"]["scatter_us"])
+    parts = (t["xla_scatter"]["fill_us"], t["xla_scatter"]["scatter_us"])
+    t["xla_scatter"]["dev_us"] = None if None in parts else sum(parts)
     del sink, unsorted, g_pad, fns
     leaves = [x.clone().requires_grad_() for x in args]
 
@@ -3782,19 +3840,19 @@ def xla_times(dprast_torch, sb, core, dev, smi, name, grid, n_poses,
         torch.cuda.synchronize()
         t[what + " peak GB"] = torch.cuda.max_memory_allocated(dev) / 1e9
     print(f"[xla path] {smi} | {name}: "
-          + "; ".join(f"{k} {v['dev_us']:.2f} us on the card (bound "
+          + "; ".join(f"{k} {us_text(v['dev_us'])} on the card (bound "
                       f"{t['bounds'][k][0] * 1e3:.2f} us by "
                       f"{t['bounds'][k][1]}), wrapper {v['ms']:.4f} ms, plain "
                       f"{v['plain_ms']:.4f} ms"
                       + ("" if v["library_ms"] is None else
                          f", one library call {v['library_ms']:.4f} ms")
                       for k, v in ((k, t[k]) for k in core.XLA_KERNELS))
-          + f"; X2's fill {t['xla_scatter']['fill_us']:.2f} us and runs "
-            f"{t['xla_scatter']['scatter_us']:.2f} us (bound "
+          + f"; X2's fill {us_text(t['xla_scatter']['fill_us'])} and runs "
+            f"{us_text(t['xla_scatter']['scatter_us'])} (bound "
             f"{t['bounds']['xla_scatter runs'][0] * 1e3:.2f} us); "
-            f"index_put_'s kernel {t['xla_scatter']['library_dev_us']:.2f}"
-            f" us (the library call: index_put_ with accumulate into the "
-            f"filled volume); each kernel alone, so X3's gathers find the "
+            f"index_put_'s kernel "
+            f"{us_text(t['xla_scatter']['library_dev_us'])} (the library "
+            f"call: index_put_ with accumulate into the filled volume); each kernel alone, so X3's gathers find the "
             f"cotangent warm in L2 where the step's do not (by-kernel lines "
             f"below)")
     print(f"[xla path] {smi} | {name}: "
@@ -3842,11 +3900,11 @@ def xla_long_run(core, dev, smi):
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     ms = time_ms(scatter, reps=5, warmup=1)
-    dev_us = kernel_device_us(scatter, "xla_scatter_kernel", calls=3)
+    dev_us = launch_us(scatter, "xla_scatter_kernel", calls=3)
     print(f"[xla path] {smi} | X2 on runs of {runs.tolist()} terms ({grid} "
           f"x 1 pose x {p} points): bit-equal to the CPU's index_add_ "
           f"{same}; {first_s:.3f} s the first call, {ms:.3f} ms, "
-          f"{dev_us:.1f} us on the card")
+          f"{us_text(dev_us)} on the card")
     check(same and int(runs.max()) >= 1_000_000,
           "[xla path] X2 adds a run of 10^6 terms in input order")
     check(first_s < 10, "[xla path] X2's longest run takes seconds")
@@ -4602,7 +4660,8 @@ def main():
     for row, t in xla["times"].items():
         for name in core.XLA_KERNELS:
             entry = kernel(name, xla_cu, xla_lines[name],
-                           xla["launches"][name], 0.0, t[name]["ms"],
+                           xla["launches"][name], t[name]["max_abs_err"],
+                           t[name]["ms"],
                            t[name]["plain_ms"], t["bounds"][name],
                            f"{row}, per-point weights",
                            variant=xla_variant[name],

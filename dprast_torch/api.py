@@ -284,6 +284,13 @@ def raster_pullback(ds_dout, points, rotation, translation, background=None,
     the exact per-point gradient; a scalar one gets its sum.  `backend`
     and `device` are `raster`'s: one of the five backends or 'auto'; the
     card unless a tensor input or ``device="cpu"`` asks for the CPU.
+
+    On `xla`, a call under grad mode with an input or `ds_dout` that
+    requires grad (an ``nn.Parameter``, say) records a graph: it runs the
+    pullback in plain torch from the inputs, which on the card is about
+    170 eager launches of geometry in place of the two kernels X1 and X3.
+    Call it under ``torch.no_grad()``, or with detached tensors, where
+    the gradients are not to be differentiated again.
     """
     device = _device_of((ds_dout, points, rotation, translation, background,
                          out_weight, point_weight), device)

@@ -219,13 +219,14 @@ def xla_neighbours(grid_size, points, rotation, translation, out_weight,
 
 def _xla_scatter_plain(background, grid_size, keys, perm, vals):
     """Plain version of X2 -> (B, *grid): each pose's background, then
-    ``flat[keys[i]] += vals[perm[i]]`` in the order of i by `index_add_`
-    (the CPU adds in input order), keys at or past B * total into a sink
-    that is dropped."""
+    ``flat[keys[i]] += vals[perm[i]]`` (``vals[i]`` where `perm` is None)
+    in the order of i by `index_add_` (the CPU adds in input order), keys
+    at or past B * total into a sink that is dropped."""
     bsz, total = background.shape[0], int(math.prod(grid_size))
-    flat = background.to(vals.dtype)[:, None].expand(bsz, total).reshape(-1)
-    buf = torch.cat([flat, flat.new_zeros(1)])
-    buf.index_add_(0, keys, vals[perm])
+    buf = vals.new_empty(bsz * total + 1)
+    buf[:-1].view(bsz, total).copy_(background.to(vals.dtype)[:, None])
+    buf[-1:].zero_()
+    buf.index_add_(0, keys, vals if perm is None else vals[perm])
     return buf[:-1].view((bsz,) + tuple(grid_size))
 
 
@@ -396,14 +397,19 @@ def raster_fwd_res(grid_size, points, rotation, translation, background,
 def _forward(grid_size, points, rotation, translation, background,
              out_weight, point_weight, *, residuals):
     """X1, the stable sort of its keys, and X2 (the background, then the
-    terms) -> (out, residuals or None).  Nothing reads a size back to the
-    host."""
+    terms) -> (out, residuals or None); on the CPU X1's terms go unsorted
+    into X2's plain version.  Nothing reads a size back to the host."""
     keys, vals, res = xla_neighbours(grid_size, points, rotation,
                                      translation, out_weight, point_weight,
                                      residuals=residuals)
-    order, perm = torch.sort(keys.reshape(-1), stable=True)
-    return xla_scatter(background, grid_size, order, perm,
-                       vals.reshape(-1)), res
+    keys, vals = keys.reshape(-1), vals.reshape(-1)
+    if vals.device.type == "cpu":
+        # the CPU's `index_add_` adds in input order, the order the stable
+        # sort keeps within a voxel: the sort would move no bit
+        return _xla_scatter_plain(background, grid_size, keys, None,
+                                  vals), res
+    order, perm = torch.sort(keys, stable=True)
+    return xla_scatter(background, grid_size, order, perm, vals), res
 
 
 def _records_graph(*tensors):

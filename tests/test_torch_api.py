@@ -291,11 +291,12 @@ SCATTER_CASES = {"1d": ((64,), 1, 2000), "4d": ((5, 4, 6, 3), 4, 2000),
 
 @pytest.mark.parametrize("case", list(SCATTER_CASES))
 def test_xla_scatter_adds_in_a_fixed_order(case):
-    """The `xla` forward's scatter (`core._scatter_add`) repeats bit for bit
-    on clouds that put many terms into each voxel, and the card's form of
-    it, `index_put_` with accumulate (which on the CPU takes the card's
-    sorted path under torch's deterministic mode), gives the image of
-    `index_add_`, the CPU's form, within fp32 rounding."""
+    """The `xla` forward on the CPU (X1's and X2's plain versions:
+    `index_add_` in input order) repeats bit for bit on clouds that put
+    many terms into each voxel, and `index_put_` with accumulate (under
+    torch's deterministic mode, its sorted path), an independent witness,
+    gives its image within fp32 rounding.  The card's X2 is held to the
+    CPU's bits by `chip_smoke.py` `[xla path]`."""
     from dprast_torch.ops import core as tcore
     grid, n, p = SCATTER_CASES[case]
     fx = fixtures(seed=9, n_points=p, batch_size=3, n_in=n, n_out=n)

@@ -189,6 +189,8 @@ def test_x2_plain_adds_in_input_order(key_dtype, dtype):
     order, perm = torch.sort(t_keys, stable=True)
     got = tcore._xla_scatter_plain(t_bg, grid, order, perm, t_vals)
     assert got.shape == (n_poses,) + grid
+    unsorted = tcore._xla_scatter_plain(t_bg, grid, t_keys, None, t_vals)
+    assert torch.equal(got, unsorted)
     buf = torch.cat([t_bg.repeat_interleave(20), t_bg.new_zeros(1)])
     buf.index_add_(0, t_keys, t_vals)
     assert torch.equal(got.reshape(-1), buf[:-1])
@@ -211,10 +213,11 @@ def test_x2_plain_one_run_of_every_term():
 
 
 def test_forward_keeps_the_cpu_bits():
-    """The CPU's forward (X1, the sort, X2, each plain) gives the bits of
-    the scatter it replaces: `index_add_` of the terms in input order into
-    (B, total + 1) blocks whose last entry absorbs the out-of-grid
-    terms."""
+    """The CPU's forward (X1's plain version, its terms unsorted into X2's)
+    gives the bits of the scatter it replaces: `index_add_` of the terms
+    in input order into (B, total + 1) blocks whose last entry absorbs the
+    out-of-grid terms; and of X2's plain version on the stably sorted
+    keys, the order the card's X2 adds in."""
     for rank in ("1d", "3d-to-2d", "4d"):
         grid, n_in = RANKS[rank]
         args = [torch.from_numpy(a) for a in _args(grid, n_in, np.float32,
@@ -229,6 +232,12 @@ def test_forward_keeps_the_cpu_bits():
         flat.view(-1).index_add_(0, (idx + base).reshape(-1), w.reshape(-1))
         want = flat[:, :total].reshape(got.shape)
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        keys, vals, _ = tcore.xla_neighbours(grid, *args[:3], *args[4:],
+                                             residuals=False)
+        order, perm = torch.sort(keys.reshape(-1), stable=True)
+        sorted_ = tcore._xla_scatter_plain(args[3], grid, order, perm,
+                                           vals.reshape(-1))
+        assert torch.equal(got.view(torch.int32), sorted_.view(torch.int32))
 
 
 @pytest.mark.parametrize("rank,dtype,weights", CASES, ids=IDS)
