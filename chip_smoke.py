@@ -83,9 +83,12 @@ The [xla path] phase drives the `xla` backend's kernels
 (`csrc/xla_path.cu`: X1 the neighbour stage, X2 the fixed-order scatter
 after a stable sort, X3 the pullback's gather): each bit-equal to its
 plain version (X2 to the CPU's `index_add_`) at the rows `auto` sends to
-`xla`, the launches of its entry points, a run of 1.2 x 10^6 terms, the
-f64 oracles at small sizes, the second derivatives (C8) against a
-float64 run on the CPU, and its times at 1024^3 x 10^5 and 512^3 x 10^6;
+`xla`, the launches of its entry points, a run of 1.2 x 10^6 terms (timed
+in turns with X2's run kernel before its redesign), X2 on runs that end
+at and across warps and blocks and on a (4096,) x 10^6 cloud, the f64
+oracles at small sizes, the second derivatives (C8) against a float64 run
+on the CPU, and its times at 1024^3 x 10^5 and 512^3 x 10^6 (X2's fill
+and run kernel apart, with the sectors of their random accesses);
 `python3 chip_smoke.py --xla-path` runs the build and this phase alone.
 
 Then [no sync] runs every entry point (the forward, the fused pair,
@@ -125,7 +128,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from dprast_torch.utils.profiling import device_busy, kernel_device_us
+from dprast_torch.utils.profiling import (device_busy, kernel_device_us,
+                                          launch_us)
 
 ROOT = Path(__file__).resolve().parent
 
@@ -3536,15 +3540,16 @@ def x2_matches(filled, out, voxels, sums):
 
 
 def x2_err(filled, out, voxels, sums):
-    """X2's largest absolute difference from `x2_cpu_reference`: `sums` at
-    `voxels`, the background elsewhere."""
+    """X2's largest absolute differences from `x2_cpu_reference` -> (the
+    fill's: the background on the voxels no term reaches; the run
+    kernel's: `sums` at `voxels`)."""
     flat = out.reshape(-1)
     rest = flat.clone()
     rest[voxels] = filled.reshape(-1)[voxels]
-    err = float((rest - filled.reshape(-1)).abs().max())
-    if voxels.numel():
-        err = max(err, float((flat[voxels].cpu() - sums).abs().max()))
-    return err
+    fill = float((rest - filled.reshape(-1)).abs().max())
+    runs = float((flat[voxels].cpu() - sums).abs().max()) \
+        if voxels.numel() else 0.0
+    return fill, runs
 
 
 def max_abs_err(got, want):
@@ -3682,55 +3687,49 @@ def xla_ops(n_in, n_out):
     return 3 * n_in + n_out * (20 * n_in + 52) + 2 ** n_out * (n_out + 1)
 
 
-def xla_bounds(pts, rot, keys, vals, res, order, total):
+def xla_bounds(pts, rot, keys, vals, res, order, perm, total):
     """X1, X2 and X3 on this run's data -> {name: (ms, "bytes" |
-    "operations")}: each input read once, each output written once.  X2
-    reads a key, an index and a term a sorted position and writes the
-    volume once; its scatter kernel alone ("xla_scatter runs") reads them
-    and reads and writes each voxel it adds to.  X3 reads the residuals,
-    the cotangent at each voxel the terms reach, the weights, and writes
-    (B, P, n_out + 1) values."""
-    idx, ws, dl = res
-    bsz, p, n_s = idx.shape
-    n_out, n_in = rot.shape[1], rot.shape[2]
-    t = ws.element_size()
-    live = order[order < bsz * total]
-    voxels = int(torch.unique_consecutive(live).numel())
+    "operations")}: each input read once, each output written once.  X1
+    writes the keys, the terms and the residuals (the voxel and deltas).
+    X2's fill ("xla_fill") writes the volume once; its run kernel
+    ("xla_scatter") reads a key, an index and a term a sorted position and
+    writes each voxel it adds to.  X3 reads the residuals, the cotangent at
+    each voxel the terms reach, the weights, and writes (B, P, n_out + 1)
+    values.  Beside them ("<name> sectors": (count, ms)) the 32-byte
+    sectors the function touches where its random accesses take a sector
+    apiece: X2's terms read through the permutation and its voxels
+    written, X3's cotangent reads (the two neighbours along the last axis
+    mostly in one)."""
+    r0, dl = res
+    bsz, p, n_out = r0.shape
+    n_in = rot.shape[2]
+    t = dl.element_size()
+    live = order < bsz * total
+    voxels = torch.unique_consecutive(order[live])
+    n_live = int(live.sum())
     x1_bytes = ((pts.numel() + rot.numel() + rot.shape[0] * (n_out + 1) + p)
                 * t + keys.numel() * keys.element_size() + vals.numel() * t
-                + idx.numel() * 8 + ws.numel() * t + dl.numel() * t)
+                + r0.numel() * 4 + dl.numel() * t)
     x2_reads = order.numel() * (order.element_size() + 8 + t)
-    x2_bytes = x2_reads + bsz * total * t
-    x3_bytes = (idx.numel() * (8 + t) + dl.numel() * t + voxels * t
-                + (bsz + p) * t + bsz * p * (n_out + 1) * t)
+    x3_io = r0.numel() * 4 + dl.numel() * t + (bsz + p) * t \
+        + bsz * p * (n_out + 1) * t
+
+    def sectors(index, width):
+        return int(torch.unique(torch.div(index, 32 // width,
+                                          rounding_mode="floor")).numel())
+
+    x2_sectors = (x2_reads // 32 + sectors(perm[live], t)
+                  + sectors(voxels.long(), t))
+    x3_sectors = x3_io // 32 + sectors(voxels.long(), t)
     return {"xla_neighbours": bound(x1_bytes,
                                     2 * bsz * p * xla_ops(n_in, n_out)),
-            "xla_scatter": bound(x2_bytes, live.numel()),
-            "xla_scatter runs": bound(x2_reads + 2 * voxels * t,
-                                      live.numel()),
-            "xla_gather": bound(x3_bytes, bsz * p * n_s * (4 * n_out + 4))}
-
-
-def launch_us(fn, name, calls=10):
-    """Device microseconds of one launch of the kernel whose name holds
-    `name` (launched once a call of `fn`): its traced time over the
-    launches the trace holds, so a trace that lost rows still reads right;
-    None (not measured) where three traces hold none."""
-    import tempfile
-    from torch.autograd import DeviceType
-    from dprast_torch.utils import profiling
-    fn()
-    for _ in range(3):
-        with tempfile.TemporaryDirectory() as tmp:
-            with profiling.trace(tmp) as prof:
-                for _ in range(calls):
-                    fn()
-        rows = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and name in e.key]
-        if rows:
-            return (sum(e.device_time_total for e in rows)
-                    / sum(e.count for e in rows))
-    return None
+            "xla_fill": bound(bsz * total * t, 0),
+            "xla_scatter": bound(x2_reads + voxels.numel() * t, n_live),
+            "xla_gather": bound(x3_io + voxels.numel() * t,
+                                bsz * p * 2 ** n_out * (4 * n_out + 4)),
+            "xla_scatter sectors": (x2_sectors,
+                                    bound(32 * x2_sectors, 0)[0]),
+            "xla_gather sectors": (x3_sectors, bound(32 * x3_sectors, 0)[0])}
 
 
 def us_text(us):
@@ -3744,9 +3743,10 @@ def xla_times(dprast_torch, sb, core, dev, smi, name, grid, n_poses,
     us), each held to its plain version at the row (X1 and X3 bit for bit
     against theirs on the card, X2 against the CPU's `index_add_`; the
     measured max-abs error goes into the kernels line), beside their plain
-    versions' times on the card and their bounds; X2
-    beside `index_put_` with accumulate into the (B, total + 1) buffer
-    and X3 beside `torch.gather` of a padded cotangent, each one call;
+    versions' times on the card and their bounds; X2's fill and run kernel
+    each by its device us, X2 beside `index_put_` with accumulate into the
+    (B, total + 1) buffer and X3 beside `torch.gather` of a padded
+    cotangent at the expanded indices, each one call (its device us too);
     the forward, the fused step and the autograd step with what they keep
     the card busy with, and the fused step's peak memory.  -> {key: value}."""
     args, g = xla_inputs(grid, n_poses, n_points, dev)
@@ -3761,11 +3761,14 @@ def xla_times(dprast_torch, sb, core, dev, smi, name, grid, n_poses,
                       bg.new_zeros((b, 1))], dim=1).reshape(-1)
     # the (B, total + 1) buffer's index of each term, the sink for an
     # out-of-grid one
-    unsorted = (res[0] + torch.arange(b, device=dev)[:, None, None]
+    idx = core.expand_residuals(grid, res)[0]
+    unsorted = (idx + torch.arange(b, device=dev)[:, None, None]
                 * (total + 1)).reshape(-1)
     g_pad = torch.cat([g.reshape(b, -1), g.new_zeros((b, 1))], dim=1)
-    gather_idx = res[0].reshape(b, -1)
-    t = {"bounds": xla_bounds(pts, rot, keys, vals, res, order, total)}
+    gather_idx = idx.reshape(b, -1)
+    del idx
+    t = {"bounds": xla_bounds(pts, rot, keys, vals, res, order, perm,
+                              total)}
     plain = core._xla_neighbours_plain(grid, *five)
     got, want = [keys, vals, *res], [plain[0], plain[1], *plain[2]]
     x1_same = all(xla_bits(a, b) for a, b in zip(got, want))
@@ -3775,7 +3778,8 @@ def xla_times(dprast_torch, sb, core, dev, smi, name, grid, n_poses,
     out = core.xla_scatter(bg, grid, order, perm, flat_vals)
     voxels, sums = x2_cpu_reference(filled, order, perm, flat_vals)
     x2_same = x2_matches(filled, out, voxels, sums)
-    errs["xla_scatter"] = x2_err(filled, out, voxels, sums)
+    errs["xla_fill"], errs["xla_scatter"] = x2_err(filled, out, voxels,
+                                                   sums)
     del filled, out, voxels, sums
     got = core.xla_gather(grid, g, res, ow, pw)
     want = core._xla_gather_plain(grid, g, res, ow, pw)
@@ -3811,11 +3815,15 @@ def xla_times(dprast_torch, sb, core, dev, smi, name, grid, n_poses,
             "max_abs_err": errs[kname]}
     t["xla_scatter"]["library_dev_us"] = launch_us(
         fns["xla_scatter"][2], "indexing_backward_kernel")
-    for part in ("fill", "scatter"):
-        t["xla_scatter"][part + "_us"] = launch_us(
-            fns["xla_scatter"][0], f"xla_{part}_kernel")
-    parts = (t["xla_scatter"]["fill_us"], t["xla_scatter"]["scatter_us"])
-    t["xla_scatter"]["dev_us"] = None if None in parts else sum(parts)
+    t["xla_gather"]["library_dev_us"] = launch_us(fns["xla_gather"][2],
+                                                  "gather")
+    # X2's two kernels, each its own entry: the fill, then the runs
+    t["xla_fill"] = dict(t["xla_scatter"], library_ms=None,
+                         max_abs_err=errs["xla_fill"],
+                         dev_us=launch_us(fns["xla_scatter"][0],
+                                          "xla_fill_kernel"))
+    t["xla_scatter"]["dev_us"] = launch_us(fns["xla_scatter"][0],
+                                           "xla_scatter_kernel")
     del sink, unsorted, g_pad, fns
     leaves = [x.clone().requires_grad_() for x in args]
 
@@ -3847,12 +3855,18 @@ def xla_times(dprast_torch, sb, core, dev, smi, name, grid, n_poses,
                       + ("" if v["library_ms"] is None else
                          f", one library call {v['library_ms']:.4f} ms")
                       for k, v in ((k, t[k]) for k in core.XLA_KERNELS))
-          + f"; X2's fill {us_text(t['xla_scatter']['fill_us'])} and runs "
-            f"{us_text(t['xla_scatter']['scatter_us'])} (bound "
-            f"{t['bounds']['xla_scatter runs'][0] * 1e3:.2f} us); "
-            f"index_put_'s kernel "
+          + f"; X2's fill {us_text(t['xla_fill']['dev_us'])} (bound "
+            f"{t['bounds']['xla_fill'][0] * 1e3:.2f} us) and runs "
+            f"{us_text(t['xla_scatter']['dev_us'])} (the ms of X2 are "
+            f"both's); index_put_'s kernel "
             f"{us_text(t['xla_scatter']['library_dev_us'])} (the library "
-            f"call: index_put_ with accumulate into the filled volume); each kernel alone, so X3's gathers find the "
+            f"call: index_put_ with accumulate into the filled volume); "
+            f"torch.gather's {us_text(t['xla_gather']['library_dev_us'])} "
+            f"(X3's yardstick: the gathers alone, no products); sectors "
+            + "; ".join(f"{k[:-8]} {n} ({ms * 1e3:.2f} us)"
+                        for k, (n, ms) in t["bounds"].items()
+                        if k.endswith(" sectors"))
+            + "; each kernel alone, so X3's gathers find the "
             f"cotangent warm in L2 where the step's do not (by-kernel lines "
             f"below)")
     print(f"[xla path] {smi} | {name}: "
@@ -3875,40 +3889,103 @@ def xla_times(dprast_torch, sb, core, dev, smi, name, grid, n_poses,
 def xla_long_run(core, dev, smi):
     """X2 on the longest run: a 1-D cloud of `XLA_LONG_RUN` points in one
     voxel's span, so two voxels take a run of that many terms each; bit
-    for bit against the CPU's `index_add_`, timed -> (ms, device us)."""
-    grid, p = XLA_LONG_RUN
-    gen = torch.Generator(device=dev).manual_seed(3)
-    pts = 0.1 + 1e-4 * torch.rand((p, 1), generator=gen, device=dev)
-    pw = 0.5 + torch.rand(p, generator=gen, device=dev)
-    rot = torch.ones((1, 1, 1), device=dev)
-    tr, bg, ow = (torch.zeros((1, 1), device=dev),
-                  torch.zeros(1, device=dev), torch.ones(1, device=dev))
-    keys, vals, _ = core.xla_neighbours(grid, pts, rot, tr, ow, pw,
-                                        residuals=False)
-    order, perm = torch.sort(keys.reshape(-1), stable=True)
+    for bit against the CPU's `index_add_`, timed, and beside it in turns
+    the run kernel X2 had before its redesign (`exp_xla_forms`, a library
+    of its own) -> (ms, device us, the earlier kernel's device us)."""
+    from dprast_torch.benchmarks import exp_xla_forms as forms
+    bg, grid, order, perm, vals = forms.long_run_inputs(dev)
     filled = xla_filled(bg, grid)
-    out = core.xla_scatter(bg, grid, order, perm, vals.reshape(-1))
-    voxels, sums = x2_cpu_reference(filled, order, perm, vals.reshape(-1))
+    out = core.xla_scatter(bg, grid, order, perm, vals)
+    voxels, sums = x2_cpu_reference(filled, order, perm, vals)
     runs = torch.unique_consecutive(order, return_counts=True)[1]
     same = x2_matches(filled, out, voxels, sums)
+    earlier = forms.x2_parent(filled.clone(), order, perm, vals)
+    same_earlier = x2_matches(filled, earlier, voxels, sums)
 
     def scatter():
-        return core.xla_scatter(bg, grid, order, perm, vals.reshape(-1))
+        return core.xla_scatter(bg, grid, order, perm, vals)
 
     t0 = time.perf_counter()
     scatter()
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     ms = time_ms(scatter, reps=5, warmup=1)
-    dev_us = launch_us(scatter, "xla_scatter_kernel", calls=3)
+    dev_us, earlier_us = [], []
+    for fn, kname, into in ((scatter, "xla_scatter_kernel", dev_us),
+                            (lambda: forms.x2_parent(earlier, order, perm,
+                                                     vals),
+                             "x2_parent", earlier_us),
+                            (lambda: forms.x2_parent(earlier, order, perm,
+                                                     vals),
+                             "x2_parent", earlier_us),
+                            (scatter, "xla_scatter_kernel", dev_us)):
+        into.append(launch_us(fn, kname, calls=3))
     print(f"[xla path] {smi} | X2 on runs of {runs.tolist()} terms ({grid} "
-          f"x 1 pose x {p} points): bit-equal to the CPU's index_add_ "
-          f"{same}; {first_s:.3f} s the first call, {ms:.3f} ms, "
-          f"{us_text(dev_us)} on the card")
-    check(same and int(runs.max()) >= 1_000_000,
+          f"x 1 pose x {order.numel() // 2} points): bit-equal to the CPU's "
+          f"index_add_ {same} (the run kernel before its redesign "
+          f"{same_earlier}); {first_s:.3f} s the first call, {ms:.3f} ms; "
+          f"the run kernel in turns with the one before (new, old, old, "
+          f"new): {us_text(dev_us[0])}, {us_text(earlier_us[0])}, "
+          f"{us_text(earlier_us[1])}, {us_text(dev_us[1])} on the card")
+    check(same and same_earlier and int(runs.max()) >= 1_000_000,
           "[xla path] X2 adds a run of 10^6 terms in input order")
     check(first_s < 10, "[xla path] X2's longest run takes seconds")
-    return ms, dev_us
+    return ms, dev_us, earlier_us
+
+
+# X2's run shapes, each against the CPU's `index_add_`: (name, run lengths
+# of consecutive voxels of a 1-D grid, poses).  Runs that end one before,
+# on and one past a warp's, a carry round's (448) and a block's (1,024)
+# positions, runs that fill blocks, and one run across several blocks
+XLA_RUN_SHAPES = (
+    ("runs across warps and blocks",
+     (31, 32, 33, 447, 448, 449, 1023, 1024, 1025, 896, 2000, 1, 1, 5), 2),
+    ("every block one run", (1024,) * 12, 1),
+    ("one run over blocks", (5000,), 1))
+
+
+def xla_run_shapes(core, dev, smi):
+    """X2's run kernel on hand-made runs (`XLA_RUN_SHAPES`, the terms in a
+    shuffled input order so the permutation is no identity, out-of-grid
+    keys after them) and on the (4096,) x 1 x 10^6 cloud through X1 (runs
+    of ~500 terms), each bit for bit against the CPU's `index_add_`."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    cases = []
+    for name, lengths, n_poses in XLA_RUN_SHAPES:
+        total = len(lengths) // n_poses + 1
+        keys = torch.repeat_interleave(
+            torch.arange(len(lengths), device=dev),
+            torch.tensor(lengths, device=dev))
+        keys = torch.cat([keys, torch.full((77,), n_poses * total,
+                                           device=dev)])
+        keys = keys[torch.randperm(keys.numel(), generator=gen,
+                                   device=dev)].to(torch.int32)
+        vals = torch.randn(keys.numel(), generator=gen, device=dev) * \
+            10 ** (6 * torch.rand(keys.numel(), generator=gen,
+                                  device=dev) - 3)
+        bg = torch.randn(n_poses, generator=gen, device=dev)
+        order, perm = torch.sort(keys, stable=True)
+        cases.append((name, bg, (total,), order, perm, vals))
+    args, _ = xla_inputs((4096,), 1, 1_000_000, dev)
+    pts, rot, tr, bg, ow, pw = args
+    keys, vals, _ = core.xla_neighbours((4096,), pts, rot, tr, ow, pw,
+                                        residuals=False)
+    order, perm = torch.sort(keys.reshape(-1), stable=True)
+    cases.append(("(4096,) x 1 x 1e6 cloud", bg, (4096,), order, perm,
+                  vals.reshape(-1)))
+    for name, bg, grid, order, perm, vals in cases:
+        filled = xla_filled(bg, grid)
+        out = core.xla_scatter(bg, grid, order, perm, vals)
+        voxels, sums = x2_cpu_reference(filled, order, perm, vals)
+        same = x2_matches(filled, out, voxels, sums)
+        runs = torch.unique_consecutive(order, return_counts=True)[1]
+        us = launch_us(lambda: core.xla_scatter(bg, grid, order, perm, vals),
+                       "xla_scatter_kernel")
+        print(f"[xla path] {smi} | X2 run shape {name}: {order.numel()} "
+              f"terms, runs of {int(runs.min())}-{int(runs.max())}; "
+              f"bit-equal to the CPU's index_add_ {same}; the run kernel "
+              f"{us_text(us)}")
+        check(same, f"[xla path] X2 run shape {name}")
 
 
 def second_derivatives(dprast_torch, args, dirs, dev):
@@ -3973,7 +4050,7 @@ def phase_xla_path(dprast_torch, sb, core, testing, dev, smi):
     against the f64 oracles, the image at 1024cube_1e5 against the form
     it replaced, C8 on the card, and the timed rows `XLA_TIMED`.  ->
     {"launches": the autograd step's launches at 1024cube_1e5, "times":
-    {row: xla_times}, "long_run": (ms, us)}."""
+    {row: xla_times}, "long_run": `xla_long_run`'s}."""
     launches = None
     for case in XLA_CASES:
         got = xla_case(dprast_torch, sb, core, dev, *case)
@@ -3981,6 +4058,7 @@ def phase_xla_path(dprast_torch, sb, core, testing, dev, smi):
             launches = got
         torch.cuda.empty_cache()
     long_run = xla_long_run(core, dev, smi)
+    xla_run_shapes(core, dev, smi)
     phase_small(dprast_torch, testing, dev, "[xla small]", XLA_SMALL,
                 backend="xla")
     args, _ = xla_inputs(*XLA_CASES[0][1:4], dev)
@@ -4645,34 +4723,52 @@ def main():
     # autograd step through `auto` at 1024cube_1e5
     xla_cu = "dprast_torch/csrc/xla_path.cu"
     xla_src = "dprast/ops/core.py"
-    xla_lines = {"xla_neighbours": f"{xla_src}:44-70", "xla_scatter":
-                 f"{xla_src}:103-112", "xla_gather": f"{xla_src}:160-193"}
+    xla_lines = {"xla_neighbours": f"{xla_src}:44-70",
+                 "xla_fill": f"{xla_src}:103-112",
+                 "xla_scatter": f"{xla_src}:103-112",
+                 "xla_gather": f"{xla_src}:160-193"}
     xla_variant = {
-        "xla_neighbours": "X1: keys, terms and the fused pair's residuals; "
-                          "bit-equal to _xla_neighbours_plain",
-        "xla_scatter": "X2: the background's fill, then each run of "
-                       "sorted keys added in input order; bit-equal to the "
-                       "CPU's index_add_; library_ms is index_put_ with "
-                       "accumulate into the filled volume (the runs alone)",
-        "xla_gather": "X3: the cotangent read in place; bit-equal to "
-                      "_xla_gather_plain; library_ms is torch.gather of a "
-                      "padded cotangent"}
+        "xla_neighbours": "X1: keys, terms and the fused pair's residuals "
+                          "(each point's voxel and deltas); bit-equal to "
+                          "_xla_neighbours_plain",
+        "xla_fill": "X2's fill: each pose's background over the volume, "
+                    "launched by the xla_scatter wrapper with the run "
+                    "kernel (its count); ms and plain_ms are the whole "
+                    "X2 call's",
+        "xla_scatter": "X2's run kernel: a block's 1,024 sorted positions "
+                       "staged in shared memory, each run walked by its "
+                       "head from the pose's background, the run past the "
+                       "block finished by the block; bit-equal to the CPU's "
+                       "index_add_; ms is the whole X2 call's; library_ms "
+                       "is index_put_ with accumulate into the filled "
+                       "volume",
+        "xla_gather": "X3: each point's neighbours made from its voxel and "
+                      "deltas, the cotangent read in place, all 2^N reads "
+                      "first; bit-equal to _xla_gather_plain; library_ms "
+                      "is torch.gather of a padded cotangent at the "
+                      "expanded indices (library_device_us its device "
+                      "time)"}
+    xla_counter = {"xla_fill": "xla_scatter"}
     for row, t in xla["times"].items():
-        for name in core.XLA_KERNELS:
+        for name in xla_lines:
             entry = kernel(name, xla_cu, xla_lines[name],
-                           xla["launches"][name], t[name]["max_abs_err"],
-                           t[name]["ms"],
+                           xla["launches"][xla_counter.get(name, name)],
+                           t[name]["max_abs_err"], t[name]["ms"],
                            t[name]["plain_ms"], t["bounds"][name],
                            f"{row}, per-point weights",
                            variant=xla_variant[name],
                            device_us=t[name]["dev_us"],
                            library_ms=t[name]["library_ms"])
+            if name in ("xla_scatter", "xla_gather"):
+                sectors, sector_ms = t["bounds"][name + " sectors"]
+                entry.update(sectors=sectors, sector_bound_ms=sector_ms,
+                             library_device_us=t[name]["library_dev_us"])
             if name == "xla_scatter":
-                entry.update(
-                    fill_us=t[name]["fill_us"],
-                    runs_us=t[name]["scatter_us"],
-                    runs_bound_ms=t["bounds"]["xla_scatter runs"][0],
-                    library_dev_us=t[name]["library_dev_us"])
+                # the run of 1.2 x 10^6 terms, in turns with the run
+                # kernel before its redesign
+                _, now_us, before_us = xla["long_run"]
+                entry.update(long_run_device_us=now_us,
+                             long_run_device_us_before=before_us)
             kernels.append(entry)
     # [sharded] is a main path too: its 1 x 1 mesh, driven in this
     # process between a reset and a read of the counts, adds to `launches`;

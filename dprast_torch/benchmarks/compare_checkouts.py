@@ -41,8 +41,11 @@ points, uniform weights) on 128^2 and 1024^2:
   `benchmarks.run`'s inputs, per-point weights) and at ``512cube_1e6``
   (512^3, one pose, 10^6 points): the forward, the fused step and the
   autograd step of all six inputs, each with what it keeps the card busy
-  with and its peak device memory.  ``--xla-only`` times these rows
-  alone.
+  with and its peak device memory; each of the path's kernels alone (X1,
+  X2's fill and run kernel, X3: device microseconds a launch) and in the
+  fused step; X3's wrapper on the host at 1024^3; and X2 on a run of 1.2
+  x 10^6 terms.  ``--xla-only`` times
+  these rows alone.
 
 It prints one line per quantity with the readings of the four runs and
 the means of each checkout.  Usage, from the root of the newer checkout,
@@ -280,6 +283,9 @@ by_kernel(tag, cs.VOLUME, 1_000_000, 1)
 '''
 
 XLA_WORKER = r'''
+import re
+import time
+from dprast_torch.benchmarks.exp_xla_scatter import by_kernel
 # the xla backend at its timed rows: the forward, the fused step and the
 # autograd step of all six inputs (per-point weights), with what each
 # keeps the card busy with and its peak device memory
@@ -311,8 +317,56 @@ for name, big, n_points in (("1024cube_1e5", (1024, 1024, 1024), 100_000),
         fn()
         torch.cuda.synchronize()
         out[key + " peak GB"] = torch.cuda.max_memory_allocated() / 1e9
-    del args, g, leaves
+    # each kernel alone, on the checkout's own keys, terms and residuals:
+    # its device microseconds a launch
+    pts, rot, tr, bg, ow, pw = args
+    keys, vals, res = core.xla_neighbours(big, pts, rot, tr, ow, pw)
+    order, perm = torch.sort(keys.reshape(-1), stable=True)
+    vals = vals.reshape(-1)
+    for kname, fn in (
+            ("xla_neighbours_kernel",
+             lambda: core.xla_neighbours(big, pts, rot, tr, ow, pw)),
+            ("xla_fill_kernel",
+             lambda: core.xla_scatter(bg, big, order, perm, vals)),
+            ("xla_scatter_kernel",
+             lambda: core.xla_scatter(bg, big, order, perm, vals)),
+            ("xla_gather_kernel",
+             lambda: core.xla_gather(big, g, res, ow, pw))):
+        out[f"xla {kname} {name} device us"] = cs.launch_us(fn, kname)
+    if name == "1024cube_1e5":
+        # X3's wrapper on the host (its kernel is shorter: the host sets
+        # the pace), the mean of 1,000 calls
+        for _ in range(50):
+            core.xla_gather(big, g, res, ow, pw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(1000):
+            core.xla_gather(big, g, res, ow, pw)
+        out[f"xla xla_gather wrapper {name} host us"] = (
+            time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+    # what the fused step keeps the card busy with, kernel by kernel
+    for kname, us, n in by_kernel(xla_step):
+        found = re.search(r"xla_\w+?_kernel", kname)
+        if found:
+            key = f"xla fused step {name} {found.group()} device us"
+            out[key] = out.get(key, 0.0) + us
+    del args, g, leaves, keys, vals, res, order, perm
     torch.cuda.empty_cache()
+# X2 on its longest run: a (64,) grid and 1.2 x 10^6 points in one
+# voxel's span, two runs of 1.2 x 10^6 terms
+gen = torch.Generator(device=dev).manual_seed(3)
+lpts = 0.1 + 1e-4 * torch.rand((1_200_000, 1), generator=gen, device=dev)
+lpw = 0.5 + torch.rand(1_200_000, generator=gen, device=dev)
+lkeys, lvals, _ = core.xla_neighbours(
+    (64,), lpts, torch.ones((1, 1, 1), device=dev),
+    torch.zeros((1, 1), device=dev), torch.ones(1, device=dev), lpw,
+    residuals=False)
+lorder, lperm = torch.sort(lkeys.reshape(-1), stable=True)
+lbg = torch.zeros(1, device=dev)
+out["xla long run xla_scatter_kernel device us"] = cs.launch_us(
+    lambda: core.xla_scatter(lbg, (64,), lorder, lperm, lvals.reshape(-1)),
+    "xla_scatter_kernel", calls=3)
 print("RESULT " + json.dumps(out))
 '''
 

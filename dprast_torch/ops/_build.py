@@ -151,14 +151,14 @@ def load():
         lib.dprast_epilogue_poses.restype = i32
         sizes = ctypes.POINTER(ctypes.c_int)
         lib.dprast_xla_neighbours.argtypes = [vp, vp, vp, vp, i64, vp, i64,
-                                              vp, i32, vp, vp, vp, vp, i32,
-                                              i32, i32, i32, sizes, i32, vp]
+                                              vp, i32, vp, vp, vp, i32, i32,
+                                              i32, i32, sizes, i32, vp]
         lib.dprast_xla_neighbours.restype = i32
         lib.dprast_xla_scatter.argtypes = [vp, vp, i64, vp, i32, vp, vp, i64,
                                            i32, i64, i32, vp]
         lib.dprast_xla_scatter.restype = i32
-        lib.dprast_xla_gather.argtypes = [vp, vp, vp, vp, vp, i64, vp, i64, vp,
-                                          vp, i32, i32, i32, sizes, i32, vp]
+        lib.dprast_xla_gather.argtypes = [vp, vp, vp, vp, i64, vp, i64, vp, vp,
+                                          i32, i32, i32, sizes, i32, vp]
         lib.dprast_xla_gather.restype = i32
         lib.dprast_error_string.argtypes = [i32]
         lib.dprast_error_string.restype = ctypes.c_char_p

@@ -8,17 +8,18 @@ gather.  On the card three hand-written kernels run the path
 functions into:
 
 - X1 `xla_neighbours`: per (pose, point) the compensated voxel and
-  deltas, and per neighbour its flat index, hat weight and term -- the
-  scatter's sort keys and terms and the fused pair's residuals;
+  deltas -- the fused pair's residuals -- and per neighbour its flat
+  index, hat weight and term -- the scatter's sort keys and terms;
 - the keys sorted stably (`torch.sort`), then X2 `xla_scatter`: the
   volume filled with each pose's background, and each run of equal keys
   added onto its voxel in the sort's order, one add at a time, which is
   `index_add_`'s order on the CPU, so the card's forward has the CPU's
   bits;
-- X3 `xla_gather`: per (pose, point) the 2^N cotangent values read in
-  place and the products of the pullback; the sums over poses and points
-  stay small torch contractions, as JAX computes them outside any
-  kernel.
+- X3 `xla_gather`: per (pose, point) its neighbours' indices and hat
+  weights made again from the voxel and deltas, the 2^N cotangent values
+  read in place and the products of the pullback; the sums over poses
+  and points stay small torch contractions, as JAX computes them outside
+  any kernel.
 
 On CPU tensors each wrapper runs its plain version (`_xla_*_plain`),
 which gives the kernel's bits.  A pullback that must record a graph
@@ -74,11 +75,20 @@ def _neighbour_data(points, rotation, translation, grid_size):
 
     Returns (idx_flat (B, P, S) int64 with out-of-grid neighbours mapped to
     ``total``, wsplat (B, P, S), dl (B, P, N_out), shifts (S, N_out))."""
-    dev = points.device
+    res = geometry.pose_voxel_and_deltas(points, rotation, translation,
+                                         grid_size)
+    return (*expand_residuals(grid_size, res),
+            geometry.shift_table(len(grid_size), points.device))
+
+
+def expand_residuals(grid_size, residuals):
+    """The fused pair's residuals ``(r0, dl)`` -- each (pose, point)'s
+    voxel (B, P, N) int32 and deltas (B, P, N) -- expanded to
+    `_neighbour_data`'s ``(idx_flat, wsplat, dl)``."""
+    r0, dl = residuals
+    dev = dl.device
     n_out = len(grid_size)
     shifts = geometry.shift_table(n_out, dev)
-    r0, dl = geometry.pose_voxel_and_deltas(points, rotation, translation,
-                                            grid_size)
     idx = r0[..., None, :] + shifts                          # (B, P, S, N)
     sizes = geometry.axis_values(grid_size, torch.int32, dev)
     inb = torch.all((idx >= 0) & (idx < sizes), dim=-1)     # (B, P, S)
@@ -91,7 +101,7 @@ def _neighbour_data(points, rotation, translation, grid_size):
     # the gather reads as 0 (the reference's silent per-neighbour drop)
     idx_flat = torch.where(inb, idx_flat, total)
     wsplat = geometry.splat_weights(dl, shifts)             # (B, P, S)
-    return idx_flat, wsplat, dl, shifts
+    return idx_flat, wsplat, dl
 
 
 def _key_dtype(bsz, total):
@@ -111,19 +121,21 @@ def _xla_neighbours_plain(grid_size, points, rotation, translation,
     """Plain version of X1 -> ``(keys, vals, residuals)``: the sort keys
     (B, P, S), ``b * total + flat`` and B * total where out of grid, int32
     or int64 (`_key_dtype`); the terms ``(W_s * ow[b]) * pw[p]`` (B, P,
-    S); the residuals ``(idx_flat, wsplat, dl)`` of `_neighbour_data`.
+    S); the residuals ``(r0, dl)``, each (pose, point)'s voxel (int32) and
+    deltas (B, P, N), which `expand_residuals` makes `_neighbour_data`'s.
     What is not asked for (`terms`, `residuals`) is None."""
-    idx_flat, wsplat, dl, _ = _neighbour_data(points, rotation, translation,
-                                              grid_size)
+    r0, dl = geometry.pose_voxel_and_deltas(points, rotation, translation,
+                                            grid_size)
     keys = vals = None
     if terms:
+        idx_flat, wsplat, _ = expand_residuals(grid_size, (r0, dl))
         bsz = rotation.shape[0]
         total = int(math.prod(grid_size))
         base = torch.arange(bsz, device=points.device)[:, None, None] * total
         keys = torch.where(idx_flat < total, idx_flat + base,
                            bsz * total).to(_key_dtype(bsz, total))
         vals = wsplat * out_weight[:, None, None] * point_weight[None, :, None]
-    return keys, vals, ((idx_flat, wsplat, dl) if residuals else None)
+    return keys, vals, ((r0, dl) if residuals else None)
 
 
 def _coordinate_dtype(points, rotation, translation):
@@ -194,20 +206,19 @@ def xla_neighbours(grid_size, points, rotation, translation, out_weight,
         if terms else None
     vals = torch.empty((bsz, p, n_s), dtype=dtype, device=dev) \
         if terms else None
-    res = (torch.empty((bsz, p, n_s), dtype=torch.int64, device=dev),
-           torch.empty((bsz, p, n_s), dtype=dtype, device=dev),
+    res = (torch.empty((bsz, p, n_out), dtype=torch.int32, device=dev),
            torch.empty((bsz, p, n_out), dtype=dtype, device=dev)) \
         if residuals else None
     if bsz and p and (terms or residuals):
         def ptr(t):
             return None if t is None else sb._ptr(t)
-        idx, ws, dl = res if residuals else (None, None, None)
+        r0, dl = res if residuals else (None, None)
         sb._launch("xla_neighbours", dev,
                    sb._build.load().dprast_xla_neighbours, ptr(pts),
                    ptr(rot), ptr(tr), ptr(ow), ow.stride(0), ptr(pw),
                    pw.stride(0), ptr(keys), int(key_dtype == torch.int64),
-                   ptr(vals), ptr(idx), ptr(ws), ptr(dl), bsz, p, n_in,
-                   n_out, sizes, int(dtype == torch.float64))
+                   ptr(vals), ptr(r0), ptr(dl), bsz, p, n_in, n_out, sizes,
+                   int(dtype == torch.float64))
         sb.LAUNCHES["xla_neighbours"] += 1
     return keys, vals, res
 
@@ -281,13 +292,22 @@ def xla_scatter(background, grid_size, keys, perm, vals):
 
 def _xla_gather_plain(grid_size, ds_dout, residuals, out_weight,
                       point_weight):
-    """Plain version of X3 -> ``(scaled (B, P, N), gw (B, P))``: per
-    (pose, point) the cotangent at its 2^N neighbours (0 out of grid),
+    """Plain version of X3 -> ``(scaled (B, P, N), gw (B, P))`` from the
+    residuals ``(r0, dl)``: `_gather_expanded` on their expansion, plain
+    torch, so it records a graph where one is wanted."""
+    return _gather_expanded(grid_size, ds_dout,
+                            expand_residuals(grid_size, residuals),
+                            out_weight, point_weight)
+
+
+def _gather_expanded(grid_size, ds_dout, expanded, out_weight,
+                     point_weight):
+    """X3's function on `_neighbour_data`'s ``(idx_flat, wsplat, dl)``:
+    per (pose, point) the cotangent at its 2^N neighbours (0 out of grid),
     ``gw = sum_s g_s W_s`` and ``scaled_i = (sum_s g_s (ow pw) dW_s/ddl_i)
     * g_i / 2``, each sum in increasing s, each product of the hat
-    weight's derivative left to right; plain torch, so it records a
-    graph where one is wanted."""
-    idx_flat, wsplat, dl = residuals
+    weight's derivative left to right."""
+    idx_flat, wsplat, dl = expanded
     bsz, p, n_s = idx_flat.shape
     n = dl.shape[-1]
     total = int(math.prod(grid_size))
@@ -324,30 +344,28 @@ def _xla_gather_plain(grid_size, ds_dout, residuals, out_weight,
 
 def xla_gather(grid_size, ds_dout, residuals, out_weight, point_weight):
     """X3 -> ``(scaled, gw)`` as `_xla_gather_plain` gives them, from the
-    cotangent (B, *grid) read in place and X1's residuals ``(idx_flat,
-    wsplat, dl)``.  CPU tensors take the plain version, CUDA tensors one
-    launch of `csrc/xla_path.cu`, which gives its bits."""
+    cotangent (B, *grid) read in place and X1's residuals ``(r0, dl)``.
+    CPU tensors take the plain version, CUDA tensors one launch of
+    `csrc/xla_path.cu`, which gives its bits."""
     if ds_dout.device.type == "cpu":
         return _xla_gather_plain(grid_size, ds_dout, residuals, out_weight,
                                  point_weight)
     from dprast_torch.ops import splat_binned as sb
-    idx, ws, dl = residuals
-    dtype = ws.dtype
+    r0, dl = residuals
+    dtype = dl.dtype
     g = ds_dout.to(dtype).contiguous()
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"xla_gather: {dtype} residuals; expected float32 "
                          f"or float64")
-    sb._check_cuda("xla_gather", g, dtype, idx, torch.int64, ws, dtype, dl,
-                   dtype)
+    sb._check_cuda("xla_gather", g, dtype, r0, torch.int32, dl, dtype)
     n_out = len(grid_size)
-    bsz, p, n_s = idx.shape
+    bsz, p = r0.shape[:2] if r0.dim() == 3 else (0, 0)
     total = int(math.prod(grid_size))
-    if g.numel() != bsz * total or n_s != 2 ** n_out or \
-            ws.shape != idx.shape or dl.shape != (bsz, p, n_out):
+    if g.numel() != bsz * total or r0.shape != (bsz, p, n_out) or \
+            dl.shape != r0.shape:
         raise ValueError(f"xla_gather: cotangent {tuple(g.shape)} and "
-                         f"residuals {tuple(idx.shape)}, {tuple(ws.shape)}, "
-                         f"{tuple(dl.shape)} do not match the grid "
-                         f"{tuple(grid_size)}")
+                         f"residuals {tuple(r0.shape)}, {tuple(dl.shape)} "
+                         f"do not match the grid {tuple(grid_size)}")
     if p >= 2 ** 31:
         raise ValueError(f"xla_gather: P={p} exceeds the kernel's launch "
                          f"bounds")
@@ -358,7 +376,7 @@ def xla_gather(grid_size, ds_dout, residuals, out_weight, point_weight):
     gw = torch.empty((bsz, p), dtype=dtype, device=dev)
     if bsz and p:
         sb._launch("xla_gather", dev, sb._build.load().dprast_xla_gather,
-                   sb._ptr(g), sb._ptr(idx), sb._ptr(ws), sb._ptr(dl),
+                   sb._ptr(g), sb._ptr(r0), sb._ptr(dl),
                    sb._ptr(ow), ow.stride(0), sb._ptr(pw), pw.stride(0),
                    sb._ptr(scaled), sb._ptr(gw), bsz, p, n_out,
                    _sizes(grid_size), int(dtype == torch.float64))
@@ -385,10 +403,10 @@ def raster_fwd(grid_size, points, rotation, translation, background,
 
 def raster_fwd_res(grid_size, points, rotation, translation, background,
                    out_weight, point_weight, *, pw_uniform: bool = False):
-    """Forward + the neighbour-geometry residuals ``(idx_flat, wsplat,
-    dl)`` of `_neighbour_data`, so that the pullback of the fused
-    autograd pair skips the compensated transform and the neighbour
-    enumeration."""
+    """Forward + the neighbour-geometry residuals ``(r0, dl)``: each
+    (pose, point)'s voxel and deltas, so that the pullback of the fused
+    autograd pair skips the compensated transform (X3 makes the
+    neighbours' indices and weights from them again)."""
     del pw_uniform
     return _forward(grid_size, points, rotation, translation, background,
                     out_weight, point_weight, residuals=True)
@@ -473,14 +491,14 @@ def raster_pullback(grid_size, points, rotation, translation, background,
 
 def _pullback_graph(grid_size, points, rotation, translation, out_weight,
                     point_weight, ds_dout) -> PullbackResult:
-    """The pullback in plain torch from the inputs (`_neighbour_data`,
+    """The pullback in plain torch from the inputs (the voxel and deltas,
     `_xla_gather_plain`, the contractions), which records the graph of
     every input and the cotangent: the form a second derivative runs."""
     GRAPH_FORM_CALLS["xla_plain"] += 1
-    idx_flat, wsplat, dl, _ = _neighbour_data(points, rotation, translation,
-                                              grid_size)
-    scaled, gw = _xla_gather_plain(grid_size, ds_dout, (idx_flat, wsplat, dl),
-                                   out_weight, point_weight)
+    res = geometry.pose_voxel_and_deltas(points, rotation, translation,
+                                         grid_size)
+    scaled, gw = _xla_gather_plain(grid_size, ds_dout, res, out_weight,
+                                   point_weight)
     return _contract(points, rotation, out_weight, point_weight, ds_dout,
                      scaled, gw)
 

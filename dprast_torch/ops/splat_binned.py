@@ -1864,10 +1864,13 @@ def _stream(device):
 def _launch(name, device, entry, *args):
     """Call the kernel library's `entry` with `args` and `device`'s current
     stream as its last argument, with `device` current (a tensor on a card
-    that is not the current one launches there), and raise on a CUDA
-    error."""
-    with torch.cuda.device(device):
+    that is not the current one launches there; the device guard is only
+    entered then), and raise on a CUDA error."""
+    if device.index == torch.cuda.current_device():
         rc = entry(*args, _stream(device))
+    else:
+        with torch.cuda.device(device):
+            rc = entry(*args, _stream(device))
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} "
                            f"({_build.error_string(rc)})")

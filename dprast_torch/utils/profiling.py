@@ -119,6 +119,27 @@ def kernel_device_us(fn, kernel, calls: int = 10) -> float:
     return total / calls
 
 
+def launch_us(fn, name, calls: int = 10):
+    """Device microseconds of one launch of the kernel whose name holds
+    `name` (launched once a call of `fn`): its traced time over the
+    launches the trace holds, so a trace that lost rows still reads right;
+    None (not measured) where three traces hold none."""
+    from torch.autograd import DeviceType
+
+    fn()
+    for _ in range(3):
+        with tempfile.TemporaryDirectory() as tmp:
+            with trace(tmp) as prof:
+                for _ in range(calls):
+                    fn()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and name in e.key]
+        if rows:
+            return (sum(e.device_time_total for e in rows)
+                    / sum(e.count for e in rows))
+    return None
+
+
 def device_busy(fn, calls: int = 5) -> tuple[float, float]:
     """What one call of `fn` keeps the card busy with, the mean over
     `calls` calls from `torch.profiler`: (microseconds in kernels and

@@ -561,8 +561,7 @@ def test_wrappers_run_the_twin_only_on_cpu():
                           torch.zeros(40, device="meta"))
     with pytest.raises(ValueError, match="CUDA"):
         tcore.xla_gather((8, 8), torch.zeros((1, 8, 8), device="meta"), (
-            torch.zeros((1, 10, 4), dtype=torch.int64, device="meta"),
-            torch.zeros((1, 10, 4), device="meta"),
+            torch.zeros((1, 10, 2), dtype=torch.int32, device="meta"),
             torch.zeros((1, 10, 2), device="meta")), w1, w10)
     # every CUDA instance has a counter, and none counted here
     assert tbin.LAUNCHES == {

@@ -145,9 +145,7 @@ def _xla_scatter(bsz, grid=(64, 64), keys=I32):
 
 
 def _xla_gather(bsz, grid=(64, 64)):
-    n_s = 2 ** len(grid)
-    res = (_empty((bsz, P, n_s), torch.int64), _empty((bsz, P, n_s)),
-           _empty((bsz, P, len(grid))))
+    res = (_empty((bsz, P, len(grid)), I32), _empty((bsz, P, len(grid))))
     return lambda: tcore.xla_gather(grid, _empty((bsz,) + grid), res,
                                     _empty((bsz,)), _empty((P,)))
 
@@ -184,8 +182,12 @@ WRAPPERS = {
     "X2 xla_scatter": (_xla_scatter(MANY), "xla_scatter"),
     "X2 xla_scatter int64 keys": (_xla_scatter(MANY, (256, 256),
                                                torch.int64), "xla_scatter"),
+    "X1 xla_neighbours 3-D int64 keys": (_xla_neighbours(MANY, (64, 64, 64)),
+                                         "xla_neighbours"),
     "X3 xla_gather": (_xla_gather(MANY), "xla_gather"),
     "X3 xla_gather 1-D": (_xla_gather(MANY, (4096,)), "xla_gather"),
+    "X3 xla_gather 3-D past 2^31 voxels": (_xla_gather(MANY, (64, 64, 64)),
+                                           "xla_gather"),
 }
 
 

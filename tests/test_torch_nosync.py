@@ -235,3 +235,54 @@ def test_epilogue_pose_groups_make_no_host_round_trip(grid, n_poses, spies):
     """The same at 1 and 9 poses (one pose group and eight on a single
     tile), with per-point weights."""
     _epilogue_round_trips(grid, False, spies, n_poses)
+
+
+class _Library:
+    """The kernel library's stand-in: every entry point is a name."""
+
+    def __getattr__(self, name):
+        return name
+
+
+@pytest.fixture
+def stand_in_card(monkeypatch):
+    """`meta` tensors taken for tensors on a card, and each launch recorded
+    by its counter's name in place of being made -> the list of names; the
+    launch counters are restored afterwards."""
+    from dprast_torch.ops import splat_binned as tbin
+    launched = []
+    counts = dict(tbin.LAUNCHES)
+    monkeypatch.setattr(tbin, "_on_card", lambda t: t.device.type == "meta")
+    monkeypatch.setattr(tbin, "_launch",
+                        lambda name, *args: launched.append(name))
+    monkeypatch.setattr(tbin._build, "load", _Library)
+    yield launched
+    tbin.LAUNCHES.update(counts)
+
+
+@pytest.mark.parametrize("grid", [(40, 56), (64,), (6, 7, 5), (5, 4, 6, 3)],
+                         ids=str)
+def test_xla_kernel_wrappers_make_no_host_round_trip(grid, stand_in_card,
+                                                     spies):
+    """The `xla` path's wrappers on the card's side of their branch (X1
+    `xla_neighbours`, X2 `xla_scatter` after the sort, X3 `xla_gather` on
+    the voxel-and-deltas residuals; a stand-in card: `meta` tensors taken
+    for CUDA ones, each launch recorded), through the fused pair and
+    `raster_pullback`, read nothing back to the host."""
+    from dprast_torch.ops import core as tcore
+    n, bsz, p = len(grid), 3, 500
+    meta = torch.device("meta")
+    args = [torch.empty(shape, device=meta) for shape in
+            ((p, n), (bsz, n, n), (bsz, n), (bsz,), (bsz,), (p,))]
+    g = torch.empty((bsz,) + grid, device=meta)
+    spies.clear()
+    out, res = tcore.raster_fwd_res(grid, *args)
+    fused = tcore.raster_pullback_res(grid, res, args, g)
+    alone = tcore.raster_pullback(grid, *args, g)
+    assert spies == [], f"host round trips: {spies}"
+    assert stand_in_card == ["xla_neighbours", "xla_scatter", "xla_gather",
+                             "xla_neighbours", "xla_gather"]
+    assert out.shape == (bsz,) + grid
+    assert [r.dtype for r in res] == [torch.int32, torch.float32]
+    for grads in (fused, alone):
+        assert [x.shape for x in grads] == [a.shape for a in args]

@@ -5,9 +5,11 @@ the same float32 (and float64) numpy inputs:
 - X1's plain version (`core._xla_neighbours_plain`) against
   `dprast.ops.core._neighbour_data` and the scatter's operand, ranks 1-4,
   float32 and float64, per-pose and scalar weights, points on and off the
-  grid;
-- X3's plain version with the contractions against `_pullback_impl` on
-  the same residuals;
+  grid; its residuals, each point's voxel and deltas, expand
+  (`core.expand_residuals`) to exactly `_neighbour_data`'s;
+- X3's function with the contractions against `_pullback_impl` on JAX's
+  residuals, and X3's plain version on X1's; the fused pair on the voxel
+  and deltas keeps the CPU's bits of the pullback on the expanded ones;
 - X2's plain version bit-equal to `index_add_` of the terms in input
   order (and to a numpy loop of adds in that order), also where one run
   holds every term;
@@ -80,8 +82,12 @@ def test_x1_plain_matches_jax_neighbour_data(rank, dtype, weights):
     block plus the flat index, B * total out of grid."""
     grid, n_in = RANKS[rank]
     args = _args(grid, n_in, DTYPES[dtype], weights)
-    keys, vals, (idx, ws, dl) = tcore._xla_neighbours_plain(
+    keys, vals, res = tcore._xla_neighbours_plain(
         grid, *(torch.from_numpy(args[i]) for i in (0, 1, 2, 4, 5)))
+    # the residuals are each point's voxel and deltas; their expansion is
+    # `_neighbour_data`'s
+    assert res[0].dtype == torch.int32 and res[0].shape == res[1].shape
+    idx, ws, dl = tcore.expand_residuals(grid, res)
     j_idx, j_ws, j_dl, _ = jcore._neighbour_data(
         *(jnp.asarray(args[i]) for i in (0, 1, 2)), grid)
     total = math.prod(grid)
@@ -135,9 +141,63 @@ def test_splat_weights_multiply_left_to_right():
 
 
 @pytest.mark.parametrize("rank,dtype,weights", CASES, ids=IDS)
+def test_residuals_expand_to_neighbour_data(rank, dtype, weights):
+    """The fused pair's residuals, each point's voxel (int32) and deltas,
+    expand to exactly `_neighbour_data`'s ``(idx_flat, wsplat, dl)``: the
+    indices (total out of grid), the weights and the deltas bit for bit;
+    X3's plain version on them gives the bits of X3's function on the
+    expanded ones."""
+    grid, n_in = RANKS[rank]
+    t = [torch.from_numpy(a) for a in _args(grid, n_in, DTYPES[dtype],
+                                            weights)]
+    _, _, res = tcore._xla_neighbours_plain(grid, t[0], t[1], t[2], t[4],
+                                            t[5])
+    r0, dl = res
+    assert r0.dtype == torch.int32 and r0.shape == (t[1].shape[0],
+                                                    t[0].shape[0], len(grid))
+    assert dl.dtype == t[0].dtype and dl.shape == r0.shape
+    want = tcore._neighbour_data(t[0], t[1], t[2], grid)[:3]
+    got = tcore.expand_residuals(grid, res)
+    assert (want[0] == math.prod(grid)).any() and (want[0] < math.prod(
+        grid)).any()
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    g = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (t[1].shape[0],) + grid).astype(DTYPES[dtype]))
+    for a, b in zip(tcore._xla_gather_plain(grid, g, res, t[4], t[5]),
+                    tcore._gather_expanded(grid, g, want, t[4], t[5])):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("rank,dtype,weights", CASES, ids=IDS)
+def test_fused_pair_keeps_the_cpu_bits(rank, dtype, weights):
+    """`raster_fwd_res` -> `raster_pullback_res` on the voxel-and-deltas
+    residuals gives the CPU's bits of the pullback on `_neighbour_data`'s
+    expanded residuals (the form the pair saved before), and of
+    `raster_pullback` from the inputs."""
+    grid, n_in = RANKS[rank]
+    t = [torch.from_numpy(a) for a in _args(grid, n_in, DTYPES[dtype],
+                                            weights)]
+    g = torch.from_numpy(np.random.default_rng(10).standard_normal(
+        (t[1].shape[0],) + grid).astype(DTYPES[dtype]))
+    _, res = tcore.raster_fwd_res(grid, *t)
+    fused = tcore.raster_pullback_res(grid, res, t, g)
+    idx, ws, dl, _ = tcore._neighbour_data(t[0], t[1], t[2], grid)
+    scaled, gw = tcore._gather_expanded(grid, g, (idx, ws, dl), t[4], t[5])
+    before = tcore._contract(t[0], t[1], t[4], t[5], g, scaled, gw)
+    alone = tcore.raster_pullback(grid, *t, g)
+    for name in FIELDS:
+        for other in (before, alone):
+            assert torch.equal(getattr(fused, name), getattr(other, name)), \
+                name
+
+
+@pytest.mark.parametrize("rank,dtype,weights", CASES, ids=IDS)
 def test_x3_plain_matches_jax_pullback_impl(rank, dtype, weights):
-    """X3's plain version and the contractions on JAX's own residuals give
-    `_pullback_impl`'s six gradients within 1e-6 scaled (float64 1e-12)."""
+    """X3's function and the contractions on JAX's own residuals
+    (`_gather_expanded`), and X3's plain version on X1's (the voxel and
+    deltas), give `_pullback_impl`'s six gradients within 1e-6 scaled
+    (float64 1e-12)."""
     grid, n_in = RANKS[rank]
     args = _args(grid, n_in, DTYPES[dtype], weights)
     g = np.random.default_rng(3).standard_normal(
@@ -150,15 +210,20 @@ def test_x3_plain_matches_jax_pullback_impl(rank, dtype, weights):
     t = [torch.from_numpy(a) for a in args]
     res = (torch.from_numpy(np.array(j_idx, np.int64)),
            torch.from_numpy(np.array(j_ws)), torch.from_numpy(np.array(j_dl)))
-    scaled, gw = tcore._xla_gather_plain(grid, torch.from_numpy(g), res,
-                                         t[4], t[5])
-    assert scaled.shape == res[2].shape and gw.shape == res[0].shape[:2]
-    got = tcore._contract(t[0], t[1], t[4], t[5], torch.from_numpy(g),
-                          scaled, gw)
+    _, _, compact = tcore._xla_neighbours_plain(grid, t[0], t[1], t[2],
+                                                t[4], t[5])
     tol = 1e-6 if dtype == "f32" else 1e-12
-    for name in FIELDS:
-        assert _scaled_err(getattr(got, name),
-                           np.asarray(getattr(ref, name))) < tol, name
+    for scaled, gw in (
+            tcore._gather_expanded(grid, torch.from_numpy(g), res, t[4],
+                                   t[5]),
+            tcore._xla_gather_plain(grid, torch.from_numpy(g), compact,
+                                    t[4], t[5])):
+        assert scaled.shape == res[2].shape and gw.shape == res[0].shape[:2]
+        got = tcore._contract(t[0], t[1], t[4], t[5], torch.from_numpy(g),
+                              scaled, gw)
+        for name in FIELDS:
+            assert _scaled_err(getattr(got, name),
+                               np.asarray(getattr(ref, name))) < tol, name
 
 
 def _sequential(out, keys, vals):
