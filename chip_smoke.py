@@ -95,13 +95,15 @@ Then [no sync] runs every entry point (the forward, the fused pair,
 `raster_pullback`, the autograd step; `raster_sharded` on the 1 x 1 mesh)
 at 128^2, 1024^2, 128^3 and 64^2 x 70,000 poses under
 ``torch.cuda.set_sync_debug_mode("error")``, so that a call that makes the
-host wait for the card fails the run; [repeat] runs the `binned` forward
-and step at those shapes, and the `xla` rows `auto` takes on the card,
-twice to the same bits; [deterministic] every entry point under
-``torch.use_deterministic_algorithms(True)``; [bench] runs `bench_torch.py`;
-[run] two rows of `dprast_torch.benchmarks.run` (128^2 and 1024^3, with
-the autograd step); [tests_gpu] the on-card parity suite `tests_gpu/`,
-every test of which must pass.
+host wait for the card fails the run (`python3 chip_smoke.py --no-sync`
+runs the build and this phase alone, then once more under a recording
+profiler, where every stage span opens its range); [repeat] runs the
+`binned` forward and step at those shapes, and the `xla` rows `auto`
+takes on the card, twice to the same bits; [deterministic] every entry
+point under ``torch.use_deterministic_algorithms(True)``; [bench] runs
+`bench_torch.py`; [run] two rows of `dprast_torch.benchmarks.run` (128^2
+and 1024^3, with the autograd step); [tests_gpu] the on-card parity suite
+`tests_gpu/`, every test of which must pass.
 
 Run from the root of the repository:
 
@@ -4109,6 +4111,39 @@ def xla_path_alone():
     print(f"[xla path] took {time.perf_counter() - t0:.1f} s")
 
 
+def no_sync_alone():
+    """`python3 chip_smoke.py --no-sync`: the build and [no sync] alone,
+    first with no profiler, then under one that records the host's ranges
+    and the card's activity, so that the port's stage spans
+    (`profiling.annotate`) open theirs inside every call held."""
+    import dprast_torch
+    from dprast_torch.ops import _build
+    from dprast_torch.utils import profiling
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    print(profiling.card(0))
+    t0 = time.perf_counter()
+    _build.load()
+    print(f"[build] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    held = phase_no_sync(dprast_torch, dev)
+    print(f"[no sync] took {time.perf_counter() - t0:.1f} s")
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=activities) as prof:
+        held_on = phase_no_sync(dprast_torch, dev)
+    spans = sum(e.count for e in prof.key_averages()
+                if e.key.startswith("dprast."))
+    check(held_on == held and spans > 0,
+          f"[no sync] under the profiler: {held_on} calls, {spans} spans")
+    print(f"[no sync] under a recording profiler: {held_on} calls held, "
+          f"{spans} program spans recorded; took "
+          f"{time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"ok": True, "no_sync_calls": held,
+                      "spans_recorded": spans}))
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4122,6 +4157,9 @@ def main():
     if sys.argv[1:2] == ["--xla-path"]:
         # the build and [xla path] alone, for a short call
         return xla_path_alone()
+    if sys.argv[1:2] == ["--no-sync"]:
+        # the build and [no sync] alone, off and under the profiler
+        return no_sync_alone()
 
     import dprast_torch
     from dprast_torch.ops import _build, core, splat_binned as sb

@@ -8,6 +8,7 @@ from __future__ import annotations
 import torch
 
 from dprast_torch.ops import dispatch
+from dprast_torch.utils.profiling import annotate
 
 
 class _Raster(torch.autograd.Function):
@@ -45,19 +46,22 @@ class _Raster(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, ds_dout):
-        saved = ctx.saved_tensors
-        args, res = saved[:6], saved[6:]
-        # `loss = out.sum()` hands back a stride-0 expanded cotangent
-        ds_dout = ds_dout.contiguous()
         fwd_name, bwd_name = ctx.backend
-        if ctx.fused:
-            grads = dispatch.vjp_pair(fwd_name)[1](
-                ctx.grid_size, res, args, ds_dout, pw_uniform=ctx.pw_uniform)
-        else:
-            grads = dispatch.bwd_fn(bwd_name)(
-                ctx.grid_size, *args, ds_dout, pw_uniform=ctx.pw_uniform)
-        # PullbackResult's field order is the canonical argument order
-        return (None, None, None) + tuple(grads)
+        # on autograd's own thread where the cotangent is on the card
+        with annotate(f"dprast.pullback[{bwd_name}]"):
+            saved = ctx.saved_tensors
+            args, res = saved[:6], saved[6:]
+            # `loss = out.sum()` hands back a stride-0 expanded cotangent
+            ds_dout = ds_dout.contiguous()
+            if ctx.fused:
+                grads = dispatch.vjp_pair(fwd_name)[1](
+                    ctx.grid_size, res, args, ds_dout,
+                    pw_uniform=ctx.pw_uniform)
+            else:
+                grads = dispatch.bwd_fn(bwd_name)(
+                    ctx.grid_size, *args, ds_dout, pw_uniform=ctx.pw_uniform)
+            # PullbackResult's field order is the canonical argument order
+            return (None, None, None) + tuple(grads)
 
 
 class _RasterOnce(_Raster):

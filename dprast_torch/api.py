@@ -29,6 +29,7 @@ import torch
 
 from dprast_torch import ad
 from dprast_torch.ops import dispatch
+from dprast_torch.utils.profiling import annotate
 
 
 class RasterGrads(NamedTuple):
@@ -250,21 +251,25 @@ def raster(grid_size, points, rotation, translation, background=None,
     Returns:
       (*grid_size) for a single pose, (B, *grid_size) for a batch.
     """
-    grid_size, args, batched, pw_uniform = _normalise(
-        grid_size, points, rotation, translation, background, out_weight,
-        point_weight, dtype, device)
-    resolved = dispatch.resolve_pair(
-        backend, len(grid_size), grid_size, args[0].shape[0],
-        accelerator=args[0].device.type == "cuda",
-        f64=args[0].dtype == torch.float64)
-    if args[0].shape[0] == 0:
-        # empty cloud: the background image
-        b = args[1].shape[0]
-        out = args[3].reshape((b,) + (1,) * len(grid_size)).expand(
-            (b,) + grid_size).contiguous()
-    else:
-        out = ad.raster_canonical(grid_size, resolved, pw_uniform, *args)
-    return out if batched else out[0]
+    with annotate("dprast.normalise"):
+        grid_size, args, batched, pw_uniform = _normalise(
+            grid_size, points, rotation, translation, background,
+            out_weight, point_weight, dtype, device)
+        resolved = dispatch.resolve_pair(
+            backend, len(grid_size), grid_size, args[0].shape[0],
+            accelerator=args[0].device.type == "cuda",
+            f64=args[0].dtype == torch.float64)
+    # the span names the (forward, backward) pair dispatch chose: a trace
+    # counts the choices
+    with annotate(f"dprast.raster[{resolved[0]}/{resolved[1]}]"):
+        if args[0].shape[0] == 0:
+            # empty cloud: the background image
+            b = args[1].shape[0]
+            out = args[3].reshape((b,) + (1,) * len(grid_size)).expand(
+                (b,) + grid_size).contiguous()
+        else:
+            out = ad.raster_canonical(grid_size, resolved, pw_uniform, *args)
+        return out if batched else out[0]
 
 
 def _ndim(value):
@@ -292,49 +297,52 @@ def raster_pullback(ds_dout, points, rotation, translation, background=None,
     Call it under ``torch.no_grad()``, or with detached tensors, where
     the gradients are not to be differentiated again.
     """
-    device = _device_of((ds_dout, points, rotation, translation, background,
-                         out_weight, point_weight), device)
-    ds_dout = _as_tensor(ds_dout, device)
-    bg_scalar = background is None or _ndim(background) == 0
-    ow_scalar = out_weight is None or _ndim(out_weight) == 0
-    grid_size, args, batched, pw_uniform = _normalise(
-        tuple(ds_dout.shape[1:] if _ndim(rotation) == 3 else ds_dout.shape),
-        points, rotation, translation, background, out_weight, point_weight,
-        dtype, device)
+    with annotate("dprast.normalise"):
+        device = _device_of((ds_dout, points, rotation, translation,
+                             background, out_weight, point_weight), device)
+        ds_dout = _as_tensor(ds_dout, device)
+        bg_scalar = background is None or _ndim(background) == 0
+        ow_scalar = out_weight is None or _ndim(out_weight) == 0
+        grid_size, args, batched, pw_uniform = _normalise(
+            tuple(ds_dout.shape[1:] if _ndim(rotation) == 3
+                  else ds_dout.shape),
+            points, rotation, translation, background, out_weight,
+            point_weight, dtype, device)
+        if not batched:
+            ds_dout = ds_dout[None]
+        b = args[1].shape[0]
+        if tuple(ds_dout.shape) != (b,) + grid_size:
+            raise ValueError(
+                f"ds_dout shape {tuple(ds_dout.shape)} does not match output "
+                f"shape {(b,) + grid_size}")
+        _, resolved = dispatch.resolve_pair(
+            backend, len(grid_size), grid_size, args[0].shape[0],
+            accelerator=device.type == "cuda",
+            f64=args[0].dtype == torch.float64)
     # the binned backend's uniform d_pw is only sum-exact, so take that
     # path ONLY where the summing below applies (a scalar weight was
     # passed); a defaulted weight still gets the exact per-point d_pw
     pw_scalar = point_weight is not None and pw_uniform
-    if not batched:
-        ds_dout = ds_dout[None]
-    b = args[1].shape[0]
-    if tuple(ds_dout.shape) != (b,) + grid_size:
-        raise ValueError(
-            f"ds_dout shape {tuple(ds_dout.shape)} does not match output "
-            f"shape {(b,) + grid_size}")
-    _, resolved = dispatch.resolve_pair(
-        backend, len(grid_size), grid_size, args[0].shape[0],
-        accelerator=device.type == "cuda",
-        f64=args[0].dtype == torch.float64)
-    g = ds_dout.to(args[0].dtype)
-    if args[0].shape[0] == 0:
-        zeros = args[0].new_zeros
-        res = (zeros(args[0].shape), zeros(args[1].shape),
-               zeros(args[2].shape), torch.sum(g.reshape(b, -1), dim=-1),
-               zeros((b,)), zeros((0,)))
-    else:
-        res = dispatch.bwd_fn(resolved)(grid_size, *args, g,
-                                        pw_uniform=pw_scalar)
-    d_points, d_rot, d_trans, d_bg, d_ow, d_pw = res
-    if not batched:
-        d_rot, d_trans = d_rot[0], d_trans[0]
-        d_bg, d_ow = d_bg[0], d_ow[0]
-    else:
-        if bg_scalar and background is not None:
-            d_bg = torch.sum(d_bg)
-        if ow_scalar and out_weight is not None:
-            d_ow = torch.sum(d_ow)
-    if pw_scalar:
-        d_pw = torch.sum(d_pw)
+    with annotate(f"dprast.pullback[{resolved}]"):
+        g = ds_dout.to(args[0].dtype)
+        if args[0].shape[0] == 0:
+            zeros = args[0].new_zeros
+            res = (zeros(args[0].shape), zeros(args[1].shape),
+                   zeros(args[2].shape), torch.sum(g.reshape(b, -1), dim=-1),
+                   zeros((b,)), zeros((0,)))
+        else:
+            res = dispatch.bwd_fn(resolved)(grid_size, *args, g,
+                                            pw_uniform=pw_scalar)
+        d_points, d_rot, d_trans, d_bg, d_ow, d_pw = res
+        if not batched:
+            d_rot, d_trans = d_rot[0], d_trans[0]
+            d_bg, d_ow = d_bg[0], d_ow[0]
+        else:
+            if bg_scalar and background is not None:
+                d_bg = torch.sum(d_bg)
+            if ow_scalar and out_weight is not None:
+                d_ow = torch.sum(d_ow)
+        if pw_scalar:
+            d_pw = torch.sum(d_pw)
     return RasterGrads(points=d_points, rotation=d_rot, translation=d_trans,
                        background=d_bg, out_weight=d_ow, point_weight=d_pw)

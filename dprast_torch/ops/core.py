@@ -48,6 +48,7 @@ from typing import NamedTuple
 import torch
 
 from dprast_torch.ops import geometry
+from dprast_torch.utils.profiling import annotate
 
 # the path's kernels, by the names their launches count under in
 # `splat_binned.LAUNCHES`
@@ -167,6 +168,7 @@ def _sizes(grid_size):
     return (ctypes.c_int * n)(*grid_size)
 
 
+@annotate("dprast.x1.neighbours")
 def xla_neighbours(grid_size, points, rotation, translation, out_weight,
                    point_weight, *, terms=True, residuals=True):
     """X1 -> ``(keys, vals, residuals)`` as `_xla_neighbours_plain` gives
@@ -241,6 +243,7 @@ def _xla_scatter_plain(background, grid_size, keys, perm, vals):
     return buf[:-1].view((bsz,) + tuple(grid_size))
 
 
+@annotate("dprast.x2.scatter")
 def xla_scatter(background, grid_size, keys, perm, vals):
     """X2 -> out (B, *grid): each pose's background (B,), plus each term
     ``vals[perm[i]]`` at ``keys[i]`` of the flat volume, where `keys` (n,)
@@ -342,6 +345,7 @@ def _gather_expanded(grid_size, ds_dout, expanded, out_weight,
     return torch.stack(acc, dim=-1) * scale, gw
 
 
+@annotate("dprast.x3.gather")
 def xla_gather(grid_size, ds_dout, residuals, out_weight, point_weight):
     """X3 -> ``(scaled, gw)`` as `_xla_gather_plain` gives them, from the
     cotangent (B, *grid) read in place and X1's residuals ``(r0, dl)``.
@@ -424,9 +428,11 @@ def _forward(grid_size, points, rotation, translation, background,
     if vals.device.type == "cpu":
         # the CPU's `index_add_` adds in input order, the order the stable
         # sort keeps within a voxel: the sort would move no bit
-        return _xla_scatter_plain(background, grid_size, keys, None,
-                                  vals), res
-    order, perm = torch.sort(keys, stable=True)
+        with annotate("dprast.x2.scatter"):
+            return _xla_scatter_plain(background, grid_size, keys, None,
+                                      vals), res
+    with annotate("dprast.sort"):
+        order, perm = torch.sort(keys, stable=True)
     return xla_scatter(background, grid_size, order, perm, vals), res
 
 
@@ -507,13 +513,20 @@ def _contract(points, rotation, out_weight, point_weight, ds_dout, scaled,
               gw) -> PullbackResult:
     """The gradients from X3's ``(scaled, gw)``: small contractions over
     poses and points (fp32 products: TF32 stays off), and `d_bg`, one sum
-    of the cotangent."""
+    of the cotangent.  The three gradients that have work of their own
+    each run in a span (``dprast.grad.<input>``), so a trace shows what
+    each costs where autograd did not ask for it."""
     b = rotation.shape[0]
-    return PullbackResult(
-        points=torch.einsum("boi,bpo->pi", rotation, scaled),
-        rotation=torch.einsum("bpo,pi->boi", scaled, points),
-        translation=torch.sum(scaled, dim=1),
-        background=torch.sum(ds_dout.reshape(b, -1), dim=-1),
-        out_weight=torch.einsum("bp,p->b", gw, point_weight),
-        point_weight=torch.einsum("bp,b->p", gw, out_weight),
-    )
+    with annotate("dprast.contract"):
+        d_points = torch.einsum("boi,bpo->pi", rotation, scaled)
+        d_rot = torch.einsum("bpo,pi->boi", scaled, points)
+        d_trans = torch.sum(scaled, dim=1)
+    with annotate("dprast.grad.background"):
+        d_bg = torch.sum(ds_dout.reshape(b, -1), dim=-1)
+    with annotate("dprast.grad.out_weight"):
+        d_ow = torch.einsum("bp,p->b", gw, point_weight)
+    with annotate("dprast.grad.point_weight"):
+        d_pw = torch.einsum("bp,b->p", gw, out_weight)
+    return PullbackResult(points=d_points, rotation=d_rot,
+                          translation=d_trans, background=d_bg,
+                          out_weight=d_ow, point_weight=d_pw)

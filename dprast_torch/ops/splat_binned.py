@@ -81,6 +81,7 @@ import torch
 import torch.nn.functional as F
 
 from dprast_torch.ops import _build, core, geometry
+from dprast_torch.utils.profiling import annotate
 
 TILE = 128
 # bf16 split depth of the JAX kernels' value operands by default; the
@@ -243,6 +244,7 @@ def _keys_and_local_plain(grid_size, ts, points, rotation, translation,
     return key, locs, nt
 
 
+@annotate("dprast.b6.coords")
 def _keys_and_local(grid_size, ts, points, rotation, translation,
                     want_key=True):
     """B6: the coordinate stage -> ``(key (B, P) int32, locs, nt)`` with
@@ -346,6 +348,7 @@ def _direct_frame_plain(grid_size, ts, points, rotation, translation,
     return _prep_direct(*_frame_planes(locs, weight), chunk)
 
 
+@annotate("dprast.b6.coords")
 def direct_frame(grid_size, ts, points, rotation, translation, weight,
                  chunk):
     """B6 writing a single tile's frame -> ``(data (B, n_planes, p_pad),
@@ -419,14 +422,16 @@ def _prep_binned(key, planes, fills, nt, chunk, min_chunk_per_tile,
     n_fill = max(s_pad - p, nt * chunk)
     if sorted_keys is not None:
         planes = planes[:-1]
-    data = [torch.gather(
-        torch.cat([pl_.expand(bsz, p),
-                   torch.full((bsz, n_fill), fills[i], dtype=torch.float32,
-                              device=key.device)], dim=1), 1, perm)
-            for i, pl_ in enumerate(planes)]
-    if sorted_keys is not None:
-        data.append((sorted_keys % _id_span(p)).to(torch.float32))
-    return torch.stack(data, dim=1), slot_tile
+    with annotate("dprast.frame_gather"):
+        data = [torch.gather(
+            torch.cat([pl_.expand(bsz, p),
+                       torch.full((bsz, n_fill), fills[i],
+                                  dtype=torch.float32, device=key.device)],
+                      dim=1), 1, perm)
+                for i, pl_ in enumerate(planes)]
+        if sorted_keys is not None:
+            data.append((sorted_keys % _id_span(p)).to(torch.float32))
+        return torch.stack(data, dim=1), slot_tile
 
 
 def _id_span(p):
@@ -446,7 +451,8 @@ def _slot_order(key, nt, chunk, min_chunk_per_tile, pack_idx):
     packed = pack_idx and (2 * nt + 1) * _id_span(p) + p < 2 ** 31
     keys2, slot_tile, _ = slot_prep(key, nt, chunk, min_chunk_per_tile,
                                     packed)
-    sorted_keys, perm = torch.sort(keys2, dim=1, stable=not packed)
+    with annotate("dprast.sort"):
+        sorted_keys, perm = torch.sort(keys2, dim=1, stable=not packed)
     return perm, sorted_keys if packed else None, slot_tile
 
 
@@ -501,6 +507,7 @@ def _slot_prep_plain(key, nt, chunk, min_chunk_per_tile, packed):
     return keys2, torch.cat([slot_tile, n_live], dim=1), counts_all
 
 
+@annotate("dprast.b9.slot_prep")
 def slot_prep(key, nt, chunk, min_chunk_per_tile, packed):
     """B9, the binning sort's preparation: the tile keys `key` (B, P)
     int32 in [0, nt] (``nt``: no tile) -> ``(keys2 (B, s_pad), slot_tile
@@ -603,6 +610,7 @@ def _frame_gather_plain(index, locs, weight):
     return torch.stack(data, dim=1)
 
 
+@annotate("dprast.frame_gather")
 def frame_gather(index, locs, weight):
     """The multi-tile frame after the sort -> data (B, n_planes, s_pad):
     row ``r`` of pose ``b`` holds point ``j``'s encoded planes `locs`
@@ -957,6 +965,7 @@ def _b1_cluster(device, bsz, nt, win, terms=0, encoded=False):
                          _clusters_held(device, win, terms, encoded))
 
 
+@annotate("dprast.b1.splat")
 def fwd_splat(slot_tile, lane, nt, win, chunk, terms=0, *, cluster=None):
     """B1 on lane planes: splat the lane planes of a slot frame into the
     per-tile windows of shape `win` -> ext (B, nt, rows_e, cols_e) f32,
@@ -1000,6 +1009,7 @@ def _fwd_splat_enc_fixed_plain(slot_tile, data, nt, win, chunk, terms=0):
                                   nt, win, chunk, terms)
 
 
+@annotate("dprast.b1.splat")
 def fwd_splat_enc(slot_tile, data, nt, win, chunk, terms=0, *,
                   cluster=None):
     """B1 on the frame: `data` (B, n_planes, s_pad) is the frame
@@ -1177,6 +1187,7 @@ def _unfold(x, grid_size, ts):
     return xp.reshape(b, math.prod(nts), rows, ts[-1] + 1).contiguous()
 
 
+@annotate("dprast.unfold")
 def band_unfold(g, grid_size, ts):
     """B3: cut the 2-D cotangent g (B, gy, gx) into the multi-tile
     windows (B, n0*n1, t0+1, t1+1), zero outside the grid.  CPU tensors
@@ -1334,6 +1345,7 @@ def _combine_3d(p, dlz, dly):
             omz * (p01 - p00) + dlz * (p11 - p10))
 
 
+@annotate("dprast.b4.gather")
 def bwd_gather(slot_tile, lane_b, win, chunk, terms=0, layout="natural"):
     """B4 on lane planes: gather the cotangent windows at every frame row
     -> buf (B, n_out + 1, s_pad) ``[du_y, du_x, gw]`` in 2-D, ``[du_z,
@@ -1365,6 +1377,7 @@ def _bwd_gather_enc_plain(slot_tile, coord, ts, win, chunk, terms=0,
                              win, chunk, terms, layout)
 
 
+@annotate("dprast.b4.gather")
 def bwd_gather_enc(slot_tile, coord, ts, win, chunk, terms=0,
                    layout="natural"):
     """B4 on the frame: `coord` (B, n_out, s_pad) are the frame's encoded
@@ -1722,6 +1735,7 @@ def _epilogue_fixed_plain(grid_size, buf, idx_rows, points, rotation,
     return d_points, d_r, d_t, d_ow, d_pw
 
 
+@annotate("dprast.b8.epilogue")
 def pullback_epilogue(grid_size, buf, idx_rows, points, rotation,
                       out_weight, point_weight, *, pw_uniform=False):
     """B8: the pullback's epilogue from B4's rows `buf` (B, n_out + 1,
@@ -2016,19 +2030,22 @@ def _fwd_impl(grid_size, points, rotation, translation, background,
     ext = splat(slot_tile, data, nt, _window(grid_size), chunk, terms=terms)
 
     f32 = torch.float32
-    ow_eff = out_weight.to(f32)
-    if pw_uniform:
-        # all entries equal by the contract; fold the scalar in
-        ow_eff = ow_eff * point_weight.to(f32)[0]
-    bg_f = background.to(f32)
     ts = tile_shape_for(grid_size)
     n_out = len(grid_size)
-    if n_out == 2 and not _single_tile(grid_size):
-        out = fold(ext, grid_size, ts, ow_eff.contiguous(), bg_f.contiguous())
-    else:
-        bcast = (-1,) + (1,) * n_out
-        out = (_fold(ext, grid_size, ts, not _single_tile(grid_size))
-               * ow_eff.reshape(bcast) + bg_f.reshape(bcast))
+    # B2 or the plain fold, with the weights' scale and the background
+    with annotate("dprast.b2.fold"):
+        ow_eff = out_weight.to(f32)
+        if pw_uniform:
+            # all entries equal by the contract; fold the scalar in
+            ow_eff = ow_eff * point_weight.to(f32)[0]
+        bg_f = background.to(f32)
+        if n_out == 2 and not _single_tile(grid_size):
+            out = fold(ext, grid_size, ts, ow_eff.contiguous(),
+                       bg_f.contiguous())
+        else:
+            bcast = (-1,) + (1,) * n_out
+            out = (_fold(ext, grid_size, ts, not _single_tile(grid_size))
+                   * ow_eff.reshape(bcast) + bg_f.reshape(bcast))
     dtype = torch.promote_types(points.dtype, torch.promote_types(
         rotation.dtype, translation.dtype))
     res = (data, slot_tile) if with_residuals else None
@@ -2125,7 +2142,8 @@ def _pullback_from_frame(grid_size, coord, idx_rows, slot_tile, points,
     if not halo:
         g_in = g_cot
     elif n_out == 3:
-        g_in = _unfold(g_cot, grid_size, ts)
+        with annotate("dprast.unfold"):
+            g_in = _unfold(g_cot, grid_size, ts)
     elif unfold is None:
         g_in, layout = g_cot, "grid"
     else:
@@ -2136,7 +2154,8 @@ def _pullback_from_frame(grid_size, coord, idx_rows, slot_tile, points,
     d_points, d_r, d_t, d_ow, d_pw = epilogue(
         grid_size, buf, idx_rows, points, rotation, out_weight, point_weight,
         pw_uniform=pw_uniform)
-    d_bg = torch.sum(g_cot.reshape(bsz, -1), dim=-1)
+    with annotate("dprast.grad.background"):
+        d_bg = torch.sum(g_cot.reshape(bsz, -1), dim=-1)
 
     dtype = torch.promote_types(torch.promote_types(points.dtype,
                                                     rotation.dtype),
