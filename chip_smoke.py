@@ -28,11 +28,16 @@ on a single tile, the frame gather after the sort on several.  The
 `_prep_binned` bit for bit, each `_enc` instance to the same kernel on
 lane planes and to its plain version (B4 bit for bit, B1 within its
 reordering of fp32 sums), times them, and fails if a fused step makes
-lane planes on the card.  Before the sort, B9 (`slot_prep`, two kernels)
-writes the per-tile counts, the sort's input keys and the slot table;
-the [B9 slot prep] phase holds them to the eager chain they replace
-(`_slot_prep_plain`) bit for bit, packed and unpacked, and times both in
-turns.
+lane planes on the card.  Before the frame gather, B9 (`slot_prep`, two
+kernels) writes the per-tile counts, the slot table and each stretch's
+first place of each tile, and B10 (`bin_scatter`) the sorted frame keys
+straight to their places, in place of `torch.sort`; the [B9 slot prep]
+phase holds B9 to the eager chain it replaces (`_slot_prep_plain`,
+`_bases_plain`) and B10 to `torch.sort` of that chain's sort input bit
+for bit, packed and unpacked, B10 also to itself on a second run, and
+times each against what it replaces in turns (`python3 chip_smoke.py
+--slot-prep` runs the build, this phase, [B7 frame], [repeat],
+[deterministic] and [no sync] alone).
 
 At small sizes the forward and `raster_pullback` are checked against the
 float64 numpy oracles, in 2-D and 3-D.  Then it times the kernels
@@ -448,9 +453,9 @@ def phase_train(dprast_torch, sb, pts, rot, tr, pw, cots, totals):
     each run between a reset and a read of the launch counts."""
     want = {FLAGSHIP: ("coords", "fwd_splat_enc", "bwd_gather_enc",
                        *EPILOGUE_TILE),
-            MULTI_TILE: ("coords", "slot_prep", "frame_gather",
-                         "fwd_splat_enc", "band_fold", "bwd_gather_grid_enc",
-                         *EPILOGUE_TILES)}
+            MULTI_TILE: ("coords", "slot_prep", "bin_scatter",
+                         "frame_gather", "fwd_splat_enc", "band_fold",
+                         "bwd_gather_grid_enc", *EPILOGUE_TILES)}
     for grid in GRIDS:
         for weighted in (False, True):
             inputs = train_inputs(pts, rot, tr, pw, weighted)
@@ -912,8 +917,8 @@ def b7_writers(sb, tag, grid, pts, rot, tr, pw):
         return sb._keys_and_local(*args, **kw)
 
     halo = not sb._single_tile(grid)
-    want = ({"coords": 1, "slot_prep": 1, "frame_gather": 1} if halo
-            else {"coords": 1})
+    want = ({"coords": 1, "slot_prep": 1, "bin_scatter": 1,
+             "frame_gather": 1} if halo else {"coords": 1})
     plain_name = "_prep_binned" if halo else "_prep_direct"
     apart = 0
     for label, build in (
@@ -1319,7 +1324,8 @@ def phase_3d(dprast_torch, sb, dev):
             launched = dict(sb.LAUNCHES)
             check(launched["fwd_splat_3d_enc"] >= 1
                   and launched["coords"] == launched["slot_prep"]
-                  == launched["frame_gather"] == 1,
+                  == launched["bin_scatter"] == launched["frame_gather"]
+                  == 1,
                   f"{tag}: B6, B9, the frame gather and B1-3D ran in the "
                   f"forward")
             check(img.shape == (n_poses,) + grid and
@@ -1347,8 +1353,9 @@ def phase_3d(dprast_torch, sb, dev):
                       f"{tag}: {name} ran in the training step")
             # the fused pair reuses the forward's frame
             check(launched["coords"] == launched["slot_prep"]
-                  == launched["frame_gather"] == 1,
-                  f"{tag}: B6, B9 and the frame gather ran once in the "
+                  == launched["bin_scatter"] == launched["frame_gather"]
+                  == 1,
+                  f"{tag}: B6, B9, B10 and the frame gather ran once in the "
                   f"training step")
             if n_poses == 1:
                 for name in launched:
@@ -2100,7 +2107,7 @@ SHARDED_MESH = (2, 2)
 SHARDED_WANT = {FLAGSHIP: {"coords": 1, "fwd_splat_enc": 1,
                            "bwd_gather_enc": 1, "epilogue_tile": 1,
                            "epilogue_poses": 1},
-                MULTI_TILE: {"coords": 1, "slot_prep": 1,
+                MULTI_TILE: {"coords": 1, "slot_prep": 1, "bin_scatter": 1,
                              "frame_gather": 1, "fwd_splat_enc": 1,
                              "band_fold": 1, "bwd_gather_grid_enc": 1,
                              "epilogue_rows": 1, "epilogue_points": 1}}
@@ -2519,22 +2526,33 @@ def main_inputs(grid, n_poses, n_points, dev):
 
 
 def slot_prep_bound(key, out):
-    """B9 on the keys `key` (B, P): the keys read once, the sort's input,
-    the slot table and the counts (`out`) written once; no arithmetic
-    that counts against the memory."""
+    """B9 on the keys `key` (B, P): the keys read once, the bases, the slot
+    table and the counts (`out`) written once; no arithmetic that counts
+    against the memory."""
     return bound((key.numel() + sum(t.numel() for t in out)) * 4, 0)
 
 
+def bin_scatter_bound(key, out):
+    """B10 on the keys `key` (B, P): the keys read once and the frame keys
+    `out` written once (B9's bases and counts, which it reads besides,
+    are B9's output)."""
+    return bound(key.numel() * 4 + out.numel() * out.element_size(), 0)
+
+
 def phase_slot_prep(sb, dev, smi):
-    """[B9 slot prep]: the sort's input, the slot table and the counts of
-    `slot_prep` bit-equal to `_slot_prep_plain` (the eager chain it
-    replaces) at `SLOT_PREP_CASES` and `SLOT_PREP_UNPACKED`, on the keys
-    B6 writes there and on random keys that fill every bin of [0, nt],
-    with ``min_chunk_per_tile`` both ways, packed where the ids fit and
-    unpacked; at `SLOT_PREP_CASES` timed in turns (kernel, eager, eager,
-    kernel) by CUDA events and by device busy time, each kernel's own
-    device time against the bound, and the one ranged `torch.histc` call on
-    the prepared bins as the count's library call.  -> {grid: entry}."""
+    """[B9 slot prep]: B9's counts, slot table and bases (`slot_prep`)
+    bit-equal to their plain versions (`_slot_prep_plain`, `_bases_plain`),
+    and B10's frame keys (`bin_scatter`) bit-equal to `torch.sort` of the
+    plain sort input and to themselves on a second run, at
+    `SLOT_PREP_CASES` and `SLOT_PREP_UNPACKED`, on the keys B6 writes there
+    and on random keys that fill every bin of [0, nt], with
+    ``min_chunk_per_tile`` both ways, packed where the ids fit and
+    unpacked; at `SLOT_PREP_CASES` timed in turns by CUDA events and by
+    device busy time: B9 against its eager chain (kernel, eager, eager,
+    kernel), B10 against `torch.sort` (scatter, sort, sort, scatter),
+    each kernel's own device time against its bound, and the one ranged
+    `torch.histc` call on the prepared bins as the count's library call.
+    -> {grid: entry}."""
     out = {}
     for grid, n_poses, n_points in SLOT_PREP_CASES + (SLOT_PREP_UNPACKED,):
         pts, rot, tr = main_inputs(grid, n_poses, n_points, dev)[:3]
@@ -2547,63 +2565,106 @@ def phase_slot_prep(sb, dev, smi):
         tag = f"{grid} x {n_poses} x {n_points}"
         for keys, label in ((key, "B6's keys"), (wild, "random keys")):
             for min_chunk in (True, False):
+                got = sb.slot_prep(keys, nt, chunk, min_chunk)
+                _, ref_st, ref_counts = sb._slot_prep_plain(
+                    keys, nt, chunk, min_chunk, False)
+                ref = (sb._bases_plain(keys, ref_counts, nt, chunk,
+                                       min_chunk), ref_st, ref_counts)
+                torch.cuda.synchronize()
+                same = [torch.equal(g, r) for g, r in zip(got, ref)]
+                print(f"[B9 slot prep] {tag}, {label}, min_chunk_per_"
+                      f"tile {min_chunk}: bases {tuple(got[0].shape)}, "
+                      f"slot table {tuple(got[1].shape)}, counts "
+                      f"{tuple(got[2].shape)} bit-equal to the plain "
+                      f"versions {same}")
+                check(all(same) and int(got[2].sum()) == keys.numel(),
+                      f"[B9 slot prep] {tag} ({label}, {min_chunk}) "
+                      f"bit-equal to its plain version")
                 for packed in (True, False) if fits else (False,):
-                    got = sb.slot_prep(keys, nt, chunk, min_chunk, packed)
-                    ref = sb._slot_prep_plain(keys, nt, chunk, min_chunk,
-                                              packed)
+                    index = sb.bin_scatter(keys, got[2], got[0], nt, chunk,
+                                           min_chunk, packed)
+                    again = sb.bin_scatter(keys, got[2], got[0], nt, chunk,
+                                           min_chunk, packed)
+                    keys2 = sb._slot_prep_plain(keys, nt, chunk, min_chunk,
+                                                packed)[0]
+                    values, perm = torch.sort(keys2, dim=1,
+                                              stable=not packed)
+                    want = values if packed else perm
                     torch.cuda.synchronize()
-                    same = [torch.equal(g, r) for g, r in zip(got, ref)]
-                    print(f"[B9 slot prep] {tag}, {label}, min_chunk_per_"
-                          f"tile {min_chunk}, packed {packed}: keys2 "
-                          f"{tuple(got[0].shape)}, slot table "
-                          f"{tuple(got[1].shape)}, counts "
-                          f"{tuple(got[2].shape)} bit-equal to "
-                          f"_slot_prep_plain {same}")
-                    check(all(same) and int(got[2].sum()) == keys.numel(),
-                          f"[B9 slot prep] {tag} ({label}, {min_chunk}, "
-                          f"{packed}) bit-equal to its plain version")
+                    same_sort = torch.equal(index, want)
+                    print(f"[B10 bin scatter] {tag}, {label}, min_chunk_"
+                          f"per_tile {min_chunk}, packed {packed}: "
+                          f"{tuple(index.shape)} {index.dtype} bit-equal "
+                          f"to torch.sort's {same_sort}; [repeat] "
+                          f"{torch.equal(index, again)}")
+                    check(same_sort and torch.equal(index, again),
+                          f"[B10 bin scatter] {tag} ({label}, {min_chunk}, "
+                          f"{packed}) is torch.sort's, twice")
+                    del index, again, keys2, values, perm, want
         if (grid, n_poses, n_points) == SLOT_PREP_UNPACKED:
             check(not fits, f"[B9 slot prep] {tag} takes the unpacked path")
             continue
         offs = torch.arange(n_poses, device=dev)[:, None] * (nt + 1)
         bins = (key.double() + offs).reshape(-1)
         n_bins = n_poses * (nt + 1)
-        fns = (lambda: sb.slot_prep(key, nt, chunk, True, fits),
-               lambda: sb._slot_prep_plain(key, nt, chunk, True, fits))
-        ms, busy = {0: [], 1: []}, {0: [], 1: []}
-        for i in (0, 1, 1, 0):
-            ms[i].append(time_ms(fns[i]))
-            busy[i].append(device_busy(fns[i]))
-        count_us = kernel_device_us(fns[0], "slot_count_kernel")
-        fill_us = kernel_device_us(fns[0], "slot_fill_kernel")
-        entry = {
-            "ms": sum(ms[0]) / 2, "plain_ms": sum(ms[1]) / 2,
-            "busy_us": sum(b[0] for b in busy[0]) / 2,
-            "plain_busy_us": sum(b[0] for b in busy[1]) / 2,
-            "launches": busy[0][0][1], "plain_launches": busy[1][0][1],
-            "count_us": count_us, "fill_us": fill_us,
-            "dev_us": count_us + fill_us,
-            "bound": slot_prep_bound(key, fns[0]())}
+        b9 = (lambda: sb.slot_prep(key, nt, chunk, True),
+              lambda: sb._slot_prep_plain(key, nt, chunk, True, fits))
+        bases, _, counts = b9[0]()
+        keys2 = sb._slot_prep_plain(key, nt, chunk, True, fits)[0]
+        b10 = (lambda: sb.bin_scatter(key, counts, bases, nt, chunk, True,
+                                      fits),
+               lambda: torch.sort(keys2, dim=1, stable=not fits))
+        entry = {}
+        for name, fns in (("b9", b9), ("b10", b10)):
+            ms, busy = {0: [], 1: []}, {0: [], 1: []}
+            for i in (0, 1, 1, 0):
+                ms[i].append(time_ms(fns[i]))
+                busy[i].append(device_busy(fns[i]))
+            entry[name] = {
+                "ms": sum(ms[0]) / 2, "plain_ms": sum(ms[1]) / 2,
+                "ms_in_turns": ms[0][:1] + ms[1] + ms[0][1:],
+                "busy_us": sum(b[0] for b in busy[0]) / 2,
+                "plain_busy_us": sum(b[0] for b in busy[1]) / 2,
+                "launches": busy[0][0][1], "plain_launches": busy[1][0][1]}
+        count_us = kernel_device_us(b9[0], "slot_count_kernel")
+        scan_us = kernel_device_us(b9[0], "slot_scan_kernel")
+        scatter_us = kernel_device_us(b10[0], "bin_scatter_kernel")
+        entry["b9"].update(count_us=count_us, scan_us=scan_us,
+                           dev_us=count_us + scan_us,
+                           bound=slot_prep_bound(key, b9[0]()))
+        entry["b10"].update(dev_us=scatter_us,
+                            bound=bin_scatter_bound(key, b10[0]()))
         histc = functools.partial(torch.histc, bins, bins=n_bins, min=-0.5,
                                   max=n_bins - 0.5)
-        entry["library_ms"] = time_ms(histc)
-        entry["library_busy_us"] = device_busy(histc)[0]
+        entry["b9"]["library_ms"] = time_ms(histc)
+        entry["b9"]["library_busy_us"] = device_busy(histc)[0]
+        entry["b10"]["library_ms"] = entry["b10"]["plain_ms"]
         out[grid] = entry
-        share = entry["bound"][0] * 1e3 / max(entry["dev_us"], 1e-9)
+        e9, e10 = entry["b9"], entry["b10"]
+        t9, t10 = e9["ms_in_turns"], e10["ms_in_turns"]
         print(f"[B9 slot prep] {smi} | {tag} in turns (kernel, eager, "
-              f"eager, kernel): {ms[0][0]:.4f}, {ms[1][0]:.4f}, "
-              f"{ms[1][1]:.4f}, {ms[0][1]:.4f} ms; device busy "
-              f"{entry['busy_us']:.2f} us in {entry['launches']:.0f} "
-              f"launches (the zero-fill and the two kernels) against the "
-              f"eager chain's {entry['plain_busy_us']:.2f} us in "
-              f"{entry['plain_launches']:.0f}; pass 1 {count_us:.2f} us, "
-              f"pass 2 {fill_us:.2f} us, together {share:.1%} of their "
-              f"{entry['bound'][0] * 1e3:.2f} us bound; one histc call on "
-              f"the prepared bins (the count alone) "
-              f"{entry['library_ms']:.4f} ms, device busy "
-              f"{entry['library_busy_us']:.2f} us")
+              f"eager, kernel): " + ", ".join(f"{t:.4f}" for t in t9)
+              + f" ms; device busy {e9['busy_us']:.2f} us in "
+              f"{e9['launches']:.0f} launches (the zero-fill and the two "
+              f"kernels) against the eager chain's "
+              f"{e9['plain_busy_us']:.2f} us in {e9['plain_launches']:.0f}; "
+              f"pass 1 {count_us:.2f} us, pass 2 {scan_us:.2f} us, "
+              f"together {e9['bound'][0] * 1e3 / max(e9['dev_us'], 1e-9):.1%}"
+              f" of their {e9['bound'][0] * 1e3:.2f} us bound; one histc "
+              f"call on the prepared bins (the count alone) "
+              f"{e9['library_ms']:.4f} ms, device busy "
+              f"{e9['library_busy_us']:.2f} us")
+        print(f"[B10 bin scatter] {smi} | {tag}, packed {fits}, in turns "
+              f"(scatter, torch.sort, torch.sort, scatter): "
+              + ", ".join(f"{t:.4f}" for t in t10)
+              + f" ms; device busy {e10['busy_us']:.2f} us in "
+              f"{e10['launches']:.0f} launches against torch.sort's "
+              f"{e10['plain_busy_us']:.2f} us in "
+              f"{e10['plain_launches']:.0f}; bin_scatter_kernel "
+              f"{scatter_us:.2f} us, "
+              f"{e10['bound'][0] * 1e3 / max(scatter_us, 1e-9):.1%} of its "
+              f"{e10['bound'][0] * 1e3:.2f} us bound")
     return out
-
 
 # [B8 epilogue]: the main path's three shapes
 B8_CASES = ((FLAGSHIP, N_POSES, N_POINTS), (MULTI_TILE, N_POSES, N_POINTS),
@@ -3026,9 +3087,11 @@ def deterministic_worker():
           f"torch.use_deterministic_algorithms(True), all bit-equal; "
           f"launches {launched}")
     check(launched.get("slot_prep", 0) >= 1 and
+          launched.get("bin_scatter", 0) >= 1 and
           launched.get("frame_gather", 0) >= 1 and
           launched.get("fwd_splat_enc", 0) >= 1,
-          "[deterministic] B9, the frame gather and B1 ran under the mode")
+          "[deterministic] B9, B10, the frame gather and B1 ran under the "
+          "mode")
     check(xla_ran(launched), "[deterministic] X1-X3 ran under the mode")
 
 
@@ -3068,12 +3131,12 @@ def poses_kernels(sb, grid):
     """The kernels the fused step runs at `grid`: B4's grid source counts
     as ``_ldg`` where a grid row is no multiple of 16 bytes."""
     if len(grid) == 3:
-        return ("coords", "slot_prep", "frame_gather", "fwd_splat_3d_enc",
-                "bwd_gather_3d_enc", *EPILOGUE_TILES)
+        return ("coords", "slot_prep", "bin_scatter", "frame_gather",
+                "fwd_splat_3d_enc", "bwd_gather_3d_enc", *EPILOGUE_TILES)
     if sb._single_tile(grid):
         return ("coords", "fwd_splat_enc", "bwd_gather_enc", *EPILOGUE_TILE)
-    return ("coords", "slot_prep", "frame_gather", "fwd_splat_enc",
-            "band_fold", "bwd_gather_grid_enc"
+    return ("coords", "slot_prep", "bin_scatter", "frame_gather",
+            "fwd_splat_enc", "band_fold", "bwd_gather_grid_enc"
             + ("" if grid[1] % 4 == 0 else sb._GRID_LOADS), *EPILOGUE_TILES)
 
 
@@ -4111,6 +4174,41 @@ def xla_path_alone():
     print(f"[xla path] took {time.perf_counter() - t0:.1f} s")
 
 
+def slot_prep_alone():
+    """`python3 chip_smoke.py --slot-prep`: the build, [B9 slot prep] (B9
+    and B10), [B7 frame] (the frame gather after B10), [repeat],
+    [deterministic] and [no sync] alone, without the lines a whole run
+    ends with."""
+    import dprast_torch
+    from dprast_torch.ops import _build, splat_binned as sb
+    from dprast_torch.utils import profiling
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    smi = profiling.card(0)
+    print(smi)
+    t0 = time.perf_counter()
+    so = _build.build()
+    _build.load()
+    print(f"[build] {time.perf_counter() - t0:.1f} s")
+    entry = False
+    for ln in so.with_suffix(".log").read_text().splitlines():
+        if "Compiling entry" in ln:
+            entry = "slot_" in ln or "bin_scatter" in ln
+        if entry and ("Compiling entry" in ln or "registers" in ln
+                      or "spill" in ln):
+            print(f"[build] {ln.strip()}")
+    for tag, phase in (
+            ("[B9 slot prep]", lambda: phase_slot_prep(sb, dev, smi)),
+            ("[B7 frame]", lambda: phase_b7(dprast_torch, sb, dev, smi)),
+            ("[repeat]", lambda: phase_repeat(dprast_torch, dev)),
+            ("[deterministic]", phase_deterministic),
+            ("[no sync]", lambda: phase_no_sync(dprast_torch, dev))):
+        t0 = time.perf_counter()
+        phase()
+        print(f"{tag} took {time.perf_counter() - t0:.1f} s", flush=True)
+    print(json.dumps({"ok": True, "device": smi}))
+
+
 def no_sync_alone():
     """`python3 chip_smoke.py --no-sync`: the build and [no sync] alone,
     first with no profiler, then under one that records the host's ranges
@@ -4160,6 +4258,10 @@ def main():
     if sys.argv[1:2] == ["--no-sync"]:
         # the build and [no sync] alone, off and under the profiler
         return no_sync_alone()
+    if sys.argv[1:2] == ["--slot-prep"]:
+        # the build, B9 and B10 and the phases that hold the path they
+        # make, alone
+        return slot_prep_alone()
 
     import dprast_torch
     from dprast_torch.ops import _build, core, splat_binned as sb
@@ -4645,7 +4747,7 @@ def main():
         entry = b7_kernel(
             grid, "frame_gather", gather_cu, f"{src}:334-346", counted,
             err=b7["errs"]["frame"],
-            variant="writes the multi-tile frame after torch.sort from "
+            variant="writes the multi-tile frame after B10 from "
                     "the packed sorted keys and B6's interleaved planes; "
                     "bit-equal to _prep_binned; library_ms is one "
                     "torch.gather of a prepared table")
@@ -4656,19 +4758,34 @@ def main():
     # offsets, filler keys, packed keys and slot table, which XLA fuses)
     for grid, counted, shape in ((MULTI_TILE, train_launches, mt),
                                  (VOLUME, launches_3d, vol)):
-        t = slot_prep[grid]
+        t = slot_prep[grid]["b9"]
         entry = kernel(
             "slot_prep", "dprast_torch/csrc/slot_prep.cu", f"{src}:279-353",
             counted["slot_prep"], 0.0, t["ms"], t["plain_ms"], t["bound"],
             shape,
-            variant="two kernels (the count and the sort's real keys; the "
-                    "fillers, the tail and the slot table); bit-equal to "
-                    "the eager _slot_prep_plain; library_ms is the ranged "
-                    "histc of the count alone",
+            variant="two kernels (the counts of each stretch of keys; their "
+                    "prefix, the bases, and the slot table); bit-equal to "
+                    "the eager _slot_prep_plain and _bases_plain; "
+                    "library_ms is the ranged histc of the count alone",
             device_us=t["dev_us"], library_ms=t["library_ms"])
-        entry.update(count_us=t["count_us"], fill_us=t["fill_us"],
+        entry.update(count_us=t["count_us"], scan_us=t["scan_us"],
                      busy_us=t["busy_us"], plain_busy_us=t["plain_busy_us"],
                      library_busy_us=t["library_busy_us"])
+        kernels.append(entry)
+    # B10, the binning sort as a counting scatter (replaces the sort of
+    # `_prep_binned`, which the port ran as torch.sort)
+    for grid, counted, shape in ((MULTI_TILE, train_launches, mt),
+                                 (VOLUME, launches_3d, vol)):
+        t = slot_prep[grid]["b10"]
+        entry = kernel(
+            "bin_scatter", "dprast_torch/csrc/bin_scatter.cu",
+            f"{src}:322-333", counted["bin_scatter"], 0.0, t["ms"],
+            t["plain_ms"], t["bound"], shape,
+            variant="the sorted frame keys written to their places from "
+                    "B9's counts and bases; bit-equal to torch.sort, which "
+                    "is both its plain version and library_ms",
+            device_us=t["dev_us"], library_ms=t["library_ms"])
+        entry.update(busy_us=t["busy_us"], plain_busy_us=t["plain_busy_us"])
         kernels.append(entry)
     # B8, the pullback's epilogue (replaces the XLA code after B4's
     # `pallas_call`, which XLA fuses), at the main path's three shapes:

@@ -18,10 +18,10 @@ point only) and called with the arguments the wrapper passes:
 At the main path's two multi-tile shapes (1024^2 x 64 poses x 10^5
 points, 128^3 x 1 x 10^6: the flagship cloud and BASELINE config 4), on
 the keys B6 writes there and on random keys spread over [0, nt], every
-form is held to `_slot_prep_plain` bit for bit (except ``no_count``) and
-timed in turns (forms in order, then back): the device microseconds of
-pass 1 (`slot_count_kernel`) and pass 2 (`slot_fill_kernel`) from
-`torch.profiler`.
+form is held to `_slot_prep_plain` and `_bases_plain` bit for bit
+(except ``no_count``) and timed in turns (forms in order, then back): the
+device microseconds of pass 1 (`slot_count_kernel`) and pass 2
+(`slot_scan_kernel`) from `torch.profiler`.
 
 Usage, from the root of the repository:
 
@@ -108,19 +108,19 @@ def main():
         key, _, nt = sb._keys_and_local(grid, sb.tile_shape_for(grid), pts,
                                         rot, tr)
         chunk = sb._default_chunk(grid, n_points)
-        p2 = sb._id_span(n_points)
-        packed = (2 * nt + 1) * p2 + n_points < 2 ** 31
         wild = torch.randint(0, nt + 1, key.shape, dtype=torch.int32,
                              device=dev)
         for keys, label in ((key, "B6's keys"), (wild, "random keys")):
-            want = sb._slot_prep_plain(keys, nt, chunk, True, packed)
+            _, slot_tile, counts = sb._slot_prep_plain(keys, nt, chunk,
+                                                       True, False)
+            want = (sb._bases_plain(keys, counts, nt, chunk, True),
+                    slot_tile, counts)
 
             def call(name):
-                out = (torch.empty_like(want[0]), torch.empty_like(want[1]),
-                       torch.empty_like(want[2]))
+                out = tuple(torch.empty_like(t) for t in want)
                 rc = entries[name](*(sb._ptr(t) for t in (keys, *out)),
                                    n_poses, n_points, nt, chunk, 1,
-                                   int(packed), p2, sb._stream(dev))
+                                   sb._stream(dev))
                 if rc != 0:
                     raise RuntimeError(f"form {name}: CUDA error {rc}")
                 return out
@@ -136,11 +136,11 @@ def main():
                 us[name].append((
                     round(profiling.kernel_device_us(fn, "slot_count_kernel",
                                                      calls=20), 2),
-                    round(profiling.kernel_device_us(fn, "slot_fill_kernel",
+                    round(profiling.kernel_device_us(fn, "slot_scan_kernel",
                                                      calls=20), 2)))
             tag = (f"{'x'.join(map(str, grid))} x {n_poses} x {n_points}, "
                    f"{label}")
-            print(json.dumps({"case": tag, "count_fill_us_in_turns": us,
+            print(json.dumps({"case": tag, "count_scan_us_in_turns": us,
                               "bit_equal": same}), flush=True)
             for name in FORMS:
                 print(f"[slot_prep forms] {tag} {name}: pass 1 "
@@ -148,7 +148,7 @@ def main():
                       + " us, pass 2 "
                       + " / ".join(f"{f:.2f}" for _, f in us[name]) + " us"
                       + ("" if name == "no_count" else
-                         f"; bit-equal to _slot_prep_plain {same[name]}"))
+                         f"; bit-equal to the plain versions {same[name]}"))
                 if name != "no_count" and not same[name]:
                     raise SystemExit(f"form {name} ({tag}) is not B9's "
                                      f"function")

@@ -29,10 +29,10 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dprast_torch"
 _SOURCES = ("fwd_splat.cu", "band_fold.cu", "band_unfold.cu",
             "bwd_gather.cu", "coords.cu", "frame_gather.cu",
-            "slot_prep.cu", "epilogue.cu", "xla_path.cu")
+            "slot_prep.cu", "bin_scatter.cu", "epilogue.cu", "xla_path.cu")
 # headers the sources include: not compiled on their own, but part of the
 # library's name, so that an edited header rebuilds it
-_HEADERS = ("poses.cuh", "slots.cuh", "twofloat.cuh")
+_HEADERS = ("bins.cuh", "poses.cuh", "slots.cuh", "twofloat.cuh")
 
 # B1 and B4 keep one tile window of at most 128 x 128 entries in dynamic
 # shared memory: B4's holds fp32 (64 KB), B1's 64-bit fixed point as two
@@ -130,8 +130,11 @@ def load():
                                             i32, i32, i32, i64, vp]
         lib.dprast_frame_gather.restype = i32
         lib.dprast_slot_prep.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32,
-                                         i32, i32, i32, vp]
+                                         i32, vp]
         lib.dprast_slot_prep.restype = i32
+        lib.dprast_bin_scatter.argtypes = [vp, vp, vp, vp, i32, i32, i32,
+                                           i32, i32, i32, i32, vp]
+        lib.dprast_bin_scatter.restype = i32
         lib.dprast_epilogue_rows.argtypes = [vp, vp, i64, vp, vp, vp, i64,
                                              f32, f32, f32, vp, i32, vp, i32,
                                              i32, i32, i32, i32, i64, i32, vp]

@@ -17,11 +17,13 @@ The forward, for a batch of B poses:
    A multi-tile grid sorts the points by tile into a padded *slot frame*:
    slot ``s`` covers rows ``[s*chunk, (s+1)*chunk)`` of one tile, every
    tile owns at least one slot, and ``slot_tile[b, -1]`` counts the live
-   slots; on the card two kernels write the sort's input keys and the
-   slot table (`slot_prep`, kernel B9), `torch.sort` sorts, and one
-   kernel writes the frame after the sort (`frame_gather`; plain:
-   `_prep_binned`).  A 3-D grid is always multi-tile: (7, 15, 127)-voxel
-   bodies.
+   slots; on the card two kernels write the per-tile counts, the slot
+   table and each stretch of points' first place per tile (`slot_prep`,
+   kernel B9), one kernel writes the sorted frame keys straight to their
+   places from them (`bin_scatter`, kernel B10, a counting scatter in
+   place of a sort), and one kernel writes the frame (`frame_gather`;
+   plain: `_prep_binned`, whose sort is `torch.sort`).  A 3-D grid is
+   always multi-tile: (7, 15, 127)-voxel bodies.
 3. **Planes.** The JAX package decodes the frame outside its kernels into
    lane planes (``[iy0, dly, (w,) dlx, ix0]`` per row in 2-D,
    ``[iz0, dlz, iy0, dly, (w,) dlx, ix0]`` in 3-D, `_planes_fwd`).  Here
@@ -130,8 +132,9 @@ _B4_ENC = tuple(k for k in _B4_INSTANCES
 # backend's X1-X3 (`core.xla_neighbours`, `xla_scatter`, `xla_gather`)
 # count here too
 LAUNCHES = dict.fromkeys(
-    ["coords", "slot_prep", "frame_gather", "band_fold", "band_unfold",
-     "epilogue_tile", "epilogue_poses", "epilogue_rows", "epilogue_points",
+    ["coords", "slot_prep", "bin_scatter", "frame_gather", "band_fold",
+     "band_unfold", "epilogue_tile", "epilogue_poses", "epilogue_rows",
+     "epilogue_points",
      *_B1_INSTANCES.values(), *_B4_INSTANCES.values(),
      *(name + _GRID_LOADS for (_, _, layout), name in _B4_INSTANCES.items()
        if layout == "grid"),
@@ -397,6 +400,11 @@ def _decode_coord(col):
     return r0, dl
 
 
+# keys a stretch: B9 counts each stretch of a pose's keys apart and B10
+# scatters it from the counts' prefix (`csrc/bins.cuh`)
+_STRETCH = 4096
+
+
 def _slot_frame_size(p, nt, chunk):
     return -(-p // chunk) * chunk + nt * chunk
 
@@ -418,6 +426,9 @@ def _prep_binned(key, planes, fills, nt, chunk, min_chunk_per_tile,
     bsz, p = key.shape
     perm, sorted_keys, slot_tile = _slot_order(key, nt, chunk,
                                                min_chunk_per_tile, pack_idx)
+    if perm is None:
+        # the card's packed keys: each filler row reads the first fill
+        perm = _frame_ids(sorted_keys, p)
     s_pad = perm.shape[1]
     n_fill = max(s_pad - p, nt * chunk)
     if sorted_keys is not None:
@@ -445,19 +456,50 @@ def _slot_order(key, nt, chunk, min_chunk_per_tile, pack_idx):
     point ``perm[b, r]`` where that is below P, else it is a filler row.
     `sorted_keys` (B, s_pad) carries the packed point ids (``key * P2 +
     id``) where ``pack_idx`` and the bits fit an int32, else it is None
-    (a stable sort; the id is the payload ``perm``).  The sort's input and
-    the slot table come from `slot_prep` (B9)."""
+    (a stable sort; the id is the payload ``perm``).
+
+    On the CPU B9's plain version writes the sort's input and
+    `torch.sort` sorts it.  On the card B9 (`slot_prep`) counts and B10
+    (`bin_scatter`) writes the one of the two that the frame gather reads
+    straight to its place, bit for bit what the sort gives: `perm` is
+    then None where the keys are packed."""
     p = key.shape[1]
     packed = pack_idx and (2 * nt + 1) * _id_span(p) + p < 2 ** 31
-    keys2, slot_tile, _ = slot_prep(key, nt, chunk, min_chunk_per_tile,
-                                    packed)
-    with annotate("dprast.sort"):
-        sorted_keys, perm = torch.sort(keys2, dim=1, stable=not packed)
-    return perm, sorted_keys if packed else None, slot_tile
+    if key.device.type == "cpu":
+        with annotate("dprast.b9.slot_prep"):
+            keys2, slot_tile, _ = _slot_prep_plain(key, nt, chunk,
+                                                   min_chunk_per_tile, packed)
+        with annotate("dprast.sort"):
+            sorted_keys, perm = torch.sort(keys2, dim=1, stable=not packed)
+        return perm, sorted_keys if packed else None, slot_tile
+    bases, slot_tile, counts = slot_prep(key, nt, chunk, min_chunk_per_tile)
+    index = bin_scatter(key, counts, bases, nt, chunk, min_chunk_per_tile,
+                        packed)
+    return (None, index, slot_tile) if packed else (index, None, slot_tile)
+
+
+def _padded_offsets(counts, chunk, min_chunk_per_tile):
+    """The rows of each tile in the frame and where each starts: counts (B,
+    nt) -> ``(padded (B, nt), poffs (B, nt + 1))``, ``poffs[:, nt]`` the
+    rows of every tile."""
+    padded = -(-counts // chunk) * chunk
+    if min_chunk_per_tile:
+        padded = torch.clamp(padded, min=chunk)
+    zero = torch.zeros((counts.shape[0], 1), dtype=torch.int32,
+                       device=counts.device)
+    return padded, torch.cat([zero, torch.cumsum(padded, dim=1).to(
+        torch.int32)], dim=1)
 
 
 def _slot_prep_plain(key, nt, chunk, min_chunk_per_tile, packed):
-    """Plain version of `slot_prep`, in eager torch ops.
+    """Plain version of B9 and of the sort's input, in eager torch ops ->
+    ``(keys2 (B, s_pad), slot_tile (B, n_slots + 1), counts (B, nt +
+    1))``, all int32: `keys2` is the binning sort's input, ``2 key`` for
+    the real rows, then per tile t exactly ``padded - count`` filler rows
+    keyed ``2t + 1`` and the rest ``2nt + 1`` (each times ``_id_span(P)``
+    plus the row's id, P for a filler, where `packed`); the slot table
+    and the counts are `slot_prep`'s.  The CPU sorts it with `torch.sort`
+    (`_slot_order`, `bin_scatter`).
 
     Per-tile counts come from the unsorted keys, so filler rows can be
     emitted up front with interleaving keys -- reals of tile t sort as
@@ -474,11 +516,7 @@ def _slot_prep_plain(key, nt, chunk, min_chunk_per_tile, packed):
     # per-tile counts; the no-overlap sentinel nt has its own bin, dropped
     counts_all = _tile_count_plain(key, nt)
     counts = counts_all[:, :nt]
-    padded = -(-counts // chunk) * chunk
-    if min_chunk_per_tile:
-        padded = torch.clamp(padded, min=chunk)
-    poffs = torch.cat([torch.zeros((bsz, 1), dtype=i32, device=dev),
-                       torch.cumsum(padded, dim=1).to(i32)], dim=1)
+    padded, poffs = _padded_offsets(counts, chunk, min_chunk_per_tile)
     # filler rows: exactly padded-counts of tile t keyed to sort directly
     # after tile t's real rows; the rest past every real key
     iota_t = torch.arange(nt, dtype=i32, device=dev)
@@ -507,42 +545,111 @@ def _slot_prep_plain(key, nt, chunk, min_chunk_per_tile, packed):
     return keys2, torch.cat([slot_tile, n_live], dim=1), counts_all
 
 
-@annotate("dprast.b9.slot_prep")
-def slot_prep(key, nt, chunk, min_chunk_per_tile, packed):
-    """B9, the binning sort's preparation: the tile keys `key` (B, P)
-    int32 in [0, nt] (``nt``: no tile) -> ``(keys2 (B, s_pad), slot_tile
-    (B, n_slots + 1), counts (B, nt + 1))``, all int32.  `keys2` is the
-    sort's input: ``2 key`` for the real rows, then per tile t exactly
-    ``padded - count`` filler rows keyed ``2t + 1`` and the rest ``2nt +
-    1`` (each times ``_id_span(P)`` plus the row's id, P for a filler,
-    where `packed`); `slot_tile` the tile of each slot and, last, the live
-    slots; `counts` the points of each tile, the sentinel bin last.  CPU
-    tensors take the plain version `_slot_prep_plain`, CUDA tensors the
-    two kernels of `csrc/slot_prep.cu` (integer arithmetic: the same bits
-    in any order, and no host sync)."""
-    if key.device.type == "cpu":
-        return _slot_prep_plain(key, nt, chunk, min_chunk_per_tile, packed)
+def _bases_plain(key, counts, nt, chunk, min_chunk_per_tile):
+    """Plain version of B9's bases: the frame row at which each stretch of
+    `_STRETCH` keys of a pose starts each tile, ``poffs[t]`` plus the
+    pose's points of tile t in the stretches before -> (B, ceil(P /
+    _STRETCH), nt + 1) int32; `counts` (B, nt + 1) as `_tile_count_plain`
+    gives them."""
     bsz, p = key.shape
-    p2 = _id_span(p)
-    s_pad = _slot_frame_size(p, nt, chunk)
-    if not (bsz >= 1 and p >= 1 and 1 <= nt <= 4096
-            and chunk >= 4 and chunk % 4 == 0 and s_pad < 2 ** 31):
-        raise ValueError(f"slot_prep: B={bsz}, P={p}, nt={nt}, "
-                         f"chunk={chunk} exceed the kernel's launch bounds")
-    if packed and (2 * nt + 1) * p2 + p >= 2 ** 31:
-        raise ValueError(f"slot_prep: packed keys of nt={nt}, P={p} do not "
-                         f"fit an int32")
+    n_str = -(-p // _STRETCH)
+    # the last stretch topped up with a key of a bin of its own, dropped
+    whole = torch.full((bsz, n_str * _STRETCH), nt + 1, dtype=torch.int32,
+                       device=key.device)
+    whole[:, :p] = key
+    per = _tile_count_plain(whole.reshape(bsz * n_str, _STRETCH), nt + 1)
+    per = per[:, :nt + 1].reshape(bsz, n_str, nt + 1)
+    _, poffs = _padded_offsets(counts[:, :nt], chunk, min_chunk_per_tile)
+    return (poffs[:, None, :] + torch.cumsum(per, dim=1) - per).to(
+        torch.int32)
+
+
+def _check_frame_bounds(name, bsz, p, nt, chunk):
+    """B9 and B10 take 1 to 4,096 tiles, slots of a multiple of 4 rows, and
+    a frame of fewer than 2^31 rows a pose."""
+    if not (bsz >= 1 and p >= 1 and 1 <= nt <= 4096 and chunk >= 4
+            and chunk % 4 == 0 and _slot_frame_size(p, nt, chunk) < 2 ** 31):
+        raise ValueError(f"{name}: B={bsz}, P={p}, nt={nt}, chunk={chunk} "
+                         f"exceed the kernel's launch bounds")
+
+
+@annotate("dprast.b9.slot_prep")
+def slot_prep(key, nt, chunk, min_chunk_per_tile):
+    """B9, the binning sort's preparation: the tile keys `key` (B, P)
+    int32 in [0, nt] (``nt``: no tile) -> ``(bases (B, ceil(P /
+    _STRETCH), nt + 1), slot_tile (B, n_slots + 1), counts (B, nt + 1))``,
+    all int32.  ``bases[b, j, t]`` is the frame row of the first point of
+    tile t among the `_STRETCH` keys of stretch j, as a stable sort by
+    tile places it: ``poffs[t]`` (the tile's first row, the sentinel's
+    after every tile's padded rows) plus the tile's points in the
+    stretches before; `slot_tile` the tile of each slot and, last, the
+    live slots; `counts` the points of each tile, the sentinel bin last.
+    B10 (`bin_scatter`) writes the sorted frame keys from them.  CPU
+    tensors take the plain versions (`_slot_prep_plain`, `_bases_plain`),
+    CUDA tensors the two kernels of `csrc/slot_prep.cu` (integer
+    arithmetic: the same bits in any order, and no host sync)."""
+    if key.device.type == "cpu":
+        _, slot_tile, counts = _slot_prep_plain(key, nt, chunk,
+                                                min_chunk_per_tile, False)
+        return (_bases_plain(key, counts, nt, chunk, min_chunk_per_tile),
+                slot_tile, counts)
+    bsz, p = key.shape
+    _check_frame_bounds("slot_prep", bsz, p, nt, chunk)
     _check_cuda("slot_prep", key, torch.int32)
     dev = key.device
-    keys2 = torch.empty((bsz, s_pad), dtype=torch.int32, device=dev)
-    slot_tile = torch.empty((bsz, s_pad // chunk + 1), dtype=torch.int32,
-                            device=dev)
-    counts = torch.empty((bsz, nt + 1), dtype=torch.int32, device=dev)
+    i32 = torch.int32
+    bases = torch.empty((bsz, -(-p // _STRETCH), nt + 1), dtype=i32,
+                        device=dev)
+    slot_tile = torch.empty((bsz, _slot_frame_size(p, nt, chunk) // chunk
+                             + 1), dtype=i32, device=dev)
+    counts = torch.empty((bsz, nt + 1), dtype=i32, device=dev)
     _launch("slot_prep", dev, _build.load().dprast_slot_prep, _ptr(key),
-            _ptr(keys2), _ptr(slot_tile), _ptr(counts), bsz, p, nt, chunk,
-            int(min_chunk_per_tile), int(packed), p2)
+            _ptr(bases), _ptr(slot_tile), _ptr(counts), bsz, p, nt, chunk,
+            int(min_chunk_per_tile))
     LAUNCHES["slot_prep"] += 1
-    return keys2, slot_tile, counts
+    return bases, slot_tile, counts
+
+
+@annotate("dprast.sort")
+def bin_scatter(key, counts, bases, nt, chunk, min_chunk_per_tile, packed):
+    """B10, the binning sort: the tile keys `key` (B, P) int32 in [0, nt],
+    with B9's `counts` and `bases` of them (`slot_prep`, the same `chunk`
+    and ``min_chunk_per_tile``) -> the frame's keys (B, s_pad) in frame
+    order.  Where `packed` they are the sorted int32 keys ``(2t + (1 for
+    a filler)) * _id_span(P) + id`` (id P for a filler), else the int64
+    permutation that a stable sort of B9's plain sort input
+    (`_slot_prep_plain`) gives: a point's id, or P plus the input's
+    filler index.  CPU tensors take that sort (`torch.sort` of
+    `_slot_prep_plain`'s input, which `counts` and `bases` do not enter),
+    CUDA tensors the counting scatter of `csrc/bin_scatter.cu`, which
+    writes each row straight to its place, bit for bit the sort's
+    (integer arithmetic, no atomics, no host sync)."""
+    if key.device.type == "cpu":
+        keys2 = _slot_prep_plain(key, nt, chunk, min_chunk_per_tile,
+                                 packed)[0]
+        values, perm = torch.sort(keys2, dim=1, stable=not packed)
+        return values if packed else perm
+    bsz, p = key.shape
+    p2 = _id_span(p)
+    _check_frame_bounds("bin_scatter", bsz, p, nt, chunk)
+    if packed and (2 * nt + 1) * p2 + p >= 2 ** 31:
+        raise ValueError(f"bin_scatter: packed keys of nt={nt}, P={p} do "
+                         f"not fit an int32")
+    _check_cuda("bin_scatter", key, torch.int32, counts, torch.int32, bases,
+                torch.int32)
+    if counts.shape != (bsz, nt + 1) or \
+            bases.shape != (bsz, -(-p // _STRETCH), nt + 1):
+        raise ValueError(f"bin_scatter: counts {tuple(counts.shape)} and "
+                         f"bases {tuple(bases.shape)} are not B9's of keys "
+                         f"{tuple(key.shape)} and nt={nt}")
+    out = torch.empty((bsz, _slot_frame_size(p, nt, chunk)),
+                      dtype=torch.int32 if packed else torch.int64,
+                      device=key.device)
+    _launch("bin_scatter", key.device, _build.load().dprast_bin_scatter,
+            _ptr(key), _ptr(counts), _ptr(bases), _ptr(out), bsz, p, nt,
+            chunk, int(min_chunk_per_tile), int(packed), p2)
+    LAUNCHES["bin_scatter"] += 1
+    return out
 
 
 def _tile_count_plain(key, nt):

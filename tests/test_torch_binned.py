@@ -540,7 +540,12 @@ def test_wrappers_run_the_twin_only_on_cpu():
             for shape in ((10, 3), (1, 2, 3), (1, 2))), None, 128)
     with pytest.raises(ValueError, match="CUDA"):
         tbin.slot_prep(torch.zeros((1, 128), dtype=torch.int32,
-                                   device="meta"), 4, 128, True, True)
+                                   device="meta"), 4, 128, True)
+    with pytest.raises(ValueError, match="CUDA"):
+        tbin.bin_scatter(*(torch.zeros(shape, dtype=torch.int32,
+                                       device="meta")
+                           for shape in ((1, 128), (1, 5), (1, 1, 5))),
+                         4, 128, True, True)
     # the pullback's epilogue (B8)
     with pytest.raises(ValueError, match="CUDA"):
         tbin.pullback_epilogue((200, 200), frame, frame[:, -1], *(
@@ -566,7 +571,7 @@ def test_wrappers_run_the_twin_only_on_cpu():
     # every CUDA instance has a counter, and none counted here
     assert tbin.LAUNCHES == {
         "xla_neighbours": 0, "xla_scatter": 0, "xla_gather": 0,
-        "coords": 0, "slot_prep": 0, "epilogue_tile": 0,
+        "coords": 0, "slot_prep": 0, "bin_scatter": 0, "epilogue_tile": 0,
         "epilogue_rows": 0, "epilogue_points": 0, "epilogue_poses": 0,
         "fwd_splat": 0, "band_fold": 0,
         "band_unfold": 0, "bwd_gather": 0,

@@ -69,7 +69,14 @@ def _direct_frame(bsz):
 
 
 def _slot_prep(bsz):
-    return lambda: tbin.slot_prep(_empty((bsz, P), I32), 2, 256, True, True)
+    return lambda: tbin.slot_prep(_empty((bsz, P), I32), 2, 256, True)
+
+
+def _bin_scatter(bsz, packed=True):
+    return lambda: tbin.bin_scatter(_empty((bsz, P), I32),
+                                    _empty((bsz, 3), I32),
+                                    _empty((bsz, 1, 3), I32), 2, 256, True,
+                                    packed)
 
 
 def _frame_gather(bsz):
@@ -158,6 +165,8 @@ WRAPPERS = {
     "B6 coords": (_coords(MANY), "coords"),
     "B6 direct_frame": (_direct_frame(MANY), "coords"),
     "B9 slot_prep": (_slot_prep(MANY), "slot_prep"),
+    "B10 bin_scatter": (_bin_scatter(MANY), "bin_scatter"),
+    "B10 bin_scatter unpacked": (_bin_scatter(MANY, False), "bin_scatter"),
     "frame_gather": (_frame_gather(MANY), "frame_gather"),
     "B1 fwd_splat_enc": (_fwd_splat_enc(MANY), "fwd_splat"),
     "B1 fwd_splat_enc single tile": (_fwd_splat_enc(MANY, (64, 64)),
@@ -256,18 +265,20 @@ def test_wrapper_launches_past_65535(name, stand_in_card):
 STEP_GRIDS = {
     (64, 64): (MANY, P, ("coords", "fwd_splat", "bwd_gather",
                          "epilogue_tile", "epilogue_poses")),
-    (127, 130): (MANY, P, ("coords", "slot_prep", "frame_gather",
-                           "fwd_splat", "band_fold", "bwd_gather",
-                           "epilogue_rows", "epilogue_points")),
-    (7, 15, 130): (MANY, P, ("coords", "slot_prep", "frame_gather",
-                             "fwd_splat", "bwd_gather", "epilogue_rows",
-                             "epilogue_points")),
-    (16, 40, 300): (MANY, P, ("coords", "slot_prep", "frame_gather",
-                              "fwd_splat", "bwd_gather", "epilogue_rows",
-                              "epilogue_points")),
-    (MANY, 64): (4, 100_000, ("coords", "slot_prep", "frame_gather",
-                              "fwd_splat", "band_fold", "bwd_gather",
+    (127, 130): (MANY, P, ("coords", "slot_prep", "bin_scatter",
+                           "frame_gather", "fwd_splat", "band_fold",
+                           "bwd_gather", "epilogue_rows",
+                           "epilogue_points")),
+    (7, 15, 130): (MANY, P, ("coords", "slot_prep", "bin_scatter",
+                             "frame_gather", "fwd_splat", "bwd_gather",
+                             "epilogue_rows", "epilogue_points")),
+    (16, 40, 300): (MANY, P, ("coords", "slot_prep", "bin_scatter",
+                              "frame_gather", "fwd_splat", "bwd_gather",
                               "epilogue_rows", "epilogue_points")),
+    (MANY, 64): (4, 100_000, ("coords", "slot_prep", "bin_scatter",
+                              "frame_gather", "fwd_splat", "band_fold",
+                              "bwd_gather", "epilogue_rows",
+                              "epilogue_points")),
 }
 
 
@@ -311,6 +322,36 @@ def test_stand_in_card_keeps_the_wrappers_checks(stand_in_card):
     with pytest.raises(ValueError, match="launch bounds"):
         tbin.fwd_splat(slot_tile, lane, 1, (129, 129), 128)
     assert not stand_in_card
+
+
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "unpacked"])
+def test_bin_scatter_on_the_stand_in_card(packed, stand_in_card):
+    """B10 (`bin_scatter`) on the stand-in card refuses, launching
+    nothing, more than 4,096 tiles, a slot that is no multiple of 4 rows,
+    packed keys past an int32, keys that are no int32 and counts or bases
+    that are not B9's of the keys; then it reaches its launch with the
+    frame's shape, int32 rows where packed and int64 else, and hands the
+    kernel its shape, slot, packing and id span."""
+    key = _empty((3, 9000), I32)
+    counts, bases = _empty((3, 82), I32), _empty((3, 3, 82), I32)
+    refused = [((key, counts, bases, 4097, 256), "launch bounds"),
+               ((key, counts, bases, 81, 130), "launch bounds"),
+               ((key.float(), counts, bases, 81, 256), "contiguous"),
+               ((key, _empty((3, 81), I32), bases, 81, 256), "B9's"),
+               ((key, counts, _empty((3, 2, 82), I32), 81, 256), "B9's")]
+    if packed:
+        refused.append(((_empty((1, 2 ** 22), I32), _empty((1, 343), I32),
+                         _empty((1, 1024, 343), I32), 342, 256), "int32"))
+    for args, match in refused:
+        with pytest.raises(ValueError, match=match):
+            tbin.bin_scatter(*args, True, packed)
+    assert not stand_in_card
+    out = tbin.bin_scatter(key, counts, bases, 81, 256, True, packed)
+    assert out.shape == (3, tbin._slot_frame_size(9000, 81, 256))
+    assert out.dtype == (torch.int32 if packed else torch.int64)
+    ((name, entry, ints),) = stand_in_card
+    assert (name, entry) == ("bin_scatter", "dprast_bin_scatter")
+    assert ints == [3, 9000, 81, 256, 1, int(packed), tbin._id_span(9000)]
 
 
 def test_auto_takes_binned_for_70000_grid_rows():

@@ -280,8 +280,8 @@ def test_tile_count_plain_matches_bincount(grid, n_poses, n_points):
     want = np.stack([np.bincount(k, minlength=nt + 1) for k in key])
     np.testing.assert_array_equal(got.numpy(), want)
     chunk = tbin._default_chunk(grid, n_points)
-    assert torch.equal(tbin.slot_prep(torch.from_numpy(key), nt, chunk, True,
-                                      False)[2], got)
+    assert torch.equal(tbin.slot_prep(torch.from_numpy(key), nt, chunk,
+                                      True)[2], got)
     # the keys B6's twin gives a small cloud at this grid
     fx = fixtures(seed=3, n_points=2000, batch_size=2, n_in=3,
                   n_out=len(grid))

@@ -172,9 +172,10 @@ def test_device_constants_equal_the_numpy_tables(n_out):
 def test_tile_count_and_scale_make_no_host_round_trip(grid, spies):
     """The binning sort's preparation and tile count (`slot_prep`: the
     eager chain around the ranged `histc` on the CPU, two integer kernels
-    on the card) and the fixed-point splat's shift and sums
-    (`_fixed_shift`, `_fixed_sums`: the kernel's function) read nothing
-    back to the host."""
+    on the card), the binning sort (`bin_scatter`: `torch.sort` on the
+    CPU, one integer kernel on the card) and the fixed-point splat's shift
+    and sums (`_fixed_shift`, `_fixed_sums`: the kernel's function) read
+    nothing back to the host."""
     from dprast_torch.ops import splat_binned as tbin
     pts, rot, tr, _ = _inputs(grid, 2, 500)
     pw = torch.from_numpy(np.random.default_rng(6).uniform(
@@ -184,13 +185,14 @@ def test_tile_count_and_scale_make_no_host_round_trip(grid, spies):
     splat_args, _ = tbin._fwd_frame(grid, pts, rot, tr, pw, False)
     wmax = torch.tensor([0.0, 1.0, float("inf")])
     spies.clear()          # what made the inputs does not count
-    keys2, slot_tile, counts = tbin.slot_prep(
-        key, nt, tbin._default_chunk(grid, 500), True, True)
+    chunk = tbin._default_chunk(grid, 500)
+    bases, slot_tile, counts = tbin.slot_prep(key, nt, chunk, True)
+    index = tbin.bin_scatter(key, counts, bases, nt, chunk, True, True)
     k = tbin._fixed_shift(torch.full((3,), 1000, dtype=torch.int64), wmax)
     sums, shifts, bad = tbin._fixed_sums(*splat_args)
     assert spies == [], f"host round trips: {spies}"
     assert counts.shape == (2, nt + 1) and int(counts.sum()) == 2 * 500
-    assert keys2.shape[0] == slot_tile.shape[0] == 2
+    assert bases.shape[0] == slot_tile.shape[0] == index.shape[0] == 2
     assert k.tolist() == [52, 52, 52]
     assert sums.dtype == torch.int64 and shifts.shape == (2, nt)
 

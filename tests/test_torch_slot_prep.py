@@ -1,10 +1,11 @@
 """B9, the binning sort's preparation (`slot_prep`), and the frame gather
 from the sort's packed keys, on the CPU.
 
-On the card two kernels of `csrc/slot_prep.cu` write the sort's input
-keys, the slot table and the per-tile counts, and the frame gather reads
-each row's id from the packed sorted keys; on the CPU each runs its plain
-version.  Here:
+On the card two kernels of `csrc/slot_prep.cu` write the per-tile
+counts, the slot table and each stretch's bases, B10 (`bin_scatter`) the
+sorted keys from them, and the frame gather reads each row's id from the
+packed sorted keys; on the CPU each runs its plain version, and
+`_slot_prep_plain` writes the sort's input keys for `torch.sort`.  Here:
 - `_slot_prep_plain` against a numpy loop of the function's definition,
   packed and unpacked, with and without a slot for every tile, on empty
   tiles, every key at the sentinel, P no multiple of the chunk, one tile
@@ -14,12 +15,12 @@ version.  Here:
 - the plain gather from the packed sorted keys equal to the plain gather
   from the sort's permutation;
 - the CUDA wrapper raising on a tensor that is not on a card and on
-  arguments outside the kernel's bounds;
+  arguments outside the kernels' bounds;
 - the frame gather's view of B6's interleaved planes, as B6 writes them
   on the card.
 
 `chip_smoke.py`'s [B9 slot prep] phase holds the kernels to
-`_slot_prep_plain` on the card, bit for bit.
+`_slot_prep_plain` and `torch.sort` on the card, bit for bit.
 """
 
 import numpy as np
@@ -110,11 +111,11 @@ def test_slot_prep_plain_matches_the_spec(case, min_chunk, packed):
     want = _spec(key, nt, chunk, min_chunk, packed)
     for got, ref in zip((keys2, slot_tile, counts), want):
         np.testing.assert_array_equal(got.numpy(), ref)
-    # the wrapper takes the plain version for a CPU tensor
-    for got, ref in zip(tbin.slot_prep(torch.from_numpy(key), nt, chunk,
-                                       min_chunk, packed),
-                        (keys2, slot_tile, counts)):
-        assert torch.equal(got, ref)
+    # the wrapper takes the plain version for a CPU tensor (its bases:
+    # test_torch_bin_scatter.py)
+    _, got_st, got_counts = tbin.slot_prep(torch.from_numpy(key), nt, chunk,
+                                           min_chunk)
+    assert torch.equal(got_st, slot_tile) and torch.equal(got_counts, counts)
 
 
 def _cloud(grid, seed):
@@ -187,19 +188,21 @@ def test_slot_prep_cuda_wrapper_raises():
     are inside them and fail for want of a card alone."""
     meta = torch.zeros((2, 128), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
-        tbin.slot_prep(meta, 4, 128, True, True)
+        tbin.slot_prep(meta, 4, 128, True)
     with pytest.raises(ValueError, match="CUDA"):
-        tbin.slot_prep(meta.float(), 4, 128, True, False)
+        tbin.slot_prep(meta.float(), 4, 128, False)
     with pytest.raises(ValueError, match="launch bounds"):
-        tbin.slot_prep(meta, 4097, 128, True, False)
+        tbin.slot_prep(meta, 4097, 128, False)
     with pytest.raises(ValueError, match="launch bounds"):
-        tbin.slot_prep(meta, 4, 130, True, False)
+        tbin.slot_prep(meta, 4, 130, False)
     with pytest.raises(ValueError, match="CUDA"):
         tbin.slot_prep(torch.zeros((70000, 4), dtype=torch.int32,
-                                   device="meta"), 4, 128, True, False)
-    with pytest.raises(ValueError, match="int32"):
+                                   device="meta"), 4, 128, False)
+    # the packed keys' int32 bound is B10's (`bin_scatter`), whose test
+    # holds it
+    with pytest.raises(ValueError, match="CUDA"):
         tbin.slot_prep(torch.zeros((1, 2 ** 22), dtype=torch.int32,
-                                   device="meta"), 342, 256, True, True)
+                                   device="meta"), 342, 256, True)
 
 
 @pytest.mark.parametrize("n_out", [2, 3])

@@ -295,3 +295,36 @@ def test_flagship_step_repeats_bit_for_bit():
                                              ._fields), first, second):
         assert torch.isfinite(a).all(), name
         assert torch.equal(a.view(torch.int32), b.view(torch.int32)), name
+
+
+@pytest.mark.parametrize("pack_idx", [True, False],
+                         ids=["packed", "unpacked"])
+def test_1024sq_frame_is_the_sorts(pack_idx):
+    """At 1024^2 x 64 poses x 10^5 points B10's counting scatter
+    (`_slot_order` on the card) writes the frame keys bit for bit as
+    `torch.sort` sorts B9's plain sort input (`_slot_prep_plain`): the
+    packed keys, and the stable sort's permutation where the id rides
+    apart; the slot table is the plain one and the frame the plain
+    `_prep_binned`'s."""
+    grid = (1024, 1024)
+    pts, rot, tr, _, _, pw = _card(*_pose_args(seed=0, n_points=100_000,
+                                               batch=64))
+    ts = splat_binned.tile_shape_for(grid)
+    chunk = splat_binned._default_chunk(grid, 100_000)
+    key, locs, nt = splat_binned._keys_and_local(grid, ts, pts, rot, tr)
+    perm, sorted_keys, slot_tile = splat_binned._slot_order(
+        key, nt, chunk, True, pack_idx)
+    keys2, want_st, _ = splat_binned._slot_prep_plain(key, nt, chunk, True,
+                                                      pack_idx)
+    values, want_perm = torch.sort(keys2, dim=1, stable=not pack_idx)
+    if pack_idx:
+        assert perm is None and torch.equal(sorted_keys, values)
+    else:
+        assert sorted_keys is None and torch.equal(perm, want_perm)
+    assert torch.equal(slot_tile, want_st)
+    data = splat_binned.frame_gather(
+        perm if sorted_keys is None else sorted_keys, locs, pw)
+    planes, fills = splat_binned._frame_planes(locs, pw)
+    want, _ = splat_binned._prep_binned(key, planes, fills, nt, chunk, True,
+                                        pack_idx=pack_idx)
+    assert torch.equal(data.view(torch.int32), want.view(torch.int32))
