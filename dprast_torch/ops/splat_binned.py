@@ -2139,20 +2139,23 @@ def _fwd_impl(grid_size, points, rotation, translation, background,
     f32 = torch.float32
     ts = tile_shape_for(grid_size)
     n_out = len(grid_size)
-    # B2 or the plain fold, with the weights' scale and the background
-    with annotate("dprast.b2.fold"):
+    halo = not _single_tile(grid_size)
+    # B2 or the plain fold, with the weights' scale and the background; a
+    # single tile's window is its image: only the scale and the background
+    # run there
+    with annotate("dprast.b2.fold" if halo else "dprast.scale"):
         ow_eff = out_weight.to(f32)
         if pw_uniform:
             # all entries equal by the contract; fold the scalar in
             ow_eff = ow_eff * point_weight.to(f32)[0]
         bg_f = background.to(f32)
-        if n_out == 2 and not _single_tile(grid_size):
+        if n_out == 2 and halo:
             out = fold(ext, grid_size, ts, ow_eff.contiguous(),
                        bg_f.contiguous())
         else:
             bcast = (-1,) + (1,) * n_out
-            out = (_fold(ext, grid_size, ts, not _single_tile(grid_size))
-                   * ow_eff.reshape(bcast) + bg_f.reshape(bcast))
+            out = (_fold(ext, grid_size, ts, halo) * ow_eff.reshape(bcast)
+                   + bg_f.reshape(bcast))
     dtype = torch.promote_types(points.dtype, torch.promote_types(
         rotation.dtype, translation.dtype))
     res = (data, slot_tile) if with_residuals else None

@@ -42,7 +42,7 @@ PATHS = {
                   ["dprast.unfold"] + BINNED_BWD),
     "binned-one-tile": ("binned", (64, 64), "binned/binned",
                         ["dprast.b6.coords", "dprast.b1.splat",
-                         "dprast.b2.fold"], BINNED_BWD),
+                         "dprast.scale"], BINNED_BWD),
     "xla": ("xla", (40, 56), "xla/xla", XLA_FWD, XLA_BWD),
     "auto-cpu": ("auto", (300, 200), "xla/xla", XLA_FWD, XLA_BWD),
 }
