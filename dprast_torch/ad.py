@@ -1,6 +1,7 @@
 """Autograd wiring on canonical batched arguments (PyTorch port of
 `dprast/ad.py`): one `torch.autograd.Function` whose forward runs the
-selected backend and whose backward is that backend's analytic pullback.
+selected backend and whose backward is that backend's analytic pullback,
+which computes only the gradients autograd asks for.
 """
 
 from __future__ import annotations
@@ -26,7 +27,12 @@ class _Raster(torch.autograd.Function):
     the backward only then) the oracle's fused pullback
     (`core.raster_pullback_res`) recomputes them from the inputs in plain
     torch, so that the graph holds every second-order term of the point
-    geometry."""
+    geometry.
+
+    The backward passes the six tensors' `ctx.needs_input_grad` to the
+    pullback as its `asked` mask, so that the work only an unasked
+    gradient needs (the background's sum of the cotangent, the oracle's
+    contractions) is skipped, and returns None for each unasked input."""
 
     @staticmethod
     def forward(ctx, grid_size, backend, pw_uniform, *args):
@@ -47,6 +53,9 @@ class _Raster(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ds_dout):
         fwd_name, bwd_name = ctx.backend
+        # the six tensors' flags in the canonical order (PullbackResult's
+        # field order): the pullback skips what only an unasked one needs
+        asked = tuple(ctx.needs_input_grad[3:9])
         # on autograd's own thread where the cotangent is on the card
         with annotate(f"dprast.pullback[{bwd_name}]"):
             saved = ctx.saved_tensors
@@ -56,12 +65,13 @@ class _Raster(torch.autograd.Function):
             if ctx.fused:
                 grads = dispatch.vjp_pair(fwd_name)[1](
                     ctx.grid_size, res, args, ds_dout,
-                    pw_uniform=ctx.pw_uniform)
+                    pw_uniform=ctx.pw_uniform, asked=asked)
             else:
                 grads = dispatch.bwd_fn(bwd_name)(
-                    ctx.grid_size, *args, ds_dout, pw_uniform=ctx.pw_uniform)
-            # PullbackResult's field order is the canonical argument order
-            return (None, None, None) + tuple(grads)
+                    ctx.grid_size, *args, ds_dout, pw_uniform=ctx.pw_uniform,
+                    asked=asked)
+            return (None, None, None) + tuple(
+                g if wanted else None for g, wanted in zip(grads, asked))
 
 
 class _RasterOnce(_Raster):

@@ -55,13 +55,19 @@ from dprast_torch.utils.profiling import annotate
 XLA_KERNELS = ("xla_neighbours", "xla_scatter", "xla_gather")
 # calls of the graph-recording pullback form (`_pullback_graph`)
 GRAPH_FORM_CALLS = {"xla_plain": 0}
+# by input, the gradients whose own work a pullback skipped because the
+# caller did not ask for them (`asked`, autograd's `needs_input_grad`)
+UNASKED_SKIPS = {name: 0 for name in ("points", "rotation", "translation",
+                                      "background", "out_weight",
+                                      "point_weight")}
 
 # the ranks the kernels take (their per-axis tables, csrc/xla_path.cu)
 MAX_AXES = 16
 
 
 class PullbackResult(NamedTuple):
-    """Gradients w.r.t. the six canonical inputs."""
+    """Gradients w.r.t. the six canonical inputs; None where a pullback
+    was not asked for one (its `asked` mask)."""
 
     points: torch.Tensor        # (P, N_in)
     rotation: torch.Tensor      # (B, N_out, N_in)
@@ -69,6 +75,19 @@ class PullbackResult(NamedTuple):
     background: torch.Tensor    # (B,)
     out_weight: torch.Tensor    # (B,)
     point_weight: torch.Tensor  # (P,)
+
+
+# a pullback's `asked` mask where the caller gives none: all six gradients
+ALL_ASKED = (True,) * 6
+
+
+def note_unasked(asked, names):
+    """Count in `UNASKED_SKIPS` each input of `names` whose gradient
+    `asked` (six flags in the canonical order) leaves out: a pullback
+    calls this for the gradients whose own work it skipped."""
+    for name, wanted in zip(PullbackResult._fields, asked):
+        if not wanted and name in names:
+            UNASKED_SKIPS[name] += 1
 
 
 def _neighbour_data(points, rotation, translation, grid_size):
@@ -444,26 +463,28 @@ def _records_graph(*tensors):
 
 
 def raster_pullback_res(grid_size, residuals, args, ds_dout, *,
-                        pw_uniform: bool = False) -> PullbackResult:
+                        pw_uniform: bool = False,
+                        asked=ALL_ASKED) -> PullbackResult:
     """Pullback reusing the `raster_fwd_res` residuals: X3 and the
     contractions.  The residuals carry no graph, so where one must be
     recorded (`_records_graph`) this recomputes from `args` as
-    `raster_pullback` does."""
+    `raster_pullback` does.  `asked` as in `raster_pullback`."""
     del pw_uniform
     points, rotation, translation, _, out_weight, point_weight = args
     if _records_graph(points, rotation, translation, out_weight,
                       point_weight, ds_dout):
         return _pullback_graph(grid_size, points, rotation, translation,
-                               out_weight, point_weight, ds_dout)
+                               out_weight, point_weight, ds_dout, asked)
     scaled, gw = xla_gather(grid_size, ds_dout, residuals, out_weight,
                             point_weight)
     return _contract(points, rotation, out_weight, point_weight, ds_dout,
-                     scaled, gw)
+                     scaled, gw, asked)
 
 
 def raster_pullback(grid_size, points, rotation, translation, background,
                     out_weight, point_weight, ds_dout, *,
-                    pw_uniform: bool = False) -> PullbackResult:
+                    pw_uniform: bool = False,
+                    asked=ALL_ASKED) -> PullbackResult:
     """Analytic pullback on canonical batched args.
 
     A pure gather: recompute the forward's neighbour geometry (X1's
@@ -479,6 +500,10 @@ def raster_pullback(grid_size, points, rotation, translation, background,
       ds/dow   = sum_{p,s} g * W_s * pw
       ds/dpw   = sum_{b,s} g * W_s * ow
 
+    `asked` (six flags in the canonical order) names the gradients
+    wanted: the contraction of each other one is skipped and its entry
+    is None.
+
     Where a graph must be recorded (grad mode on and a tensor that
     requires grad: the pullback differentiated once more) it runs the
     plain torch form instead (`_pullback_graph`), on any device."""
@@ -486,17 +511,17 @@ def raster_pullback(grid_size, points, rotation, translation, background,
     if _records_graph(points, rotation, translation, out_weight,
                       point_weight, ds_dout):
         return _pullback_graph(grid_size, points, rotation, translation,
-                               out_weight, point_weight, ds_dout)
+                               out_weight, point_weight, ds_dout, asked)
     _, _, res = xla_neighbours(grid_size, points, rotation, translation,
                                out_weight, point_weight, terms=False)
     scaled, gw = xla_gather(grid_size, ds_dout, res, out_weight,
                             point_weight)
     return _contract(points, rotation, out_weight, point_weight, ds_dout,
-                     scaled, gw)
+                     scaled, gw, asked)
 
 
 def _pullback_graph(grid_size, points, rotation, translation, out_weight,
-                    point_weight, ds_dout) -> PullbackResult:
+                    point_weight, ds_dout, asked=ALL_ASKED) -> PullbackResult:
     """The pullback in plain torch from the inputs (the voxel and deltas,
     `_xla_gather_plain`, the contractions), which records the graph of
     every input and the cotangent: the form a second derivative runs."""
@@ -506,27 +531,38 @@ def _pullback_graph(grid_size, points, rotation, translation, out_weight,
     scaled, gw = _xla_gather_plain(grid_size, ds_dout, res, out_weight,
                                    point_weight)
     return _contract(points, rotation, out_weight, point_weight, ds_dout,
-                     scaled, gw)
+                     scaled, gw, asked)
 
 
 def _contract(points, rotation, out_weight, point_weight, ds_dout, scaled,
-              gw) -> PullbackResult:
+              gw, asked=ALL_ASKED) -> PullbackResult:
     """The gradients from X3's ``(scaled, gw)``: small contractions over
     poses and points (fp32 products: TF32 stays off), and `d_bg`, one sum
-    of the cotangent.  The three gradients that have work of their own
-    each run in a span (``dprast.grad.<input>``), so a trace shows what
-    each costs where autograd did not ask for it."""
+    of the cotangent.  Each gradient runs only where `asked`, else it is
+    None (counted in `UNASKED_SKIPS`).  The three gradients that have
+    work of their own each run in a span (``dprast.grad.<input>``), so a
+    trace shows what each costs where it runs."""
     b = rotation.shape[0]
-    with annotate("dprast.contract"):
-        d_points = torch.einsum("boi,bpo->pi", rotation, scaled)
-        d_rot = torch.einsum("bpo,pi->boi", scaled, points)
-        d_trans = torch.sum(scaled, dim=1)
-    with annotate("dprast.grad.background"):
-        d_bg = torch.sum(ds_dout.reshape(b, -1), dim=-1)
-    with annotate("dprast.grad.out_weight"):
-        d_ow = torch.einsum("bp,p->b", gw, point_weight)
-    with annotate("dprast.grad.point_weight"):
-        d_pw = torch.einsum("bp,b->p", gw, out_weight)
+    note_unasked(asked, PullbackResult._fields)
+    want = PullbackResult(*asked)
+    d_points = d_rot = d_trans = d_bg = d_ow = d_pw = None
+    if want.points or want.rotation or want.translation:
+        with annotate("dprast.contract"):
+            if want.points:
+                d_points = torch.einsum("boi,bpo->pi", rotation, scaled)
+            if want.rotation:
+                d_rot = torch.einsum("bpo,pi->boi", scaled, points)
+            if want.translation:
+                d_trans = torch.sum(scaled, dim=1)
+    if want.background:
+        with annotate("dprast.grad.background"):
+            d_bg = torch.sum(ds_dout.reshape(b, -1), dim=-1)
+    if want.out_weight:
+        with annotate("dprast.grad.out_weight"):
+            d_ow = torch.einsum("bp,p->b", gw, point_weight)
+    if want.point_weight:
+        with annotate("dprast.grad.point_weight"):
+            d_pw = torch.einsum("bp,b->p", gw, out_weight)
     return PullbackResult(points=d_points, rotation=d_rot,
                           translation=d_trans, background=d_bg,
                           out_weight=d_ow, point_weight=d_pw)

@@ -2182,8 +2182,11 @@ def _bwd_frame(grid_size, points, rotation, translation,
 
 def raster_pullback(grid_size, points, rotation, translation, background,
                     out_weight, point_weight, ds_dout, *,
-                    pw_uniform: bool = False, terms: int = 0):
-    """Analytic pullback -> `core.PullbackResult` (all six gradients).
+                    pw_uniform: bool = False, terms: int = 0,
+                    asked=core.ALL_ASKED):
+    """Analytic pullback -> `core.PullbackResult` (all six gradients;
+    `d_bg`'s sum of the cotangent only where `asked` names it, as in
+    `core.raster_pullback`: B8 writes the other five in one launch).
 
     ``pw_uniform=True`` promises that (a) every `point_weight` entry
     equals ``point_weight[0]`` and (b) the caller observes ``d_pw`` only
@@ -2199,7 +2202,7 @@ def raster_pullback(grid_size, points, rotation, translation, background,
     return _pullback_from_frame(
         grid_size, data[:, :-1], data[:, -1], slot_tile, points, rotation,
         out_weight, point_weight, ds_dout, chunk=chunk,
-        pw_uniform=pw_uniform, terms=terms)
+        pw_uniform=pw_uniform, terms=terms, asked=asked)
 
 
 def _residual_planes(residuals, pw_uniform):
@@ -2212,23 +2215,25 @@ def _residual_planes(residuals, pw_uniform):
 
 
 def raster_pullback_res(grid_size, residuals, args, ds_dout, *,
-                        pw_uniform: bool = False, terms: int = 0):
+                        pw_uniform: bool = False, terms: int = 0,
+                        asked=core.ALL_ASKED):
     """Pullback reusing the forward's frame (`raster_fwd_res`).
-    ``pw_uniform`` must be the forward's: it fixes the frame's layout."""
+    ``pw_uniform`` must be the forward's: it fixes the frame's layout.
+    `asked` as in `raster_pullback`."""
     points, rotation, _, _, out_weight, point_weight = args
     coord, idx_rows, slot_tile = _residual_planes(residuals, pw_uniform)
     return _pullback_from_frame(
         grid_size, coord, idx_rows, slot_tile, points, rotation, out_weight,
         point_weight, ds_dout, chunk=_default_chunk(grid_size,
                                                     points.shape[0]),
-        pw_uniform=pw_uniform, terms=terms)
+        pw_uniform=pw_uniform, terms=terms, asked=asked)
 
 
 def _pullback_from_frame(grid_size, coord, idx_rows, slot_tile, points,
                          rotation, out_weight, point_weight, ds_dout, *,
                          chunk, pw_uniform=False, terms=0,
-                         unfold=None, gather=bwd_gather_enc,
-                         epilogue=pullback_epilogue):
+                         asked=core.ALL_ASKED, unfold=None,
+                         gather=bwd_gather_enc, epilogue=pullback_epilogue):
     """The pullback from a frame, with its kernel stages as arguments (as
     in `_fwd_impl`).  `coord` are the frame's encoded planes, which the
     `gather` stage reads as `bwd_gather_enc` does, ``(slot_tile, coord,
@@ -2240,7 +2245,8 @@ def _pullback_from_frame(grid_size, coord, idx_rows, slot_tile, points,
     a measurement may ask.  3-D grids take the plain `_unfold`, as in the
     JAX package.  The `epilogue` stage takes B4's rows and the id plane
     to five of the six gradients as `pullback_epilogue` does (its torch
-    form: `_epilogue_plain`)."""
+    form: `_epilogue_plain`); the sixth, `d_bg`, runs only where `asked`
+    names it."""
     n_out = len(grid_size)
     ts = tile_shape_for(grid_size)
     halo = not _single_tile(grid_size)
@@ -2264,19 +2270,16 @@ def _pullback_from_frame(grid_size, coord, idx_rows, slot_tile, points,
     d_points, d_r, d_t, d_ow, d_pw = epilogue(
         grid_size, buf, idx_rows, points, rotation, out_weight, point_weight,
         pw_uniform=pw_uniform)
-    with annotate("dprast.grad.background"):
-        d_bg = torch.sum(g_cot.reshape(bsz, -1), dim=-1)
+    d_bg = None
+    if core.PullbackResult(*asked).background:
+        with annotate("dprast.grad.background"):
+            d_bg = torch.sum(g_cot.reshape(bsz, -1), dim=-1)
+    core.note_unasked(asked, ("background",))
 
     dtype = torch.promote_types(torch.promote_types(points.dtype,
                                                     rotation.dtype),
                                 ds_dout.dtype)
-    return core.PullbackResult(
-        points=d_points.to(dtype),
-        rotation=d_r.to(dtype),
-        translation=d_t.to(dtype),
-        background=d_bg.to(dtype),
-        out_weight=d_ow.to(dtype),
-        point_weight=d_pw.to(dtype),
-    )
+    return core.PullbackResult(*(None if d is None else d.to(dtype) for d in
+                                 (d_points, d_r, d_t, d_bg, d_ow, d_pw)))
 
 

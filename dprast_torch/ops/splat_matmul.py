@@ -56,7 +56,7 @@ import torch
 import torch.nn.functional as F
 
 from dprast_torch.ops import geometry
-from dprast_torch.ops.core import PullbackResult
+from dprast_torch.ops.core import ALL_ASKED, PullbackResult, note_unasked
 
 # Error-free bf16 planes per value operand; 1 plane is the documented
 # 'matmul_bf16' fast mode (~2e-3 relative error).  The forward's planes are
@@ -247,9 +247,12 @@ def raster_fwd(grid_size, points, rotation, translation, background,
 def raster_pullback(grid_size, points, rotation, translation, background,
                     out_weight, point_weight, ds_dout, *,
                     chunk: int | None = None, terms: int = BWD_TERMS,
-                    pw_uniform: bool = False) -> PullbackResult:
+                    pw_uniform: bool = False,
+                    asked=ALL_ASKED) -> PullbackResult:
     """Analytic pullback via one exact selection-product family per chunk
-    (gather-free AND scatter-free).  Returns `PullbackResult`."""
+    (gather-free AND scatter-free).  Returns `PullbackResult`; `d_bg`'s
+    sum of the cotangent runs only where `asked` names it (as in
+    `core.raster_pullback`: the chunks make the other five together)."""
     del pw_uniform
     n_out = len(grid_size)
     if not supported(n_out):
@@ -350,7 +353,9 @@ def raster_pullback(grid_size, points, rotation, translation, background,
     else:
         d_points = torch.cat(d_p_k)[:p]
         d_pw = torch.cat(d_pw_k)[:p]
-    d_bg = torch.sum(g.reshape(b, -1), dim=-1)
+    d_bg = torch.sum(g.reshape(b, -1), dim=-1) \
+        if PullbackResult(*asked).background else None
+    note_unasked(asked, ("background",))
 
-    return PullbackResult(*(a.to(dtype) for a in (
+    return PullbackResult(*(None if a is None else a.to(dtype) for a in (
         d_points, d_r, d_t, d_bg, d_ow, d_pw)))

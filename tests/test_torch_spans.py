@@ -4,8 +4,10 @@ Under a CPU `torch.profiler` capture a forward and an autograd backward
 record the spans PERF.md §3 lists: ``dprast.normalise``, the outermost
 ``dprast.raster[<fwd>/<bwd>]`` with dispatch's resolved pair in its name,
 and inside it the forward's stages; ``dprast.pullback[<bwd>]`` with the
-pullback's stages inside it.  On the CPU each kernel wrapper runs its
-plain twin, and the span fires there too.  With no profiler running the
+pullback's stages inside it: those of the gradients asked for, so a
+``dprast.grad.<input>`` span opens only where its input's gradient is.
+On the CPU each kernel wrapper runs its plain twin, and the span fires
+there too.  With no profiler running the
 helper opens no range at all (a spy on the range it would open), and a
 span changes no bit of what the call returns.
 """
@@ -26,43 +28,66 @@ torch.set_num_threads(2)
 OUTERMOST = ("dprast.raster[", "dprast.pullback[")
 BINNED_FWD = ["dprast.b6.coords", "dprast.b9.slot_prep", "dprast.sort",
               "dprast.frame_gather", "dprast.b1.splat", "dprast.b2.fold"]
-BINNED_BWD = ["dprast.b4.gather", "dprast.b8.epilogue",
-              "dprast.grad.background"]
+BINNED_BWD = ["dprast.b4.gather", "dprast.b8.epilogue"]
 # the xla path's forward on the CPU: X2's plain version takes the terms
 # unsorted (the CPU's index_add_ keeps their order), so no sort runs here
 XLA_FWD = ["dprast.x1.neighbours", "dprast.x2.scatter"]
-XLA_BWD = ["dprast.x3.gather", "dprast.contract", "dprast.grad.background",
-           "dprast.grad.out_weight", "dprast.grad.point_weight"]
+XLA_BWD = ["dprast.x3.gather"]
+# the spans of the gradients with work of their own: the points, rotation
+# and translation terms of the xla path (one span), then one span each
+CONTRACT = ["dprast.contract"]
+GRAD_SPANS = ["dprast.grad.background", "dprast.grad.out_weight",
+              "dprast.grad.point_weight"]
 
-# (backend asked, grid, the resolved pair, forward stages, backward stages)
+# the inputs a step asks gradients of: a fit's points and translations,
+# or the three per-pose and per-point values alone
+FIT = ("points", "translation")
+WEIGHTS = ("background", "out_weight", "point_weight")
+
+# (backend asked, grid, the resolved pair, forward stages, backward stages,
+# the inputs whose gradients the step asks for)
 PATHS = {
     "binned-multi-tile": ("binned", (300, 200), "binned/binned", BINNED_FWD,
-                          BINNED_BWD),
+                          BINNED_BWD, FIT),
     "binned-3d": ("binned", (20, 24, 140), "binned/binned", BINNED_FWD,
-                  ["dprast.unfold"] + BINNED_BWD),
+                  ["dprast.unfold"] + BINNED_BWD, FIT),
     "binned-one-tile": ("binned", (64, 64), "binned/binned",
                         ["dprast.b6.coords", "dprast.b1.splat",
-                         "dprast.scale"], BINNED_BWD),
-    "xla": ("xla", (40, 56), "xla/xla", XLA_FWD, XLA_BWD),
-    "auto-cpu": ("auto", (300, 200), "xla/xla", XLA_FWD, XLA_BWD),
+                         "dprast.scale"], BINNED_BWD, FIT),
+    "xla": ("xla", (40, 56), "xla/xla", XLA_FWD, XLA_BWD + CONTRACT, FIT),
+    "auto-cpu": ("auto", (300, 200), "xla/xla", XLA_FWD, XLA_BWD + CONTRACT,
+                 FIT),
+    # B8 writes the weights' gradients with the others: only the
+    # background's sum has a span of its own on the binned path
+    "binned-multi-tile-weights": ("binned", (300, 200), "binned/binned",
+                                  BINNED_FWD, BINNED_BWD + GRAD_SPANS[:1],
+                                  WEIGHTS),
+    "xla-weights": ("xla", (40, 56), "xla/xla", XLA_FWD,
+                    XLA_BWD + GRAD_SPANS, WEIGHTS),
 }
 
 
-def _inputs(grid, n_poses=2, n_points=400):
+def _inputs(grid, n_poses=2, n_points=400,
+            keys=("points", "rotation", "translation")):
     fx = fixtures(seed=3, n_points=n_points, batch_size=n_poses, n_in=3,
                   n_out=len(grid))
     return tuple(torch.from_numpy(np.asarray(fx[k], np.float32))
-                 for k in ("points", "rotation", "translation"))
+                 for k in keys)
 
 
-def _step(backend, grid):
-    """A forward and an autograd backward of the points and translations
-    -> (out, grads)."""
-    pts, rot, tr = _inputs(grid)
-    pts.requires_grad_()
-    tr.requires_grad_()
-    out = dprast_torch.raster(grid, pts, rot, tr, backend=backend)
-    grads = torch.autograd.grad((out * out).sum(), (pts, tr))
+def _step(backend, grid, asked=FIT):
+    """A forward and an autograd backward of the inputs `asked` -> (out,
+    grads).  A step that asks for none of the weights leaves them at
+    their defaults."""
+    keys = ("points", "rotation", "translation")
+    if any(k in WEIGHTS for k in asked):
+        keys += WEIGHTS
+    args = dict(zip(keys, _inputs(grid, keys=keys)))
+    for k in asked:
+        args[k].requires_grad_()
+    out = dprast_torch.raster(grid, *args.values(), backend=backend)
+    grads = torch.autograd.grad((out * out).sum(),
+                                tuple(args[k] for k in asked))
     return out.detach(), grads
 
 
@@ -89,8 +114,8 @@ def _inside(span, outer):
 
 @pytest.mark.parametrize("path", list(PATHS))
 def test_stage_spans_nest_in_their_call(path, tmp_path):
-    backend, grid, pair, fwd, bwd = PATHS[path]
-    spans = _spans(lambda: _step(backend, grid), tmp_path)
+    backend, grid, pair, fwd, bwd, asked = PATHS[path]
+    spans = _spans(lambda: _step(backend, grid, asked), tmp_path)
     names = [s[0] for s in spans]
     raster = [s for s in spans if s[0].startswith("dprast.raster[")]
     pullback = [s for s in spans if s[0].startswith("dprast.pullback[")]
@@ -123,9 +148,12 @@ def test_raster_pullback_spans(backend, tmp_path):
     assert names[0] == "dprast.normalise"
     assert names[1] == f"dprast.pullback[{backend}]"
     assert all(_inside(s, spans[1]) for s in spans[2:])
+    # all six gradients: every span of the pullback
     stages = {"binned": ["dprast.b6.coords", "dprast.b9.slot_prep",
-                         "dprast.sort", "dprast.frame_gather"] + BINNED_BWD,
-              "xla": ["dprast.x1.neighbours"] + XLA_BWD}[backend]
+                         "dprast.sort", "dprast.frame_gather"] + BINNED_BWD
+              + GRAD_SPANS[:1],
+              "xla": ["dprast.x1.neighbours"] + XLA_BWD + CONTRACT
+              + GRAD_SPANS}[backend]
     assert names[2:] == stages
 
 

@@ -18,7 +18,7 @@ import pytest
 import torch
 
 import dprast_torch
-from dprast_torch.ops import splat_binned
+from dprast_torch.ops import core, splat_binned
 from dprast_torch.parallel import make_mesh, raster_sharded
 from dprast_torch.utils.testing import (fixtures, raster_numpy,
                                         raster_pullback_numpy)
@@ -328,3 +328,38 @@ def test_1024sq_frame_is_the_sorts(pack_idx):
     want, _ = splat_binned._prep_binned(key, planes, fills, nt, chunk, True,
                                         pack_idx=pack_idx)
     assert torch.equal(data.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("backend,grid,n_points,batch", [
+    ("binned", (1024, 1024), 100_000, 64),
+    ("xla", (48, 40, 56), 3_000, 2),
+], ids=["binned-1024sq", "xla-3d"])
+def test_fit_gradients_alone_are_the_full_pullbacks(backend, grid, n_points,
+                                                    batch):
+    """A fit's step (default weights; gradients of the points, rotations
+    and translations alone) on the card, at `proj1024_fit`'s shape through
+    `binned` and on a small volume through `xla`: each gradient has the
+    bits of the full `raster_pullback` (all six), and the pullback skipped
+    the unasked gradients' own work (`core.UNASKED_SKIPS`: the
+    background's sum on `binned`, whose kernel B8 writes the weights'
+    gradients with the rest; the background's sum and both weights'
+    contractions on `xla`)."""
+    pts, rot, tr = _card(*_pose_args(seed=4, n_points=n_points, batch=batch,
+                                     n_out=len(grid))[:3])
+    g = _card(np.random.default_rng(3).standard_normal(
+        (batch,) + grid).astype(np.float32))[0]
+    full = dprast_torch.raster_pullback(g, pts, rot, tr, point_weight=1.0,
+                                        backend=backend)
+    leaves = [a.clone().requires_grad_() for a in (pts, rot, tr)]
+    before = dict(core.UNASKED_SKIPS)
+    out = dprast_torch.raster(grid, *leaves, backend=backend)
+    grads = torch.autograd.grad((out * g).sum(), leaves)
+    skips = {n: core.UNASKED_SKIPS[n] - before[n] for n in before}
+    for name, got, want in zip(("points", "rotation", "translation"), grads,
+                               full):
+        assert torch.isfinite(got).all(), name
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+            name
+    skipped = {"binned": ("background",),
+               "xla": ("background", "out_weight", "point_weight")}[backend]
+    assert skips == {n: int(n in skipped) for n in before}
