@@ -88,13 +88,13 @@ The [xla path] phase drives the `xla` backend's kernels
 (`csrc/xla_path.cu`: X1 the neighbour stage, X2 the fixed-order scatter
 after a stable sort, X3 the pullback's gather): each bit-equal to its
 plain version (X2 to the CPU's `index_add_`) at the rows `auto` sends to
-`xla`, the launches of its entry points, a run of 1.2 x 10^6 terms (timed
-in turns with X2's run kernel before its redesign), X2 on runs that end
-at and across warps and blocks and on a (4096,) x 10^6 cloud, the f64
-oracles at small sizes, the second derivatives (C8) against a float64 run
-on the CPU, and its times at 1024^3 x 10^5 and 512^3 x 10^6 (X2's fill
-and run kernel apart, with the sectors of their random accesses);
-`python3 chip_smoke.py --xla-path` runs the build and this phase alone.
+`xla`, the launches of its entry points, a timed run of 1.2 x 10^6 terms,
+X2 on runs that end at and across warps and blocks and on a (4096,) x
+10^6 cloud, the f64 oracles at small sizes, the second derivatives (C8)
+against a float64 run on the CPU, and its times at 1024^3 x 10^5 and
+512^3 x 10^6 (X2's fill and run kernel apart, with the sectors of their
+random accesses); `python3 chip_smoke.py --xla-path` runs the build and
+this phase alone.
 
 Then [no sync] runs every entry point (the forward, the fused pair,
 `raster_pullback`, the autograd step; `raster_sharded` on the 1 x 1 mesh)
@@ -135,8 +135,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from dprast_torch.utils.profiling import (device_busy, kernel_device_us,
-                                          launch_us)
+from dprast_torch.utils.profiling import by_kernel, device_busy, launch_us
 
 ROOT = Path(__file__).resolve().parent
 
@@ -731,7 +730,7 @@ def coords_in_turns(sb, smi, tag, grid, on_dev, phase="[times]"):
     runs = {name: [] for name in fns}
     for name in ("kernel", "twin", "twin", "kernel"):
         runs[name].append(time_ms(fns[name]))
-    dev_us = kernel_device_us(fns["kernel"], "coords_kernel")
+    dev_us = launch_us(fns["kernel"], "coords_kernel")
     twin_us, twin_launches = device_busy(fns["twin"])
     k_ms, t_ms = (sum(runs[name]) / 2 for name in ("kernel", "twin"))
     bound_ms, by = coords_bound(*on_dev)
@@ -739,8 +738,8 @@ def coords_in_turns(sb, smi, tag, grid, on_dev, phase="[times]"):
           f"median ms: kernel "
           + " / ".join(f"{v:.4f}" for v in runs["kernel"]) + ", twin "
           + " / ".join(f"{v:.4f}" for v in runs["twin"])
-          + f"; kernel device us {dev_us:.2f}, "
-            f"{bound_ms * 1e3 / max(dev_us, 1e-9):.1%} of its "
+          + f"; kernel device {us_text(dev_us)}, "
+            f"{of_bound(bound_ms, dev_us)} of its "
             f"{bound_ms * 1e3:.1f} us bound (by {by}); the twin keeps the "
             f"card busy {twin_us:.1f} us in {twin_launches:.0f} launches")
     return k_ms, t_ms, dev_us, twin_us, twin_launches
@@ -970,8 +969,7 @@ def b7_writer_times(sb, smi, tag, grid, pts, rot, tr):
         plain = functools.partial(sb._frame_gather_plain, index, locs, None)
         bnd = frame_gather_bound(run(), len(grid), pts.shape[0], index)
         library = gather_library(sb, index, locs)
-    entry = {"ms": time_ms(run), "dev_us": kernel_device_us(run, name,
-                                                            calls=5),
+    entry = {"ms": time_ms(run), "dev_us": launch_us(run, name, calls=5),
              "plain_ms": time_ms(plain, reps=5, warmup=1), "bound": bnd,
              "library_ms": None}
     if counter != "coords":
@@ -979,8 +977,8 @@ def b7_writer_times(sb, smi, tag, grid, pts, rot, tr):
         entry["library_busy_us"] = device_busy(library)[0]
     what = "B6 writing the frame" if counter == "coords" else counter
     print(f"[B7 frame] {smi} | {tag} {what}: {entry['ms']:.4f} ms (plain "
-          f"{entry['plain_ms']:.4f}), device {entry['dev_us']:.2f} us, "
-          f"{bnd[0] * 1e3 / max(entry['dev_us'], 1e-9):.1%} of its "
+          f"{entry['plain_ms']:.4f}), device {us_text(entry['dev_us'])}, "
+          f"{of_bound(bnd[0], entry['dev_us'])} of its "
           f"{bnd[0] * 1e3:.1f} us bound (by {bnd[1]})"
           + ("" if entry["library_ms"] is None else
              f"; one torch.gather of the prepared table "
@@ -1097,21 +1095,20 @@ def b7_kernels(sb, tag, grid, pts, rot, tr, pw, g):
 
 def b7_times(smi, tag, calls):
     """The `_enc` instances of `calls` (`b7_kernels`) timed: median ms by
-    CUDA events, the kernel's device us (`torch.profiler`) and their plain
-    version's ms -> {counter: {ms, dev_us, plain_ms, bound}}.  The lane
-    instances they replace are timed against them in turns by
-    `dprast_torch.benchmarks.compare_checkouts` (the parent's path)."""
+    CUDA events, the kernel's device us a launch (`torch.profiler`) and
+    their plain version's ms -> {counter: {ms, dev_us, plain_ms,
+    bound}}."""
     kernel = {"b1": "fwd_splat_kernel", "b4": "bwd_gather_kernel"}
     out = {}
     for (stage, _), (counter, enc, plain, bnd) in calls.items():
         entry = {"ms": time_ms(enc),
-                 "dev_us": kernel_device_us(enc, kernel[stage], calls=5),
+                 "dev_us": launch_us(enc, kernel[stage], calls=5),
                  "plain_ms": time_ms(plain, reps=3, warmup=1), "bound": bnd}
         out[counter] = entry
         print(f"[B7 frame] {smi} | {tag} {counter}: {entry['ms']:.4f} ms "
               f"(plain {entry['plain_ms']:.4f}), device "
-              f"{entry['dev_us']:.2f} us, "
-              f"{bnd[0] * 1e3 / max(entry['dev_us'], 1e-9):.1%} of its "
+              f"{us_text(entry['dev_us'])}, "
+              f"{of_bound(bnd[0], entry['dev_us'])} of its "
               f"{bnd[0] * 1e3:.1f} us bound (by {bnd[1]})")
     return out
 
@@ -1629,15 +1626,15 @@ def phase_profile(sb, dev, smi):
                 *res["bwd_gather_args"])),
             "b1_bound": b1_bound(*res["fwd_splat_args"]),
             "b4_bound": b4_bound(*res["bwd_gather_args"]),
-            "b1_dev_us": kernel_device_us(
+            "b1_dev_us": launch_us(
                 lambda: sb.fwd_splat(*res["fwd_splat_args"]),
                 "fwd_splat_kernel"),
-            "b4_dev_us": kernel_device_us(
+            "b4_dev_us": launch_us(
                 lambda: sb.bwd_gather(*res["bwd_gather_args"]),
                 "bwd_gather_kernel")}
-        print(f"[profile] {smi} | {grid}: standalone kernel device us "
-              f"(torch.profiler): B1 {out[grid]['b1_dev_us']:.2f}, B4 "
-              f"{out[grid]['b4_dev_us']:.2f}")
+        print(f"[profile] {smi} | {grid}: standalone kernel device time "
+              f"(torch.profiler): B1 {us_text(out[grid]['b1_dev_us'])}, B4 "
+              f"{us_text(out[grid]['b4_dev_us'])}")
     return out
 
 
@@ -1729,15 +1726,16 @@ def routes_in_turns(smi, ms, routes):
         dev_us = {0: [], 1: []}
         for i in (0, 1, 1, 0):
             runs[i].append(time_ms(fns[i]))
-            dev_us[i].append(kernel_device_us(fns[i], kernels))
+            dev_us[i].append(call_us(fns[i], kernels))
         for i, when in enumerate(("before", "now")):
             ms[f"{key}_{when}"] = sum(runs[i]) / 2
-            ms[f"{key}_{when}_dev_us"] = sum(dev_us[i]) / 2
+            ms[f"{key}_{when}_dev_us"] = (None if None in dev_us[i]
+                                          else sum(dev_us[i]) / 2)
         print(f"[times] {smi} | {MULTI_TILE} {key}, B3 + the natural B4 "
               f"against B4's grid source in turns, median ms: "
               f"{ms[key + '_before']:.4f} -> {ms[key + '_now']:.4f}; device "
-              f"us in B3 and B4: {ms[key + '_before_dev_us']:.2f} -> "
-              f"{ms[key + '_now_dev_us']:.2f}")
+              f"time in B3 and B4: {us_text(ms[key + '_before_dev_us'])} -> "
+              f"{us_text(ms[key + '_now_dev_us'])}")
 
 
 def in_turns(smi, tag, variants):
@@ -1746,7 +1744,7 @@ def in_turns(smi, tag, variants):
     or None where the trace held no kernel rows."""
     us = {name: [] for name in variants}
     for name in list(variants) + list(variants)[::-1]:
-        us[name].append(kernel_device_us(variants[name], "bwd_gather_kernel"))
+        us[name].append(launch_us(variants[name], "bwd_gather_kernel"))
     if not all(all(v) for v in us.values()):
         print(f"[exp] {tag} kernel device time: not measured (no kernel "
               f"rows in the trace)")
@@ -2463,9 +2461,8 @@ def phase_no_sync(dprast_torch, dev):
               f"{n_poses} poses x {n_points} points, default weights: "
               f"forward, autograd step held")
     # the rows `auto` sends to `xla` (X1, the sort, X2, X3)
-    from dprast_torch.benchmarks.exp_xla_scatter import row_inputs
     for name, grid, n_poses, n_points in REPEAT_XLA:
-        canon, g = row_inputs(grid, n_poses, n_points, dev)
+        canon, g = xla_inputs(grid, n_poses, n_points, dev)
         for weighted in (False, True):
             paths = no_sync_paths(dprast_torch, dispatch, grid, canon, g,
                                   weighted, "auto")
@@ -2626,11 +2623,12 @@ def phase_slot_prep(sb, dev, smi):
                 "busy_us": sum(b[0] for b in busy[0]) / 2,
                 "plain_busy_us": sum(b[0] for b in busy[1]) / 2,
                 "launches": busy[0][0][1], "plain_launches": busy[1][0][1]}
-        count_us = kernel_device_us(b9[0], "slot_count_kernel")
-        scan_us = kernel_device_us(b9[0], "slot_scan_kernel")
-        scatter_us = kernel_device_us(b10[0], "bin_scatter_kernel")
+        count_us = launch_us(b9[0], "slot_count_kernel")
+        scan_us = launch_us(b9[0], "slot_scan_kernel")
+        scatter_us = launch_us(b10[0], "bin_scatter_kernel")
         entry["b9"].update(count_us=count_us, scan_us=scan_us,
-                           dev_us=count_us + scan_us,
+                           dev_us=(None if None in (count_us, scan_us)
+                                   else count_us + scan_us),
                            bound=slot_prep_bound(key, b9[0]()))
         entry["b10"].update(dev_us=scatter_us,
                             bound=bin_scatter_bound(key, b10[0]()))
@@ -2648,8 +2646,8 @@ def phase_slot_prep(sb, dev, smi):
               f"{e9['launches']:.0f} launches (the zero-fill and the two "
               f"kernels) against the eager chain's "
               f"{e9['plain_busy_us']:.2f} us in {e9['plain_launches']:.0f}; "
-              f"pass 1 {count_us:.2f} us, pass 2 {scan_us:.2f} us, "
-              f"together {e9['bound'][0] * 1e3 / max(e9['dev_us'], 1e-9):.1%}"
+              f"pass 1 {us_text(count_us)}, pass 2 {us_text(scan_us)}, "
+              f"together {of_bound(e9['bound'][0], e9['dev_us'])}"
               f" of their {e9['bound'][0] * 1e3:.2f} us bound; one histc "
               f"call on the prepared bins (the count alone) "
               f"{e9['library_ms']:.4f} ms, device busy "
@@ -2881,7 +2879,7 @@ def phase_b8(sb, dev, smi):
                 bounds = epilogue_bounds(sb, args, kw)
                 entry = {"ms": sum(ms[1]) / 2, "plain_ms": sum(ms[0]) / 2,
                          "bounds": bounds,
-                         "dev_us": {name: kernel_device_us(
+                         "dev_us": {name: launch_us(
                              fns[1], B8_KERNELS[name], calls=5)
                              for name in bounds if name != "function"}}
                 times[grid, weighted] = entry
@@ -2889,8 +2887,8 @@ def phase_b8(sb, dev, smi):
                 shares = []
                 for name, us in entry["dev_us"].items():
                     b_ms, by = bounds[name]
-                    shares.append(f"{name} {us:.2f} us, "
-                                  f"{b_ms * 1e3 / max(us, 1e-9):.1%} of its "
+                    shares.append(f"{name} {us_text(us)}, "
+                                  f"{of_bound(b_ms, us)} of its "
                                   f"{b_ms * 1e3:.2f} us bound (by {by})")
                 print(f"[B8 epilogue] {smi} | {label} in turns (torch form, "
                       f"kernels, kernels, torch form): ms "
@@ -2958,7 +2956,6 @@ def six_grad_step(dprast_torch, grid, canon, g, weighted, backend):
 
 
 # [repeat]: the rows that `auto` sends to the `xla` backend on the card
-# (`dprast_torch.benchmarks.exp_xla_scatter`, whose inputs they take)
 REPEAT_XLA = (("1024cube_1e5", (1024, 1024, 1024), 1, 100_000),
               ("(4096,) x 4 x 1e4", (4096,), 4, 10_000),
               ("16^4 x 4 x 1e4", (16, 16, 16, 16), 4, 10_000))
@@ -2971,11 +2968,10 @@ def phase_repeat(dprast_torch, dev):
     weights, give the same bits; and so do the forward and fused step of
     the rows that `auto` sends to `xla` (`REPEAT_XLA`), whose scatter adds
     in a fixed order.  -> the calls compared."""
-    from dprast_torch.benchmarks.exp_xla_scatter import row_inputs
     from dprast_torch.ops import dispatch, splat_binned as sb
     n = 0
     for name, grid, n_poses, n_points in REPEAT_XLA:
-        args, g = row_inputs(grid, n_poses, n_points, dev)
+        args, g = xla_inputs(grid, n_poses, n_points, dev)
         backend = dispatch.resolve("auto", len(grid), grid, n_points,
                                    accelerator=True)
         check(backend == "xla", f"[repeat] auto takes xla at {name}")
@@ -3570,9 +3566,10 @@ def xla_bits(a, b):
 def xla_inputs(grid, n_poses, n_points, dev, dtype=torch.float32):
     """A row's six inputs (`benchmarks.run`'s, per-point weights) and its
     cotangent on the card, in `dtype`."""
-    from dprast_torch.benchmarks.exp_xla_scatter import row_inputs
-    args, g = row_inputs(grid, n_poses, n_points, dev)
-    return tuple(a.to(dtype) for a in args), g.to(dtype)
+    from dprast_torch.benchmarks.run import _args_for, _cotangent
+    arrays = _args_for(n_points, n_poses, grid, max(3, len(grid)))
+    return (tuple(torch.from_numpy(a).to(dev, dtype) for a in arrays),
+            _cotangent(n_poses, grid, dev).to(dtype))
 
 
 def xla_filled(bg, grid):
@@ -3802,6 +3799,22 @@ def us_text(us):
     return "not measured" if us is None else f"{us:.2f} us"
 
 
+def call_us(fn, names, calls=10):
+    """Device us a call of `fn` spends in the kernels whose name holds one
+    of `names`: the sum of their `by_kernel` rows (where a call launches
+    them more than once, or names several); None where three traces hold
+    none."""
+    rows = by_kernel(fn, calls, "cuda", names)
+    return None if rows is None else sum(row[1] for row in rows)
+
+
+def of_bound(bound_ms, us):
+    """A device time as a share of its bound for a line of output: "47.1%"
+    or "not measured"."""
+    return ("not measured" if us is None
+            else f"{bound_ms * 1e3 / max(us, 1e-9):.1%}")
+
+
 def xla_times(dprast_torch, sb, core, dev, smi, name, grid, n_poses,
               n_points):
     """A timed row: X1, X2 and X3 alone (wrapper ms, the kernel's device
@@ -3942,30 +3955,42 @@ def xla_times(dprast_torch, sb, core, dev, smi, name, grid, n_poses,
                       for what in ("forward", "fused step", "autograd step"))
           + f" (the inputs, the cotangent and the filled volume held "
             f"before: {t['resident GB']:.2f} GB)")
-    from dprast_torch.benchmarks.exp_xla_scatter import by_kernel
     for what, fn in (("forward", lambda: dprast_torch.raster(grid, *args)),
                      ("fused step", fused)):
         print(f"[xla path] {smi} | {name} {what} by kernel (us, launches): "
               + "; ".join(f"{k[:60]} {us:.1f} x{n:.2f}"
-                          for k, us, n in by_kernel(fn)))
+                          for k, us, n in by_kernel(fn, 3, dev) or ()))
     return t
+
+
+def xla_long_run_inputs(core, dev):
+    """The long run's X2 arguments: a 1-D cloud of `XLA_LONG_RUN` points
+    in one voxel's span of its grid -> (bg, grid, sorted keys, perm,
+    terms)."""
+    grid, p = XLA_LONG_RUN
+    gen = torch.Generator(device=dev).manual_seed(3)
+    pts = 0.1 + 1e-4 * torch.rand((p, 1), generator=gen, device=dev)
+    pw = 0.5 + torch.rand(p, generator=gen, device=dev)
+    rot = torch.ones((1, 1, 1), device=dev)
+    tr, bg, ow = (torch.zeros((1, 1), device=dev),
+                  torch.zeros(1, device=dev), torch.ones(1, device=dev))
+    keys, vals, _ = core.xla_neighbours(grid, pts, rot, tr, ow, pw,
+                                        residuals=False)
+    order, perm = torch.sort(keys.reshape(-1), stable=True)
+    return bg, grid, order, perm, vals.reshape(-1)
 
 
 def xla_long_run(core, dev, smi):
     """X2 on the longest run: a 1-D cloud of `XLA_LONG_RUN` points in one
     voxel's span, so two voxels take a run of that many terms each; bit
-    for bit against the CPU's `index_add_`, timed, and beside it in turns
-    the run kernel X2 had before its redesign (`exp_xla_forms`, a library
-    of its own) -> (ms, device us, the earlier kernel's device us)."""
-    from dprast_torch.benchmarks import exp_xla_forms as forms
-    bg, grid, order, perm, vals = forms.long_run_inputs(dev)
+    for bit against the CPU's `index_add_`, and timed -> (ms, device us a
+    launch)."""
+    bg, grid, order, perm, vals = xla_long_run_inputs(core, dev)
     filled = xla_filled(bg, grid)
     out = core.xla_scatter(bg, grid, order, perm, vals)
     voxels, sums = x2_cpu_reference(filled, order, perm, vals)
     runs = torch.unique_consecutive(order, return_counts=True)[1]
     same = x2_matches(filled, out, voxels, sums)
-    earlier = forms.x2_parent(filled.clone(), order, perm, vals)
-    same_earlier = x2_matches(filled, earlier, voxels, sums)
 
     def scatter():
         return core.xla_scatter(bg, grid, order, perm, vals)
@@ -3975,27 +4000,15 @@ def xla_long_run(core, dev, smi):
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     ms = time_ms(scatter, reps=5, warmup=1)
-    dev_us, earlier_us = [], []
-    for fn, kname, into in ((scatter, "xla_scatter_kernel", dev_us),
-                            (lambda: forms.x2_parent(earlier, order, perm,
-                                                     vals),
-                             "x2_parent", earlier_us),
-                            (lambda: forms.x2_parent(earlier, order, perm,
-                                                     vals),
-                             "x2_parent", earlier_us),
-                            (scatter, "xla_scatter_kernel", dev_us)):
-        into.append(launch_us(fn, kname, calls=3))
+    dev_us = launch_us(scatter, "xla_scatter_kernel", calls=3)
     print(f"[xla path] {smi} | X2 on runs of {runs.tolist()} terms ({grid} "
           f"x 1 pose x {order.numel() // 2} points): bit-equal to the CPU's "
-          f"index_add_ {same} (the run kernel before its redesign "
-          f"{same_earlier}); {first_s:.3f} s the first call, {ms:.3f} ms; "
-          f"the run kernel in turns with the one before (new, old, old, "
-          f"new): {us_text(dev_us[0])}, {us_text(earlier_us[0])}, "
-          f"{us_text(earlier_us[1])}, {us_text(dev_us[1])} on the card")
-    check(same and same_earlier and int(runs.max()) >= 1_000_000,
+          f"index_add_ {same}; {first_s:.3f} s the first call, {ms:.3f} ms; "
+          f"the run kernel {us_text(dev_us)} on the card")
+    check(same and int(runs.max()) >= 1_000_000,
           "[xla path] X2 adds a run of 10^6 terms in input order")
     check(first_s < 10, "[xla path] X2's longest run takes seconds")
-    return ms, dev_us, earlier_us
+    return ms, dev_us
 
 
 # X2's run shapes, each against the CPU's `index_add_`: (name, run lengths
@@ -4555,12 +4568,16 @@ def main():
         lambda: sb.band_fold(ext_mt, MULTI_TILE, ts_mt, ow, bg))
     ms["b2_plain", MULTI_TILE] = time_ms(
         lambda: sb._band_fold_plain(ext_mt, MULTI_TILE, ts_mt, ow, bg))
-    ms["b2_dev_us"] = kernel_device_us(
+    ms["b2_dev_us"] = launch_us(
         lambda: sb.band_fold(ext_mt, MULTI_TILE, ts_mt, ow, bg),
         "band_fold_kernel")
-    ms["b3_dev_us"] = kernel_device_us(
-        lambda: sb.band_unfold(cots[MULTI_TILE], MULTI_TILE, ts_mt),
-        "band_unfold_kernel")
+    # B3 launches once a call; its time a call is printed beside a
+    # launch's because here a trace has held two B3 rows a call (a launch
+    # read half) and, in another run, lost some (a call read short)
+    b3_call = functools.partial(sb.band_unfold, cots[MULTI_TILE], MULTI_TILE,
+                                ts_mt)
+    ms["b3_dev_us"] = launch_us(b3_call, "band_unfold_kernel")
+    ms["b3_call_us"] = call_us(b3_call, "band_unfold_kernel")
     b3_bound = copy_bound(cots[MULTI_TILE], win_mt)
     # the library routes to what B2 and B3 compute, timed once each and
     # used nowhere in the package
@@ -4609,12 +4626,13 @@ def main():
               f"of the step")
     print(f"[times] {smi} | B2 {MULTI_TILE}: {ms['b2', MULTI_TILE]:.4f} ms "
           f"(twin {ms['b2_plain', MULTI_TILE]:.4f} ms, the F.fold route "
-          f"{ms['b2_library']:.4f} ms), kernel device us "
-          f"{ms['b2_dev_us']:.2f}; B3 {ms['b3', MULTI_TILE]:.4f} ms (twin "
-          f"{ms['b3_plain', MULTI_TILE]:.4f} ms, the F.unfold route "
-          f"{ms['b3_library']:.4f} ms), kernel device us "
-          f"{ms['b3_dev_us']:.2f}, "
-          f"{b3_bound[0] * 1e3 / max(ms['b3_dev_us'], 1e-9):.1%} of its "
+          f"{ms['b2_library']:.4f} ms), kernel device "
+          f"{us_text(ms['b2_dev_us'])}; B3 {ms['b3', MULTI_TILE]:.4f} ms "
+          f"(twin {ms['b3_plain', MULTI_TILE]:.4f} ms, the F.unfold route "
+          f"{ms['b3_library']:.4f} ms), kernel device "
+          f"{us_text(ms['b3_dev_us'])} a launch ("
+          f"{us_text(ms['b3_call_us'])} a call), "
+          f"{of_bound(b3_bound[0], ms['b3_dev_us'])} of its "
           f"{b3_bound[0] * 1e3:.1f} us bound")
     ms_3d = times_3d(dprast_torch, sb, core, dev, smi)
 
@@ -4797,8 +4815,8 @@ def main():
         for name, us in t["dev_us"].items():
             entry = kernel(
                 name, "dprast_torch/csrc/epilogue.cu", f"{src}:1355-1423",
-                counted[name], b8["err"], us / 1e3, t["plain_ms"],
-                t["bounds"][name], shape,
+                counted[name], b8["err"], None if us is None else us / 1e3,
+                t["plain_ms"], t["bounds"][name], shape,
                 variant="bit-equal to _epilogue_fixed_plain; max_abs_err "
                         "against the torch form _epilogue_plain; ms is "
                         "this kernel's device time, plain_ms the whole "
@@ -4919,11 +4937,8 @@ def main():
                 entry.update(sectors=sectors, sector_bound_ms=sector_ms,
                              library_device_us=t[name]["library_dev_us"])
             if name == "xla_scatter":
-                # the run of 1.2 x 10^6 terms, in turns with the run
-                # kernel before its redesign
-                _, now_us, before_us = xla["long_run"]
-                entry.update(long_run_device_us=now_us,
-                             long_run_device_us_before=before_us)
+                # the run of 1.2 x 10^6 terms
+                entry.update(long_run_device_us=xla["long_run"][1])
             kernels.append(entry)
     # [sharded] is a main path too: its 1 x 1 mesh, driven in this
     # process between a reset and a read of the counts, adds to `launches`;

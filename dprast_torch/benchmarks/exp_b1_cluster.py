@@ -10,7 +10,7 @@ the card.  At the main path's shapes -- 128^2 and 1024^2 with 64 poses x
 10^5 points, 128^3 with one pose x 10^6 points and with 4 poses x 10^5 --
 and at other pose and tile counts (`MORE_CASES`) it runs the kernel at
 each size in turns (1 .. 8, 8 .. 1) and prints per size: the device
-microseconds of the kernel (`torch.profiler`); the median milliseconds of
+microseconds of a launch (`profiling.launch_us`); the median milliseconds of
 wrapper + kernel (CUDA events); the scaled error against the plain twin,
 which must stay within 1e-5; the slots of the busiest block; how many such
 clusters the card holds at once.  The size the rule picks is marked, and
@@ -87,20 +87,22 @@ def run(cs, dev):
                 return sb.fwd_splat(*args, cluster=c)
             err[c] = cs.scaled_err(fn(), ext_p)
             worst = max(worst, err[c])
-            us[c].append(profiling.kernel_device_us(fn, "fwd_splat_kernel"))
+            us[c].append(profiling.launch_us(fn, "fwd_splat_kernel"))
             ms[c].append(cs.time_ms(fn))
         bound_ms, _ = cs.b1_bound(*args)
         lines.append(f"{card} | {label}: {nt} tiles, busiest tile {busiest} "
                      f"slots, bound {bound_ms * 1e3:.1f} us")
         for c in sizes:
             lines.append(
-                f"{card} |   cluster {c}: device us {us[c][0]:.2f}, "
-                f"{us[c][1]:.2f}; wrapper + kernel ms {ms[c][0]:.4f}, "
+                f"{card} |   cluster {c}: device {cs.us_text(us[c][0])}, "
+                f"{cs.us_text(us[c][1])}; wrapper + kernel ms {ms[c][0]:.4f}, "
                 f"{ms[c][1]:.4f}; busiest block {-(-busiest // c)} slots; "
                 f"err vs twin {err[c]:.3e}; the card holds {held[c - 1]} "
                 f"such clusters" + ("  <- the rule's" if c == picked else ""))
-        mean = {c: sum(us[c]) / 2 for c in sizes}
-        best = min(sizes, key=mean.get)
+        mean = {c: sum(us[c]) / 2 for c in sizes if None not in us[c]}
+        if picked not in mean:
+            continue
+        best = min(mean, key=mean.get)
         lines.append(f"{card} |   the rule's {picked}: {mean[picked]:.2f} us, "
                      f"the best read {best}: {mean[best]:.2f} us, "
                      f"{mean[picked] / mean[best] - 1:+.1%}")

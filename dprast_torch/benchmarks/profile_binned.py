@@ -53,11 +53,9 @@ the default ``cuda`` raises where there is no card.
 from __future__ import annotations
 
 import argparse
-import tempfile
 
 import numpy as np
 import torch
-from torch.autograd import DeviceType
 
 from dprast_torch.ops import splat_binned as sb
 from dprast_torch.utils import profiling
@@ -201,18 +199,7 @@ def step_by_kernel(grid, points, batch, device="cuda", *, calls=5, iters=15,
         _, res = sb.raster_fwd_res(grid, *canon, pw_uniform=True)
         return sb.raster_pullback_res(grid, res, canon, g, pw_uniform=True)
 
-    step()
-    with tempfile.TemporaryDirectory() as tmp:
-        with profiling.trace(tmp, device) as prof:
-            for _ in range(calls):
-                step()
-    on_card = device.type == "cuda"
-    events = [e for e in prof.key_averages() if e.device_type == (
-        DeviceType.CUDA if on_card else DeviceType.CPU)]
-    rows = sorted(((e.key, (e.device_time_total if on_card
-                            else e.self_cpu_time_total) / calls,
-                    e.count / calls) for e in events),
-                  key=lambda row: -row[1])
+    rows = profiling.by_kernel(step, calls, device) or []
     step_ms, _ = profiling.time_fn(step, device, iters, warmup)
     return {"grid": grid, "points": points, "batch": batch,
             "device": str(device), "rows": rows,

@@ -17,7 +17,8 @@ Usage:
         grid, pts, rot, tr), "cuda")
 
     busy_us, launches = profiling.device_busy(step)   # what a call runs
-    us = profiling.kernel_device_us(step, "fwd_splat_kernel")
+    rows = profiling.by_kernel(step)   # [(kernel, us, launches)] a call
+    us = profiling.launch_us(step, "fwd_splat_kernel")   # us a launch
 
 `time_fn` reads the clock of the device its caller names, which is the
 device of the caller's tensors: CUDA events on a CUDA device, the host's
@@ -156,62 +157,56 @@ def time_fn(fn, device="cuda", iters: int = 15,
     return statistics.median(times), (max(times) - min(times)) / 2
 
 
-def kernel_device_us(fn, kernel, calls: int = 10) -> float:
-    """Device time in microseconds that one call of `fn` spends in the
-    kernels whose name holds `kernel` (or one of a tuple of names), the
-    mean over `calls` calls, from `torch.profiler` on the card; 0 when
-    three traces in a row hold none of them."""
-    names = (kernel,) if isinstance(kernel, str) else kernel
+def by_kernel(fn, calls: int = 5, device="cuda", names=None):
+    """What one call of `fn` runs, row by row from `torch.profiler`, the
+    mean over `calls` calls -> [(name, microseconds a call, launches a
+    call)] by falling time.  On a CUDA `device` the rows are the card's
+    kernels and copies, timed on the card; on the CPU they are the host's
+    operators, timed by their own time.  `names` (a string or a tuple of
+    them) keeps the rows whose name holds one of them.  Now and then a
+    trace comes back without its kernel rows: while no row is kept it
+    traces again, three traces in all, and then returns None (not
+    measured)."""
+    from torch.autograd import DeviceType
+
+    on_card = torch.device(device).type == "cuda"
+    kind = DeviceType.CUDA if on_card else DeviceType.CPU
+    if isinstance(names, str):
+        names = (names,)
     fn()
-    # now and then a trace comes back without its kernel rows: ask again
     for _ in range(3):
         with tempfile.TemporaryDirectory() as tmp:
-            with trace(tmp) as prof:
+            with trace(tmp, device) as prof:
                 for _ in range(calls):
                     fn()
-        total = sum(e.device_time_total for e in prof.key_averages()
-                    if any(name in e.key for name in names))
-        if total:
-            break
-    return total / calls
+        rows = [(e.key, (e.device_time_total if on_card
+                         else e.self_cpu_time_total) / calls,
+                 e.count / calls)
+                for e in prof.key_averages()
+                if e.device_type == kind
+                and (names is None or any(name in e.key for name in names))]
+        if rows:
+            return sorted(rows, key=lambda row: -row[1])
+    return None
 
 
 def launch_us(fn, name, calls: int = 10):
-    """Device microseconds of one launch of the kernel whose name holds
-    `name` (launched once a call of `fn`): its traced time over the
-    launches the trace holds, so a trace that lost rows still reads right;
-    None (not measured) where three traces hold none."""
-    from torch.autograd import DeviceType
-
-    fn()
-    for _ in range(3):
-        with tempfile.TemporaryDirectory() as tmp:
-            with trace(tmp) as prof:
-                for _ in range(calls):
-                    fn()
-        rows = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and name in e.key]
-        if rows:
-            return (sum(e.device_time_total for e in rows)
-                    / sum(e.count for e in rows))
-    return None
+    """Device microseconds of one launch of the kernels whose name holds
+    `name`: their traced time over the launches the trace holds
+    (`by_kernel`), so a trace that lost rows still reads right; None (not
+    measured) where three traces hold none."""
+    rows = by_kernel(fn, calls, "cuda", name)
+    if rows is None:
+        return None
+    return sum(row[1] for row in rows) / sum(row[2] for row in rows)
 
 
 def device_busy(fn, calls: int = 5) -> tuple[float, float]:
     """What one call of `fn` keeps the card busy with, the mean over
-    `calls` calls from `torch.profiler`: (microseconds in kernels and
-    copies, their number)."""
-    from torch.autograd import DeviceType
-
-    fn()
-    with tempfile.TemporaryDirectory() as tmp:
-        with trace(tmp) as prof:
-            for _ in range(calls):
-                fn()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    return (sum(e.device_time_total for e in rows) / calls,
-            sum(e.count for e in rows) / calls)
+    `calls` calls (`by_kernel`'s rows summed): (microseconds in kernels
+    and copies, their number)."""
+    rows = by_kernel(fn, calls, "cuda") or []
+    return (sum(row[1] for row in rows), sum(row[2] for row in rows))
 
 
 def card(index: int = 0) -> str:

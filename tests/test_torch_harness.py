@@ -290,16 +290,6 @@ def test_chip_smoke_bounds_and_library_routes():
     assert cs.bound(1, 1e9)[1] == "operations"
 
 
-def test_compare_checkouts_needs_a_card(monkeypatch):
-    """The two-checkout comparison times nothing on the CPU: its worker is
-    valid Python, and without a CUDA device it stops."""
-    from dprast_torch.benchmarks import compare_checkouts
-    compile(compare_checkouts.WORKER, "worker", "exec")
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(SystemExit, match="is_available"):
-        compare_checkouts.main(["a", "b"])
-
-
 def test_chip_smoke_b1_helpers():
     """`chip_smoke.py`'s B1 helpers on the CPU: the bound reads the slot
     table once, the slots per tile add up to the live slots, and the
@@ -416,38 +406,122 @@ def test_profiler_lists_a_step_by_kernel():
     assert "fused step" in lines[0]
 
 
-def test_exp_b8_forms_edit_the_current_source(tmp_path, monkeypatch):
-    """Every form of `exp_b8_forms` edits text that `csrc/epilogue.cu`
-    holds once, its copy carries the edit, and its worker is valid
-    Python."""
-    from dprast_torch.benchmarks import exp_b8_forms
-    source = (exp_b8_forms.ROOT / "dprast_torch" / "csrc"
-              / "epilogue.cu").read_text()
-    compile(exp_b8_forms.WORKER, "worker", "exec")
-    monkeypatch.setattr(exp_b8_forms, "OUT", tmp_path)
-    for name, edits in exp_b8_forms.FORMS.items():
-        for old, new in edits:
-            assert source.count(old) == 1, (name, old)
-        copy = exp_b8_forms.make_form(name, edits)
-        text = (copy / "dprast_torch" / "csrc" / "epilogue.cu").read_text()
-        assert all(new in text for _, new in edits), name
-        assert (copy / "chip_smoke.py").exists()
+class _Row:
+    """A row of a trace's `key_averages()`: on the card a kernel timed on
+    the card, else a host operator timed by its own time."""
+
+    def __init__(self, key, on_card, us, count):
+        from torch.autograd import DeviceType
+        self.key, self.count = key, count
+        self.device_type = DeviceType.CUDA if on_card else DeviceType.CPU
+        self.device_time_total = us if on_card else 0.0
+        self.self_cpu_time_total = 0.0 if on_card else us
 
 
-@pytest.mark.parametrize("form", ["match", "lead1", "lead2", "no_count"])
-def test_exp_slot_prep_forms_edit_the_current_source(form):
-    """Each form of `exp_slot_prep_forms` replaces the body of B9's
-    `count_key`, which `csrc/slot_prep.cu` holds once, and leaves the rest
-    of the source as it is."""
-    from dprast_torch.benchmarks import exp_slot_prep_forms as forms
-    source = forms.SOURCE.read_text()
-    assert source.count(forms._BODY_START) == 1
-    assert forms.form_source("kernel") == source
-    text = forms.form_source(form)
-    assert forms.BODIES[form] in text and text != source
-    head = source.index(forms._BODY_START) + len(forms._BODY_START)
-    tail = source.index(forms._BODY_END, head)
-    assert text.startswith(source[:head]) and text.endswith(source[tail:])
+# ten calls' rows: splat twice a call, gather once, and a host operator
+_CARD_ROWS = [_Row("gather_kernel", True, 100.0, 10),
+              _Row("aten::mm", False, 999.0, 10),
+              _Row("splat_kernel<2>", True, 600.0, 20)]
+
+
+def _traces(monkeypatch, *rows):
+    """`profiling.trace` yields a profiler whose `key_averages()` are
+    `rows[i]` at its i-th entry (the last ones after that) -> the devices
+    of the traces entered."""
+    import contextlib
+    import types
+    entered = []
+
+    @contextlib.contextmanager
+    def trace(log_dir, device="cuda"):
+        got = rows[min(len(entered), len(rows) - 1)]
+        entered.append(device)
+        yield types.SimpleNamespace(key_averages=lambda: got)
+
+    monkeypatch.setattr(profiling, "trace", trace)
+    return entered
+
+
+def _host_ops():
+    x = torch.ones(64, 64)
+    x + 1
+    x + 2
+    x.mm(x)
+
+
+def _reader_sorted(monkeypatch):
+    rows = profiling.by_kernel(_host_ops, 4, "cpu")
+    times = [row[1] for row in rows]
+    assert times == sorted(times, reverse=True)
+    count = {name: n for name, _, n in rows}
+    assert count["aten::add"] == 2 and count["aten::mm"] == 1
+
+
+def _reader_names_str(monkeypatch):
+    rows = profiling.by_kernel(_host_ops, 3, "cpu", "aten::mm")
+    assert [(name, n) for name, _, n in rows] == [("aten::mm", 1)]
+    assert rows[0][1] > 0
+
+
+def _reader_names_tuple(monkeypatch):
+    rows = profiling.by_kernel(_host_ops, 3, "cpu", ("aten::mm", "::add"))
+    assert {name: n for name, _, n in rows} == {"aten::mm": 1,
+                                                "aten::add": 2}
+
+
+def _reader_card_rows(monkeypatch):
+    entered = _traces(monkeypatch, _CARD_ROWS)
+    assert profiling.by_kernel(lambda: None, 10) == [
+        ("splat_kernel<2>", 60.0, 2.0), ("gather_kernel", 10.0, 1.0)]
+    assert entered == ["cuda"]
+
+
+def _reader_launch_us(monkeypatch):
+    _traces(monkeypatch, _CARD_ROWS)
+    assert profiling.launch_us(lambda: None, "splat_kernel") == 30.0
+    assert profiling.launch_us(lambda: None, "gather_kernel") == 10.0
+
+
+def _reader_device_busy(monkeypatch):
+    _traces(monkeypatch, _CARD_ROWS)
+    assert profiling.device_busy(lambda: None, calls=10) == (70.0, 3.0)
+
+
+def _reader_retried(monkeypatch):
+    entered = _traces(monkeypatch, [], _CARD_ROWS[1:], _CARD_ROWS)
+    assert profiling.launch_us(lambda: None, "gather_kernel") == 10.0
+    assert len(entered) == 3
+
+
+def _reader_not_measured(monkeypatch):
+    entered = _traces(monkeypatch, _CARD_ROWS[1:2])
+    assert profiling.by_kernel(lambda: None, names="splat") is None
+    assert profiling.launch_us(lambda: None, "splat") is None
+    assert profiling.device_busy(lambda: None) == (0, 0)
+    assert len(entered) == 9
+
+
+READER_CASES = {"sorted, launches a call": _reader_sorted,
+                "names as a string": _reader_names_str,
+                "names as a tuple": _reader_names_tuple,
+                "card rows by device time": _reader_card_rows,
+                "launch_us a launch": _reader_launch_us,
+                "device_busy the rows' sums": _reader_device_busy,
+                "a trace without rows retried": _reader_retried,
+                "three empty traces": _reader_not_measured}
+
+
+@pytest.mark.parametrize("case", list(READER_CASES))
+def test_trace_reader(case, monkeypatch):
+    """`profiling.by_kernel`, the one reader of a `torch.profiler` trace,
+    and `launch_us` / `device_busy` as sums over its rows: rows by falling
+    time with their launches a call (count / calls), on the CPU the host's
+    operators by their own time, on the card the kernels by device time
+    (a stand-in trace); a `names` filter as a string or a tuple; µs a
+    launch where a call launches a kernel twice; a trace that came back
+    without the rows asked for traced again, and not measured (None)
+    after three."""
+    READER_CASES[case](monkeypatch)
 
 
 @pytest.mark.parametrize("grid", [(128, 128), (300, 200), (8, 16, 200)])
